@@ -1,0 +1,77 @@
+"""Wrappers around the port's kernels (port of the fold half of
+``repro.kernels.ops``).
+
+The fold dispatches on the device of the tensors it is given: CUDA
+tensors go through the hand-written ``fedagg`` kernel, CPU tensors
+through the per-leaf plain fold :func:`repro_torch.core.treeops
+.tree_combine` — as the JAX dispatcher picks the einsum on CPU
+(``repro/kernels/ops.py:99-103``). There is no override and no fallback:
+a CUDA tensor is folded by the kernel or the call raises.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import torch
+
+from repro_torch.core.treeops import tree_combine
+from repro_torch.kernels.fedagg import fedagg
+
+
+def _weights(weights: Any, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(weights, dtype=torch.float32,
+                           device=device).contiguous()
+
+
+def fedagg_op(stacked: torch.Tensor, weights: Any) -> torch.Tensor:
+    """``Σ_s w[s]·stacked[s]`` over a flat ``(S, P)`` tensor; weights are
+    cast to f32 on ``stacked``'s device."""
+    return fedagg(stacked, _weights(weights, stacked.device))
+
+
+def fedagg_tree(params_stacked: Mapping[str, torch.Tensor],
+                weights: Any) -> dict:
+    """The fold of a replica-stacked param dict, leaf by leaf: each
+    ``(S, *shape)`` leaf is folded as its contiguous ``(S, P_leaf)`` view
+    (no concatenation into one flat buffer, which would cost an extra
+    pass over the whole stack)."""
+    out = {}
+    w = None
+    for k, x in params_stacked.items():
+        if w is None:
+            w = _weights(weights, x.device)
+        out[k] = fedagg(x.reshape(x.shape[0], -1), w).reshape(x.shape[1:])
+    return out
+
+
+def pad_stacked_rows(params_stacked: Mapping[str, torch.Tensor],
+                     weights: Any, multiple: int):
+    """Pad the replica axis of a stacked dict and its weights up to the
+    next multiple of ``multiple`` with zero rows and zero weights. A
+    padded row is ``0.0 * 0.0`` in both fold backends, so it adds exactly
+    zero: the padded fold equals the unpadded one."""
+    if multiple < 1:
+        raise ValueError(f"pad multiple must be >= 1, got {multiple}")
+    first = next(iter(params_stacked.values()))
+    w = _weights(weights, first.device)
+    pad = (-first.shape[0]) % multiple
+    if not pad:
+        return dict(params_stacked), w
+    padded = {k: torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+              for k, x in params_stacked.items()}
+    return padded, torch.cat([w, w.new_zeros(pad)])
+
+
+def fold_stacked_tree(params_stacked: Mapping[str, torch.Tensor],
+                      weights: Any) -> dict:
+    """The simulator's weighted model fold: Σ_s weights[s]·stacked[s].
+
+    On CUDA leaves it runs the ``fedagg`` kernel leaf by leaf
+    (:func:`fedagg_tree`); on CPU leaves the plain per-leaf fold
+    (:func:`tree_combine`)."""
+    first = next(iter(params_stacked.values()))
+    if first.device.type == "cuda":
+        return fedagg_tree(params_stacked, weights)
+    if first.device.type == "cpu":
+        return tree_combine(params_stacked, weights)
+    raise ValueError(f"fold: unsupported device {first.device}")

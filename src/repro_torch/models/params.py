@@ -1,0 +1,78 @@
+"""Parameter-definition trees (port of ``repro.models.params``).
+
+A model describes its parameters once as a flat dict of `ParamDef`s
+(shape + initializer); `init_params` materializes a ``dict[str, Tensor]``
+on an explicit device from an explicit ``torch.Generator``. Keys, shapes
+and layouts match the JAX package leaf for leaf (conv weights stay HWIO),
+so folds and parity tests line up.
+
+The port's initializer cannot reproduce ``jax.random`` draws, so runs
+that must start where the JAX package starts carry its params over as
+numpy arrays: :func:`params_from_numpy` / :func:`params_to_numpy`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """One parameter tensor: shape and init scheme."""
+    shape: tuple[int, ...]
+    init: str = "normal"       # normal | zeros | ones | constant
+    scale: float | None = None  # stddev for normal; fan-in default if None
+
+
+def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "normal":
+        scale = d.scale
+        if scale is None:
+            fan_in = d.shape[0] if len(d.shape) >= 2 else max(d.shape[-1], 1)
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        # Draw on the generator's device, then move: the same seed gives
+        # the same weights on every device.
+        x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (scale * x).to(device=device, dtype=dtype)
+    if d.init == "constant":
+        return torch.full(d.shape, d.scale or 0.0, dtype=dtype,
+                          device=device)
+    raise ValueError(f"unknown init {d.init}")
+
+
+def init_params(defs: Mapping[str, ParamDef], gen: torch.Generator,
+                device: torch.device | str,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """Materialize a ParamDef dict, drawing leaves in key order."""
+    device = torch.device(device)
+    return {k: _init_leaf(d, gen, device, dtype) for k, d in defs.items()}
+
+
+def param_count(tree: Mapping[str, Any]) -> int:
+    """Total element count of a ParamDef or tensor dict."""
+    return sum(int(np.prod(v.shape)) if len(v.shape) else 1
+               for v in tree.values())
+
+
+def params_from_numpy(tree: Mapping[str, Any],
+                      device: torch.device | str) -> dict:
+    """The weight carry-over: a param tree of numpy arrays (e.g. the JAX
+    package's params, exported leaf by leaf) as the port's
+    ``dict[str, Tensor]`` on ``device``. Dtypes and layouts are kept."""
+    return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
+            for k, v in tree.items()}
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`params_from_numpy`: host numpy copies."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

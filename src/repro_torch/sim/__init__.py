@@ -1,0 +1,21 @@
+"""FL-Satcom timeline simulator on PyTorch (port of ``repro.sim``)."""
+from repro_torch.sim.engine import (
+    RoundEngine,
+    SimConfig,
+    SimResult,
+)
+from repro_torch.sim.executor import FusedExecutor
+from repro_torch.sim.strategies import (
+    STRATEGIES,
+    Strategy,
+    available_strategies,
+    get_strategy,
+    register_strategy,
+)
+from repro_torch.sim.trainer import LocalTrainer
+
+__all__ = [
+    "FusedExecutor", "LocalTrainer", "RoundEngine", "SimConfig",
+    "SimResult", "STRATEGIES", "Strategy", "available_strategies",
+    "get_strategy", "register_strategy",
+]

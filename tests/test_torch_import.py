@@ -1,0 +1,66 @@
+"""The PyTorch port stands alone: ``repro_torch`` and ``chip_smoke.py``
+import neither jax nor the JAX package ``repro``."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+MODULES = [
+    "repro_torch",
+    "repro_torch.sim",
+    "repro_torch.sim.engine",
+    "repro_torch.sim.executor",
+    "repro_torch.kernels.ops",
+    "repro_torch.kernels.build",
+    "repro_torch.models",
+    "repro_torch.clients",
+    "repro_torch.orbits",
+    "repro_torch.faults",
+]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_import_loads_no_jax_and_no_repro():
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in MODULES)
+        + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+          "('jax', 'jaxlib', 'repro'))\n"
+        "print(','.join(bad))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", \
+        f"importing the port loaded: {proc.stdout.strip()}"
+
+
+def _imported_names(path: pathlib.Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_static_scan_no_jax_or_repro_imports(path):
+    bad = [n for n in _imported_names(path) if _forbidden(n)]
+    assert not bad, f"{path} imports {bad}"
