@@ -23,7 +23,25 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    The kernel launch counts are zeroed just before and read just after;
    every kernel of the path must have run;
 6. profile — one more full-width round under torch.profiler: device
-   time by kernel and the device's busy share of the round.
+   time by kernel and the device's busy share of the round;
+7. flash — the ``flash_attention`` kernel against its plain version on
+   the card: the CPU tests' sweep (f32 and bf16, windows, bidirectional)
+   and the serving prefill shape (B=4, H=16, Hkv=8, S=4096, D=128,
+   causal) in f32 and bf16, where three planted long-row faults must
+   break the bf16 tolerance; timed in bf16 beside the plain version, its
+   bound and ``scaled_dot_product_attention`` (``library_ms``, timed
+   here only);
+8. LM card vs CPU — full-width qwen3-0.6b in f32 from one CPU-drawn
+   init: ``forward`` over B=1, S=256 on the card (kernel) and on the CPU
+   (plain version); the logits must agree;
+9. decode vs prefill — full width, f32 then bf16, B=2, S=64: stepped
+   ``decode_step`` logits against ``forward`` logits on the card; two
+   planted cache faults must break the same tolerance;
+10. serve — full-width qwen3-0.6b in bf16: ``prefill`` at B=4, S=4096
+    (the counts zeroed just before, read just after: 28 flash launches),
+    then ``greedy_generate`` at serve's defaults (batch 4, prompt 16,
+    gen 32); then one prefill and a few decode steps under
+    torch.profiler.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -45,17 +63,42 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12   # dense, tensor cores
 
 # Kernel-vs-plain tolerances: those of the JAX package's own kernel sweep
 # (tests/test_kernels.py). f32: the kernel's sequential FMA chain and the
 # plain version's separately rounded multiply + tree sum differ by a few
-# ulps of an O(5) sum. bf16: one bf16 ulp of the rounded output.
+# ulps of an O(5) sum. bf16: one bf16 ulp of the rounded output, at the
+# sweep's short rows, whose outputs are O(0.2-1).
 TOL = {"float32": dict(atol=3e-5, rtol=1e-4),
        "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+# Flash at the prefill shape in bf16. A row that attends to n random keys
+# has outputs of RMS ~sqrt(e/n): mean |O| is ~0.05 over S=4096 rows, as
+# large as the sweep's atol. Kernel and plain version both compute in f32
+# and differ in the f32 sums' order (~1e-6) and then by at most one bf16
+# ulp of the rounded output (<= 2^-7 relative); rtol allows two ulps and
+# atol covers outputs near 0. Phase 7 shows that planted faults on long
+# rows break this tolerance.
+PREFILL_BF16_TOL = dict(atol=1e-3, rtol=1.6e-2)
 # Card vs CPU after one round of 2 SGD steps + the fold, both full f32
 # (TF32 off): the convolutions and matmuls reduce in other orders, which
 # moves O(0.05) params by a few f32 ulps per step.
 PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
+# Full-width qwen3-0.6b logits, card (kernel, cuBLAS) vs CPU (plain
+# attention, CPU BLAS), both full f32 with TF32 off: the sums run in other
+# orders (~1e-6 relative per matmul), and the difference compounds over
+# 28 residual layers; the JAX package bounds 2 layers at 1e-4
+# (tests/test_decode.py).
+LM_F32_TOL = dict(atol=1e-3, rtol=1e-3)
+# Decode vs prefill at full width in bf16 (8 significant bits): the two
+# paths round at other places (P kept in f32 by the kernel, cast to bf16
+# by decode's einsum, as in the JAX package; GEMMs of M=128 vs M=2) and
+# the differences compound over 28 layers. Logits are ~N(0, 0.65^2) at
+# this init; 0.25 is ~16 bf16 ulps at the largest |logit| (~4). Sound
+# runs read ~0.16 on an H100; phase 9 plants two cache faults (a skipped
+# position, a lost slot), which read ~3 there, and requires each to
+# break this tolerance.
+DECODE_BF16_ATOL = 0.25
 
 
 def log(phase: str, msg: str) -> None:
@@ -89,9 +132,10 @@ def max_err(torch, got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def check_close(torch, got, want, dtype_name: str, what: str) -> float:
+def check_close(torch, got, want, dtype_name: str, what: str,
+                tol: dict | None = None) -> float:
     err = max_err(torch, got, want)
-    tol = TOL[dtype_name]
+    tol = tol or TOL[dtype_name]
     ok = torch.allclose(got.float(), want.float(), **tol)
     if not ok:
         raise AssertionError(f"{what}: kernel disagrees with its plain "
@@ -226,26 +270,21 @@ def phase_card_vs_cpu(torch, eng, sim):
         f"({PARAM_TOL}); accuracy differs by {dacc:.6f}")
 
 
-def phase_profile(torch, eng):
-    """Where one round's device time goes: one planned full-width round
-    through ``run_block`` (after a warm-up round) under torch.profiler.
-    Prints device time by kernel and the busy share of the round's wall
-    time; "not measured" if the profiler records no device activity."""
+def profile_device(torch, fn):
+    """Run ``fn`` once under torch.profiler (CPU and CUDA activities).
+    Returns ``(by_name, union_us, window_us, wall_us)``: device time and
+    count by kernel name, the union of the kernels' intervals (kernels
+    that overlap count once), the window from the first kernel's start
+    to the last one's end, and the host wall time; ``by_name`` is empty
+    if the profiler recorded no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.sim.strategies import FedHap
 
-    plan = FedHap().plan_round(eng, 0.0)
-    idx = eng.sample_indices(np.arange(eng.n_sats), 0.0)[None]
-    mu = np.asarray(plan.mu, np.float32)[None]
-    flags = np.ones(1, bool)
-    params = eng.trainer.init(eng.cfg.seed)
-    eng.executor.run_block(params, idx, mu, flags, flags)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.executor.run_block(params, idx, mu, flags, flags)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name: dict[str, list] = {}
@@ -256,14 +295,8 @@ def phase_profile(torch, eng):
             row[0] += ev.time_range.elapsed_us()
             row[1] += 1
             spans.append((ev.time_range.start, ev.time_range.end))
-    busy_us = sum(r[0] for r in by_name.values())
-    if not busy_us:
-        log("profile", "device time by kernel: not measured (the profiler "
-            "recorded no device activity)")
-        return
-    # Busy time = the union of the kernels' intervals (kernels that
-    # overlap count once); the window runs from the first kernel's start
-    # to the last one's end.
+    if not spans:
+        return by_name, 0.0, 0.0, wall_us
     spans.sort()
     union, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -273,19 +306,360 @@ def phase_profile(torch, eng):
         else:
             cur_e = max(cur_e, e)
     union += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
-    log("profile", f"one round: host wall {wall_us / 1e3:.3f} ms (profiler "
+    return by_name, union, spans[-1][1] - spans[0][0], wall_us
+
+
+def log_profile(phase: str, what: str, prof, needle: str, top: int = 12):
+    """Print a profile_device result: busy share, the share of kernels
+    whose name holds ``needle``, and the ``top`` kernels by time."""
+    by_name, union, window, wall_us = prof
+    busy_us = sum(r[0] for r in by_name.values())
+    if not busy_us:
+        log(phase, f"{what}: device time by kernel: not measured (the "
+            f"profiler recorded no device activity)")
+        return
+    log(phase, f"{what}: host wall {wall_us / 1e3:.3f} ms (profiler "
         f"on), {sum(r[1] for r in by_name.values())} kernels summing to "
         f"{busy_us / 1e3:.3f} ms; device busy (union) {union / 1e3:.3f} ms "
         f"= {100 * union / window:.1f}% of the {window / 1e3:.3f} ms kernel "
         f"window, {100 * union / wall_us:.1f}% of the host wall")
-    fold_us = sum(r[0] for n, r in by_name.items() if "fedagg" in n)
-    log("profile", f"fedagg: {fold_us:.1f} us "
-        f"({100 * fold_us / busy_us:.3f}% of device time)")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    for name, (us, n) in top:
-        log("profile", f"{100 * us / busy_us:6.2f}%  {us / 1e3:9.3f} ms  "
+    mine = sum(r[0] for n, r in by_name.items() if needle in n)
+    log(phase, f"{needle}: {mine:.1f} us ({100 * mine / busy_us:.3f}% of "
+        f"device time)")
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        log(phase, f"{100 * us / busy_us:6.2f}%  {us / 1e3:9.3f} ms  "
             f"x{n:<5d} {name[:110]}")
+
+
+def phase_profile(torch, eng):
+    """Where one round's device time goes: one planned full-width round
+    through ``run_block`` (after a warm-up round) under torch.profiler.
+    Prints device time by kernel and the busy share of the round's wall
+    time; "not measured" if the profiler records no device activity."""
+    from repro_torch.sim.strategies import FedHap
+
+    plan = FedHap().plan_round(eng, 0.0)
+    idx = eng.sample_indices(np.arange(eng.n_sats), 0.0)[None]
+    mu = np.asarray(plan.mu, np.float32)[None]
+    flags = np.ones(1, bool)
+    params = eng.trainer.init(eng.cfg.seed)
+    eng.executor.run_block(params, idx, mu, flags, flags)
+    log_profile("profile", "one round", profile_device(
+        torch, lambda: eng.executor.run_block(params, idx, mu, flags,
+                                              flags)), "fedagg")
+
+
+# Phase 7's sweep: the CPU tests' shapes (tests/test_torch_flash_attention
+# .py) as (B, H, Hkv, S, D, causal, window).
+FLASH_SWEEP = (
+    [(1, 2, 2, 32, 16, True, None), (2, 4, 2, 64, 32, True, None),
+     (1, 8, 2, 48, 64, True, None), (1, 2, 1, 40, 8, True, None),
+     (2, 2, 2, 128, 128, True, None), (2, 8, 2, 80, 32, True, 20),
+     (1, 2, 2, 32, 16, False, None)]
+    + [(1, 2, 2, 64, 16, True, w) for w in (1, 8, 24, 1000)])
+PREFILL = dict(b=4, h=16, hkv=8, s=4096, d=128)
+
+
+def _bshd_views(torch, gen, b, h, hkv, s, d, dtype):
+    """q, k, v as the model passes them: (B, S, H, D) storage viewed as
+    (B, H, S, D)."""
+    return [torch.randn((b, s, n, d), generator=gen, device="cuda")
+            .to(dtype).transpose(1, 2) for n in (h, hkv, hkv)]
+
+
+def _dense_attention(torch, q, k, v, ok):
+    """f32 attention of (B, H, S, D) q against GQA k/v under the boolean
+    (Sq, Sk) mask ``ok``, cast to q's dtype."""
+    group = q.shape[1] // k.shape[1]
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                      k.repeat_interleave(group, 1).float())
+    sc = sc.mul_(1.0 / math.sqrt(q.shape[-1])).masked_fill_(~ok, -1e30)
+    p = torch.softmax(sc, dim=-1)
+    del sc
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.repeat_interleave(group, 1).float()).to(q.dtype)
+
+
+def check_planted_faults(torch, q, k, v, want, row0: int = 1024,
+                         tile: int = 64):
+    """Faults a kernel could make only on long rows, each computed densely
+    from the same inputs, must break PREFILL_BF16_TOL against the sound
+    output ``want``: the K/V tile at ``row0`` dropped for the rows past
+    it, that tile a repeat of the one before, and the causal bound off by
+    one (one future key) on rows from ``row0``."""
+    s = q.shape[2]
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    causal = qpos >= kpos
+    in_tile = (kpos >= row0) & (kpos < row0 + tile)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, row0:row0 + tile] = k[:, :, row0 - tile:row0]
+    v2[:, :, row0:row0 + tile] = v[:, :, row0 - tile:row0]
+    faults = {
+        f"K tile {row0}..{row0 + tile - 1} dropped for rows past it":
+            lambda: _dense_attention(torch, q, k, v, causal & ~(
+                in_tile & (qpos >= row0 + tile))),
+        f"K tile {row0}.. a repeat of the tile before":
+            lambda: _dense_attention(torch, q, k2, v2, causal),
+        f"causal bound off by one on rows >= {row0}":
+            lambda: _dense_attention(torch, q, k, v, causal | (
+                (qpos >= row0) & (kpos == qpos + 1))),
+    }
+    for name, fn in faults.items():
+        bad = fn()
+        err = max_err(torch, bad, want)
+        if torch.allclose(bad.float(), want.float(), **PREFILL_BF16_TOL):
+            raise AssertionError(f"planted fault passes the prefill-shape "
+                                 f"tolerance ({name}: max |err| {err:.3e})")
+        log("flash", f"planted fault ({name}): max |err| {err:.3e}, "
+            f"caught by {PREFILL_BF16_TOL}")
+        del bad
+
+
+def phase_flash(torch, fa_mod):
+    """flash_attention on the card against flash_attention_plain; returns
+    the kernels-line entry (launches filled in later from the main
+    path)."""
+    fa, plain = fa_mod.flash_attention, fa_mod.flash_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b, h, hkv, s, d, causal, window in FLASH_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q, k, v = _bshd_views(torch, gen, b, h, hkv, s, d, dtype)
+            err = check_close(torch, fa(q, k, v, causal, window),
+                              plain(q, k, v, causal, window), dname,
+                              f"flash {dname} B={b} H={h} Hkv={hkv} S={s} "
+                              f"D={d} causal={causal} window={window}")
+            log("flash", f"{dname} B={b} H={h} Hkv={hkv} S={s} D={d} "
+                f"causal={causal} window={window}: max |err| {err:.3e}")
+
+    b, h, hkv, s, d = (PREFILL[x] for x in ("b", "h", "hkv", "s", "d"))
+    q, k, v = _bshd_views(torch, gen, b, h, hkv, s, d, torch.float32)
+    err32 = check_close(torch, fa(q, k, v), plain(q, k, v), "float32",
+                        "flash f32 at the prefill shape")
+    ms32 = time_ms(torch, lambda: fa(q, k, v), reps=3, warmup=1)
+    log("flash", f"prefill shape f32: max |err| {err32:.3e} "
+        f"({TOL['float32']}); kernel {ms32:.4f} ms")
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = fa(q, k, v)
+    if not got.transpose(1, 2).is_contiguous():
+        raise AssertionError("flash output is not laid out like q")
+    want = plain(q, k, v)
+    err = check_close(torch, got, want, "bfloat16",
+                      "flash at the prefill shape", PREFILL_BF16_TOL)
+    log("flash", f"prefill shape bf16: max |err| {err:.3e} "
+        f"({PREFILL_BF16_TOL}); mean |out| "
+        f"{float(want.float().abs().mean()):.4f}")
+    del got
+    check_planted_faults(torch, q, k, v, want)
+    del want
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_ms(torch, lambda: fa(q, k, v), reps=10)
+    plain_ms = time_ms(torch, lambda: plain(q, k, v), reps=5, warmup=1)
+    lib_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
+                                         enable_gqa=True), reps=10)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    # The causal pairs this input needs, 2 FLOP per multiply-add in each
+    # of Q·Kᵀ and P·V.
+    flop = 4 * b * h * d * s * (s + 1) // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log("flash", f"prefill shape B={b} H={h} Hkv={hkv} S={s} D={d} bf16 "
+        f"causal: max |err| {err:.3e}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; {nbytes} bytes, "
+        f"{flop:.4e} FLOP, bound {bound_ms:.4f} ms ({bound_by}); kernel "
+        f"at {flop / ms / 1e9:.2f} TFLOP/s")
+    del q, k, v
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:87",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def phase_lm_card_vs_cpu(torch, Transformer, get_config):
+    """Full-width qwen3-0.6b in f32 from one CPU-drawn init: forward on
+    the card (kernel) against forward on the CPU (plain). Returns the f32
+    model and its CPU params for the decode phase."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                              param_dtype="float32", act_dtype="float32")
+    model = Transformer(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    log("lm", f"{cfg.name}: {model.count_params()} params drawn on the "
+        f"CPU in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 256)))
+    outs = {}
+    with torch.no_grad():
+        for device in ("cuda", "cpu"):
+            p = (params if device == "cpu"
+                 else {k: v.to(device) for k, v in params.items()})
+            t0 = time.perf_counter()
+            logits, _ = model.forward(p, tokens.to(device))
+            outs[device] = logits.cpu()
+            log("lm", f"{device}: forward B=1 S=256 f32 in "
+                f"{time.perf_counter() - t0:.3f} s")
+            del p, logits
+    got, want = outs["cuda"], outs["cpu"]
+    err = max_err(torch, got, want)
+    if not (torch.isfinite(got).all() and torch.allclose(got, want,
+                                                         **LM_F32_TOL)):
+        raise AssertionError(f"qwen3-0.6b logits: card vs CPU max |err| "
+                             f"{err:.3e} ({LM_F32_TOL})")
+    log("lm", f"logits (1, 256, {cfg.vocab_size}) agree: max |card - cpu| "
+        f"{err:.3e} ({LM_F32_TOL}); max |logit| "
+        f"{float(want.abs().max()):.3f}")
+    return model, params
+
+
+def _stepped_logits(torch, model, params, tokens, fault: str | None = None):
+    """Logits (B, S, V) of stepping ``tokens`` through ``decode_step`` on
+    their device. ``fault`` plants one at the middle step t: "position skip"
+    advances the cache's position by one before step t (RoPE positions
+    off by one from there, one slot left empty); "lost slot" zeroes the
+    k/v that step t wrote (a write to the wrong slot)."""
+    b, s = tokens.shape
+    mid = s // 2
+    cache = model.init_cache(b, s + 1, device=tokens.device)
+    steps = []
+    for t in range(s):
+        if fault == "position skip" and t == mid:
+            cache["idx"] += 1
+        logits, cache = model.decode_step(params, cache, tokens[:, t])
+        if fault == "lost slot" and t == mid:
+            for key, leaf in cache.items():
+                if key.endswith(("/k", "/v")):
+                    leaf[:, :, mid] = 0
+        steps.append(logits)
+    return torch.stack(steps, dim=1)
+
+
+def phase_decode_vs_prefill(torch, model, params):
+    """Stepped decode_step logits against forward logits, full width,
+    on the card, in the model's dtype: f32 (the algorithm: LM_F32_TOL)
+    or bf16 (DECODE_BF16_ATOL). Two planted faults must break the same
+    tolerance."""
+    b, s = 2, 64
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab_size, (b, s))).cuda()
+    dname = model.cfg.act_dtype
+    tol = (LM_F32_TOL if dname == "float32"
+           else dict(atol=DECODE_BF16_ATOL, rtol=0))
+
+    def close(got, want):
+        return torch.allclose(got.float(), want.float(), **tol)
+    with torch.no_grad():
+        fwd, _ = model.forward(params, tokens)
+        dec = _stepped_logits(torch, model, params, tokens)
+        diff = (dec.float() - fwd.float()).abs()
+        err, mean = float(diff.max()), float(diff.mean())
+        agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+        if not (torch.isfinite(dec).all() and close(dec, fwd)):
+            raise AssertionError(f"decode vs prefill ({dname}): max |err| "
+                                 f"{err:.3e} ({tol})")
+        log("decode", f"{dname} B={b} S={s}: decode vs forward logits max "
+            f"|err| {err:.4e} ({tol}), mean |err| {mean:.4e}, argmax "
+            f"agrees at {100 * agree:.1f}% of positions; max |logit| "
+            f"{float(fwd.float().abs().max()):.3f}")
+        for fault in ("position skip", "lost slot"):
+            bad = _stepped_logits(torch, model, params, tokens, fault)
+            bdiff = (bad.float() - fwd.float()).abs()[:, s // 2:]
+            berr = float(bdiff.max())
+            if close(bad, fwd):
+                raise AssertionError(f"planted decode fault passes the "
+                                     f"{dname} tolerance ({fault} at step "
+                                     f"{s // 2}: max |err| {berr:.3e})")
+            log("decode", f"{dname} planted fault ({fault} at step "
+                f"{s // 2}): max |err| {berr:.4e}, mean |err| "
+                f"{float(bdiff.mean()):.4e} over the steps from it; caught "
+                f"by {tol}")
+
+
+def phase_serve(torch, model, params, serve, fa_mod, fedagg_mod):
+    """The serve slice on the card: prefill B=4, S=4096 (counted), then
+    greedy_generate at serve's defaults. Returns the flash launches of
+    the prefill."""
+    from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
+
+    b, s = PREFILL["b"], PREFILL["s"]
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, model.cfg.vocab_size, (b, s))).cuda()
+    serve.prefill(model, params, tokens)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_mod.flash_attention.launches = 0
+    fedagg_mod.fedagg.launches = 0
+    t0 = time.perf_counter()
+    last = serve.prefill(model, params, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa_mod.flash_attention.launches
+    if launches != model.cfg.num_layers or fedagg_mod.fedagg.launches:
+        raise AssertionError(f"prefill launched flash_attention {launches} "
+                             f"times (want {model.cfg.num_layers}) and "
+                             f"fedagg {fedagg_mod.fedagg.launches} times")
+    if last.shape != (b, model.cfg.vocab_size) or not torch.isfinite(
+            last).all():
+        raise AssertionError(f"prefill logits {tuple(last.shape)} not "
+                             f"finite or misshapen")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walls = [wall]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        serve.prefill(model, params, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log("serve", f"prefill B={b} S={s} bf16: {wall:.4f} s (then "
+        f"{walls[1]:.4f}, {walls[2]:.4f} s) = {b * s / wall:.1f} prefill "
+        f"tokens/s; {launches} flash_attention launches; peak device "
+        f"memory {peak:.2f} GiB")
+
+    batch, plen, gen = 4, 16, 32
+    tok_cfg = TokenTaskConfig(vocab_size=model.cfg.vocab_size, seed=3)
+    prompts = np.stack([make_token_dataset(plen, tok_cfg, client=i)
+                        for i in range(batch)])
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = serve.greedy_generate(model, params, prompts, gen)
+        dt = time.perf_counter() - t0
+        rates.append(batch * (plen + gen) / dt)
+    if out.shape != (batch, plen + gen) or not (
+            (out >= 0) & (out < model.cfg.vocab_size)).all():
+        raise AssertionError(f"greedy_generate gave {out.shape}")
+    log("serve", f"greedy_generate batch {batch} prompt {plen} gen {gen}: "
+        f"{rates[0]:.1f} tok/s (first call), {rates[1]:.1f} tok/s "
+        f"(second); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card now "
+        f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    for i in range(2):
+        log("serve", f"seq{i}: prompt={out[i, :plen].tolist()} "
+            f"gen={out[i, plen:].tolist()}")
+    return launches, tokens, prompts
+
+
+def phase_serve_profile(torch, model, params, serve, tokens):
+    """Where the serve slice's device time goes: one prefill, and eight
+    decode steps, under torch.profiler (after the counts were read)."""
+    b, s = tokens.shape
+    log_profile("profile", f"one prefill B={b} S={s}", profile_device(
+        torch, lambda: serve.prefill(model, params, tokens)), "flash_fwd")
+    cache = model.init_cache(b, 16, device="cuda")
+    tok = tokens[:, 0]
+    with torch.no_grad():
+        model.decode_step(params, cache, tok)               # warm-up
+
+        def steps():
+            for _ in range(8):
+                model.decode_step(params, cache, tok)
+        log_profile("profile", f"eight decode steps B={b}",
+                    profile_device(torch, steps), "nvjet", top=8)
 
 
 def main() -> int:
@@ -373,8 +747,37 @@ def main() -> int:
 
     # 6. where a round's device time goes (after the counts were read)
     phase_profile(torch, eng)
+    del eng
 
-    print(json.dumps({"kernels": [entry]}))
+    # 7. the flash kernel against its plain version
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    flash_entry = phase_flash(torch, fa_mod)
+
+    # 8. the LM, card vs CPU, full width in f32
+    model32, params_cpu = phase_lm_card_vs_cpu(torch, Transformer,
+                                               get_config)
+
+    # 9. decode vs prefill, full width in f32, then bf16 (the same init,
+    # cast)
+    params = {k: v.to("cuda") for k, v in params_cpu.items()}
+    phase_decode_vs_prefill(torch, model32, params)
+    del params
+    model = Transformer(get_config("qwen3-0.6b"))
+    params = {k: v.to("cuda", torch.bfloat16) for k, v in params_cpu.items()}
+    del params_cpu
+    phase_decode_vs_prefill(torch, model, params)
+
+    # 10. the serve slice; counts zeroed just before, read just after.
+    flash_entry["launches"], tokens, _ = phase_serve(
+        torch, model, params, serve, fa_mod, fedagg_mod)
+    phase_serve_profile(torch, model, params, serve, tokens)
+
+    print(json.dumps({"kernels": [entry, flash_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels of the port (``csrc/``), their plain PyTorch
-versions, and the wrappers the simulator calls (``ops``).
+versions, and the wrappers the simulator and the LM call (``ops``).
 
 Kernels:
 - ``fedagg`` — weighted multi-replica parameter fold (the FedHAP hot
   loop), CUDA C++ for sm_90a; replaces ``repro/kernels/fedagg.py:30``.
+- ``flash_attention`` — causal / windowed GQA attention forward (the LM
+  prefill), CUDA C++ for sm_90a; replaces
+  ``repro/kernels/flash_attention.py:87``.
 """

@@ -1,12 +1,13 @@
-"""Wrappers around the port's kernels (port of the fold half of
-``repro.kernels.ops``).
+"""Wrappers around the port's kernels (port of the fold and attention
+halves of ``repro.kernels.ops``).
 
-The fold dispatches on the device of the tensors it is given: CUDA
-tensors go through the hand-written ``fedagg`` kernel, CPU tensors
-through the per-leaf plain fold :func:`repro_torch.core.treeops
-.tree_combine` — as the JAX dispatcher picks the einsum on CPU
-(``repro/kernels/ops.py:99-103``). There is no override and no fallback:
-a CUDA tensor is folded by the kernel or the call raises.
+Each wrapper dispatches on the device of the tensors it is given: CUDA
+tensors go through the hand-written kernel (``fedagg``,
+``flash_attention``), CPU tensors through its plain version (for the
+fold, the per-leaf :func:`repro_torch.core.treeops.tree_combine` — as
+the JAX dispatcher picks the einsum on CPU, ``repro/kernels/ops.py:
+99-103``). There is no override and no fallback: a CUDA tensor goes
+through the kernel or the call raises.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import torch
 
 from repro_torch.core.treeops import tree_combine
 from repro_torch.kernels.fedagg import fedagg
+from repro_torch.kernels.flash_attention import (
+    check_inputs, flash_attention, flash_attention_plain)
 
 
 def _weights(weights: Any, device: torch.device) -> torch.Tensor:
@@ -75,3 +78,21 @@ def fold_stacked_tree(params_stacked: Mapping[str, torch.Tensor],
     if first.device.type == "cpu":
         return tree_combine(params_stacked, weights)
     raise ValueError(f"fold: unsupported device {first.device}")
+
+
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True,
+                       window: int | None = None) -> torch.Tensor:
+    """Causal / windowed GQA attention, q ``(B,H,Sq,D)``, k/v
+    ``(B,Hkv,Sk,D)`` -> ``(B,H,Sq,D)``: the ``flash_attention`` kernel on
+    CUDA tensors, :func:`~repro_torch.kernels.flash_attention
+    .flash_attention_plain` on CPU tensors; the inputs are checked the
+    same way on both. The JAX wrapper's block sizes are the TPU kernel's
+    tiling and do not change the result; the CUDA kernel picks its
+    own."""
+    check_inputs(q, k, v, window)
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal=causal, window=window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window)
+    raise ValueError(f"flash_attention_op: unsupported device {q.device}")

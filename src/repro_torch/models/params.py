@@ -4,7 +4,10 @@ A model describes its parameters once as a flat dict of `ParamDef`s
 (shape + initializer); `init_params` materializes a ``dict[str, Tensor]``
 on an explicit device from an explicit ``torch.Generator``. Keys, shapes
 and layouts match the JAX package leaf for leaf (conv weights stay HWIO),
-so folds and parity tests line up.
+so folds and parity tests line up. Where the JAX package nests its tree
+(the LM's ``{"layers": {"b0": {"mixer": {"wq": ...}}}}``), the port's key
+is the ``/``-joined path, as the checkpoint format writes it
+(``repro/checkpoint/ckpt.py``): ``layers/b0/mixer/wq``.
 
 The port's initializer cannot reproduce ``jax.random`` draws, so runs
 that must start where the JAX package starts carry its params over as
@@ -64,15 +67,59 @@ def param_count(tree: Mapping[str, Any]) -> int:
                for v in tree.values())
 
 
+def flatten_defs(tree: Mapping[str, Any], prefix: str = "") -> dict:
+    """A nested dict (of ParamDefs, arrays or tensors) as a flat dict with
+    ``/``-joined keys, in the dicts' own order (a JAX param tree comes
+    with its keys sorted at every level, as ``jax.tree.flatten`` visits
+    them). A flat dict comes back unchanged."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten_defs(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def add_leading_axis(tree: Mapping[str, Any], n: int) -> dict:
+    """Prepend a dimension of size ``n`` (e.g. layers) to every ParamDef of
+    a (nested or flat) dict; returned flat."""
+    return {k: ParamDef((n,) + d.shape, d.init, d.scale)
+            for k, d in flatten_defs(tree).items()}
+
+
+def _leaf_to_tensor(v: Any) -> torch.Tensor:
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        # numpy's bfloat16 comes from ml_dtypes (what np.asarray of a JAX
+        # bf16 array yields); torch.from_numpy refuses it. The 16 bits
+        # cross over as int16 and are reinterpreted, bit for bit.
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
 def params_from_numpy(tree: Mapping[str, Any],
                       device: torch.device | str) -> dict:
     """The weight carry-over: a param tree of numpy arrays (e.g. the JAX
-    package's params, exported leaf by leaf) as the port's
-    ``dict[str, Tensor]`` on ``device``. Dtypes and layouts are kept."""
-    return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
-            for k, v in tree.items()}
+    package's params, flat or nested, exported leaf by leaf) as the
+    port's flat ``dict[str, Tensor]`` on ``device``. Dtypes (bfloat16
+    included, bit for bit) and layouts are kept; nested keys are joined
+    with ``/`` (:func:`flatten_defs`)."""
+    return {k: _leaf_to_tensor(v).to(device)
+            for k, v in flatten_defs(tree).items()}
 
 
 def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict:
-    """Inverse of :func:`params_from_numpy`: host numpy copies."""
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+    """Inverse of :func:`params_from_numpy`: host numpy copies, flat; a
+    bfloat16 tensor comes back as numpy's ``bfloat16`` (ml_dtypes), bit
+    for bit."""
+    out = {}
+    for k, v in params.items():
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            import ml_dtypes
+            out[k] = v.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            out[k] = v.numpy()
+    return out

@@ -1,0 +1,226 @@
+"""Transformer assembly of the LM zoo (port of
+``repro.models.transformer``): dense attention stacks only.
+
+Params are the port's flat ``dict[str, Tensor]``. The layers of one
+period are stacked along a leading axis under ``layers/b{j}/...`` keys,
+as the JAX package stacks them (``add_leading_axis``), so a key such as
+``layers/b0/mixer/wq`` has shape ``(num_layers, d_model, H·D)``. The JAX
+package's ``lax.scan`` over the stack becomes a Python loop over views
+``params[key][i]``. ``remat`` is a training knob and does nothing here
+(no autograd on the serving path), and the JAX package's ``unroll``
+(a cost-analysis knob for its scans) has no counterpart.
+
+Decode keeps per-layer caches stacked the same way
+(``layers/b0/k`` of shape ``(num_layers, B, S_max, H_kv, D)``) and
+updates them in place.
+
+Not ported yet (ROADMAP Queue A item 13), each raising
+``NotImplementedError``: MoE, Mamba and RWKV blocks, MLA, encoder-decoder
+stacks and vision patches.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    apply_embed,
+    apply_mlp,
+    apply_norm,
+    embed_def,
+    mlp_def,
+    norm_def,
+    unembed,
+)
+from repro_torch.models.params import (
+    ParamDef,
+    add_leading_axis,
+    flatten_defs,
+    init_params,
+    param_count,
+)
+
+_ITEM = "ROADMAP Queue A item 13"
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    missing = []
+    if cfg.moe is not None:
+        missing.append("MoE blocks (models/moe.py)")
+    for kind in sorted(set(cfg.block_pattern) - {"attn"}):
+        missing.append(f"{kind} blocks (kernel "
+                       f"{'B3' if kind == 'mamba' else 'B4'})")
+    if cfg.attention_kind != "gqa":
+        missing.append(f"{cfg.attention_kind} attention")
+    if cfg.is_encdec:
+        missing.append("encoder-decoder stacks")
+    if cfg.vision_patches:
+        missing.append("vision patches")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet ({_ITEM})")
+
+
+# ====================================================== block definitions
+def _block_defs(cfg: ArchConfig) -> dict:
+    """ParamDef tree for one dense attention block."""
+    return {
+        "mixer": attn.gqa_defs(cfg),
+        "mlp": mlp_def(cfg.d_model, cfg.d_ff, cfg.act),
+        "norm1": norm_def(cfg.d_model, cfg.norm_kind),
+        "norm2": norm_def(cfg.d_model, cfg.norm_kind),
+    }
+
+
+def _apply_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, *, causal: bool = True,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """One dense block forward (the JAX package's aux loss is always 0
+    here and is not returned)."""
+    h = apply_norm(p["norm1"], x, cfg.norm_kind)
+    x = x + attn.attention_forward(cfg, p["mixer"], h, positions,
+                                   causal=causal, window=window)
+    h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
+    return x + apply_mlp(p["mlp"], h2, cfg.act)
+
+
+def _layer(params: dict, prefix: str, i: int) -> dict:
+    """Layer ``i`` of the stacked leaves under ``prefix`` as the nested
+    dict the block functions read: ``{"mixer": {"wq": view}, ...}``."""
+    out: dict[str, Any] = {}
+    for key, leaf in params.items():
+        if key.startswith(prefix):
+            *path, name = key[len(prefix):].split("/")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[name] = leaf[i]
+    return out
+
+
+# ============================================================ assembly
+class Transformer:
+    """Functional model wrapper bound to an ArchConfig."""
+
+    def __init__(self, cfg: ArchConfig):
+        _check_supported(cfg)
+        self.cfg = cfg
+        pat = cfg.block_pattern
+        if cfg.num_layers % len(pat) != 0:
+            raise ValueError(
+                f"{cfg.name}: layers {cfg.num_layers} not a multiple of "
+                f"pattern {pat}")
+        self.num_periods = cfg.num_layers // len(pat)
+        self.pattern = pat
+
+    # ------------------------------------------------------------ defs
+    def defs(self) -> dict:
+        """Flat ParamDefs, keys ``/``-joined and in the JAX package's leaf
+        order (sorted paths)."""
+        cfg = self.cfg
+        period = {f"b{j}": _block_defs(cfg)
+                  for j in range(len(self.pattern))}
+        d: dict[str, Any] = {
+            "embed": embed_def(cfg.vocab_size, cfg.d_model),
+            "final_norm": norm_def(cfg.d_model, cfg.norm_kind),
+            "layers": add_leading_axis(period, self.num_periods),
+        }
+        if not cfg.tie_embeddings:
+            d["head"] = ParamDef((cfg.d_model, cfg.vocab_size), scale=0.02)
+        return dict(sorted(flatten_defs(d).items()))
+
+    def init(self, gen: torch.Generator, device: torch.device | str = "cuda",
+             dtype: torch.dtype | None = None) -> dict:
+        dtype = dtype or getattr(torch, self.cfg.param_dtype)
+        return init_params(self.defs(), gen, device, dtype)
+
+    def count_params(self) -> int:
+        return param_count(self.defs())
+
+    # --------------------------------------------------------- forward
+    def hidden_states(self, params: dict,
+                      tokens: torch.Tensor) -> torch.Tensor:
+        """The final-normed hidden states (B, S, d_model) of ``forward``,
+        before the unembedding."""
+        cfg = self.cfg
+        x = apply_embed({"table": params["embed/table"]},
+                        tokens.long()).to(getattr(torch, cfg.act_dtype))
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        for i in range(self.num_periods):
+            for j in range(len(self.pattern)):
+                x = _apply_block(cfg, _layer(params, f"layers/b{j}/", i), x,
+                                 positions)
+        return apply_norm({"scale": params["final_norm/scale"]}, x,
+                          cfg.norm_kind)
+
+    def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Unembed hidden states: the tied table or the head."""
+        if self.cfg.tie_embeddings:
+            return unembed(params["embed/table"], x)
+        return x @ params["head"]
+
+    def forward(self, params: dict, tokens: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits (B, S, V), aux_loss scalar, always 0 here)."""
+        x = self.hidden_states(params, tokens)
+        return self.logits(params, x), torch.zeros((), device=x.device)
+
+    # ----------------------------------------------------------- decode
+    def init_cache(self, batch: int, max_len: int, use_window: bool = False,
+                   device: torch.device | str = "cuda") -> dict:
+        """Decode cache in the activation dtype: ``idx`` (a Python int,
+        the next position) and per block ``layers/b{j}/{k,v,pos}``
+        stacked over the layers."""
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.act_dtype)
+        window = cfg.sliding_window if use_window else None
+        cache: dict[str, Any] = {"idx": 0}
+        for j in range(len(self.pattern)):
+            one = attn.init_kv_cache(cfg, batch, max_len, window, dtype,
+                                     device)
+            for name, leaf in one.items():
+                cache[f"layers/b{j}/{name}"] = leaf.expand(
+                    self.num_periods, *leaf.shape).contiguous()
+        return cache
+
+    def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
+                    use_window: bool = False) -> tuple[torch.Tensor, dict]:
+        """One token for the whole stack. token: (B,) int. Updates
+        ``cache`` in place and returns (logits (B, V), cache)."""
+        cfg = self.cfg
+        idx = cache["idx"]
+        x = apply_embed({"table": params["embed/table"]},
+                        token.long()[:, None]).to(getattr(torch, cfg.act_dtype))
+        window = cfg.sliding_window if use_window else None
+        for i in range(self.num_periods):
+            for j in range(len(self.pattern)):
+                p = _layer(params, f"layers/b{j}/", i)
+                c = _layer(cache, f"layers/b{j}/", i)
+                hin = apply_norm(p["norm1"], x, cfg.norm_kind)
+                y, _ = attn.attention_decode(cfg, p["mixer"], hin, c, idx,
+                                             window)
+                x = x + y
+                h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
+                x = x + apply_mlp(p["mlp"], h2, cfg.act)
+        cache["idx"] = idx + 1
+        x = apply_norm({"scale": params["final_norm/scale"]}, x,
+                       cfg.norm_kind)
+        return self.logits(params, x)[:, 0], cache
+
+
+# ============================================================== loss
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE. logits (B,S,V), labels (B,S) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

@@ -22,6 +22,10 @@ MODULES = [
     "repro_torch.clients",
     "repro_torch.orbits",
     "repro_torch.faults",
+    "repro_torch.configs",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.models.transformer",
+    "repro_torch.launch.serve",
 ]
 
 

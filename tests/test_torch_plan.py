@@ -25,7 +25,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 # Copied as they are; only `from repro.` / `import repro.` lines change.
 COPIED = [
     "configs/paper_cnn.py", "configs/paper_mlp.py",
+    "configs/base.py", "configs/qwen3_0_6b.py",
     "data/digits.py", "data/partition.py", "data/loader.py",
+    "data/tokens.py",
     "core/weights.py",
     "orbits/constellation.py", "orbits/visibility.py", "orbits/links.py",
     "faults/plane.py", "faults/__init__.py",
