@@ -41,7 +41,24 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     (the counts zeroed just before, read just after: 28 flash launches),
     then ``greedy_generate`` at serve's defaults (batch 4, prompt 16,
     gen 32); then one prefill and a few decode steps under
-    torch.profiler.
+    torch.profiler;
+11. wkv — the ``rwkv6_wkv`` kernel against its plain version on the
+    card: the CPU tests' sweep (f32, bf16, bf16 with f32 w) and the
+    rwkv6-3b prefill shape (B=4, H=40, S=4096, N=64) in f32 and in bf16
+    with f32 w, at uniform decays in [0.7, 0.999] and at the init's
+    0.99752, where three planted faults from step 1024 must break the
+    bf16 tolerance; timed beside the plain version and its bound;
+12. rwkv card vs CPU — full-width rwkv6-3b (3,099,776,000 params) in
+    f32 from one CPU-drawn init: ``forward`` over B=1, S=256 on the card
+    (kernel) and on the CPU (plain version); the logits must agree;
+13. rwkv decode vs prefill — full width, f32 then bf16, B=2, S=64 (two
+    of the kernel's 32-step tiles); two planted faults at step 32 (a
+    decay skipped, a stale token shift); the same readings with the
+    stacked matrices at their own fan-in, reported only;
+14. rwkv serve — full-width rwkv6-3b in bf16: ``prefill`` at B=4,
+    S=4096 (the counts zeroed just before, read just after: 32
+    ``rwkv6_wkv`` launches), ``greedy_generate`` at serve's defaults,
+    and the profiles of phase 10.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -84,10 +101,11 @@ PREFILL_BF16_TOL = dict(atol=1e-3, rtol=1.6e-2)
 # (TF32 off): the convolutions and matmuls reduce in other orders, which
 # moves O(0.05) params by a few f32 ulps per step.
 PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
-# Full-width qwen3-0.6b logits, card (kernel, cuBLAS) vs CPU (plain
-# attention, CPU BLAS), both full f32 with TF32 off: the sums run in other
-# orders (~1e-6 relative per matmul), and the difference compounds over
-# 28 residual layers; the JAX package bounds 2 layers at 1e-4
+# Full-width LM logits, card (kernel, cuBLAS) vs CPU (plain version, CPU
+# BLAS), and decode vs prefill, both full f32 with TF32 off: the sums run
+# in other orders (~1e-6 relative per matmul), and the difference
+# compounds over 28 (qwen3-0.6b) or 32 (rwkv6-3b) residual layers; the
+# JAX package bounds decode vs forward of 2 layers at 1e-4 and 1e-3
 # (tests/test_decode.py).
 LM_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 # Decode vs prefill at full width in bf16 (8 significant bits): the two
@@ -99,6 +117,41 @@ LM_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 # position, a lost slot), which read ~3 there, and requires each to
 # break this tolerance.
 DECODE_BF16_ATOL = 0.25
+# rwkv6-3b decode vs prefill at full width, at the reference's init (its
+# stacked matrices drawn at std 1/sqrt(32); ROADMAP Queue C). The two
+# paths' roundings (GEMMs of M=128 vs M=2, the decode's einsum state
+# update vs the kernel's FMAs) reach the logits larger than qwen3-0.6b's.
+# On an H100 (phase 13): f32 sound 2.3e-3 (1.2e-3 at step 0), the
+# planted faults 0.058 (decay skipped) and 2.7 (stale token shift); bf16
+# sound 0.99 (0.84 after step 0), the stale token shift 2.5. So f32
+# holds 4x above its sound reading and 5x below the smaller fault; bf16
+# 1.5x above and 1.7x below. A decay skipped for one step moves the
+# state by 1 - w = 0.25% at the init's decays: in bf16 it reads 0.47,
+# within the noise, so phase 13 requires it to break only the f32
+# tolerance and reports its bf16 reading. With the matrices at their own
+# fan-in the sound f32 reading is ~3 (phase 13 reports it): no tolerance
+# could separate a fault there, so the checks run at the reference's init.
+RWKV_DECODE_TOL = {"float32": dict(atol=1e-2, rtol=1e-3),
+                   "bfloat16": dict(atol=1.5, rtol=0)}
+# WKV kernel vs plain at the sweep: the CPU tests' tolerances
+# (tests/test_torch_rwkv6_wkv.py). f32: both do the same sequential f32
+# recurrence, the kernel with FMAs, the plain version with separately
+# rounded products and an einsum's n-sum: a few ulps of O(10) outputs.
+# bf16: one bf16 ulp of the rounded output (the JAX package's tolerance).
+WKV_TOL = {"float32": dict(atol=3e-5, rtol=1e-5),
+           "bfloat16": dict(atol=8e-2, rtol=5e-2)}
+# WKV at the prefill shape (S=4096). f32: a state that remembers ~400
+# steps (w = 0.99752) of O(1) kv terms carries its rounding along over
+# outputs up to ~680 (mean |y| ~88); phase 11 reads 4.9e-4 there on an
+# H100 (5.3e-5 at the uniform decays). bf16 (r, k, v and y bf16, w f32,
+# as the model runs it): both
+# paths compute in f32 and round once; they differ by at most one bf16
+# ulp (<= 2^-7 relative), where their f32 values straddle a rounding
+# boundary: rtol allows two ulps, and atol 1e-2 (1e-3 of mean |y| ~13 at
+# the uniform decays, 1e-4 at the init's) covers outputs near 0. Phase 11
+# shows that three planted faults from step 1024 break this tolerance.
+WKV_PREFILL_TOL = {"float32": dict(atol=2e-3, rtol=1e-4),
+                   "bfloat16": dict(atol=1e-2, rtol=1.6e-2)}
 
 
 def log(phase: str, msg: str) -> None:
@@ -479,18 +532,173 @@ def phase_flash(torch, fa_mod):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
-def phase_lm_card_vs_cpu(torch, Transformer, get_config):
-    """Full-width qwen3-0.6b in f32 from one CPU-drawn init: forward on
-    the card (kernel) against forward on the CPU (plain). Returns the f32
+# Phase 11's sweep: the CPU tests' shapes (tests/test_torch_rwkv6_wkv.py)
+# as (B, H, S, N), and a 300-step one at the model's 40 heads of 64.
+WKV_SWEEP = [(1, 1, 16, 4), (2, 3, 64, 8), (1, 4, 32, 16), (2, 2, 48, 8),
+             (1, 2, 32, 32), (1, 2, 40, 64), (2, 40, 300, 64)]
+# The rwkv6-3b serve slice's prefill: 4 x 4096 tokens, 40 heads of 64.
+WKV_PREFILL = dict(b=4, h=40, s=4096, n=64)
+# decay_base's init (-6) through exp(-exp(.)): the model's decay at init.
+WKV_INIT_DECAY = math.exp(-math.exp(-6.0))
+
+
+def _wkv_views(torch, gen, b, h, s, n, dtype, w_dtype, decay):
+    """r, k, v, w as the model passes them, (B, S, H, N) storage viewed as
+    (B, H, S, N), and u (H, N) f32. ``decay`` is a constant w or a (lo,
+    hi) range to draw w from uniformly."""
+    r, k, v = (torch.randn((b, s, h, n), generator=gen, device="cuda")
+               .to(dtype).transpose(1, 2) for _ in range(3))
+    if isinstance(decay, tuple):
+        lo, hi = decay
+        w = lo + (hi - lo) * torch.rand((b, s, h, n), generator=gen,
+                                        device="cuda")
+    else:
+        w = torch.full((b, s, h, n), decay, device="cuda")
+    u = torch.randn((h, n), generator=gen, device="cuda")
+    return r, k, v, w.to(w_dtype).transpose(1, 2), u
+
+
+def _wkv_planted(torch, r, k, v, w, u, fault: str, t0: int = 1024):
+    """The plain recurrence (``rwkv6_wkv_plain``) with one fault planted
+    from step ``t0``: "state zeroed" at t0 (a carry lost across a tile),
+    "u dropped" from t0, or "kv decayed" with the step's own w from t0
+    (S = w (S + kv))."""
+    b, h, s, n = r.shape
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uu = u.float()[None, :, :, None]
+    state = torch.zeros(b, h, n, n, device=r.device)
+    ys = []
+    for t in range(s):
+        if fault == "state zeroed" and t == t0:
+            state = torch.zeros_like(state)
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        bonus = 0.0 if fault == "u dropped" and t >= t0 else uu * kv
+        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, :, t], state + bonus))
+        if fault == "kv decayed" and t >= t0:
+            state = wf[:, :, t, :, None] * (state + kv)
+        else:
+            state = wf[:, :, t, :, None] * state + kv
+    return torch.stack(ys, dim=2).to(r.dtype)
+
+
+def phase_wkv(torch, wkv_mod):
+    """rwkv6_wkv on the card against rwkv6_wkv_plain; returns the
+    kernels-line entry (launches filled in later from the main path)."""
+    wkv, plain = wkv_mod.rwkv6_wkv, wkv_mod.rwkv6_wkv_plain
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = {"f32": (f32, f32), "bf16": (bf16, bf16),
+             "bf16, w f32": (bf16, f32)}
+    for b, h, s, n in WKV_SWEEP:
+        for case, (dtype, w_dtype) in cases.items():
+            args = _wkv_views(torch, gen, b, h, s, n, dtype, w_dtype,
+                              (0.7, 0.999))
+            dname = str(dtype).split(".")[-1]
+            what = f"wkv {case} B={b} H={h} S={s} N={n}"
+            err = check_close(torch, wkv(*args), plain(*args), dname, what,
+                              WKV_TOL[dname])
+            log("wkv", f"{what}: max |err| {err:.3e}")
+
+    b, h, s, n = (WKV_PREFILL[x] for x in ("b", "h", "s", "n"))
+    worst = 0.0
+    for decay in ((0.7, 0.999), WKV_INIT_DECAY):
+        dlabel = (f"w ~ U{list(decay)}" if isinstance(decay, tuple)
+                  else f"w = {decay:.5f}")
+        args = _wkv_views(torch, gen, b, h, s, n, f32, f32, decay)
+        err = check_close(torch, wkv(*args), plain(*args), "float32",
+                          f"wkv f32 at the prefill shape, {dlabel}",
+                          WKV_PREFILL_TOL["float32"])
+        log("wkv", f"prefill shape f32, {dlabel}: max |err| {err:.3e} "
+            f"({WKV_PREFILL_TOL['float32']})")
+        r, k, v, w, u = args
+        args = (r.to(bf16), k.to(bf16), v.to(bf16), w, u)
+        del r, k, v
+        got = wkv(*args)
+        if not got.transpose(1, 2).is_contiguous():
+            raise AssertionError("wkv output is not laid out like r")
+        want = plain(*args)
+        tol = WKV_PREFILL_TOL["bfloat16"]
+        err = check_close(torch, got, want, "bfloat16",
+                          f"wkv bf16 (w f32) at the prefill shape, {dlabel}",
+                          tol)
+        worst = max(worst, err)
+        log("wkv", f"prefill shape bf16 (w f32), {dlabel}: max |err| "
+            f"{err:.3e} ({tol}); mean |y| "
+            f"{float(want.float().abs().mean()):.4f}"
+            f", max |y| {float(want.float().abs().max()):.2f}")
+        del got
+        for fault in ("state zeroed", "u dropped", "kv decayed"):
+            bad = _wkv_planted(torch, *args, fault)
+            ferr = max_err(torch, bad, want)
+            if torch.allclose(bad.float(), want.float(), **tol):
+                raise AssertionError(f"planted wkv fault passes the prefill-"
+                                     f"shape tolerance ({fault} from step "
+                                     f"1024, {dlabel}: max |err| {ferr:.3e})")
+            log("wkv", f"planted fault ({fault} from step 1024, {dlabel}): "
+                f"max |err| {ferr:.3e}, caught by {tol}")
+            del bad
+        del want
+
+    # Timed in the model's dtypes (bf16 r, k, v, y; f32 w) at the init
+    # decay; the kernel's work does not depend on the values.
+    ms = time_ms(torch, lambda: wkv(*args), reps=10)
+    plain_ms = time_ms(torch, lambda: plain(*args), reps=2, warmup=1)
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + args[0].numel() * args[0].element_size()
+    # What the function needs per (b, h, step): y = rᵀS + (Σ_n r u k) v
+    # is 2N² + 5N (the bonus term is a dot product, O(N)), and the update
+    # S = w ⊙ S + k vᵀ is 3N². The kernel does more (it expands the bonus
+    # for every state entry, 7N²); the bound counts the function's work.
+    flop = b * h * s * (5 * n * n + 5 * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    args32 = tuple(a.float() for a in args[:4]) + (args[4],)
+    ms32 = time_ms(torch, lambda: wkv(*args32), reps=10)
+    log("wkv", f"prefill shape B={b} H={h} S={s} N={n}, bf16 r/k/v/y, f32 "
+        f"w: kernel {ms:.4f} ms (all f32: {ms32:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, no one-call PyTorch equivalent; {nbytes} "
+        f"bytes, {flop:.4e} FLOP, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"kernel at {flop / ms / 1e9:.3f} TFLOP/s")
+    del args, args32
+    return dict(name="rwkv6_wkv", route="cuda",
+                source="src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+                replaces="src/repro/kernels/rwkv6_wkv.py:47",
+                launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def own_fan_in_factors(model) -> dict:
+    """For each stacked layer leaf that the initializer draws at the
+    layer count's fan-in, the factor that takes it to its own fan-in.
+    The reference's initializer (src/repro/models/params.py:44, copied by
+    the port) takes fan_in = shape[0]; once the layers are stacked,
+    shape[0] is the layer count, so a (L, d_in, d_out) matrix with the
+    default scale is drawn at std 1/sqrt(L), not 1/sqrt(d_in) (ROADMAP
+    Queue C). The checks run at the reference's init; phase 13 reports
+    decode vs prefill at own fan-in beside them."""
+    out = {}
+    for key, d in model.defs().items():
+        if (key.startswith("layers/") and d.init == "normal"
+                and d.scale is None):
+            own = d.shape[1] if len(d.shape) >= 3 else d.shape[-1]
+            out[key] = math.sqrt(d.shape[0] / own)
+    return out
+
+
+def phase_lm_card_vs_cpu(torch, Transformer, get_config, arch: str,
+                         phase: str):
+    """Full-width ``arch`` in f32 from one CPU-drawn init: forward on the
+    card (kernel) against forward on the CPU (plain). Returns the f32
     model and its CPU params for the decode phase."""
     import dataclasses
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+    cfg = dataclasses.replace(get_config(arch),
                               param_dtype="float32", act_dtype="float32")
     model = Transformer(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(0), "cpu")
-    log("lm", f"{cfg.name}: {model.count_params()} params drawn on the "
+    log(phase, f"{cfg.name}: {model.count_params()} params drawn on the "
         f"CPU in {time.perf_counter() - t0:.2f} s")
     tokens = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (1, 256)))
@@ -502,54 +710,93 @@ def phase_lm_card_vs_cpu(torch, Transformer, get_config):
             t0 = time.perf_counter()
             logits, _ = model.forward(p, tokens.to(device))
             outs[device] = logits.cpu()
-            log("lm", f"{device}: forward B=1 S=256 f32 in "
+            log(phase, f"{device}: forward B=1 S=256 f32 in "
                 f"{time.perf_counter() - t0:.3f} s")
             del p, logits
     got, want = outs["cuda"], outs["cpu"]
     err = max_err(torch, got, want)
     if not (torch.isfinite(got).all() and torch.allclose(got, want,
                                                          **LM_F32_TOL)):
-        raise AssertionError(f"qwen3-0.6b logits: card vs CPU max |err| "
+        raise AssertionError(f"{arch} logits: card vs CPU max |err| "
                              f"{err:.3e} ({LM_F32_TOL})")
-    log("lm", f"logits (1, 256, {cfg.vocab_size}) agree: max |card - cpu| "
+    log(phase, f"logits (1, 256, {cfg.vocab_size}) agree: max |card - cpu| "
         f"{err:.3e} ({LM_F32_TOL}); max |logit| "
         f"{float(want.abs().max()):.3f}")
     return model, params
 
 
-def _stepped_logits(torch, model, params, tokens, fault: str | None = None):
+# Planted decode faults, each planted at one step t through the data the
+# step reads: called with the params and the cache just before
+# ``decode_step``, a fault returns the params for that step and a
+# function to apply to the cache just after it (or None).
+def fault_position_skip(params, cache, t):
+    """Attention: the cache's position advanced by one before step t (RoPE
+    positions off by one from there, one slot left empty)."""
+    cache["idx"] += 1
+    return params, None
+
+
+def fault_lost_slot(params, cache, t):
+    """Attention: the k/v that step t wrote zeroed (a write to the wrong
+    slot)."""
+    def after(cache):
+        for key, leaf in cache.items():
+            if key.endswith(("/k", "/v")):
+                leaf[:, :, t] = 0
+    return params, after
+
+
+def fault_decay_skipped(params, cache, t):
+    """RWKV: the wkv state not decayed at step t: every layer's
+    ``decay_base`` at -1e4 for that step, so w = exp(-exp(-1e4 + lora))
+    = 1 exactly in f32."""
+    return {k: (v.new_full(v.shape, -1e4)
+                if k.endswith("/mixer/decay_base") else v)
+            for k, v in params.items()}, None
+
+
+def fault_stale_token_shift(params, cache, t):
+    """RWKV: the time-mix shift state ``x_prev_tm`` not updated at step t
+    (step t's write undone)."""
+    saved = {k: v.clone() for k, v in cache.items()
+             if k.endswith("/x_prev_tm")}
+
+    def after(cache):
+        for key, leaf in saved.items():
+            cache[key].copy_(leaf)
+    return params, after
+
+
+def _stepped_logits(torch, model, params, tokens, fault=None):
     """Logits (B, S, V) of stepping ``tokens`` through ``decode_step`` on
-    their device. ``fault`` plants one at the middle step t: "position skip"
-    advances the cache's position by one before step t (RoPE positions
-    off by one from there, one slot left empty); "lost slot" zeroes the
-    k/v that step t wrote (a write to the wrong slot)."""
+    their device, with ``fault`` (one of the ``fault_*`` functions)
+    planted at the middle step."""
     b, s = tokens.shape
-    mid = s // 2
     cache = model.init_cache(b, s + 1, device=tokens.device)
     steps = []
     for t in range(s):
-        if fault == "position skip" and t == mid:
-            cache["idx"] += 1
-        logits, cache = model.decode_step(params, cache, tokens[:, t])
-        if fault == "lost slot" and t == mid:
-            for key, leaf in cache.items():
-                if key.endswith(("/k", "/v")):
-                    leaf[:, :, mid] = 0
+        p, after = (fault(params, cache, t) if fault and t == s // 2
+                    else (params, None))
+        logits, cache = model.decode_step(p, cache, tokens[:, t])
+        if after:
+            after(cache)
         steps.append(logits)
     return torch.stack(steps, dim=1)
 
 
-def phase_decode_vs_prefill(torch, model, params):
+def phase_decode_vs_prefill(torch, model, params, faults: dict,
+                            tol: dict | None, phase: str, note: str = ""):
     """Stepped decode_step logits against forward logits, full width,
-    on the card, in the model's dtype: f32 (the algorithm: LM_F32_TOL)
-    or bf16 (DECODE_BF16_ATOL). Two planted faults must break the same
-    tolerance."""
+    on the card, in the model's dtype, held to ``tol``. ``faults`` maps
+    a name to a ``fault_*`` function and whether the fault must break
+    the tolerance in bf16 too (every fault must in f32). Every reading is
+    logged before any check fails. With ``tol`` None the sound reading
+    is only reported."""
     b, s = 2, 64
     tokens = torch.from_numpy(np.random.default_rng(3).integers(
         0, model.cfg.vocab_size, (b, s))).cuda()
     dname = model.cfg.act_dtype
-    tol = (LM_F32_TOL if dname == "float32"
-           else dict(atol=DECODE_BF16_ATOL, rtol=0))
+    failed = []
 
     def close(got, want):
         return torch.allclose(got.float(), want.float(), **tol)
@@ -558,32 +805,43 @@ def phase_decode_vs_prefill(torch, model, params):
         dec = _stepped_logits(torch, model, params, tokens)
         diff = (dec.float() - fwd.float()).abs()
         err, mean = float(diff.max()), float(diff.mean())
+        err0, err_rest = float(diff[:, 0].max()), float(diff[:, 1:].max())
         agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+        log(phase, f"{dname} B={b} S={s}{note}: decode vs forward logits "
+            f"max |err| {err:.4e} ({tol or 'reported, not checked'}; step "
+            f"0 {err0:.4e}, steps 1.. {err_rest:.4e}), mean |err| "
+            f"{mean:.4e}, argmax agrees at {100 * agree:.1f}% of "
+            f"positions; max |logit| {float(fwd.float().abs().max()):.3f}")
+        if tol is None:
+            return
         if not (torch.isfinite(dec).all() and close(dec, fwd)):
-            raise AssertionError(f"decode vs prefill ({dname}): max |err| "
-                                 f"{err:.3e} ({tol})")
-        log("decode", f"{dname} B={b} S={s}: decode vs forward logits max "
-            f"|err| {err:.4e} ({tol}), mean |err| {mean:.4e}, argmax "
-            f"agrees at {100 * agree:.1f}% of positions; max |logit| "
-            f"{float(fwd.float().abs().max()):.3f}")
-        for fault in ("position skip", "lost slot"):
+            failed.append(f"sound decode, max |err| {err:.3e}")
+        for name, (fault, in_bf16) in faults.items():
+            must = dname == "float32" or in_bf16
             bad = _stepped_logits(torch, model, params, tokens, fault)
             bdiff = (bad.float() - fwd.float()).abs()[:, s // 2:]
             berr = float(bdiff.max())
-            if close(bad, fwd):
-                raise AssertionError(f"planted decode fault passes the "
-                                     f"{dname} tolerance ({fault} at step "
-                                     f"{s // 2}: max |err| {berr:.3e})")
-            log("decode", f"{dname} planted fault ({fault} at step "
-                f"{s // 2}): max |err| {berr:.4e}, mean |err| "
-                f"{float(bdiff.mean()):.4e} over the steps from it; caught "
-                f"by {tol}")
+            caught = not close(bad, fwd)
+            if must and not caught:
+                failed.append(f"planted fault ({name}) passes, max |err| "
+                              f"{berr:.3e}")
+            log(phase, f"{dname} planted fault ({name} at step {s // 2}): "
+                f"max |err| {berr:.4e}, mean |err| "
+                f"{float(bdiff.mean()):.4e} over the steps from it; "
+                f"{'caught' if caught else 'not caught'}"
+                f"{'' if must else ' (not required)'} by {tol}")
+    if failed:
+        raise AssertionError(f"decode vs prefill ({dname}, {tol}): "
+                             + "; ".join(failed))
 
 
-def phase_serve(torch, model, params, serve, fa_mod, fedagg_mod):
+def phase_serve(torch, model, params, serve, kernels: dict, kernel: str,
+                phase: str):
     """The serve slice on the card: prefill B=4, S=4096 (counted), then
-    greedy_generate at serve's defaults. Returns the flash launches of
-    the prefill."""
+    greedy_generate at serve's defaults. ``kernels`` maps each kernel's
+    name to its wrapper (with the ``launches`` count); the prefill must
+    launch ``kernel`` once per layer and no other. Returns its launches
+    in the prefill."""
     from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
 
     b, s = PREFILL["b"], PREFILL["s"]
@@ -592,17 +850,18 @@ def phase_serve(torch, model, params, serve, fa_mod, fedagg_mod):
     serve.prefill(model, params, tokens)                     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa_mod.flash_attention.launches = 0
-    fedagg_mod.fedagg.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     last = serve.prefill(model, params, tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa_mod.flash_attention.launches
-    if launches != model.cfg.num_layers or fedagg_mod.fedagg.launches:
-        raise AssertionError(f"prefill launched flash_attention {launches} "
-                             f"times (want {model.cfg.num_layers}) and "
-                             f"fedagg {fedagg_mod.fedagg.launches} times")
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    launches = counts[kernel]
+    want = {name: model.cfg.num_layers if name == kernel else 0
+            for name in kernels}
+    if counts != want:
+        raise AssertionError(f"prefill launched {counts}; want {want}")
     if last.shape != (b, model.cfg.vocab_size) or not torch.isfinite(
             last).all():
         raise AssertionError(f"prefill logits {tuple(last.shape)} not "
@@ -614,9 +873,9 @@ def phase_serve(torch, model, params, serve, fa_mod, fedagg_mod):
         serve.prefill(model, params, tokens)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    log("serve", f"prefill B={b} S={s} bf16: {wall:.4f} s (then "
-        f"{walls[1]:.4f}, {walls[2]:.4f} s) = {b * s / wall:.1f} prefill "
-        f"tokens/s; {launches} flash_attention launches; peak device "
+    log(phase, f"{model.cfg.name} prefill B={b} S={s} bf16: {wall:.4f} s "
+        f"(then {walls[1]:.4f}, {walls[2]:.4f} s) = {b * s / wall:.1f} "
+        f"prefill tokens/s; {launches} {kernel} launches; peak device "
         f"memory {peak:.2f} GiB")
 
     batch, plen, gen = 4, 16, 32
@@ -633,23 +892,24 @@ def phase_serve(torch, model, params, serve, fa_mod, fedagg_mod):
     if out.shape != (batch, plen + gen) or not (
             (out >= 0) & (out < model.cfg.vocab_size)).all():
         raise AssertionError(f"greedy_generate gave {out.shape}")
-    log("serve", f"greedy_generate batch {batch} prompt {plen} gen {gen}: "
+    log(phase, f"greedy_generate batch {batch} prompt {plen} gen {gen}: "
         f"{rates[0]:.1f} tok/s (first call), {rates[1]:.1f} tok/s "
         f"(second); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card now "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
     for i in range(2):
-        log("serve", f"seq{i}: prompt={out[i, :plen].tolist()} "
+        log(phase, f"seq{i}: prompt={out[i, :plen].tolist()} "
             f"gen={out[i, plen:].tolist()}")
     return launches, tokens, prompts
 
 
-def phase_serve_profile(torch, model, params, serve, tokens):
+def phase_serve_profile(torch, model, params, serve, tokens, needle: str):
     """Where the serve slice's device time goes: one prefill, and eight
-    decode steps, under torch.profiler (after the counts were read)."""
+    decode steps, under torch.profiler (after the counts were read).
+    ``needle`` names the prefill kernel."""
     b, s = tokens.shape
     log_profile("profile", f"one prefill B={b} S={s}", profile_device(
-        torch, lambda: serve.prefill(model, params, tokens)), "flash_fwd")
+        torch, lambda: serve.prefill(model, params, tokens)), needle)
     cache = model.init_cache(b, 16, device="cuda")
     tok = tokens[:, 0]
     with torch.no_grad():
@@ -660,6 +920,42 @@ def phase_serve_profile(torch, model, params, serve, tokens):
                 model.decode_step(params, cache, tok)
         log_profile("profile", f"eight decode steps B={b}",
                     profile_device(torch, steps), "nvjet", top=8)
+
+
+def lm_slice(torch, Transformer, get_config, serve, arch: str,
+             kernels: dict, kernel: str, needle: str, faults: dict,
+             decode_tols: dict, phases: tuple, own_fan_in: bool) -> int:
+    """One LM slice on the card, full width: ``forward`` card vs CPU in
+    f32; decode vs prefill in f32, then bf16 (the same init, cast), with
+    the planted ``faults``; then the serve slice in bf16, its counts
+    zeroed just before the prefill and read just after, and its profile.
+    With ``own_fan_in``, decode vs prefill with the stacked matrices at
+    their own fan-in is reported first (``own_fan_in_factors``).
+    Returns the launches of ``kernel`` in that prefill."""
+    card_phase, decode_phase, serve_phase = phases
+    model32, params_cpu = phase_lm_card_vs_cpu(torch, Transformer,
+                                               get_config, arch, card_phase)
+    model = Transformer(get_config(arch))
+    factors = own_fan_in_factors(model) if own_fan_in else {}
+    for m in (model32, model) if factors else ():
+        dtype = getattr(torch, m.cfg.param_dtype)
+        own = {k: (v.to("cuda") * factors.get(k, 1.0)).to(dtype)
+               for k, v in params_cpu.items()}
+        phase_decode_vs_prefill(torch, m, own, {}, None, decode_phase,
+                                " at own fan-in")
+        del own
+    params = {k: v.to("cuda") for k, v in params_cpu.items()}
+    phase_decode_vs_prefill(torch, model32, params, faults,
+                            decode_tols["float32"], decode_phase)
+    del params
+    params = {k: v.to("cuda", torch.bfloat16) for k, v in params_cpu.items()}
+    del params_cpu
+    phase_decode_vs_prefill(torch, model, params, faults,
+                            decode_tols["bfloat16"], decode_phase)
+    launches, tokens, _ = phase_serve(torch, model, params, serve, kernels,
+                                      kernel, serve_phase)
+    phase_serve_profile(torch, model, params, serve, tokens, needle)
+    return launches
 
 
 def main() -> int:
@@ -754,30 +1050,38 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import rwkv6_wkv as wkv_mod
     from repro_torch.launch import serve
     from repro_torch.models import Transformer
     flash_entry = phase_flash(torch, fa_mod)
 
-    # 8. the LM, card vs CPU, full width in f32
-    model32, params_cpu = phase_lm_card_vs_cpu(torch, Transformer,
-                                               get_config)
+    kernels = {"fedagg": fedagg_mod.fedagg,
+               "flash_attention": fa_mod.flash_attention,
+               "rwkv6_wkv": wkv_mod.rwkv6_wkv}
 
-    # 9. decode vs prefill, full width in f32, then bf16 (the same init,
-    # cast)
-    params = {k: v.to("cuda") for k, v in params_cpu.items()}
-    phase_decode_vs_prefill(torch, model32, params)
-    del params
-    model = Transformer(get_config("qwen3-0.6b"))
-    params = {k: v.to("cuda", torch.bfloat16) for k, v in params_cpu.items()}
-    del params_cpu
-    phase_decode_vs_prefill(torch, model, params)
+    # 8-10. qwen3-0.6b: card vs CPU, decode vs prefill, serve
+    flash_entry["launches"] = lm_slice(
+        torch, Transformer, get_config, serve, "qwen3-0.6b", kernels,
+        "flash_attention", "flash_fwd",
+        {"position skip": (fault_position_skip, True),
+         "lost slot": (fault_lost_slot, True)},
+        {"float32": LM_F32_TOL, "bfloat16": dict(atol=DECODE_BF16_ATOL,
+                                                 rtol=0)},
+        ("lm", "decode", "serve"), own_fan_in=False)
 
-    # 10. the serve slice; counts zeroed just before, read just after.
-    flash_entry["launches"], tokens, _ = phase_serve(
-        torch, model, params, serve, fa_mod, fedagg_mod)
-    phase_serve_profile(torch, model, params, serve, tokens)
+    # 11. the WKV kernel against its plain version
+    wkv_entry = phase_wkv(torch, wkv_mod)
 
-    print(json.dumps({"kernels": [entry, flash_entry]}))
+    # 12-14. rwkv6-3b: card vs CPU, decode vs prefill, serve
+    wkv_entry["launches"] = lm_slice(
+        torch, Transformer, get_config, serve, "rwkv6-3b", kernels,
+        "rwkv6_wkv", "wkv_fwd",
+        {"decay skipped": (fault_decay_skipped, False),
+         "stale token shift": (fault_stale_token_shift, True)},
+        RWKV_DECODE_TOL, ("rwkv", "rwkv-decode", "rwkv-serve"),
+        own_fan_in=True)
+
+    print(json.dumps({"kernels": [entry, flash_entry, wkv_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

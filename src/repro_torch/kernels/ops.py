@@ -1,12 +1,13 @@
-"""Wrappers around the port's kernels (port of the fold and attention
-halves of ``repro.kernels.ops``).
+"""Wrappers around the port's kernels (port of the fold, attention and
+WKV parts of ``repro.kernels.ops``).
 
 Each wrapper dispatches on the device of the tensors it is given: CUDA
 tensors go through the hand-written kernel (``fedagg``,
-``flash_attention``), CPU tensors through its plain version (for the
-fold, the per-leaf :func:`repro_torch.core.treeops.tree_combine` — as
-the JAX dispatcher picks the einsum on CPU, ``repro/kernels/ops.py:
-99-103``). There is no override and no fallback: a CUDA tensor goes
+``flash_attention``, ``rwkv6_wkv``), CPU tensors through its plain
+version (for the fold, the per-leaf
+:func:`repro_torch.core.treeops.tree_combine` — as the JAX dispatcher
+picks the einsum on CPU, ``repro/kernels/ops.py:99-103``). There is no
+override and no fallback: a CUDA tensor goes
 through the kernel or the call raises.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.core.treeops import tree_combine
 from repro_torch.kernels.fedagg import fedagg
+from repro_torch.kernels import rwkv6_wkv as _wkv
 from repro_torch.kernels.flash_attention import (
     check_inputs, flash_attention, flash_attention_plain)
 
@@ -96,3 +98,23 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     raise ValueError(f"flash_attention_op: unsupported device {q.device}")
+
+
+def rwkv6_wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor,
+                 chunk: int = 64) -> torch.Tensor:
+    """The RWKV-6 WKV recurrence, r/k/v/w ``(B,H,S,N)``, u ``(H,N)`` f32 ->
+    y ``(B,H,S,N)`` in r's dtype: the ``rwkv6_wkv`` kernel on CUDA
+    tensors, :func:`~repro_torch.kernels.rwkv6_wkv.rwkv6_wkv_plain` on CPU
+    tensors; the inputs are checked the same way on both. ``chunk`` is
+    the JAX wrapper's argument, kept for its signature: it is the TPU
+    kernel's tiling of S (there a divisor of S) and does not change the
+    result; the CUDA kernel keeps the state in registers over any S and
+    does not read it."""
+    del chunk
+    _wkv.check_inputs(r, k, v, w, u)
+    if r.device.type == "cuda":
+        return _wkv.rwkv6_wkv(r, k, v, w, u)
+    if r.device.type == "cpu":
+        return _wkv.rwkv6_wkv_plain(r, k, v, w, u)
+    raise ValueError(f"rwkv6_wkv_op: unsupported device {r.device}")

@@ -2,15 +2,18 @@
 ``repro.launch.serve``), on the card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+      --full --device cuda
 
 Same flags as the JAX package's serve CLI, plus ``--device``. The CLI
 decodes with :func:`greedy_generate`, which steps the prompt through
-``decode_step`` as the JAX CLI does: it launches no ``flash_attention``
-kernel. The kernel's entry point is :func:`prefill`, the counterpart of
-the inner function of ``repro.launch.specs.make_prefill_step``: one
-forward over the prompt through the ``flash_attention`` kernel,
-returning the last position's logits. The mesh and sharding half of
-``specs`` waits for ROADMAP Queue A item 12.
+``decode_step`` as the JAX CLI does: it launches no prefill kernel. The
+kernels' entry point is :func:`prefill`, the counterpart of the inner
+function of ``repro.launch.specs.make_prefill_step``: one forward over
+the prompt through the model's prefill kernel (``flash_attention`` for
+an attention stack, ``rwkv6_wkv`` for RWKV), returning the last
+position's logits. The mesh and sharding half of ``specs`` waits for
+ROADMAP Queue A item 12.
 """
 from __future__ import annotations
 

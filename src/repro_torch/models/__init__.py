@@ -1,5 +1,5 @@
 """Models of the port: the paper's CNN and MLP on tensors, and the LM
-zoo's dense attention stacks (``Transformer``)."""
+zoo's dense attention and RWKV-6 stacks (``Transformer``)."""
 from repro_torch.models.cnn import CNN
 from repro_torch.models.mlp import MLP
 from repro_torch.models.params import (ParamDef, add_leading_axis,

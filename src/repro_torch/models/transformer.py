@@ -1,5 +1,5 @@
 """Transformer assembly of the LM zoo (port of
-``repro.models.transformer``): dense attention stacks only.
+``repro.models.transformer``): dense attention stacks and RWKV-6 stacks.
 
 Params are the port's flat ``dict[str, Tensor]``. The layers of one
 period are stacked along a leading axis under ``layers/b{j}/...`` keys,
@@ -10,12 +10,14 @@ package's ``lax.scan`` over the stack becomes a Python loop over views
 (no autograd on the serving path), and the JAX package's ``unroll``
 (a cost-analysis knob for its scans) has no counterpart.
 
-Decode keeps per-layer caches stacked the same way
-(``layers/b0/k`` of shape ``(num_layers, B, S_max, H_kv, D)``) and
-updates them in place.
+Decode keeps per-layer caches stacked the same way (an attention
+block's ``layers/b0/k`` of shape ``(num_layers, B, S_max, H_kv, D)``; an
+RWKV block's ``layers/b0/s`` of ``(num_layers, B, H, N, N)`` f32 and
+``layers/b0/x_prev_tm``, ``x_prev_cm`` of ``(num_layers, B, d_model)``)
+and updates them in place.
 
 Not ported yet (ROADMAP Queue A item 13), each raising
-``NotImplementedError``: MoE, Mamba and RWKV blocks, MLA, encoder-decoder
+``NotImplementedError``: MoE and Mamba blocks, MLA, encoder-decoder
 stacks and vision patches.
 """
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import (
     apply_embed,
     apply_mlp,
@@ -50,9 +53,8 @@ def _check_supported(cfg: ArchConfig) -> None:
     missing = []
     if cfg.moe is not None:
         missing.append("MoE blocks (models/moe.py)")
-    for kind in sorted(set(cfg.block_pattern) - {"attn"}):
-        missing.append(f"{kind} blocks (kernel "
-                       f"{'B3' if kind == 'mamba' else 'B4'})")
+    for kind in sorted(set(cfg.block_pattern) - {"attn", "rwkv"}):
+        missing.append(f"{kind} blocks (kernel B3)")
     if cfg.attention_kind != "gqa":
         missing.append(f"{cfg.attention_kind} attention")
     if cfg.is_encdec:
@@ -65,21 +67,30 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 
 # ====================================================== block definitions
-def _block_defs(cfg: ArchConfig) -> dict:
-    """ParamDef tree for one dense attention block."""
-    return {
-        "mixer": attn.gqa_defs(cfg),
-        "mlp": mlp_def(cfg.d_model, cfg.d_ff, cfg.act),
-        "norm1": norm_def(cfg.d_model, cfg.norm_kind),
-        "norm2": norm_def(cfg.d_model, cfg.norm_kind),
-    }
+def _block_defs(cfg: ArchConfig, kind: str) -> dict:
+    """ParamDef tree for one dense attention block or one RWKV block
+    (which carries its own FFN, the channel mix, and no ``mlp``)."""
+    d = {"norm1": norm_def(cfg.d_model, cfg.norm_kind),
+         "norm2": norm_def(cfg.d_model, cfg.norm_kind)}
+    if kind == "rwkv":
+        d["mixer"] = rwkv_lib.rwkv_defs(cfg)
+        d["cm"] = rwkv_lib.channel_mix_defs(cfg)
+    else:
+        d["mixer"] = attn.gqa_defs(cfg)
+        d["mlp"] = mlp_def(cfg.d_model, cfg.d_ff, cfg.act)
+    return d
 
 
-def _apply_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
+def _apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, *, causal: bool = True,
                  window: Optional[int] = None) -> torch.Tensor:
-    """One dense block forward (the JAX package's aux loss is always 0
-    here and is not returned)."""
+    """One block forward (the JAX package's aux loss is always 0 here and
+    is not returned)."""
+    if kind == "rwkv":
+        x = x + rwkv_lib.rwkv_time_mix(
+            cfg, p["mixer"], apply_norm(p["norm1"], x, cfg.norm_kind))
+        return x + rwkv_lib.rwkv_channel_mix(
+            cfg, p["cm"], apply_norm(p["norm2"], x, cfg.norm_kind))
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
     x = x + attn.attention_forward(cfg, p["mixer"], h, positions,
                                    causal=causal, window=window)
@@ -87,9 +98,10 @@ def _apply_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
     return x + apply_mlp(p["mlp"], h2, cfg.act)
 
 
-def _layer(params: dict, prefix: str, i: int) -> dict:
+def _layer(params: dict, prefix: str, i: Optional[int] = None) -> dict:
     """Layer ``i`` of the stacked leaves under ``prefix`` as the nested
-    dict the block functions read: ``{"mixer": {"wq": view}, ...}``."""
+    dict the block functions read: ``{"mixer": {"wq": view}, ...}``; with
+    no ``i``, the leaves themselves (``final_norm/``)."""
     out: dict[str, Any] = {}
     for key, leaf in params.items():
         if key.startswith(prefix):
@@ -97,7 +109,7 @@ def _layer(params: dict, prefix: str, i: int) -> dict:
             node = out
             for part in path:
                 node = node.setdefault(part, {})
-            node[name] = leaf[i]
+            node[name] = leaf if i is None else leaf[i]
     return out
 
 
@@ -121,8 +133,8 @@ class Transformer:
         """Flat ParamDefs, keys ``/``-joined and in the JAX package's leaf
         order (sorted paths)."""
         cfg = self.cfg
-        period = {f"b{j}": _block_defs(cfg)
-                  for j in range(len(self.pattern))}
+        period = {f"b{j}": _block_defs(cfg, kind)
+                  for j, kind in enumerate(self.pattern)}
         d: dict[str, Any] = {
             "embed": embed_def(cfg.vocab_size, cfg.d_model),
             "final_norm": norm_def(cfg.d_model, cfg.norm_kind),
@@ -151,11 +163,11 @@ class Transformer:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         for i in range(self.num_periods):
-            for j in range(len(self.pattern)):
-                x = _apply_block(cfg, _layer(params, f"layers/b{j}/", i), x,
+            for j, kind in enumerate(self.pattern):
+                x = _apply_block(cfg, kind,
+                                 _layer(params, f"layers/b{j}/", i), x,
                                  positions)
-        return apply_norm({"scale": params["final_norm/scale"]}, x,
-                          cfg.norm_kind)
+        return apply_norm(_layer(params, "final_norm/"), x, cfg.norm_kind)
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """Unembed hidden states: the tied table or the head."""
@@ -173,15 +185,20 @@ class Transformer:
     def init_cache(self, batch: int, max_len: int, use_window: bool = False,
                    device: torch.device | str = "cuda") -> dict:
         """Decode cache in the activation dtype: ``idx`` (a Python int,
-        the next position) and per block ``layers/b{j}/{k,v,pos}``
-        stacked over the layers."""
+        the next position) and per block ``layers/b{j}/{k,v,pos}`` (an
+        attention block) or ``layers/b{j}/{s,x_prev_tm,x_prev_cm}`` (an
+        RWKV block, the same size for any ``max_len``), stacked over the
+        layers."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.act_dtype)
         window = cfg.sliding_window if use_window else None
         cache: dict[str, Any] = {"idx": 0}
-        for j in range(len(self.pattern)):
-            one = attn.init_kv_cache(cfg, batch, max_len, window, dtype,
-                                     device)
+        for j, kind in enumerate(self.pattern):
+            if kind == "rwkv":
+                one = rwkv_lib.init_rwkv_cache(cfg, batch, dtype, device)
+            else:
+                one = attn.init_kv_cache(cfg, batch, max_len, window, dtype,
+                                         device)
             for name, leaf in one.items():
                 cache[f"layers/b{j}/{name}"] = leaf.expand(
                     self.num_periods, *leaf.shape).contiguous()
@@ -197,18 +214,25 @@ class Transformer:
                         token.long()[:, None]).to(getattr(torch, cfg.act_dtype))
         window = cfg.sliding_window if use_window else None
         for i in range(self.num_periods):
-            for j in range(len(self.pattern)):
+            for j, kind in enumerate(self.pattern):
                 p = _layer(params, f"layers/b{j}/", i)
                 c = _layer(cache, f"layers/b{j}/", i)
                 hin = apply_norm(p["norm1"], x, cfg.norm_kind)
+                if kind == "rwkv":
+                    y, _ = rwkv_lib.rwkv_decode(cfg, p["mixer"], hin, c)
+                    x = x + y
+                    h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
+                    x = x + rwkv_lib.rwkv_channel_mix_decode(
+                        cfg, p["cm"], h2, c["x_prev_cm"])
+                    c["x_prev_cm"].copy_(h2[:, 0])
+                    continue
                 y, _ = attn.attention_decode(cfg, p["mixer"], hin, c, idx,
                                              window)
                 x = x + y
                 h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
                 x = x + apply_mlp(p["mlp"], h2, cfg.act)
         cache["idx"] = idx + 1
-        x = apply_norm({"scale": params["final_norm/scale"]}, x,
-                       cfg.norm_kind)
+        x = apply_norm(_layer(params, "final_norm/"), x, cfg.norm_kind)
         return self.logits(params, x)[:, 0], cache
 
 

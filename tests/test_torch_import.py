@@ -24,6 +24,8 @@ MODULES = [
     "repro_torch.faults",
     "repro_torch.configs",
     "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.rwkv6_wkv",
+    "repro_torch.models.rwkv",
     "repro_torch.models.transformer",
     "repro_torch.launch.serve",
 ]

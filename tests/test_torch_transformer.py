@@ -89,7 +89,7 @@ def test_configs_equal_field_by_field():
         assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
         assert dataclasses.asdict(full.reduced()) == \
             dataclasses.asdict(jfull.reduced())
-    assert list_configs() == [ARCH]
+    assert list_configs() == [ARCH, "rwkv6-3b"]
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()}
 
@@ -104,11 +104,10 @@ def test_unported_zoo_arch_names_its_roadmap_item(name):
 @pytest.mark.parametrize("overrides", [
     dict(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=128)),
     dict(block_pattern=("attn", "mamba")),
-    dict(block_pattern=("rwkv",)),
     dict(attention_kind="mla"),
     dict(encoder_layers=2),
     dict(vision_patches=16),
-], ids=["moe", "mamba", "rwkv", "mla", "encdec", "vision"])
+], ids=["moe", "mamba", "mla", "encdec", "vision"])
 def test_unported_blocks_raise(overrides):
     cfg = dataclasses.replace(get_config(ARCH).reduced(), **overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
