@@ -59,12 +59,38 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     S=4096 (the counts zeroed just before, read just after: 32
     ``rwkv6_wkv`` launches), ``greedy_generate`` at serve's defaults,
     and the profiles of phase 10.
+15. scan — the ``selective_scan`` kernel against its plain version on
+    the card: the CPU tests' sweep (f32, bf16, abar f32 with bf16 bx/c)
+    and the jamba prefill shape (B=4, S=4096, D=8192, N=16) in f32 and
+    in the model's mixed dtypes, at abar ~ U[0.8, 0.999] and at the
+    model's own-fan-in regime, where three planted faults from step 1024
+    must break the bf16 tolerance; timed beside the plain version and its
+    bound;
+16. jamba card vs CPU — jamba-v0.1-52b at full width, one period of its
+    four (``num_layers=8``: 7 Mamba blocks, 1 attention block, 4 MoE
+    FFNs; the whole model's 96 GiB does not fit one card), in f32 at own
+    fan-in, block by block (b0 Mamba + MoE, b1 Mamba + MLP, b4 attention
+    + MoE) at B=1, S=256: card (kernels) against CPU (plain versions),
+    outputs agreeing and MoE routes equal;
+17. jamba decode vs prefill — the period at full width, B=2, S=64,
+    capacity_factor 8.0, weights drawn on the card: f32 at own fan-in
+    with two planted faults at step 32 (the conv window not shifted, the
+    SSM state not decayed) that must break the tolerance; the reference's
+    init reported beside it; then bf16 (checked where no MoE route
+    differs between the paths); the share of the model's abar in (0.01,
+    0.99) at both inits;
+18. jamba serve — the period in bf16 at own fan-in: ``prefill`` at B=4,
+    S=4096 (the counts zeroed just before, read just after: 7
+    ``selective_scan`` and 1 ``flash_attention`` launches), the share of
+    its abar in (0.01, 0.99), ``greedy_generate`` at serve's defaults,
+    and the profiles of phase 10.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -412,6 +438,9 @@ FLASH_SWEEP = (
      (1, 2, 2, 32, 16, False, None)]
     + [(1, 2, 2, 64, 16, True, w) for w in (1, 8, 24, 1000)])
 PREFILL = dict(b=4, h=16, hkv=8, s=4096, d=128)
+# jamba-v0.1-52b's one attention block in its serve prefill (phase 18):
+# 32 heads over 8 KV heads (group 4), no RoPE.
+JAMBA_FLASH_PREFILL = dict(b=4, h=32, hkv=8, s=4096, d=128)
 
 
 def _bshd_views(torch, gen, b, h, hkv, s, d, dtype):
@@ -487,26 +516,33 @@ def phase_flash(torch, fa_mod):
             log("flash", f"{dname} B={b} H={h} Hkv={hkv} S={s} D={d} "
                 f"causal={causal} window={window}: max |err| {err:.3e}")
 
-    b, h, hkv, s, d = (PREFILL[x] for x in ("b", "h", "hkv", "s", "d"))
-    q, k, v = _bshd_views(torch, gen, b, h, hkv, s, d, torch.float32)
-    err32 = check_close(torch, fa(q, k, v), plain(q, k, v), "float32",
-                        "flash f32 at the prefill shape")
-    ms32 = time_ms(torch, lambda: fa(q, k, v), reps=3, warmup=1)
-    log("flash", f"prefill shape f32: max |err| {err32:.3e} "
-        f"({TOL['float32']}); kernel {ms32:.4f} ms")
-    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-    got = fa(q, k, v)
-    if not got.transpose(1, 2).is_contiguous():
-        raise AssertionError("flash output is not laid out like q")
-    want = plain(q, k, v)
-    err = check_close(torch, got, want, "bfloat16",
-                      "flash at the prefill shape", PREFILL_BF16_TOL)
-    log("flash", f"prefill shape bf16: max |err| {err:.3e} "
-        f"({PREFILL_BF16_TOL}); mean |out| "
-        f"{float(want.float().abs().mean()):.4f}")
-    del got
-    check_planted_faults(torch, q, k, v, want)
-    del want
+    # The prefill shapes: jamba's first, then qwen3-0.6b's, whose tensors
+    # the timing below reads.
+    worst = 0.0
+    for shape in (JAMBA_FLASH_PREFILL, PREFILL):
+        b, h, hkv, s, d = (shape[x] for x in ("b", "h", "hkv", "s", "d"))
+        what = f"B={b} H={h} Hkv={hkv} S={s} D={d}"
+        q, k, v = _bshd_views(torch, gen, b, h, hkv, s, d, torch.float32)
+        err32 = check_close(torch, fa(q, k, v), plain(q, k, v), "float32",
+                            f"flash f32 at the prefill shape {what}")
+        ms32 = time_ms(torch, lambda: fa(q, k, v), reps=3, warmup=1)
+        log("flash", f"prefill shape {what} f32: max |err| {err32:.3e} "
+            f"({TOL['float32']}); kernel {ms32:.4f} ms")
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        got = fa(q, k, v)
+        if not got.transpose(1, 2).is_contiguous():
+            raise AssertionError("flash output is not laid out like q")
+        want = plain(q, k, v)
+        err = check_close(torch, got, want, "bfloat16",
+                          f"flash at the prefill shape {what}",
+                          PREFILL_BF16_TOL)
+        worst = max(worst, err)
+        log("flash", f"prefill shape {what} bf16: max |err| {err:.3e} "
+            f"({PREFILL_BF16_TOL}); mean |out| "
+            f"{float(want.float().abs().mean()):.4f}")
+        del got
+        check_planted_faults(torch, q, k, v, want)
+        del want
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = time_ms(torch, lambda: fa(q, k, v), reps=10)
     plain_ms = time_ms(torch, lambda: plain(q, k, v), reps=5, warmup=1)
@@ -528,7 +564,7 @@ def phase_flash(torch, fa_mod):
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:87",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
@@ -673,15 +709,18 @@ def own_fan_in_factors(model) -> dict:
     layer count's fan-in, the factor that takes it to its own fan-in.
     The reference's initializer (src/repro/models/params.py:44, copied by
     the port) takes fan_in = shape[0]; once the layers are stacked,
-    shape[0] is the layer count, so a (L, d_in, d_out) matrix with the
-    default scale is drawn at std 1/sqrt(L), not 1/sqrt(d_in) (ROADMAP
-    Queue C). The checks run at the reference's init; phase 13 reports
-    decode vs prefill at own fan-in beside them."""
+    shape[0] is the layer count, so a (L, ..., d_in, d_out) matrix with
+    the default scale is drawn at std 1/sqrt(L), not 1/sqrt(d_in)
+    (ROADMAP Queue C). Its own fan-in is shape[-2]: d_in of a (L, d_in,
+    d_out) matrix and of a (L, E, d_in, d_out) expert stack alike; a
+    stacked vector (L, d) keeps the rule of its unstacked (d,), fan-in d.
+    rwkv6-3b's checks run at the reference's init and phase 13 reports
+    own fan-in beside them; jamba's phases 17-18 run at own fan-in."""
     out = {}
     for key, d in model.defs().items():
         if (key.startswith("layers/") and d.init == "normal"
                 and d.scale is None):
-            own = d.shape[1] if len(d.shape) >= 3 else d.shape[-1]
+            own = d.shape[-2] if len(d.shape) >= 3 else d.shape[-1]
             out[key] = math.sqrt(d.shape[0] / own)
     return out
 
@@ -785,13 +824,15 @@ def _stepped_logits(torch, model, params, tokens, fault=None):
 
 
 def phase_decode_vs_prefill(torch, model, params, faults: dict,
-                            tol: dict | None, phase: str, note: str = ""):
+                            tol: dict | None, phase: str, note: str = "",
+                            pin=None):
     """Stepped decode_step logits against forward logits, full width,
     on the card, in the model's dtype, held to ``tol``. ``faults`` maps
     a name to a ``fault_*`` function and whether the fault must break
     the tolerance in bf16 too (every fault must in f32). Every reading is
     logged before any check fails. With ``tol`` None the sound reading
-    is only reported."""
+    is only reported. ``pin``, when given, makes a context manager that
+    is active around each stepped decode (``pinned_routes``)."""
     b, s = 2, 64
     tokens = torch.from_numpy(np.random.default_rng(3).integers(
         0, model.cfg.vocab_size, (b, s))).cuda()
@@ -802,7 +843,8 @@ def phase_decode_vs_prefill(torch, model, params, faults: dict,
         return torch.allclose(got.float(), want.float(), **tol)
     with torch.no_grad():
         fwd, _ = model.forward(params, tokens)
-        dec = _stepped_logits(torch, model, params, tokens)
+        with pin() if pin else contextlib.nullcontext():
+            dec = _stepped_logits(torch, model, params, tokens)
         diff = (dec.float() - fwd.float()).abs()
         err, mean = float(diff.max()), float(diff.mean())
         err0, err_rest = float(diff[:, 0].max()), float(diff[:, 1:].max())
@@ -814,11 +856,12 @@ def phase_decode_vs_prefill(torch, model, params, faults: dict,
             f"positions; max |logit| {float(fwd.float().abs().max()):.3f}")
         if tol is None:
             return
-        if not (torch.isfinite(dec).all() and close(dec, fwd)):
+        if not torch.isfinite(dec).all() or not close(dec, fwd):
             failed.append(f"sound decode, max |err| {err:.3e}")
         for name, (fault, in_bf16) in faults.items():
             must = dname == "float32" or in_bf16
-            bad = _stepped_logits(torch, model, params, tokens, fault)
+            with pin() if pin else contextlib.nullcontext():
+                bad = _stepped_logits(torch, model, params, tokens, fault)
             bdiff = (bad.float() - fwd.float()).abs()[:, s // 2:]
             berr = float(bdiff.max())
             caught = not close(bad, fwd)
@@ -835,13 +878,13 @@ def phase_decode_vs_prefill(torch, model, params, faults: dict,
                              + "; ".join(failed))
 
 
-def phase_serve(torch, model, params, serve, kernels: dict, kernel: str,
+def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
                 phase: str):
     """The serve slice on the card: prefill B=4, S=4096 (counted), then
     greedy_generate at serve's defaults. ``kernels`` maps each kernel's
     name to its wrapper (with the ``launches`` count); the prefill must
-    launch ``kernel`` once per layer and no other. Returns its launches
-    in the prefill."""
+    launch each kernel as often as ``expected`` says (a kernel not named
+    there: never). Returns the prefill's launch counts."""
     from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
 
     b, s = PREFILL["b"], PREFILL["s"]
@@ -857,9 +900,7 @@ def phase_serve(torch, model, params, serve, kernels: dict, kernel: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in kernels.items()}
-    launches = counts[kernel]
-    want = {name: model.cfg.num_layers if name == kernel else 0
-            for name in kernels}
+    want = {name: expected.get(name, 0) for name in kernels}
     if counts != want:
         raise AssertionError(f"prefill launched {counts}; want {want}")
     if last.shape != (b, model.cfg.vocab_size) or not torch.isfinite(
@@ -875,8 +916,8 @@ def phase_serve(torch, model, params, serve, kernels: dict, kernel: str,
         walls.append(time.perf_counter() - t0)
     log(phase, f"{model.cfg.name} prefill B={b} S={s} bf16: {wall:.4f} s "
         f"(then {walls[1]:.4f}, {walls[2]:.4f} s) = {b * s / wall:.1f} "
-        f"prefill tokens/s; {launches} {kernel} launches; peak device "
-        f"memory {peak:.2f} GiB")
+        f"prefill tokens/s; launches {expected}; peak device memory "
+        f"{peak:.2f} GiB")
 
     batch, plen, gen = 4, 16, 32
     tok_cfg = TokenTaskConfig(vocab_size=model.cfg.vocab_size, seed=3)
@@ -900,7 +941,7 @@ def phase_serve(torch, model, params, serve, kernels: dict, kernel: str,
     for i in range(2):
         log(phase, f"seq{i}: prompt={out[i, :plen].tolist()} "
             f"gen={out[i, plen:].tolist()}")
-    return launches, tokens, prompts
+    return counts, tokens, prompts
 
 
 def phase_serve_profile(torch, model, params, serve, tokens, needle: str):
@@ -952,10 +993,577 @@ def lm_slice(torch, Transformer, get_config, serve, arch: str,
     del params_cpu
     phase_decode_vs_prefill(torch, model, params, faults,
                             decode_tols["bfloat16"], decode_phase)
-    launches, tokens, _ = phase_serve(torch, model, params, serve, kernels,
-                                      kernel, serve_phase)
+    counts, tokens, _ = phase_serve(torch, model, params, serve, kernels,
+                                    {kernel: model.cfg.num_layers},
+                                    serve_phase)
     phase_serve_profile(torch, model, params, serve, tokens, needle)
-    return launches
+    return counts[kernel]
+
+
+# Phase 15's sweep: the CPU tests' shapes (tests/test_torch_selective_scan
+# .py, the JAX package's sweep plus N=8 and N=16) as (B, S, D, N), and a
+# ragged one at the model's 16 states (D not a multiple of a block).
+SCAN_SWEEP = [(1, 16, 8, 4), (2, 64, 32, 16), (1, 128, 64, 8), (3, 24, 8, 4),
+              (2, 40, 24, 8), (1, 48, 16, 16), (2, 300, 130, 16)]
+# The jamba serve slice's prefill: 4 x 4096 tokens, d_inner 8192, 16
+# states.
+SCAN_PREFILL = dict(b=4, s=4096, d=8192, n=16)
+# (abar dtype, bx/c/y dtype) of each case: all f32, all bf16, and the
+# model's mix.
+SCAN_CASES = {"f32": ("float32", "float32"), "bf16": ("bfloat16", "bfloat16"),
+              "mixed": ("float32", "bfloat16")}
+# Scan at the prefill shape. f32: the kernel's FMA recurrence and the
+# plain version's separately rounded multiply and add differ by an ulp of
+# h per step; a state that remembers ~1000 steps (abar up to 0.999)
+# carries that along to outputs of |y| up to ~100. bf16 (bx, c, y bf16;
+# abar f32, as the model runs it): both compute in f32 and round once;
+# they differ by at most one bf16 ulp (<= 2^-7 relative), where their f32
+# values straddle a rounding boundary: rtol allows two ulps, and atol
+# 1e-2 covers outputs near 0. Phase 15 shows that three planted faults
+# from step 1024 break this tolerance.
+SCAN_PREFILL_TOL = {"float32": dict(atol=2e-3, rtol=1e-4),
+                    "bfloat16": dict(atol=1e-2, rtol=1.6e-2)}
+# jamba's one period in f32, card vs CPU, block by block at own fan-in
+# (phase 16), and decode vs prefill (phase 17): both sides full f32 with
+# TF32 off, the sums in other orders; the same bound as the other LMs'.
+JAMBA_F32_TOL = LM_F32_TOL
+# jamba decode vs prefill in bf16 (phase 17), decode's experts pinned to
+# the forward's: the two paths round at other places (the kernel's f32
+# state vs decode's state cast to bf16 before its output einsum, as the
+# JAX package does; GEMMs of M=128 vs M=2) over 8 layers. The rule of
+# qwen3-0.6b's DECODE_BF16_ATOL, 16 bf16 ulps at the largest |logit|,
+# at jamba's logit scale: |logit| < 8 at own fan-in (~7.2), ulp 2^-5.
+JAMBA_DECODE_TOL = {"float32": JAMBA_F32_TOL,
+                    "bfloat16": dict(atol=16 * 2.0 ** -5, rtol=0)}
+
+
+def _scan_inputs(torch, gen, b, s, d, n, case, abar_from):
+    """abar, bx and c for the scan in ``case``'s dtypes; c as a strided
+    view (the model's split of x_proj's output). ``abar_from`` is a (lo,
+    hi) range to draw abar from uniformly, or "own fan-in": exp(dt A)
+    with A = -(1..N) (the S4D init) and dt = softplus(-4.6 + 0.6 z), the
+    dt bias's init plus a projection of RMS 0.6, which is what unit-RMS
+    activations give at the matrices' own fan-in (dt's median ~0.01)."""
+    ta, tx = (getattr(torch, name) for name in SCAN_CASES[case])
+    if abar_from == "own fan-in":
+        dt = torch.nn.functional.softplus(
+            -4.6 + 0.6 * torch.randn((b, s, d, 1), generator=gen,
+                                     device="cuda"))
+        a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda")
+        abar = (dt * a).exp_()
+        del dt
+    else:
+        lo, hi = abar_from
+        abar = lo + (hi - lo) * torch.rand((b, s, d, n), generator=gen,
+                                           device="cuda")
+    bx = torch.randn((b, s, d, n), generator=gen, device="cuda").to(tx)
+    c = torch.randn((b, s, 2 * n + 3), generator=gen,
+                    device="cuda").to(tx)[..., 3 + n:]
+    return abar.to(ta), bx, c
+
+
+def _scan_planted(torch, abar, bx, c, fault: str, t0: int = 1024):
+    """The plain scan (``selective_scan_plain``) with one fault planted at
+    step ``t0``: "state reset" (h zeroed at t0, a carry lost across a
+    tile), "decay skipped" (abar taken as 1 at t0), or "c one step late"
+    (y_t read with c_{t-1} from t0 on)."""
+    b, s, d, n = abar.shape
+    h = torch.zeros(b, d, n, device=abar.device)
+    y = torch.empty(b, s, d, dtype=bx.dtype, device=abar.device)
+    for t in range(s):
+        if fault == "state reset" and t == t0:
+            h = torch.zeros_like(h)
+        a = abar[:, t].float()
+        if fault == "decay skipped" and t == t0:
+            a = torch.ones_like(a)
+        h = a * h + bx[:, t].float()
+        ct = c[:, t - 1] if fault == "c one step late" and t >= t0 \
+            else c[:, t]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, ct.float())
+    return y
+
+
+def phase_scan(torch, scan_mod):
+    """selective_scan on the card against selective_scan_plain; returns
+    the kernels-line entry (launches filled in later from the main
+    path)."""
+    scan, plain = scan_mod.selective_scan, scan_mod.selective_scan_plain
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for b, s, d, n in SCAN_SWEEP:
+        for case in SCAN_CASES:
+            args = _scan_inputs(torch, gen, b, s, d, n, case, (0.2, 0.99))
+            dname = SCAN_CASES[case][1]
+            what = f"scan {case} B={b} S={s} D={d} N={n}"
+            got = scan(*args)
+            if got.dtype != args[1].dtype or not got.is_contiguous():
+                raise AssertionError(f"{what}: y is {got.dtype}, not laid "
+                                     f"out (B, S, D) in bx's dtype")
+            err = check_close(torch, got, plain(*args), dname, what)
+            log("scan", f"{what}: max |err| {err:.3e}")
+
+    b, s, d, n = (SCAN_PREFILL[x] for x in ("b", "s", "d", "n"))
+    worst = 0.0
+    for abar_from in ((0.8, 0.999), "own fan-in"):
+        alabel = (f"abar ~ U{list(abar_from)}" if isinstance(abar_from, tuple)
+                  else "abar at own fan-in")
+        if isinstance(abar_from, tuple):
+            args = _scan_inputs(torch, gen, b, s, d, n, "f32", abar_from)
+            err = check_close(torch, scan(*args), plain(*args), "float32",
+                              f"scan f32 at the prefill shape, {alabel}",
+                              SCAN_PREFILL_TOL["float32"])
+            ms32 = time_ms(torch, lambda: scan(*args), reps=5, warmup=1)
+            log("scan", f"prefill shape f32, {alabel}: max |err| {err:.3e} "
+                f"({SCAN_PREFILL_TOL['float32']}); kernel {ms32:.4f} ms")
+            abar, bx, c = args
+            args = (abar, bx.to(torch.bfloat16), c.to(torch.bfloat16))
+            del bx, c
+        else:
+            args = _scan_inputs(torch, gen, b, s, d, n, "mixed", abar_from)
+        inside = float(((args[0] > 0.01) & (args[0] < 0.99)).float().mean())
+        got = scan(*args)
+        want = plain(*args)
+        tol = SCAN_PREFILL_TOL["bfloat16"]
+        err = check_close(torch, got, want, "bfloat16",
+                          f"scan mixed at the prefill shape, {alabel}", tol)
+        worst = max(worst, err)
+        log("scan", f"prefill shape mixed (abar f32, bx/c/y bf16), {alabel} "
+            f"({100 * inside:.2f}% of abar in (0.01, 0.99)): max |err| "
+            f"{err:.3e} ({tol}); mean |y| "
+            f"{float(want.float().abs().mean()):.4f}, max |y| "
+            f"{float(want.float().abs().max()):.2f}")
+        del got
+        for fault in ("state reset", "decay skipped", "c one step late"):
+            bad = _scan_planted(torch, *args, fault)
+            ferr = max_err(torch, bad, want)
+            if torch.allclose(bad.float(), want.float(), **tol):
+                raise AssertionError(f"planted scan fault passes the "
+                                     f"prefill-shape tolerance ({fault} at "
+                                     f"step 1024, {alabel}: max |err| "
+                                     f"{ferr:.3e})")
+            log("scan", f"planted fault ({fault} at step 1024, {alabel}): "
+                f"max |err| {ferr:.3e}, caught by {tol}")
+            del bad
+        del want
+        if abar_from != "own fan-in":
+            del args
+
+    # Timed in the model's dtypes at the own-fan-in abar; the kernel's
+    # work does not depend on the values.
+    ms = time_ms(torch, lambda: scan(*args), reps=10)
+    plain_ms = time_ms(torch, lambda: plain(*args), reps=2, warmup=1)
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + b * s * d * args[1].element_size()
+    flop = 4 * b * s * d * n        # one FMA of the update, one of y
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log("scan", f"prefill shape B={b} S={s} D={d} N={n}, abar f32, bx/c/y "
+        f"bf16: kernel {ms:.4f} ms (all f32: {ms32:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, no one-call PyTorch equivalent; {nbytes} "
+        f"bytes, {flop:.4e} FLOP, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"kernel at {nbytes / ms / 1e6:.1f} GB/s")
+    del args
+    return dict(name="selective_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/selective_scan.cu",
+                replaces="src/repro/kernels/selective_scan.py:42",
+                launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+class Recorder:
+    """While active, wraps ``module.name`` to hand each call's arguments,
+    keyword arguments and result to ``seen``, and returns ``seen``'s
+    return value in the result's place when that is not None (the
+    function is looked up on the module at each call, so the model's own
+    calls go through the wrapper)."""
+
+    def __init__(self, module, name: str, seen):
+        self.module, self.name, self.seen = module, name, seen
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            out = self.fn(*args, **kwargs)
+            instead = self.seen(args, kwargs, out)
+            return out if instead is None else instead
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def abar_share(torch, ops):
+    """A Recorder of the share of abar in (0.01, 0.99) in every selective
+    scan that runs while it is active: (recorder, shares), with
+    ``shares`` the list of each call's share (one per Mamba layer of a
+    forward; every call has the same size)."""
+    shares = []
+
+    def seen(args, kwargs, out):
+        abar = args[0]
+        shares.append(float(((abar > 0.01) & (abar < 0.99)).float().mean()))
+    return Recorder(ops, "selective_scan_op", seen), shares
+
+
+def log_shares(shares) -> tuple[float, str]:
+    """(The mean share, a per-layer listing) of ``abar_share``'s list."""
+    return (sum(shares) / len(shares),
+            ", ".join(f"{100 * x:.2f}%" for x in shares))
+
+
+def jamba_defs(model, own: bool) -> dict:
+    """The model's ParamDefs, with the stacked matrices' scales at their
+    own fan-in (``own_fan_in_factors``) when ``own``. Both draw the same
+    numbers from one seed: only the scale differs."""
+    import dataclasses
+    defs = model.defs()
+    if not own:
+        return defs
+    factors = own_fan_in_factors(model)
+    return {k: dataclasses.replace(d, scale=factors[k] / math.sqrt(
+        d.shape[0])) if k in factors else d for k, d in defs.items()}
+
+
+def phase_jamba_blocks(torch, Transformer, cfg, phase: str):
+    """jamba's one period in f32, card vs CPU, block by block (the whole
+    period in f32 is 49.5 GiB of host memory): b0 (Mamba + MoE), b1
+    (Mamba + MLP) and b4 (attention + MoE), each at B=1, S=256 on a
+    unit-normal input, params drawn on the CPU at own fan-in, run on the
+    card (kernels) and on the CPU (plain versions). The outputs must
+    agree and the MoE routing must be equal."""
+    import dataclasses
+    from repro_torch.models import moe as moe_lib, transformer as tr
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              act_dtype="float32")
+    model = Transformer(cfg)
+    defs = jamba_defs(model, own=True)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 256, cfg.d_model)).astype(np.float32))
+    for j in (0, 1, 4):
+        kind, is_moe = cfg.block_pattern[j], cfg.layer_is_moe(j)
+        prefix = f"layers/b{j}/"
+        t0 = time.perf_counter()
+        params = init_params({k: d for k, d in defs.items()
+                              if k.startswith(prefix)},
+                             torch.Generator().manual_seed(10 + j), "cpu")
+        n_params = sum(v.numel() for v in params.values())
+        log(phase, f"b{j} ({kind} + {'MoE' if is_moe else 'MLP'}): "
+            f"{n_params} params drawn on the CPU in "
+            f"{time.perf_counter() - t0:.2f} s")
+        outs, routes = {}, {}
+        for device in ("cuda", "cpu"):
+            p = tr._layer({k: v.to(device) for k, v in params.items()},
+                          prefix, 0)
+            seen = []
+            with Recorder(moe_lib, "route",
+                          lambda a, kw, o: seen.append(o)):
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    y, aux = tr._apply_block(
+                        cfg, kind, is_moe, p, x.to(device),
+                        torch.arange(256, dtype=torch.int32, device=device))
+                y = y.cpu()
+                log(phase, f"b{j} {device}: B=1 S=256 f32 in "
+                    f"{time.perf_counter() - t0:.3f} s")
+            outs[device] = (y, None if aux is None else float(aux))
+            if seen:
+                probs, _, idx = seen[0]
+                routes[device] = (probs.cpu(), idx.cpu())
+            del p
+        (got, aux_got), (want, aux_want) = outs["cuda"], outs["cpu"]
+        err = max_err(torch, got, want)
+        if not (torch.isfinite(got).all()
+                and torch.allclose(got, want, **JAMBA_F32_TOL)):
+            raise AssertionError(f"jamba b{j}: card vs CPU max |err| "
+                                 f"{err:.3e} ({JAMBA_F32_TOL})")
+        note = ""
+        if is_moe:
+            (_, idx_got), (probs, idx_want) = routes["cuda"], routes["cpu"]
+            top = probs.topk(cfg.moe.top_k + 1, dim=-1).values
+            margin = float((top[:, -2] - top[:, -1]).min())
+            if not torch.equal(idx_got, idx_want):
+                bad = int((idx_got != idx_want).any(-1).sum())
+                raise AssertionError(f"jamba b{j}: MoE routing differs card "
+                                     f"vs CPU at {bad} tokens (smallest "
+                                     f"top-k margin {margin:.3e})")
+            note = (f"; routing equal at all {idx_want.shape[0]} tokens "
+                    f"(smallest top-{cfg.moe.top_k} margin {margin:.3e}); "
+                    f"aux {aux_got:.6f} vs {aux_want:.6f}")
+            if abs(aux_got - aux_want) > 1e-6:
+                raise AssertionError(f"jamba b{j}: aux loss differs, "
+                                     f"{aux_got} vs {aux_want}")
+        log(phase, f"b{j} output (1, 256, {cfg.d_model}) agrees: max |card "
+            f"- cpu| {err:.3e} ({JAMBA_F32_TOL}); max |y| "
+            f"{float(want.abs().max()):.3f}{note}")
+        del params
+
+
+def fault_conv_not_shifted(params, cache, t):
+    """Mamba: the conv window not shifted at step t (step t's write to
+    every layer's ``conv`` undone)."""
+    saved = {k: v.clone() for k, v in cache.items() if k.endswith("/conv")}
+
+    def after(cache):
+        for key, leaf in saved.items():
+            cache[key].copy_(leaf)
+    return params, after
+
+
+def fault_state_not_decayed(params, cache, t):
+    """Mamba: the SSM state not decayed at step t: every layer's ``a_log``
+    at -1e4 for that step, so A = -exp(-1e4) = -0 and abar = exp(dt A)
+    = 1 exactly."""
+    return {k: (v.new_full(v.shape, -1e4) if k.endswith("/mixer/a_log")
+                else v)
+            for k, v in params.items()}, None
+
+
+def route_diagnostics(torch, model, params, tokens, ops, moe_lib,
+                      router_f32: bool = False) -> dict:
+    """One forward and one stepped decode of ``tokens`` (B, S) with their
+    MoE routes recorded. Returns ``shares`` (each Mamba layer's share of
+    abar in (0.01, 0.99) in the forward), ``fwd`` and ``dec`` (per MoE
+    layer, in call order: the router's probs (B, S, E) and experts (B, S,
+    k) of each path), ``flips`` (n, B, S: the expert set differs between
+    the two paths) and both paths' logits. With ``router_f32`` both paths
+    take the router's logits from an f32 product (a diagnostic: the port,
+    as the JAX package, forms them in the activations' dtype)."""
+    b, s = tokens.shape
+    k = model.cfg.moe.top_k
+
+    def f32_router(args, kwargs, out):
+        _, p, xt = args
+        probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+        vals, idx = torch.topk(probs, k, dim=-1)
+        return probs, vals / vals.sum(-1, keepdim=True).clamp(min=1e-9), idx
+
+    def recorder(calls):
+        def seen(args, kwargs, out):
+            out = f32_router(args, kwargs, out) if router_f32 else out
+            calls.append(out)
+            return out
+        return Recorder(moe_lib, "route", seen)
+    rec, shares = abar_share(torch, ops)
+    fwd, dec = [], []
+    with rec, recorder(fwd), torch.no_grad():
+        fwd_logits, _ = model.forward(params, tokens)
+    with recorder(dec), torch.no_grad():
+        dec_logits = _stepped_logits(torch, model, params, tokens)
+    n = len(fwd)
+    fwd = [(pr.reshape(b, s, -1), ix.reshape(b, s, -1)) for pr, _, ix in fwd]
+    dec = [tuple(torch.stack([dec[t * n + l][i] for t in range(s)], dim=1)
+                 for i in (0, 2)) for l in range(n)]
+    flips = torch.stack([(fi.sort(-1).values != di.sort(-1).values).any(-1)
+                         for (_, fi), (_, di) in zip(fwd, dec)])
+    return dict(shares=shares, fwd=fwd, dec=dec, flips=flips,
+                fwd_logits=fwd_logits, dec_logits=dec_logits)
+
+
+def log_routes(torch, phase: str, label: str, diag: dict, k: int,
+               moe_layers: list) -> float | None:
+    """Logs, per MoE layer, the routes that differ between decode and
+    forward, the forward's top-k margin (p_k - p_k+1) at each of them
+    beside that layer's median margin, and the largest shift of a router
+    probability between the paths there; then the decode-vs-forward
+    logits error over the positions before each sequence's first
+    differing route (those positions saw the same experts in every layer
+    on both paths; a later position does not, since the Mamba state and
+    attention carry an earlier difference forward). Returns that error
+    (None when no position precedes a difference)."""
+    flips = diag["flips"]
+    n, b, s = flips.shape
+    for l, ((pf, _), (pd, _)) in enumerate(zip(diag["fwd"], diag["dec"])):
+        top = pf.topk(k + 1, dim=-1).values
+        margin = top[..., k - 1] - top[..., k]
+        at = flips[l]
+        shift = (pd - pf).abs().amax(-1)
+        where = [(int(bi), int(ti)) for bi, ti in at.nonzero()]
+        listed = ", ".join(f"(b{bi}, t{ti}) {float(margin[bi, ti]):.2e}"
+                           for bi, ti in where[:8])
+        log(phase, f"{label}: MoE layer b{moe_layers[l]}: {len(where)} of "
+            f"{b * s} routes differ; median top-{k} margin "
+            f"{float(margin.median()):.3e}, largest router-prob shift "
+            f"{float(shift.max()):.3e}" + (
+                f"; at the differing routes margin max "
+                f"{float(margin[at].max()):.3e}, shift max "
+                f"{float(shift[at].max()):.3e} ({listed}"
+                f"{', ...' if len(where) > 8 else ''})" if where else ""))
+    any_flip = flips.any(0)                                  # (B, S)
+    first = [int(any_flip[i].nonzero()[0]) if any_flip[i].any() else s
+             for i in range(b)]
+    diff = (diag["dec_logits"].float()
+            - diag["fwd_logits"].float()).abs().amax(-1)     # (B, S)
+    clean = torch.cat([diff[i, :first[i]] for i in range(b)])
+    err = float(clean.max()) if clean.numel() else None
+    log(phase, f"{label}: first differing route at step {first} (of {s}); "
+        f"decode vs forward over the {clean.numel()} positions before it: "
+        + (f"max |err| {err:.4e}" if err is not None else "none"))
+    return err
+
+
+def pinned_routes(torch, moe_lib, fwd: list):
+    """A factory of Recorders that, in a stepped decode of the (B, S)
+    tokens whose forward gave ``fwd`` (``route_diagnostics``), pin each
+    MoE layer's experts at step t to the forward's at t. The gate weights
+    stay decode's own router probabilities at those experts,
+    renormalized, so only the discrete choice is taken from the
+    forward."""
+    idx = torch.stack([ix for _, ix in fwd])                # (n, B, S, k)
+    n = idx.shape[0]
+
+    def make():
+        calls = []
+
+        def seen(args, kwargs, out):
+            c = len(calls)
+            calls.append(c)
+            probs = out[0]
+            pin = idx[c % n, :, c // n]
+            vals = probs.gather(-1, pin)
+            return probs, vals / vals.sum(-1, keepdim=True).clamp(
+                min=1e-9), pin
+        return Recorder(moe_lib, "route", seen)
+    return make
+
+
+def phase_jamba_decode(torch, Transformer, cfg, ops, phase: str):
+    """jamba decode vs prefill at full width on one period, B=2, S=64,
+    capacity_factor 8.0 (no prefill drop can diverge), weights drawn on
+    the card from one seed: f32 at own fan-in (checked, with two planted
+    faults that must break the tolerance), f32 and bf16 at the
+    reference's init (reported), then bf16 at own fan-in. In bf16 a
+    route may differ between the paths (a near-tie in the router moved
+    by the paths' rounding sends a token to another expert, which no
+    rounding tolerance covers): there decode is checked with its experts
+    pinned to the forward's (``pinned_routes``), the faults too, and,
+    unpinned, over the positions before the first differing route. Logs
+    the share of the model's abar in (0.01, 0.99), and the differing
+    routes with their router margins (also with the router's logits in
+    f32), at each init. Returns the bf16 own-fan-in params for the serve
+    phase."""
+    import dataclasses
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.params import init_params
+
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    moe_layers = [j for j in range(cfg.num_layers) if cfg.layer_is_moe(j)]
+    k = cfg.moe.top_k
+    # With the experts pinned, one step's skipped decay moves bf16 logits
+    # by about the rounding noise (~0.3): required in f32 only, as
+    # rwkv6-3b's skipped decay.
+    faults = {"conv window not shifted": (fault_conv_not_shifted, True),
+              "SSM state not decayed": (fault_state_not_decayed, False)}
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 64))).cuda()
+    params = None
+    for dname, own in (("float32", True), ("float32", False),
+                       ("bfloat16", False), ("bfloat16", True)):
+        model = Transformer(dataclasses.replace(
+            cfg8, param_dtype=dname, act_dtype=dname))
+        init = "own fan-in" if own else "the reference's init"
+        label = f"{dname} at {init}"
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = init_params(jamba_defs(model, own),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             "cuda", getattr(torch, dname))
+        torch.cuda.synchronize()
+        log(phase, f"{label}: {model.count_params()} params drawn on the "
+            f"card in {time.perf_counter() - t0:.2f} s")
+        diag = route_diagnostics(torch, model, params, tokens, ops, moe_lib)
+        inside, per_layer = log_shares(diag["shares"])
+        flips = int(diag["flips"].sum())
+        log(phase, f"{label}: {100 * inside:.2f}% of the model's abar in "
+            f"(0.01, 0.99) (forward B=2 S=64; by Mamba layer {per_layer}); "
+            f"MoE routes differing between decode and forward: {flips} of "
+            f"{diag['flips'].numel()}")
+        clean_err = log_routes(torch, phase, label, diag, k, moe_layers)
+        if own and inside <= 0.5:
+            raise AssertionError(f"{label}: half or less of the model's "
+                                 f"abar lies in (0.01, 0.99)")
+        if dname == "bfloat16":
+            f32r = route_diagnostics(torch, model, params, tokens, ops,
+                                     moe_lib, router_f32=True)
+            log(phase, f"{label}, router logits in f32 (diagnostic): "
+                f"{int(f32r['flips'].sum())} of {f32r['flips'].numel()} "
+                f"routes differ")
+            log_routes(torch, phase, f"{label}, router logits in f32",
+                       f32r, k, moe_layers)
+            del f32r
+        if not own:
+            phase_decode_vs_prefill(torch, model, params, {}, None, phase,
+                                    f" at {init}")
+        elif dname == "float32":
+            if flips:
+                raise AssertionError(f"{label}: {flips} MoE routes differ "
+                                     f"between decode and forward")
+            phase_decode_vs_prefill(torch, model, params, faults,
+                                    JAMBA_DECODE_TOL[dname], phase,
+                                    f" at {init}")
+        else:
+            tol = JAMBA_DECODE_TOL[dname]
+            top = float(diag["fwd_logits"].float().abs().max())
+            if top >= 8.0:
+                raise AssertionError(f"{label}: max |logit| {top:.3f}; the "
+                                     f"bf16 tolerance {tol} assumes < 8")
+            if clean_err is not None and clean_err > tol["atol"]:
+                raise AssertionError(f"{label}: decode vs forward before "
+                                     f"the first differing route, max "
+                                     f"|err| {clean_err:.3e} ({tol})")
+            phase_decode_vs_prefill(
+                torch, model, params, faults, tol, phase,
+                f" at {init}, experts pinned to the forward's",
+                pin=pinned_routes(torch, moe_lib, diag["fwd"]))
+        del diag
+    return params
+
+
+def phase_jamba_prefill_reads(torch, model, params, serve, tokens, ops,
+                              fa_mod):
+    """One more jamba prefill with its selective scans and its attention
+    call recorded: the share of abar in (0.01, 0.99) over the 7 Mamba
+    layers must exceed one half (own fan-in), and the flash kernel's
+    output on the model's own q, k, v (B=4, H=32 over Hkv=8, S=4096,
+    D=128, bf16, laid out as the model passes them) must agree with
+    ``flash_attention_plain`` on the same tensors to PREFILL_BF16_TOL."""
+    rec, shares = abar_share(torch, ops)
+    calls = []
+
+    def seen(args, kwargs, out):
+        calls.append(([a.clone() for a in args], dict(kwargs), out.clone()))
+    with rec, Recorder(ops, "flash_attention_op", seen):
+        serve.prefill(model, params, tokens)
+    inside, per_layer = log_shares(shares)
+    log("jamba-serve", f"{100 * inside:.2f}% of the model's abar in (0.01, "
+        f"0.99) over the prefill's 7 Mamba layers ({per_layer})")
+    if inside <= 0.5:
+        raise AssertionError("at own fan-in, half or less of the prefill's "
+                             "abar lies in (0.01, 0.99)")
+    if len(calls) != 1:
+        raise AssertionError(f"the prefill called flash_attention_op "
+                             f"{len(calls)} times; want 1")
+    (q, k, v), kwargs, got = calls[0]
+    want_shape = tuple(JAMBA_FLASH_PREFILL[x] for x in ("b", "h", "s", "d"))
+    if tuple(q.shape) != want_shape or k.shape[1] != \
+            JAMBA_FLASH_PREFILL["hkv"] or got.dtype != torch.bfloat16:
+        raise AssertionError(f"jamba's attention call: q {tuple(q.shape)}, "
+                             f"k {tuple(k.shape)}, out {got.dtype}; want q "
+                             f"{want_shape} over {JAMBA_FLASH_PREFILL['hkv']}"
+                             f" KV heads in bf16")
+    want = fa_mod.flash_attention_plain(q, k, v, **kwargs)
+    err = check_close(torch, got, want, "bfloat16",
+                      "flash on the jamba prefill's own q, k, v",
+                      PREFILL_BF16_TOL)
+    log("jamba-serve", f"flash on the prefill's own q {tuple(q.shape)}, k/v "
+        f"{tuple(k.shape)} bf16 ({kwargs}): max |kernel - plain| {err:.3e} "
+        f"({PREFILL_BF16_TOL}); mean |out| "
+        f"{float(want.float().abs().mean()):.4f}")
 
 
 def main() -> int:
@@ -1051,13 +1659,15 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import rwkv6_wkv as wkv_mod
+    from repro_torch.kernels import selective_scan as scan_mod
     from repro_torch.launch import serve
     from repro_torch.models import Transformer
     flash_entry = phase_flash(torch, fa_mod)
 
     kernels = {"fedagg": fedagg_mod.fedagg,
                "flash_attention": fa_mod.flash_attention,
-               "rwkv6_wkv": wkv_mod.rwkv6_wkv}
+               "rwkv6_wkv": wkv_mod.rwkv6_wkv,
+               "selective_scan": scan_mod.selective_scan}
 
     # 8-10. qwen3-0.6b: card vs CPU, decode vs prefill, serve
     flash_entry["launches"] = lm_slice(
@@ -1081,7 +1691,31 @@ def main() -> int:
         RWKV_DECODE_TOL, ("rwkv", "rwkv-decode", "rwkv-serve"),
         own_fan_in=True)
 
-    print(json.dumps({"kernels": [entry, flash_entry, wkv_entry]}))
+    # 15. the selective-scan kernel against its plain version
+    scan_entry = phase_scan(torch, scan_mod)
+
+    # 16-18. jamba-v0.1-52b at full width, one period of its four (8 of 32
+    # layers: 13,295,235,072 params, 24.76 GiB in bf16; the whole model's
+    # 96 GiB does not fit one card): card vs CPU block by block, decode vs
+    # prefill, serve. At own fan-in (ROADMAP Queue C: the reference's
+    # init saturates dt at one period).
+    import dataclasses
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=8)
+    phase_jamba_blocks(torch, Transformer, jamba, "jamba")
+    params = phase_jamba_decode(torch, Transformer, jamba, ops,
+                                "jamba-decode")
+    model = Transformer(jamba)
+    counts, tokens, _ = phase_serve(
+        torch, model, params, serve, kernels,
+        {"selective_scan": 7, "flash_attention": 1}, "jamba-serve")
+    scan_entry["launches"] = counts["selective_scan"]
+    phase_jamba_prefill_reads(torch, model, params, serve, tokens, ops,
+                              fa_mod)
+    phase_serve_profile(torch, model, params, serve, tokens, "scan_fwd")
+    del params
+
+    print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
+                                  scan_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

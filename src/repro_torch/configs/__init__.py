@@ -2,9 +2,9 @@
 (``paper_cnn``, ``paper_mlp``) and the LM zoo's registry (``base``, a
 copy of ``repro.configs.base``).
 
-Registered: ``qwen3-0.6b`` and ``rwkv6-3b``. :func:`get_config` of
-another zoo name raises a ``KeyError`` naming the ROADMAP item that
-brings it.
+Registered: ``qwen3-0.6b``, ``rwkv6-3b`` and ``jamba-v0.1-52b``.
+:func:`get_config` of another zoo name raises a ``KeyError`` naming the
+ROADMAP item that brings it.
 """
 from repro_torch.configs import base as _base
 from repro_torch.configs.base import (
@@ -20,13 +20,12 @@ from repro_torch.configs.base import (
 )
 
 # Importing a module registers its architecture.
-from repro_torch.configs import qwen3_0_6b, rwkv6_3b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    jamba_v01_52b, qwen3_0_6b, rwkv6_3b)
 
 # The JAX package's other zoo architectures, with the ROADMAP item that
 # brings each (Queue A item 13; their kernels are in Queue B).
 NOT_PORTED: dict[str, str] = {
-    "jamba-v0.1-52b": "ROADMAP Queue A item 13 with kernel B3 (the next "
-                      "slice; four chips at full width)",
     "granite-moe-1b-a400m": "ROADMAP Queue A item 13 (models/moe.py)",
     "qwen3-moe-30b-a3b": "ROADMAP Queue A item 13 (models/moe.py)",
     "mistral-nemo-12b": "ROADMAP Queue A item 13 (the zoo configs)",

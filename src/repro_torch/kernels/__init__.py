@@ -7,6 +7,9 @@ Kernels:
 - ``flash_attention`` — causal / windowed GQA attention forward (the LM
   prefill), CUDA C++ for sm_90a; replaces
   ``repro/kernels/flash_attention.py:87``.
+- ``selective_scan`` — the Mamba selective-SSM recurrence (the jamba
+  prefill), CUDA C++ for sm_90a; replaces
+  ``repro/kernels/selective_scan.py:42``.
 - ``rwkv6_wkv`` — the RWKV-6 WKV recurrence (the RWKV prefill), CUDA C++
   for sm_90a; replaces ``repro/kernels/rwkv6_wkv.py:47``.
 """

@@ -1,10 +1,10 @@
-"""Wrappers around the port's kernels (port of the fold, attention and
-WKV parts of ``repro.kernels.ops``).
+"""Wrappers around the port's kernels (port of ``repro.kernels.ops``:
+the fold, attention, selective-scan and WKV parts).
 
 Each wrapper dispatches on the device of the tensors it is given: CUDA
 tensors go through the hand-written kernel (``fedagg``,
-``flash_attention``, ``rwkv6_wkv``), CPU tensors through its plain
-version (for the fold, the per-leaf
+``flash_attention``, ``selective_scan``, ``rwkv6_wkv``), CPU tensors
+through its plain version (for the fold, the per-leaf
 :func:`repro_torch.core.treeops.tree_combine` — as the JAX dispatcher
 picks the einsum on CPU, ``repro/kernels/ops.py:99-103``). There is no
 override and no fallback: a CUDA tensor goes
@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.treeops import tree_combine
 from repro_torch.kernels.fedagg import fedagg
 from repro_torch.kernels import rwkv6_wkv as _wkv
+from repro_torch.kernels import selective_scan as _scan
 from repro_torch.kernels.flash_attention import (
     check_inputs, flash_attention, flash_attention_plain)
 
@@ -98,6 +99,26 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     raise ValueError(f"flash_attention_op: unsupported device {q.device}")
+
+
+def selective_scan_op(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                      chunk: int = 64, block_d: int = 256) -> torch.Tensor:
+    """The Mamba selective scan, abar/bx ``(B,S,D,N)``, c ``(B,S,N)`` ->
+    y ``(B,S,D)`` in bx's dtype: the ``selective_scan`` kernel on CUDA
+    tensors, :func:`~repro_torch.kernels.selective_scan
+    .selective_scan_plain` on CPU tensors; the inputs are checked the same
+    way on both. ``chunk`` and ``block_d`` are the JAX wrapper's
+    arguments, kept for its signature: they are the TPU kernel's tiling
+    of S and D (there divisors of them) and do not change the result; the
+    CUDA kernel keeps the state in registers over any S and D and does
+    not read them."""
+    del chunk, block_d
+    _scan.check_inputs(abar, bx, c)
+    if abar.device.type == "cuda":
+        return _scan.selective_scan(abar, bx, c)
+    if abar.device.type == "cpu":
+        return _scan.selective_scan_plain(abar, bx, c)
+    raise ValueError(f"selective_scan_op: unsupported device {abar.device}")
 
 
 def rwkv6_wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,16 +4,21 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --full --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
       --full --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+      --device cpu
+
+(``--full`` jamba-v0.1-52b is 51.6e9 params, 96 GiB in bf16: more than
+one card holds; ``chip_smoke.py`` serves one period of it.)
 
 Same flags as the JAX package's serve CLI, plus ``--device``. The CLI
 decodes with :func:`greedy_generate`, which steps the prompt through
 ``decode_step`` as the JAX CLI does: it launches no prefill kernel. The
 kernels' entry point is :func:`prefill`, the counterpart of the inner
 function of ``repro.launch.specs.make_prefill_step``: one forward over
-the prompt through the model's prefill kernel (``flash_attention`` for
-an attention stack, ``rwkv6_wkv`` for RWKV), returning the last
-position's logits. The mesh and sharding half of ``specs`` waits for
-ROADMAP Queue A item 12.
+the prompt through the model's prefill kernels (``flash_attention`` for
+an attention block, ``rwkv6_wkv`` for RWKV, ``selective_scan`` for
+Mamba), returning the last position's logits. The mesh and sharding
+half of ``specs`` waits for ROADMAP Queue A item 12.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ def prefill(model: Transformer, params: dict,
             tokens: torch.Tensor) -> torch.Tensor:
     """Last-position logits (B, V) of ``model.forward(params, tokens)``;
     only that position is unembedded ("what serving needs")."""
-    x = model.hidden_states(params, tokens)
+    x, _ = model.hidden_states(params, tokens)
     return model.logits(params, x[:, -1:])[:, 0]
 
 

@@ -27,7 +27,7 @@ import torch
 class ParamDef:
     """One parameter tensor: shape and init scheme."""
     shape: tuple[int, ...]
-    init: str = "normal"       # normal | zeros | ones | constant
+    init: str = "normal"  # normal | zeros | ones | constant | s4d_a_log
     scale: float | None = None  # stddev for normal; fan-in default if None
 
 
@@ -50,6 +50,12 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device,
     if d.init == "constant":
         return torch.full(d.shape, d.scale or 0.0, dtype=dtype,
                           device=device)
+    if d.init == "s4d_a_log":
+        # S4D-real: A_log[c, n] = log(n + 1); broadcast over channels.
+        n = d.shape[-1]
+        row = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                     device=device))
+        return row.expand(d.shape).to(dtype).contiguous()
     raise ValueError(f"unknown init {d.init}")
 
 

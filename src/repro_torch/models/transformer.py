@@ -1,5 +1,6 @@
 """Transformer assembly of the LM zoo (port of
-``repro.models.transformer``): dense attention stacks and RWKV-6 stacks.
+``repro.models.transformer``): dense attention stacks, RWKV-6 stacks and
+jamba's hybrid period of Mamba and attention blocks with MoE FFNs.
 
 Params are the port's flat ``dict[str, Tensor]``. The layers of one
 period are stacked along a leading axis under ``layers/b{j}/...`` keys,
@@ -10,15 +11,17 @@ package's ``lax.scan`` over the stack becomes a Python loop over views
 (no autograd on the serving path), and the JAX package's ``unroll``
 (a cost-analysis knob for its scans) has no counterpart.
 
-Decode keeps per-layer caches stacked the same way (an attention
-block's ``layers/b0/k`` of shape ``(num_layers, B, S_max, H_kv, D)``; an
-RWKV block's ``layers/b0/s`` of ``(num_layers, B, H, N, N)`` f32 and
-``layers/b0/x_prev_tm``, ``x_prev_cm`` of ``(num_layers, B, d_model)``)
-and updates them in place.
+Decode keeps per-layer caches stacked the same way over the periods
+(an attention block's ``layers/b4/k`` of shape ``(num_periods, B, S_max,
+H_kv, D)``; an RWKV block's ``layers/b0/s`` of ``(num_periods, B, H, N,
+N)`` f32 and ``x_prev_tm``, ``x_prev_cm`` of ``(num_periods, B,
+d_model)``; a Mamba block's ``h`` of ``(num_periods, B, d_inner, N)``
+f32 and ``conv`` of ``(num_periods, B, d_conv, d_inner)``) and updates
+them in place.
 
-Not ported yet (ROADMAP Queue A item 13), each raising
-``NotImplementedError``: MoE and Mamba blocks, MLA, encoder-decoder
-stacks and vision patches.
+Not ported yet, each raising ``NotImplementedError``: MLA,
+encoder-decoder stacks and vision patches (ROADMAP Queue A item 13), and
+MoE's shard-local dispatch ``moe_dispatch_local`` (item 12).
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     apply_embed,
     apply_mlp,
@@ -51,10 +56,6 @@ _ITEM = "ROADMAP Queue A item 13"
 
 def _check_supported(cfg: ArchConfig) -> None:
     missing = []
-    if cfg.moe is not None:
-        missing.append("MoE blocks (models/moe.py)")
-    for kind in sorted(set(cfg.block_pattern) - {"attn", "rwkv"}):
-        missing.append(f"{kind} blocks (kernel B3)")
     if cfg.attention_kind != "gqa":
         missing.append(f"{cfg.attention_kind} attention")
     if cfg.is_encdec:
@@ -64,38 +65,61 @@ def _check_supported(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet ({_ITEM})")
+    if cfg.moe is not None and cfg.moe_dispatch_local:
+        raise NotImplementedError(f"{cfg.name}: {moe_lib.LOCAL_DISPATCH}")
 
 
 # ====================================================== block definitions
-def _block_defs(cfg: ArchConfig, kind: str) -> dict:
-    """ParamDef tree for one dense attention block or one RWKV block
-    (which carries its own FFN, the channel mix, and no ``mlp``)."""
+def _block_defs(cfg: ArchConfig, kind: str, is_moe: bool) -> dict:
+    """ParamDef tree for one block: an attention or Mamba mixer with an
+    MLP or MoE FFN, or an RWKV block (which carries its own FFN, the
+    channel mix)."""
     d = {"norm1": norm_def(cfg.d_model, cfg.norm_kind),
          "norm2": norm_def(cfg.d_model, cfg.norm_kind)}
     if kind == "rwkv":
         d["mixer"] = rwkv_lib.rwkv_defs(cfg)
         d["cm"] = rwkv_lib.channel_mix_defs(cfg)
-    else:
+        return d
+    if kind == "attn":
         d["mixer"] = attn.gqa_defs(cfg)
+    elif kind == "mamba":
+        d["mixer"] = ssm_lib.mamba_defs(cfg)
+    else:
+        raise ValueError(kind)
+    if is_moe:
+        d["moe"] = moe_lib.moe_defs(cfg)
+    else:
         d["mlp"] = mlp_def(cfg.d_model, cfg.d_ff, cfg.act)
     return d
 
 
-def _apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, *, causal: bool = True,
-                 window: Optional[int] = None) -> torch.Tensor:
-    """One block forward (the JAX package's aux loss is always 0 here and
-    is not returned)."""
+def _ffn(cfg: ArchConfig, is_moe: bool, p: dict,
+         h2: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on the normed input: (y, MoE aux loss or None)."""
+    if is_moe:
+        return moe_lib.apply_moe(cfg, p["moe"], h2)
+    return apply_mlp(p["mlp"], h2, cfg.act), None
+
+
+def _apply_block(cfg: ArchConfig, kind: str, is_moe: bool, p: dict,
+                 x: torch.Tensor, positions: torch.Tensor, *,
+                 causal: bool = True, window: Optional[int] = None
+                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block forward. Returns (x, the MoE aux loss, or None for a
+    block without MoE, whose aux the JAX package counts as 0)."""
     if kind == "rwkv":
         x = x + rwkv_lib.rwkv_time_mix(
             cfg, p["mixer"], apply_norm(p["norm1"], x, cfg.norm_kind))
         return x + rwkv_lib.rwkv_channel_mix(
-            cfg, p["cm"], apply_norm(p["norm2"], x, cfg.norm_kind))
+            cfg, p["cm"], apply_norm(p["norm2"], x, cfg.norm_kind)), None
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
-    x = x + attn.attention_forward(cfg, p["mixer"], h, positions,
-                                   causal=causal, window=window)
-    h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
-    return x + apply_mlp(p["mlp"], h2, cfg.act)
+    if kind == "mamba":
+        x = x + ssm_lib.mamba_forward(cfg, p["mixer"], h)
+    else:
+        x = x + attn.attention_forward(cfg, p["mixer"], h, positions,
+                                       causal=causal, window=window)
+    y, aux = _ffn(cfg, is_moe, p, apply_norm(p["norm2"], x, cfg.norm_kind))
+    return x + y, aux
 
 
 def _layer(params: dict, prefix: str, i: Optional[int] = None) -> dict:
@@ -133,7 +157,7 @@ class Transformer:
         """Flat ParamDefs, keys ``/``-joined and in the JAX package's leaf
         order (sorted paths)."""
         cfg = self.cfg
-        period = {f"b{j}": _block_defs(cfg, kind)
+        period = {f"b{j}": _block_defs(cfg, kind, cfg.layer_is_moe(j))
                   for j, kind in enumerate(self.pattern)}
         d: dict[str, Any] = {
             "embed": embed_def(cfg.vocab_size, cfg.d_model),
@@ -152,22 +176,40 @@ class Transformer:
     def count_params(self) -> int:
         return param_count(self.defs())
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE counts top_k experts only)."""
+        cfg = self.cfg
+        total = param_count(self.defs())
+        if cfg.moe is None:
+            return total
+        m = cfg.moe
+        expert_p = 3 * cfg.d_model * m.d_ff_expert
+        n_moe_layers = sum(1 for layer in range(cfg.num_layers)
+                           if cfg.layer_is_moe(layer))
+        total -= n_moe_layers * (m.num_experts - m.top_k) * expert_p
+        return total
+
     # --------------------------------------------------------- forward
-    def hidden_states(self, params: dict,
-                      tokens: torch.Tensor) -> torch.Tensor:
+    def hidden_states(self, params: dict, tokens: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """The final-normed hidden states (B, S, d_model) of ``forward``,
-        before the unembedding."""
+        before the unembedding, and the summed MoE aux loss (f32 scalar,
+        0 without MoE)."""
         cfg = self.cfg
         x = apply_embed({"table": params["embed/table"]},
                         tokens.long()).to(getattr(torch, cfg.act_dtype))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.num_periods):
             for j, kind in enumerate(self.pattern):
-                x = _apply_block(cfg, kind,
-                                 _layer(params, f"layers/b{j}/", i), x,
-                                 positions)
-        return apply_norm(_layer(params, "final_norm/"), x, cfg.norm_kind)
+                x, a = _apply_block(cfg, kind, cfg.layer_is_moe(j),
+                                    _layer(params, f"layers/b{j}/", i), x,
+                                    positions)
+                if a is not None:
+                    aux = aux + a
+        return apply_norm(_layer(params, "final_norm/"), x,
+                          cfg.norm_kind), aux
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """Unembed hidden states: the tied table or the head."""
@@ -177,18 +219,20 @@ class Transformer:
 
     def forward(self, params: dict, tokens: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits (B, S, V), aux_loss scalar, always 0 here)."""
-        x = self.hidden_states(params, tokens)
-        return self.logits(params, x), torch.zeros((), device=x.device)
+        """-> (logits (B, S, V), aux_loss: the MoE blocks' summed
+        load-balance loss, an f32 scalar, 0 without MoE)."""
+        x, aux = self.hidden_states(params, tokens)
+        return self.logits(params, x), aux
 
     # ----------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int, use_window: bool = False,
                    device: torch.device | str = "cuda") -> dict:
         """Decode cache in the activation dtype: ``idx`` (a Python int,
         the next position) and per block ``layers/b{j}/{k,v,pos}`` (an
-        attention block) or ``layers/b{j}/{s,x_prev_tm,x_prev_cm}`` (an
-        RWKV block, the same size for any ``max_len``), stacked over the
-        layers."""
+        attention block), ``layers/b{j}/{s,x_prev_tm,x_prev_cm}`` (an
+        RWKV block) or ``layers/b{j}/{h,conv}`` (a Mamba block; the
+        recurrent states are the same size for any ``max_len``), stacked
+        over the periods."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.act_dtype)
         window = cfg.sliding_window if use_window else None
@@ -196,6 +240,8 @@ class Transformer:
         for j, kind in enumerate(self.pattern):
             if kind == "rwkv":
                 one = rwkv_lib.init_rwkv_cache(cfg, batch, dtype, device)
+            elif kind == "mamba":
+                one = ssm_lib.init_mamba_cache(cfg, batch, dtype, device)
             else:
                 one = attn.init_kv_cache(cfg, batch, max_len, window, dtype,
                                          device)
@@ -226,11 +272,15 @@ class Transformer:
                         cfg, p["cm"], h2, c["x_prev_cm"])
                     c["x_prev_cm"].copy_(h2[:, 0])
                     continue
-                y, _ = attn.attention_decode(cfg, p["mixer"], hin, c, idx,
-                                             window)
+                if kind == "mamba":
+                    y, _ = ssm_lib.mamba_decode(cfg, p["mixer"], hin, c)
+                else:
+                    y, _ = attn.attention_decode(cfg, p["mixer"], hin, c,
+                                                 idx, window)
                 x = x + y
-                h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
-                x = x + apply_mlp(p["mlp"], h2, cfg.act)
+                y, _ = _ffn(cfg, cfg.layer_is_moe(j), p,
+                            apply_norm(p["norm2"], x, cfg.norm_kind))
+                x = x + y
         cache["idx"] = idx + 1
         x = apply_norm(_layer(params, "final_norm/"), x, cfg.norm_kind)
         return self.logits(params, x)[:, 0], cache

@@ -25,7 +25,11 @@ MODULES = [
     "repro_torch.configs",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.rwkv6_wkv",
+    "repro_torch.kernels.selective_scan",
     "repro_torch.models.rwkv",
+    "repro_torch.models.ssm",
+    "repro_torch.models.moe",
+    "repro_torch.configs.jamba_v01_52b",
     "repro_torch.models.transformer",
     "repro_torch.launch.serve",
 ]

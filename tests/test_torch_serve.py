@@ -24,6 +24,8 @@ from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
 from repro_torch.launch import serve
 from repro_torch.models import Transformer, params_from_numpy
 
+from _torch_jamba import jamba_pair
+
 torch.set_num_threads(2)
 
 ARCH = "qwen3-0.6b"
@@ -123,3 +125,45 @@ def test_main_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--gen", "1"])
+
+
+# ---------------------------------------------------------------- jamba
+# The reduced jamba-v0.1-52b at its matrices' own fan-in, f32
+# (``_torch_jamba.jamba_pair``).
+
+
+def test_jamba_prefill_is_last_row_of_jax_forward():
+    """Prefill at the JAX model's chunk (32) times two; MoE at capacity
+    1.25, as served."""
+    tm, jm, jp, tp = jamba_pair()
+    tokens = np.random.default_rng(8).integers(
+        0, tm.cfg.vocab_size, (3, 64)).astype(np.int32)
+    want, _ = jm.forward(jp, jnp.asarray(tokens))
+    got = serve.prefill(tm, tp, torch.from_numpy(tokens))
+    assert got.shape == (3, tm.cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, -1],
+                               atol=1e-4, rtol=0)
+
+
+def test_jamba_greedy_generate_matches_jax_serve_loop():
+    tm, jm, jp, tp = jamba_pair()
+    prompts = _prompts(tm.cfg, 2, 16)
+    want, logits = _jax_serve_replay(jm, jp, prompts, 16, False)
+    got = serve.greedy_generate(tm, tp, prompts, 16)
+    assert got.shape == (2, 32) and got.dtype == np.int32
+    top2 = np.sort(logits[:, 15:], axis=-1)[..., -2:]
+    margin = float((top2[..., 1] - top2[..., 0]).min())
+    assert np.array_equal(got, want), (
+        f"tokens differ; smallest top-2 logit margin of the greedy steps "
+        f"{margin:.3e}\nport {got.tolist()}\njax  {want.tolist()}")
+
+
+def test_jamba_main_runs_on_cpu_when_asked(capsys):
+    out = serve.main(["--arch", "jamba-v0.1-52b", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "4"])
+    assert out.shape == (2, 12)
+    assert ((out >= 0) & (out < 512)).all()
+    text = capsys.readouterr().out
+    assert "jamba-v0.1-52b-reduced on cpu" in text and "seq1:" in text
+    np.testing.assert_array_equal(out[:, :8], _prompts(
+        get_config("jamba-v0.1-52b").reduced(), 2, 8))

@@ -29,6 +29,8 @@ from repro_torch.models import (Transformer, params_from_numpy,
                                 params_to_numpy)
 from repro_torch.models.transformer import cross_entropy_loss
 
+from _torch_jamba import JAMBA, chip_smoke, jamba_pair
+
 torch.set_num_threads(2)
 
 F32 = dict(atol=1e-4, rtol=0)
@@ -89,7 +91,7 @@ def test_configs_equal_field_by_field():
         assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
         assert dataclasses.asdict(full.reduced()) == \
             dataclasses.asdict(jfull.reduced())
-    assert list_configs() == [ARCH, "rwkv6-3b"]
+    assert list_configs() == ["jamba-v0.1-52b", ARCH, "rwkv6-3b"]
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()}
 
@@ -102,16 +104,32 @@ def test_unported_zoo_arch_names_its_roadmap_item(name):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=128)),
-    dict(block_pattern=("attn", "mamba")),
+    dict(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=128),
+         moe_dispatch_local=True),
     dict(attention_kind="mla"),
     dict(encoder_layers=2),
     dict(vision_patches=16),
-], ids=["moe", "mamba", "mla", "encdec", "vision"])
+], ids=["moe_dispatch_local", "mla", "encdec", "vision"])
 def test_unported_blocks_raise(overrides):
     cfg = dataclasses.replace(get_config(ARCH).reduced(), **overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(cfg)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=128)),
+    dict(block_pattern=("attn", "mamba"),
+         mamba=get_config("jamba-v0.1-52b").reduced().mamba),
+], ids=["moe", "mamba"])
+def test_moe_and_mamba_blocks_build(overrides):
+    """MoE and Mamba blocks are ported (jamba's, and in any pattern)."""
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), **overrides)
+    tm = Transformer(cfg)
+    params = tm.init(torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        logits, aux = tm.forward(params, torch.zeros(1, 8, dtype=torch.long))
+    assert logits.shape == (1, 8, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and aux.dtype == torch.float32
 
 
 def test_full_width_defs_match_jax_leaf_for_leaf():
@@ -224,3 +242,97 @@ def test_window_decode_matches_jax():
     assert cache["layers/b0/k"].shape == (2, 2, 32, 2, 64)
     got = _port_decode(tm, tp, tokens, use_window=True)
     np.testing.assert_allclose(got, _jax_decode(jm, jp, tokens, True), **F32)
+
+
+# ================================================================ jamba
+# The reduced jamba-v0.1-52b: one period of 8 blocks (Mamba at 0-3 and
+# 5-7, attention at 4 without RoPE; MoE of 4 experts, top-2, at 0, 2, 4,
+# 6), d_model 256, from ``_torch_jamba.jamba_pair``: the JAX-made params
+# rescaled to each matrix's own fan-in, where the port and the JAX
+# package agree to ~5e-6 (at the JAX package's init they differ by ~0.5
+# on logits of ~1.4, chaotic in the order of the sums). f32 tolerance
+# atol=1e-4 for the forward, and the JAX package's own decode-vs-forward
+# bound for jamba, 1e-2 (tests/test_decode.py:26), for decode against
+# the forward.
+JAMBA_DECODE = dict(atol=1e-2, rtol=0)
+
+
+def test_jamba_full_width_defs_match_jax_leaf_for_leaf():
+    tm, jm = Transformer(get_config(JAMBA)), JaxTransformer(
+        jax_get_config(JAMBA))
+    flat, _ = jax.tree_util.tree_flatten_with_path(jm.defs(), is_leaf=is_def)
+    want = {"/".join(p.key for p in path): d for path, d in flat}
+    got = tm.defs()
+    assert list(got) == list(want)
+    for k, d in got.items():
+        assert (d.shape, d.init, d.scale) == \
+            (want[k].shape, want[k].init, want[k].scale), k
+    assert got["layers/b0/moe/w_gate"].shape == (4, 16, 4096, 14336)
+    assert got["layers/b4/mixer/wq"].shape == (4, 4096, 4096)
+    assert "layers/b1/mlp/w_up" in got and "layers/b1/moe/w_up" not in got
+    assert tm.count_params() == jm.count_params() == 51_570_315_264
+    assert tm.active_param_count() == jm.active_param_count()
+    one_period = Transformer(dataclasses.replace(get_config(JAMBA),
+                                                 num_layers=8))
+    assert one_period.count_params() == 13_295_235_072
+
+
+def test_own_fan_in_factors_of_stacked_leaves():
+    """The fan-in of a stacked (L, ..., d_in, d_out) leaf is shape[-2]:
+    d_in of a matrix and of an expert stack (L, E, d_in, d_out) alike,
+    not E; rwkv6-3b's factors are those of its (L, d_in, d_out)
+    matrices."""
+    own = chip_smoke().own_fan_in_factors
+    jamba = own(Transformer(get_config(JAMBA)))
+    assert jamba["layers/b0/moe/w_gate"] == pytest.approx((4 / 4096) ** 0.5)
+    assert jamba["layers/b0/moe/w_down"] == pytest.approx(
+        (4 / 14336) ** 0.5)
+    assert jamba["layers/b0/mixer/dt_proj"] == pytest.approx((4 / 256) ** 0.5)
+    assert "layers/b0/moe/router" not in jamba       # its own scale, 0.02
+    assert "layers/b0/mixer/conv_w" not in jamba     # its own scale, 0.5
+    rwkv = own(Transformer(get_config("rwkv6-3b")))
+    assert rwkv["layers/b0/mixer/w_r"] == pytest.approx((32 / 2560) ** 0.5)
+    assert rwkv["layers/b0/cm/w_v"] == pytest.approx((32 / 8960) ** 0.5)
+    assert len(rwkv) == 8
+
+
+@pytest.mark.parametrize("s", [16, 64])
+def test_jamba_forward_and_aux_match_jax(s):
+    tm, jm, jp, tp = jamba_pair()
+    tokens = _tokens(2, s, tm.cfg.vocab_size)
+    want, waux = jm.forward(jp, jnp.asarray(tokens))
+    with torch.no_grad():
+        got, aux = tm.forward(tp, torch.from_numpy(tokens))
+    assert got.shape == (2, s, tm.cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    # four MoE blocks' Switch losses, summed
+    assert float(aux) > 0.0
+    assert abs(float(aux) - float(waux)) < 1e-6
+
+
+def test_jamba_decode_matches_jax_decode_and_own_forward():
+    """capacity_factor 8.0, as tests/test_decode.py:43-45: no prefill
+    drop can make the forward diverge from decode."""
+    tm, jm, jp, tp = jamba_pair(capacity_factor=8.0)
+    tokens = _tokens(2, 16, tm.cfg.vocab_size, seed=3)
+    got = _port_decode(tm, tp, tokens)
+    np.testing.assert_allclose(got, _jax_decode(jm, jp, tokens), **F32)
+    with torch.no_grad():
+        fwd, _ = tm.forward(tp, torch.from_numpy(tokens))
+    np.testing.assert_allclose(got, fwd.numpy(), **JAMBA_DECODE)
+
+
+def test_jamba_cache_is_stacked_and_constant_size_for_mamba():
+    tm = Transformer(dataclasses.replace(get_config(JAMBA).reduced(),
+                                         act_dtype="bfloat16"))
+    c16 = tm.init_cache(2, 16, device="cpu")
+    c64 = tm.init_cache(2, 64, device="cpu")
+    assert tuple(c16["layers/b0/h"].shape) == (1, 2, 512, 8)
+    assert tuple(c16["layers/b0/conv"].shape) == (1, 2, 4, 512)
+    assert c16["layers/b0/h"].dtype == torch.float32
+    assert c16["layers/b0/conv"].dtype == torch.bfloat16
+    assert tuple(c64["layers/b4/k"].shape) == (1, 2, 64, 4, 64)
+    for j in (0, 1, 2, 3, 5, 6, 7):
+        for name in ("h", "conv"):
+            key = f"layers/b{j}/{name}"
+            assert c16[key].shape == c64[key].shape
