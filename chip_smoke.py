@@ -24,11 +24,15 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    every kernel of the path must have run;
 6. profile — one more full-width round under torch.profiler: device
    time by kernel and the device's busy share of the round;
-7. flash — the ``flash_attention`` kernel against its plain version on
-   the card: the CPU tests' sweep (f32 and bf16, windows, bidirectional)
-   and the serving prefill shape (B=4, H=16, Hkv=8, S=4096, D=128,
-   causal) in f32 and bf16, where three planted long-row faults must
-   break the bf16 tolerance; timed in bf16 beside the plain version, its
+7. flash — the ``flash_attention`` kernels against their plain version
+   on the card (bf16 at D >= 16 runs the tensor-core kernel, f32 and D=8
+   the SIMT one; each call's variant is counted): the CPU tests' sweep
+   (f32 and bf16, windows, bidirectional) plus ragged lengths around the
+   tensor-core tiles (S = 1 .. 300, GQA groups 1-8, windows 1, 63, 200),
+   and both prefill shapes (qwen3-0.6b's B=4, H=16, Hkv=8, S=4096,
+   D=128 and jamba's H=32 over 8, causal) in f32 and bf16, where three
+   planted long-row faults must break the bf16 tolerance; timed at both
+   shapes in bf16 beside the f32 SIMT kernel, the plain version, its
    bound and ``scaled_dot_product_attention`` (``library_ms``, timed
    here only);
 8. LM card vs CPU — full-width qwen3-0.6b in f32 from one CPU-drawn
@@ -38,7 +42,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    ``decode_step`` logits against ``forward`` logits on the card; two
    planted cache faults must break the same tolerance;
 10. serve — full-width qwen3-0.6b in bf16: ``prefill`` at B=4, S=4096
-    (the counts zeroed just before, read just after: 28 flash launches),
+    (the counts zeroed just before, read just after: 28 flash launches,
+    all 28 of the tensor-core kernel, none of the SIMT one),
     then ``greedy_generate`` at serve's defaults (batch 4, prompt 16,
     gen 32); then one prefill and a few decode steps under
     torch.profiler;
@@ -81,7 +86,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     0.99) at both inits;
 18. jamba serve — the period in bf16 at own fan-in: ``prefill`` at B=4,
     S=4096 (the counts zeroed just before, read just after: 7
-    ``selective_scan`` and 1 ``flash_attention`` launches), the share of
+    ``selective_scan`` and 1 ``flash_attention`` launches, that one of the
+    tensor-core kernel), the share of
     its abar in (0.01, 0.99), ``greedy_generate`` at serve's defaults,
     and the profiles of phase 10.
 
@@ -112,16 +118,23 @@ BF16_FLOP_PER_S = 989e12   # dense, tensor cores
 # (tests/test_kernels.py). f32: the kernel's sequential FMA chain and the
 # plain version's separately rounded multiply + tree sum differ by a few
 # ulps of an O(5) sum. bf16: one bf16 ulp of the rounded output, at the
-# sweep's short rows, whose outputs are O(0.2-1).
+# sweep's short rows, whose outputs are O(0.2-1); the flash tensor-core
+# kernel's P in bf16 (below) adds at most ~2^-9 of an output there.
 TOL = {"float32": dict(atol=3e-5, rtol=1e-4),
        "bfloat16": dict(atol=5e-2, rtol=5e-2)}
 # Flash at the prefill shape in bf16. A row that attends to n random keys
 # has outputs of RMS ~sqrt(e/n): mean |O| is ~0.05 over S=4096 rows, as
-# large as the sweep's atol. Kernel and plain version both compute in f32
-# and differ in the f32 sums' order (~1e-6) and then by at most one bf16
-# ulp of the rounded output (<= 2^-7 relative); rtol allows two ulps and
-# atol covers outputs near 0. Phase 7 shows that planted faults on long
-# rows break this tolerance.
+# large as the sweep's atol. The plain version keeps P in f32; the
+# tensor-core kernel rounds P to bf16 before P·V (2^-9 relative per
+# element, which averages out over a long row as ~2^-9/sqrt(n) of an
+# output) and, on the tiles that cross a mask edge, where a row may hold
+# only a few keys, adds the remainder P - bf16(P) as a second bf16 product
+# (P to ~2^-17). Scores and sums are f32 in both. They then differ by at
+# most one bf16 ulp of the rounded output (<= 2^-7 relative) plus that
+# share; rtol allows two ulps and atol covers outputs near 0
+# (tests/test_torch_flash_attention.py emulates the kernel's rounding on
+# the CPU and holds it to this). Phase 7 shows that planted faults on
+# long rows break this tolerance.
 PREFILL_BF16_TOL = dict(atol=1e-3, rtol=1.6e-2)
 # Card vs CPU after one round of 2 SGD steps + the fold, both full f32
 # (TF32 off): the convolutions and matmuls reduce in other orders, which
@@ -135,9 +148,10 @@ PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
 # (tests/test_decode.py).
 LM_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 # Decode vs prefill at full width in bf16 (8 significant bits): the two
-# paths round at other places (P kept in f32 by the kernel, cast to bf16
-# by decode's einsum, as in the JAX package; GEMMs of M=128 vs M=2) and
-# the differences compound over 28 layers. Logits are ~N(0, 0.65^2) at
+# paths round at other places (P cast to bf16 by decode's einsum, as in
+# the JAX package, and by the prefill's tensor-core kernel, except on its
+# mask-edge tiles; GEMMs of M=128 vs M=2) and the differences compound
+# over 28 layers. Logits are ~N(0, 0.65^2) at
 # this init; 0.25 is ~16 bf16 ulps at the largest |logit| (~4). Sound
 # runs read ~0.16 on an H100; phase 9 plants two cache faults (a skipped
 # position, a lost slot), which read ~3 there, and requires each to
@@ -430,13 +444,23 @@ def phase_profile(torch, eng):
 
 
 # Phase 7's sweep: the CPU tests' shapes (tests/test_torch_flash_attention
-# .py) as (B, H, Hkv, S, D, causal, window).
+# .py) as (B, H, Hkv, S, D, causal, window), then ragged lengths around
+# the tensor-core kernel's 64-row groups and 128-key tiles (S = 1, 63, 65,
+# 127, 129, 300 at D = 64 and 128), GQA groups 1, 2, 4 and 8, and windows
+# across a tile edge (W = 1, 63, 200).
 FLASH_SWEEP = (
     [(1, 2, 2, 32, 16, True, None), (2, 4, 2, 64, 32, True, None),
      (1, 8, 2, 48, 64, True, None), (1, 2, 1, 40, 8, True, None),
      (2, 2, 2, 128, 128, True, None), (2, 8, 2, 80, 32, True, 20),
      (1, 2, 2, 32, 16, False, None)]
-    + [(1, 2, 2, 64, 16, True, w) for w in (1, 8, 24, 1000)])
+    + [(1, 2, 2, 64, 16, True, w) for w in (1, 8, 24, 1000)]
+    + [(1, 2, 2, 1, 128, True, None), (1, 4, 4, 1, 64, True, None),
+       (1, 4, 2, 63, 64, True, None), (2, 8, 4, 63, 128, True, 63),
+       (1, 4, 1, 65, 128, True, None), (1, 8, 8, 65, 64, False, None),
+       (2, 8, 1, 127, 64, True, 63), (1, 4, 2, 127, 128, True, 1),
+       (1, 8, 2, 129, 128, True, 1), (1, 8, 1, 129, 64, True, 200),
+       (1, 8, 8, 300, 64, True, 200), (2, 16, 2, 300, 128, True, 63),
+       (1, 4, 1, 300, 128, False, None), (1, 16, 8, 300, 64, True, None)])
 PREFILL = dict(b=4, h=16, hkv=8, s=4096, d=128)
 # jamba-v0.1-52b's one attention block in its serve prefill (phase 18):
 # 32 heads over 8 KV heads (group 4), no RoPE.
@@ -509,27 +533,44 @@ def phase_flash(torch, fa_mod):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             q, k, v = _bshd_views(torch, gen, b, h, hkv, s, d, dtype)
+            variant = fa_mod.kernel_variant(dtype, d)
+            before = (fa.launches_tc, fa.launches_simt)
             err = check_close(torch, fa(q, k, v, causal, window),
                               plain(q, k, v, causal, window), dname,
                               f"flash {dname} B={b} H={h} Hkv={hkv} S={s} "
                               f"D={d} causal={causal} window={window}")
+            ran = (fa.launches_tc - before[0], fa.launches_simt - before[1])
+            if ran != ((1, 0) if variant == "tc" else (0, 1)):
+                raise AssertionError(f"flash {dname} D={d}: launches "
+                                     f"(tc, simt) {ran}; want {variant}")
             log("flash", f"{dname} B={b} H={h} Hkv={hkv} S={s} D={d} "
-                f"causal={causal} window={window}: max |err| {err:.3e}")
+                f"causal={causal} window={window} ({variant}): max |err| "
+                f"{err:.3e}")
 
-    # The prefill shapes: jamba's first, then qwen3-0.6b's, whose tensors
-    # the timing below reads.
+    # The prefill shapes: jamba's first, then qwen3-0.6b's, whose numbers
+    # go into the kernels line. bf16 runs the tensor-core kernel, f32 the
+    # SIMT one (counted).
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = 0.0
     for shape in (JAMBA_FLASH_PREFILL, PREFILL):
         b, h, hkv, s, d = (shape[x] for x in ("b", "h", "hkv", "s", "d"))
         what = f"B={b} H={h} Hkv={hkv} S={s} D={d}"
         q, k, v = _bshd_views(torch, gen, b, h, hkv, s, d, torch.float32)
+        n_simt = fa.launches_simt
         err32 = check_close(torch, fa(q, k, v), plain(q, k, v), "float32",
                             f"flash f32 at the prefill shape {what}")
         ms32 = time_ms(torch, lambda: fa(q, k, v), reps=3, warmup=1)
+        if fa.launches_simt - n_simt != 5:
+            raise AssertionError("f32 flash calls did not all run the SIMT "
+                                 "kernel")
         log("flash", f"prefill shape {what} f32: max |err| {err32:.3e} "
-            f"({TOL['float32']}); kernel {ms32:.4f} ms")
+            f"({TOL['float32']}); SIMT kernel {ms32:.4f} ms")
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        n_tc = fa.launches_tc
         got = fa(q, k, v)
+        if fa.launches_tc != n_tc + 1:
+            raise AssertionError("bf16 flash did not run the tensor-core "
+                                 "kernel")
         if not got.transpose(1, 2).is_contiguous():
             raise AssertionError("flash output is not laid out like q")
         want = plain(q, k, v)
@@ -543,23 +584,24 @@ def phase_flash(torch, fa_mod):
         del got
         check_planted_faults(torch, q, k, v, want)
         del want
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = time_ms(torch, lambda: fa(q, k, v), reps=10)
-    plain_ms = time_ms(torch, lambda: plain(q, k, v), reps=5, warmup=1)
-    lib_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
-                                         enable_gqa=True), reps=10)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    # The causal pairs this input needs, 2 FLOP per multiply-add in each
-    # of Q·Kᵀ and P·V.
-    flop = 4 * b * h * d * s * (s + 1) // 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log("flash", f"prefill shape B={b} H={h} Hkv={hkv} S={s} D={d} bf16 "
-        f"causal: max |err| {err:.3e}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; {nbytes} bytes, "
-        f"{flop:.4e} FLOP, bound {bound_ms:.4f} ms ({bound_by}); kernel "
-        f"at {flop / ms / 1e9:.2f} TFLOP/s")
+        ms = time_ms(torch, lambda: fa(q, k, v), reps=10)
+        plain_ms = time_ms(torch, lambda: plain(q, k, v), reps=5, warmup=1)
+        lib_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
+                                             enable_gqa=True), reps=10)
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+        # The causal pairs this input needs, 2 FLOP per multiply-add in
+        # each of Q·Kᵀ and P·V.
+        flop = 4 * b * h * d * s * (s + 1) // 2
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log("flash", f"prefill shape {what} bf16 causal: tensor-core kernel "
+            f"{ms:.4f} ms at {flop / ms / 1e9:.2f} TFLOP/s, SIMT kernel "
+            f"(f32) {ms32:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{lib_ms:.4f} ms at {flop / lib_ms / 1e9:.2f} TFLOP/s; "
+            f"{nbytes} bytes, {flop:.4e} FLOP, bound {bound_ms:.4f} ms "
+            f"({bound_by}); kernel at {bound_ms / ms:.3f} of its bound, "
+            f"{ms / lib_ms:.3f}x sdpa")
     del q, k, v
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -878,13 +920,28 @@ def phase_decode_vs_prefill(torch, model, params, faults: dict,
                              + "; ".join(failed))
 
 
+def launch_counters(kernels: dict) -> dict:
+    """Every launch count of the wrappers in ``kernels``: ``name`` ->
+    (wrapper, "launches"), and ``name.tc`` / ``name.simt`` -> the
+    per-variant counts where a wrapper has them."""
+    out = {}
+    for name, fn in kernels.items():
+        out[name] = (fn, "launches")
+        for variant in ("tc", "simt"):
+            if hasattr(fn, f"launches_{variant}"):
+                out[f"{name}.{variant}"] = (fn, f"launches_{variant}")
+    return out
+
+
 def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
                 phase: str):
     """The serve slice on the card: prefill B=4, S=4096 (counted), then
     greedy_generate at serve's defaults. ``kernels`` maps each kernel's
-    name to its wrapper (with the ``launches`` count); the prefill must
-    launch each kernel as often as ``expected`` says (a kernel not named
-    there: never). Returns the prefill's launch counts."""
+    name to its wrapper (with the ``launches`` count, and for flash the
+    ``launches_tc`` and ``launches_simt`` counts of its variants, read as
+    ``flash_attention.tc`` and ``flash_attention.simt``); the prefill must
+    launch each kernel and variant as often as ``expected`` says (one not
+    named there: never). Returns the prefill's launch counts."""
     from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
 
     b, s = PREFILL["b"], PREFILL["s"]
@@ -893,14 +950,16 @@ def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
     serve.prefill(model, params, tokens)                     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
+    counters = launch_counters(kernels)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     t0 = time.perf_counter()
     last = serve.prefill(model, params, tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in kernels.items()}
-    want = {name: expected.get(name, 0) for name in kernels}
+    counts = {name: getattr(fn, attr)
+              for name, (fn, attr) in counters.items()}
+    want = {name: expected.get(name, 0) for name in counters}
     if counts != want:
         raise AssertionError(f"prefill launched {counts}; want {want}")
     if last.shape != (b, model.cfg.vocab_size) or not torch.isfinite(
@@ -965,11 +1024,14 @@ def phase_serve_profile(torch, model, params, serve, tokens, needle: str):
 
 def lm_slice(torch, Transformer, get_config, serve, arch: str,
              kernels: dict, kernel: str, needle: str, faults: dict,
-             decode_tols: dict, phases: tuple, own_fan_in: bool) -> int:
+             decode_tols: dict, phases: tuple, own_fan_in: bool,
+             variant: str | None = None) -> int:
     """One LM slice on the card, full width: ``forward`` card vs CPU in
     f32; decode vs prefill in f32, then bf16 (the same init, cast), with
     the planted ``faults``; then the serve slice in bf16, its counts
-    zeroed just before the prefill and read just after, and its profile.
+    zeroed just before the prefill and read just after (one launch of
+    ``kernel`` per layer, all of them of ``variant`` where it is given),
+    and its profile.
     With ``own_fan_in``, decode vs prefill with the stacked matrices at
     their own fan-in is reported first (``own_fan_in_factors``).
     Returns the launches of ``kernel`` in that prefill."""
@@ -993,9 +1055,12 @@ def lm_slice(torch, Transformer, get_config, serve, arch: str,
     del params_cpu
     phase_decode_vs_prefill(torch, model, params, faults,
                             decode_tols["bfloat16"], decode_phase)
+    layers = model.cfg.num_layers
+    expected = {kernel: layers}
+    if variant:
+        expected[f"{kernel}.{variant}"] = layers
     counts, tokens, _ = phase_serve(torch, model, params, serve, kernels,
-                                    {kernel: model.cfg.num_layers},
-                                    serve_phase)
+                                    expected, serve_phase)
     phase_serve_profile(torch, model, params, serve, tokens, needle)
     return counts[kernel]
 
@@ -1594,8 +1659,11 @@ def main() -> int:
     for name, info in built.items():
         log("build", f"{name}: {info['seconds']:.2f} s "
             f"(cached={info['cached']})")
+        # Each kernel's registers and spills under its (mangled) name, and
+        # any wgmma serialisation ptxas reports.
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("Function properties", "Used ",
+                                       "spill", "Performance Loss")):
                 log("build", f"  {line.strip()}")
     log("build", f"all kernels built in {time.perf_counter() - t0:.2f} s")
 
@@ -1677,7 +1745,7 @@ def main() -> int:
          "lost slot": (fault_lost_slot, True)},
         {"float32": LM_F32_TOL, "bfloat16": dict(atol=DECODE_BF16_ATOL,
                                                  rtol=0)},
-        ("lm", "decode", "serve"), own_fan_in=False)
+        ("lm", "decode", "serve"), own_fan_in=False, variant="tc")
 
     # 11. the WKV kernel against its plain version
     wkv_entry = phase_wkv(torch, wkv_mod)
@@ -1707,7 +1775,8 @@ def main() -> int:
     model = Transformer(jamba)
     counts, tokens, _ = phase_serve(
         torch, model, params, serve, kernels,
-        {"selective_scan": 7, "flash_attention": 1}, "jamba-serve")
+        {"selective_scan": 7, "flash_attention": 1, "flash_attention.tc": 1},
+        "jamba-serve")
     scan_entry["launches"] = counts["selective_scan"]
     phase_jamba_prefill_reads(torch, model, params, serve, tokens, ops,
                               fa_mod)

@@ -3,7 +3,7 @@
 //   O[b,h] = softmax(Q[b,h] K[b,h/G]^T / sqrt(D) + mask) V[b,h/G]
 //
 //   q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D), o: (B, H, Sq, D); G = H / Hkv.
-//   f32 or bf16 in and out; scores, probabilities and sums in f32.
+//   f32 or bf16 in and out; scores, running max and sums in f32.
 //   mask: k_pos < Sk; causal q_pos >= k_pos; window q_pos - k_pos < W.
 //
 // Replaces the Pallas TPU kernel `flash_attention`
@@ -11,22 +11,67 @@
 // `_flash_kernel` at :27), whose oracle is `flash_attention_ref`
 // (src/repro/kernels/ref.py:18).
 //
-// Bound: operations. At the serving path's prefill shape (B=4, H=16,
-// Hkv=8, S=4096, D=128, bf16, causal) one call does 2*B*H*S^2*D =
-// 2.75e11 FLOP (the causal half of QK^T and PV) on 201.3 MB of q, k, v
-// and o (100.7 M bf16 elements): ~0.28 ms at the card's 989 TFLOP/s
-// dense bf16 rate, against ~0.06 ms for the bytes at 3.35 TB/s. This
-// kernel does its products with f32 FMAs (no tensor cores), so its own
-// ceiling is the 67 TFLOP/s f32 rate, ~4.1 ms per call; wgmma, TMA and
-// warp specialisation are later work.
+// Two hand-written kernels, chosen in one place (variant_for, by dtype and
+// D):
+// - flash_fwd_tc: bf16 with D in {16, 32, 64, 128}, on the tensor cores
+//   (wgmma). The serving path (bf16, D = 128) runs it.
+// - flash_fwd: f32 (whose tensor-core path would be TF32, which the port
+//   does not use) and D = 8 (below wgmma's k16 depth), f32 FMAs on the
+//   CUDA cores.
 //
-// Design against that bound:
-// - One block of 256 threads per (64-row query tile, query head, batch).
-//   Query head h reads KV head h / G (the TPU kernel's index map). Tiles
-//   are launched last-first so the long causal rows start early.
-// - Loop bounds skip unreachable K tiles (the TPU kernel's @pl.when):
-//   under causal no tile starts past the query tile's last row; under a
-//   window no tile lies wholly older than W.
+// Bound: operations. At the serving path's prefill shape (B=4, H=16,
+// Hkv=8, S=4096, D=128, bf16, causal) one call does 2*B*H*S*(S+1)*D =
+// 2.75e11 FLOP (the causal half of QK^T and PV) on 201.3 MB of q, k, v
+// and o: ~0.28 ms at the card's 989 TFLOP/s dense bf16 rate, against
+// ~0.06 ms for the bytes at 3.35 TB/s.
+//
+// flash_fwd_tc, designed against that bound:
+// - One block of 384 threads per (128-row query tile, query head, batch):
+//   a producer warpgroup, whose one thread issues the TMA loads, and two
+//   consumer warpgroups of 64 query rows each, which share every K/V tile.
+//   setmaxnreg moves registers from the producer (24) to the consumers
+//   (240). Query head h reads KV head h / G. Tiles are launched last-first
+//   so the long causal rows start early.
+// - TMA loads the Q tile once and 128-key K and V tiles into a ring of two
+//   stages, through 4-D tensor maps over (D, heads, S, B) with the views'
+//   strides, in the 128-byte swizzle the wgmma descriptors read. Rows past
+//   S and columns past D (D < 64 is padded to 64 in shared memory) arrive
+//   as zeros. mbarriers per stage: K loaded, V loaded, K free (after both
+//   groups' Q·Kᵀ), V free (after their P·V), so the next K tile streams in
+//   while the last P·V still reads V. Shared memory at D = 128: Q 32 KB +
+//   2 x (K 32 KB + V 32 KB) = 160 KB, one block per SM.
+// - S = Q·Kᵀ: wgmma m64n128k16, A = Q and B = K from shared memory (K-major),
+//   D/16 steps, f32 sums of exact bf16 products.
+// - Online softmax on the accumulator fragment: a row lives in the 4 lanes
+//   of a quad (two xor shuffles for its max); masks at -1e30 and m from
+//   -1e30, as in the TPU kernel, applied only on tiles that cross the
+//   causal or window edge or Sk. Loop bounds skip unreachable K tiles.
+//   l sums the f32 probabilities (each lane its share, one quad sum at the
+//   end) and is clamped at 1e-30.
+// - O += P·V: wgmma m64n{64,128}k16 with P in registers as bf16 A fragments
+//   (the S accumulator's layout is the A fragment's) and B = V from shared
+//   memory, MN-major (transpose bit). P's bf16 rounding is the one rounding
+//   the f32 plain version does not make. On a long row it averages out; a
+//   row that holds few keys would carry it whole into its output, and such
+//   rows only arise on tiles that cross a mask edge: there the remainder
+//   P - bf16(P) goes through a second bf16 product, so those rows see P to
+//   ~2^-17.
+// - Pipelining in a consumer group: its tiles are a masked prefix (a
+//   window's first tiles), an unmasked run, and a masked suffix (the
+//   causal diagonal, the ragged Sk edge). In the run, tile t's Q·Kᵀ is
+//   issued before tile t-1's P·V, and tile t's softmax runs while that
+//   P·V is on the tensor cores (wgmma.wait_group 1). A masked tile is
+//   done whole. No wgmma is in flight across a branch, and the Q·Kᵀ loop
+//   is unrolled for each D (one instantiation per head dim): either would
+//   make ptxas serialise the wgmmas.
+// - Epilogue: divide by max(l, 1e-30), round to bf16 once, store bf16
+//   pairs into the strided output.
+// TMA wants 16-byte aligned bases and strides: the wrapper copies a view
+// that misses that to a contiguous tensor before the launch.
+//
+// flash_fwd (the SIMT kernel, unchanged from the first port):
+// - One block of 256 threads per (64-row query tile, query head, batch),
+//   tiles launched last-first, unreachable K tiles skipped.
 // - The Q tile and each K tile sit transposed in shared memory, in f32
 //   (converted once at load); each thread computes a 4x4 block of the
 //   64x64 score tile from float4 reads of both (16 FMAs per two shared
@@ -36,11 +81,11 @@
 //   masked scores are -1e30, l is clamped at 1e-30 at the end. A row
 //   whose first visited tile is wholly masked (under a window) gathers
 //   exp(0) rubbish there; alpha = exp(-1e30 - m) = 0 wipes it when the
-//   row's diagonal tile arrives. With -inf that row would be NaN.
-// - P goes through shared memory (transposed) into P·V; V reuses the K
-//   buffer, so shared memory is (2*D + 64) * 68 floats: 87,040 bytes at
-//   D=128, dynamic, above the 48 KB static limit
-//   (cudaFuncSetAttribute), two blocks per SM.
+//   row's diagonal tile arrives. With -inf that row would be NaN. The
+//   tensor-core kernel relies on the same.
+// - P goes through shared memory (transposed) into P·V in f32; V reuses
+//   the K buffer, so shared memory is (2*D + 64) * 68 floats: 87,040 bytes
+//   at D=128, two blocks per SM. Its ceiling is the 67 TFLOP/s f32 rate.
 // - Strides (b, h, s) in elements for each of q, k, v, o, unit stride on
 //   D: the model's (B, S, H, D) projections go in as views, no copies.
 //
@@ -48,8 +93,9 @@
 // launches on the caller's stream, never synchronises, allocates nothing
 // and returns the cudaError_t of the launch (0 on success;
 // cudaErrorInvalidValue for a D outside {8,16,32,64,128}, H % Hkv != 0,
-// or a size out of range).
+// a size out of range, or a tensor the tensor maps cannot address).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -307,25 +353,684 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The tensor-core variant: bf16, D in {16, 32, 64, 128}.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBM = 128;                 // Q rows per block: 2 x 64
+constexpr int kBN = 128;                 // keys per K/V tile
+constexpr int kStages = 2;               // K/V ring depth
+constexpr int kThreads = 384;            // producer + 2 consumer warpgroups
+constexpr int kConsumers = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block, in bytes from a 1024-aligned base. A tile
+// of R rows is DP/64 chunks of [R rows][64 bf16] at 128 bytes a row, each
+// chunk in TMA's 128-byte swizzle (the layout the wgmma descriptors read).
+template <int DP>
+struct Smem {
+  static constexpr int kChunks = DP / 64;
+  static constexpr int kQChunk = kBM * 128;
+  static constexpr int kKVChunk = kBN * 128;
+  static constexpr int kKV = kChunks * kKVChunk;       // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kChunks * kQChunk;    // kStages K tiles
+  static constexpr int kV = kK + kStages * kKV;        // kStages V tiles
+  static constexpr int kBar = kV + kStages * kKV;      // mbarriers
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
+};
+
+struct Args {
+  void* o;
+  int64_t o_sb, o_sh, o_ss;
+  int H, Hkv, Sq, Sk;
+  int causal;
+  int window;                            // <= 0: no window
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// One box of a 4-D tensor map (D, heads, S, B) into shared memory; the
+// barrier's transaction count falls by the box's bytes when it lands.
+// Coordinates past the tensor's extent read as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int head,
+                                         int s0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(d0), "r"(head), "r"(s0), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units. K-major tiles (Q, K):
+// stride = 1024 between 8-row groups, leading unused (1). MN-major (V as
+// the B of P·V): stride = 1024 between 8-key groups, leading = the step
+// from one 64-column chunk to the next.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead,
+                                         uint32_t stride) {
+  return uint64_t((addr & 0x3FFFF) >> 4) |
+         (uint64_t((lead >> 4) & 0x3FFF) << 16) |
+         (uint64_t((stride >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared
+// memory (descriptors), accumulate iff `accumulate`.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (bf16 pairs), B
+// MN-major in shared memory (descriptor, transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (bf16 pairs), B
+// MN-major in shared memory (descriptor, transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// O += P·V over one 128-key tile, issued (not waited for): P as bf16 A
+// fragments (4 registers per 16 keys), V MN-major at `v` (DP/64 chunks of
+// 128 keys).
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
+                                         const uint32_t (&pa)[32],
+                                         uint32_t v) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint64_t db = desc(v + kk * 16 * 128, kBN * 128, 1024);
+    if constexpr (DP == 128)
+      wgmma_rs_n128(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                    pa[4 * kk + 3], db);
+    else
+      wgmma_rs_n64(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                   pa[4 * kk + 3], db);
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void pv_sync(float (&o)[DP / 2],
+                                        const uint32_t (&pa)[32],
+                                        uint32_t v) {
+  issue_pv<DP>(o, pa, v);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+}
+
+// S = Q·Kᵀ over one 128-key tile, issued and committed (not waited for):
+// f32 sums of exact bf16 products, D/16 steps of k16, A = this group's 64
+// Q rows and B = the K tile, both K-major in shared memory.
+template <int DP, int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q,
+                                         uint32_t k) {
+  using L = Smem<DP>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;         // k16 step in a chunk
+    wgmma_ss_n128(sc, desc(q + (kk / 4) * L::kQChunk + off, 16, 1024),
+                  desc(k + (kk / 4) * L::kKVChunk + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Online softmax on the score fragment: sc[4j + e] is row row0 + 8 * (e /
+// 2), key k0 + 8j + col0 + e % 2; a row lives in the 4 lanes of a quad.
+// Scales, masks (where `masked`), updates m and this lane's share of l,
+// leaves the f32 probabilities in sc and the rescale factors in alpha.
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool masked,
+                                             int k0, int row0, int col0,
+                                             const Args& a) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * a.scale;
+      if (masked) {
+        const int qp = row0 + 8 * (e / 2), kp = k0 + 8 * j + col0 + e % 2;
+        bool ok = kp < a.Sk;
+        if (a.causal) ok = ok && qp >= kp;
+        if (a.window > 0) ok = ok && qp - kp < a.window;
+        if (!ok) x = kNegInf;
+      }
+      sc[4 * j + e] = x;
+      mx[e / 2] = fmaxf(mx[e / 2], x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2_approx((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_approx((sc[4 * j + e] - m[e / 2]) * kLog2e);
+      sc[4 * j + e] = p;
+      l[e / 2] += p;
+    }
+  }
+}
+
+// P as bf16 A fragments: keys 16kk.. of the tile are sc[8kk .. 8kk+7].
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[32],
+                                       const float (&sc)[kBN / 2]) {
+#pragma unroll
+  for (int r = 0; r < 32; ++r) pa[r] = pack_bf16(sc[2 * r], sc[2 * r + 1]);
+}
+
+// The remainder of P's bf16 rounding, P - bf16(P), in place of bf16(P).
+__device__ __forceinline__ void pack_remainder(uint32_t (&pa)[32],
+                                               const float (&sc)[kBN / 2]) {
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const float2 hi = unpack_bf16(pa[r]);
+    pa[r] = pack_bf16(sc[2 * r] - hi.x, sc[2 * r + 1] - hi.y);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, Args a) {
+  constexpr int DP = D < 64 ? 64 : D;   // D < 64 is zero-padded to 64
+  using L = Smem<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // mbarriers: Q loaded; per stage K loaded, V loaded, K free, V free.
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * kStages;
+  const uint32_t free_k = full_v + 8 * kStages, free_v = free_k + 8 * kStages;
+
+  const int nq = (a.Sq + kBM - 1) / kBM;
+  const int q0 = (nq - 1 - int(blockIdx.x)) * kBM;    // last tile first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.H / a.Hkv);
+
+  // Reachable K tiles (loop bounds in place of the TPU kernel's
+  // block-level @pl.when).
+  const int nk = (a.Sk + kBN - 1) / kBN;
+  int kt_end = nk;
+  if (a.causal) kt_end = min(nk, (q0 + kBM - 1) / kBN + 1);
+  int kt_begin = 0;
+  if (a.window > 0 && q0 - a.window + 1 > 0)
+    kt_begin = (q0 - a.window + 1) / kBN;
+  const int n_tiles = max(kt_end - kt_begin, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(free_k + 8 * s, kConsumers);
+      mbar_init(free_v + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the TMA loads in flight. A K
+    // slot is refilled once both groups' Q·Kᵀ has read it, a V slot once
+    // their P·V has.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, L::kChunks * L::kQChunk);
+      for (int c = 0; c < L::kChunks; ++c)
+        tma_load(base + L::kQ + c * L::kQChunk, &tq, bar_q, 64 * c, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t reuse = ((i / kStages) & 1) ^ 1;
+        const int k0 = (kt_begin + i) * kBN;
+        if (i >= kStages) mbar_wait(free_k + 8 * s, reuse);
+        mbar_expect_tx(full_k + 8 * s, L::kKV);
+        for (int c = 0; c < L::kChunks; ++c)
+          tma_load(base + L::kK + s * L::kKV + c * L::kKVChunk, &tk,
+                   full_k + 8 * s, 64 * c, hk, k0, b);
+        if (i >= kStages) mbar_wait(free_v + 8 * s, reuse);
+        mbar_expect_tx(full_v + 8 * s, L::kKV);
+        for (int c = 0; c < L::kChunks; ++c)
+          tma_load(base + L::kV + s * L::kKV + c * L::kKVChunk, &tv,
+                   full_v + 8 * s, 64 * c, hk, k0, b);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: 64 Q rows each. A group's tiles split into those
+  // that cross a mask edge (a window's first tiles; the causal diagonal
+  // and the ragged Sk edge last) and the unmasked run between them. The
+  // run is pipelined: tile t's Q·Kᵀ is issued before tile t-1's P·V, and
+  // the softmax of tile t runs while that P·V is on the tensor cores. A
+  // masked tile is done whole, with the remainder of its P (below). No
+  // wgmma is in flight across a branch, which would make the compiler
+  // serialise them.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int wg = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int rq0 = q0 + 64 * wg;                      // this group's rows
+  const int row0 = rq0 + 16 * warp + lane / 4;       // and row0 + 8
+  const int col0 = 2 * (lane % 4);                   // + 8j (+ 1)
+  const uint32_t q_smem = base + L::kQ + wg * 64 * 128;
+
+  // Whether some (row, key) pair of this group and K tile t is masked:
+  // false on a run of tiles between a masked prefix (window) and a masked
+  // suffix (causal, Sk).
+  auto masked = [&](int t) {
+    const int k0 = t * kBN;
+    return k0 + kBN > a.Sk || (a.causal && k0 + kBN - 1 > rq0) ||
+           (a.window > 0 && rq0 + 63 - k0 >= a.window);
+  };
+  int run_begin = kt_begin;
+  while (run_begin < kt_end && masked(run_begin)) ++run_begin;
+  int run_end = run_begin;
+  while (run_end < kt_end && !masked(run_end)) ++run_end;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float sc[kBN / 2];
+  uint32_t pa[32];
+
+  auto rescale = [&]() {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  };
+  // K tile t's slot, and the parity of the phase that fills it.
+  auto slot = [&](int t) { return (t - kt_begin) % kStages; };
+  auto parity = [&](int t) {
+    return uint32_t(((t - kt_begin) / kStages) & 1);
+  };
+  // A masked tile, whole: S, softmax, P·V, then the remainder of P's
+  // bf16 rounding, P - bf16(P), as a second bf16 product. On such a tile a
+  // row may hold few keys in all, and P's rounding would reach its output
+  // whole.
+  auto masked_tile = [&](int t) {
+    const int s = slot(t);
+    mbar_wait(full_k + 8 * s, parity(t));
+    issue_qk<DP, D>(sc, q_smem, base + L::kK + s * L::kKV);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(free_k + 8 * s);
+    softmax_tile(sc, m, l, alpha, true, t * kBN, row0, col0, a);
+    rescale();
+    pack_p(pa, sc);
+    const uint32_t v = base + L::kV + s * L::kKV;
+    mbar_wait(full_v + 8 * s, parity(t));
+    pv_sync<DP>(o, pa, v);
+    pack_remainder(pa, sc);
+    pv_sync<DP>(o, pa, v);
+    mbar_arrive(free_v + 8 * s);
+  };
+
+  mbar_wait(bar_q, 0);
+  for (int t = kt_begin; t < run_begin; ++t) masked_tile(t);
+  if (run_begin < run_end) {
+    int t = run_begin;
+    mbar_wait(full_k + 8 * slot(t), parity(t));
+    issue_qk<DP, D>(sc, q_smem, base + L::kK + slot(t) * L::kKV);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(free_k + 8 * slot(t));
+    softmax_tile(sc, m, l, alpha, false, t * kBN, row0, col0, a);
+    rescale();
+    pack_p(pa, sc);
+    for (++t; t < run_end; ++t) {
+      const int s = slot(t), sp = slot(t - 1);
+      mbar_wait(full_v + 8 * sp, parity(t - 1));    // (loaded before K_t)
+      mbar_wait(full_k + 8 * s, parity(t));
+      issue_qk<DP, D>(sc, q_smem, base + L::kK + s * L::kKV);
+      issue_pv<DP>(o, pa, base + L::kV + sp * L::kKV);
+      wgmma_commit();
+      wgmma_wait<1>();                  // Q·Kᵀ done, P·V may run on
+      fence_regs(sc);
+      mbar_arrive(free_k + 8 * s);
+      softmax_tile(sc, m, l, alpha, false, t * kBN, row0, col0, a);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(free_v + 8 * sp);
+      rescale();
+      pack_p(pa, sc);
+    }
+    const int sp = slot(run_end - 1);
+    mbar_wait(full_v + 8 * sp, parity(run_end - 1));
+    pv_sync<DP>(o, pa, base + L::kV + sp * L::kKV);
+    mbar_arrive(free_v + 8 * sp);
+  }
+  for (int t = run_end; t < kt_end; ++t) masked_tile(t);
+
+  // Normalise once and write this thread's two rows (columns < D).
+  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb +
+                     h * a.o_sh;
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    denom[r] = fmaxf(l[r], kMinDenom);
+  }
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    if (8 * j >= D) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(O + int64_t(row) * a.o_ss + 8 * j +
+                                           col0) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] / denom[r],
+                                  o[4 * j + 2 * r + 1] / denom[r]);
+    }
+  }
+}
+
+}  // namespace tc
+// ---------------------------------------------------------------------------
+// Host side of the tensor-core variant.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+// cuTensorMapEncodeTiled lives in the driver library; it is reached through
+// the runtime's driver entry point, so the build links nothing but cudart.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (D, heads, S, B) over a bf16 tensor with element strides
+// (b, h, s) and unit stride on D; boxes of 64 columns x `rows` rows in the
+// 128-byte swizzle (columns past D and rows past S read as zeros). TMA
+// wants the base and every stride at a multiple of 16 bytes; the stride of
+// an axis of extent 1 is never followed and is replaced by a dense one.
+bool make_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh,
+              int64_t ss, int D, int heads, int S, int B, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return false;
+  const int64_t ext[3] = {heads, S, B};
+  const int64_t given[3] = {sh, ss, sb};
+  const int64_t dense[3] = {int64_t(D), int64_t(D) * heads,
+                            int64_t(D) * heads * S};
+  cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S),
+                        cuuint64_t(B)};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    const int64_t bytes = 2 * (ext[i] == 1 ? dense[i] : given[i]);
+    if (bytes <= 0 || bytes % 16 != 0 || bytes >= (int64_t(1) << 40))
+      return false;
+    strides[i] = cuuint64_t(bytes);
+  }
+  cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_d(const CUtensorMap& mq, const CUtensorMap& mk,
+             const CUtensorMap& mv, const Args& a, int B,
+             cudaStream_t stream) {
+  const int smem = Smem<D < 64 ? 64 : D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((a.Sq + kBM - 1) / kBM, a.H, B);
+  flash_fwd_tc<D><<<grid, kThreads, smem, stream>>>(mq, mk, mv, a);
+  return int(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, void* o,
+           const int64_t* st, int B, int H, int Hkv, int Sq, int Sk, int D,
+           int causal, int window, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, st[0], st[1], st[2], D, H, Sq, B, kBM) ||
+      !make_map(&mk, k, st[3], st[4], st[5], D, Hkv, Sk, B, kBN) ||
+      !make_map(&mv, v, st[6], st[7], st[8], D, Hkv, Sk, B, kBN))
+    return int(cudaErrorInvalidValue);
+  // The epilogue stores bf16 pairs: o and its strides must be even.
+  if (reinterpret_cast<uintptr_t>(o) % 4 != 0 || st[9] % 2 != 0 ||
+      st[10] % 2 != 0 || st[11] % 2 != 0)
+    return int(cudaErrorInvalidValue);
+  const Args a{o, st[9], st[10], st[11], H, Hkv, Sq, Sk, causal, window,
+               1.0f / sqrtf(float(D))};
+  switch (D) {
+    case 16: return launch_d<16>(mq, mk, mv, a, B, stream);
+    case 32: return launch_d<32>(mq, mk, mv, a, B, stream);
+    case 64: return launch_d<64>(mq, mk, mv, a, B, stream);
+    case 128: return launch_d<128>(mq, mk, mv, a, B, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tc
+
+namespace {
+
+constexpr int kVariantSimt = 0;
+constexpr int kVariantTc = 1;
+
+// The one place the variant is chosen: bf16 at D >= 16 goes to the tensor
+// cores (wgmma's k16 depth); f32 (whose tensor-core path would be TF32)
+// and D = 8 go to the SIMT kernel. Mirrored by kernel_variant() in
+// flash_attention.py.
+int variant_for(int bf16, int D) {
+  return bf16 && D >= 16 ? kVariantTc : kVariantSimt;
+}
+
+int dispatch(int bf16, const void* q, const void* k, const void* v, void* o,
+             const int64_t* strides, int B, int H, int Hkv, int Sq, int Sk,
+             int D, int causal, int window, int* variant, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv != 0 ||
+      Sq < 1 || Sk < 1)
+    return int(cudaErrorInvalidValue);
+  const int var = variant_for(bf16, D);
+  *variant = var;
+  if (var == kVariantTc)
+    return tc::launch(q, k, v, o, strides, B, H, Hkv, Sq, Sk, D, causal,
+                      window, st);
+  if (bf16)
+    return launch<__nv_bfloat16>(q, k, v, o, strides, B, H, Hkv, Sq, Sk, D,
+                                 causal, window, st);
+  return launch<float>(q, k, v, o, strides, B, H, Hkv, Sq, Sk, D, causal,
+                       window, st);
+}
+
+}  // namespace
+
 extern "C" {
 
 // strides: 12 element strides, (b, h, s) of q, k, v, o in that order;
-// the D axis of each must have unit stride.
+// the D axis of each must have unit stride. *variant is set to the
+// variant launched: 1 tensor cores, 0 SIMT.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         const int64_t* strides, int B, int H, int Hkv,
                         int Sq, int Sk, int D, int causal, int window,
-                        void* stream) {
-  return launch<float>(q, k, v, o, strides, B, H, Hkv, Sq, Sk, D, causal,
-                       window, static_cast<cudaStream_t>(stream));
+                        int* variant, void* stream) {
+  return dispatch(0, q, k, v, o, strides, B, H, Hkv, Sq, Sk, D, causal,
+                  window, variant, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, const int64_t* strides, int B, int H,
                          int Hkv, int Sq, int Sk, int D, int causal,
-                         int window, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, strides, B, H, Hkv, Sq, Sk, D,
-                               causal, window,
-                               static_cast<cudaStream_t>(stream));
+                         int window, int* variant, void* stream) {
+  return dispatch(1, q, k, v, o, strides, B, H, Hkv, Sq, Sk, D, causal,
+                  window, variant, stream);
 }
 
 }  // extern "C"

@@ -4,11 +4,14 @@ against the JAX package's.
 On the CPU the wrapper runs its plain version (the CUDA kernel cannot
 run here); the same numpy inputs go through the JAX package's Pallas
 ``flash_attention`` in interpret mode, as ``tests/test_kernels.py`` runs
-it, and through its dense oracle ``ref.flash_attention_ref``. The kernel
-itself is held against the plain version on the card by the
-``cuda``-marked test below and by ``chip_smoke.py``.
+it, and through its dense oracle ``ref.flash_attention_ref``. The kernels
+themselves are held against the plain version on the card by the
+``cuda``-marked tests below and by ``chip_smoke.py``. The tensor-core
+kernel's numerics (P rounded to bf16 before P·V) are emulated here on the
+CPU and held to the tolerance the card holds the kernel to.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +26,8 @@ from repro.models.params import init_params as jax_init_params
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa_mod, ops
 from repro_torch.models import attention as attn, params_from_numpy
+
+from _torch_jamba import chip_smoke
 
 torch.set_num_threads(2)
 
@@ -205,6 +210,140 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert fa_mod.flash_attention.launches == before
 
 
+# The tensor-core kernel's tiling (csrc/flash_attention.cu, namespace tc):
+# 128-key tiles, blocks of 128 query rows in two consumer groups of 64.
+TC_BLOCK_K, TC_GROUP_Q, TC_BLOCK_Q = 128, 64, 128
+
+
+def _tc_emulation(q, k, v, causal=True, window=None, split_masked=True):
+    """The tensor-core kernel's arithmetic in PyTorch on the CPU: f32
+    scores of bf16 inputs, an online softmax over 128-key tiles (m from
+    -1e30, masked scores -1e30), l summed from the f32 probabilities, P
+    rounded to bf16 before P·V with f32 sums, and one rounding of the
+    output. With ``split_masked`` the remainder P - bf16(P) is added as a
+    second bf16 product on the tiles that cross a mask edge for a group
+    of 64 query rows, as the kernel does."""
+    b, h, sq, d = q.shape
+    group = h // k.shape[1]
+    kq = k.repeat_interleave(group, 1).float()
+    vq = v.repeat_interleave(group, 1).float()
+    qf = q.float()
+    sk = k.shape[2]
+    m = torch.full((b, h, sq, 1), fa_mod.NEG_INF)
+    l = torch.zeros(b, h, sq, 1)
+    acc = torch.zeros(b, h, sq, d)
+    groups = -(-sq // TC_GROUP_Q)
+    qpos = torch.arange(groups * TC_GROUP_Q)[:, None]   # rows of whole groups
+    for k0 in range(0, sk, TC_BLOCK_K):
+        kpos = torch.arange(k0, k0 + TC_BLOCK_K)[None, :]
+        ok = (kpos < sk).expand(len(qpos), TC_BLOCK_K)
+        if causal:
+            ok = ok & (qpos >= kpos)
+        if window is not None:
+            ok = ok & (qpos - kpos < window)
+        # A group of 64 rows is on a mask edge where any of its (row, key)
+        # pairs is masked, as the kernel decides per consumer group.
+        edge = ~ok.reshape(groups, TC_GROUP_Q * TC_BLOCK_K).all(1)
+        edge = edge.repeat_interleave(TC_GROUP_Q)[:sq, None]
+        ok = ok[:sq]
+        kt = kq[:, :, k0:k0 + TC_BLOCK_K]
+        vt = vq[:, :, k0:k0 + TC_BLOCK_K]
+        pad = TC_BLOCK_K - kt.shape[2]
+        kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
+        vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kt) * (1.0 / math.sqrt(d))
+        s = torch.where(ok, s, torch.full_like(s, fa_mod.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        p_hi = p.to(torch.bfloat16).float()
+        if split_masked:
+            p_lo = (p - p_hi).to(torch.bfloat16).float()
+            p_hi = torch.where(edge, p_hi + p_lo, p_hi)
+        acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", p_hi, vt)
+        m = m_new
+    return (acc / l.clamp(min=1e-30)).to(q.dtype)
+
+
+def _prefill_bf16(seed, b=1, h=8, hkv=4, s=1024, d=128):
+    return [torch.from_numpy(a).to(torch.bfloat16)
+            for a in _qkv(b, h, hkv, s, s, d, seed=seed)]
+
+
+def test_tensor_core_numerics_fit_prefill_tolerance():
+    """The kernel's one rounding beyond the plain version's, P in bf16
+    (with the remainder on mask-edge tiles), fits the tolerance that
+    chip_smoke.py holds it to at the prefill shapes. At S=1024 the
+    outputs are O(1/sqrt(S)), so the tolerance is as tight as at 4096."""
+    tol = chip_smoke().PREFILL_BF16_TOL
+    q, k, v = _prefill_bf16(seed=20)
+    got = _tc_emulation(q, k, v)
+    want = fa_mod.flash_attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **tol)
+
+
+def test_bf16_p_on_every_tile_breaks_prefill_tolerance():
+    """Why the kernel adds the remainder on mask-edge tiles: with P
+    rounded to bf16 on every tile, the first rows (few keys, each with an
+    O(1) share of P) carry the rounding into outputs near 0 past the
+    tolerance's atol."""
+    tol = chip_smoke().PREFILL_BF16_TOL
+    q, k, v = _prefill_bf16(seed=20)
+    got = _tc_emulation(q, k, v, split_masked=False).float()
+    want = fa_mod.flash_attention_plain(q, k, v).float()
+    bad = ~torch.isclose(got, want, **tol)
+    assert bad.any()
+    assert int(torch.nonzero(bad)[:, 2].max()) < TC_BLOCK_K
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 63),
+                                           (True, 200), (False, None)])
+def test_tensor_core_emulation_matches_plain_on_ragged_rows(causal, window):
+    """The emulation agrees with the plain version at a length that is no
+    multiple of a tile (S=320), under causal, window and no mask."""
+    q, k, v = _prefill_bf16(seed=21, b=2, h=4, hkv=2, s=320, d=64)
+    np.testing.assert_allclose(
+        _tc_emulation(q, k, v, causal, window).float().numpy(),
+        fa_mod.flash_attention_plain(q, k, v, causal, window).float()
+        .numpy(), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", fa_mod.HEAD_DIMS)
+def test_kernel_variant_by_dtype_and_head_dim(dname, d):
+    """bf16 at D >= 16 runs on the tensor cores; f32 (TF32 there) and
+    D = 8 (below wgmma's k16 depth) on the SIMT kernel."""
+    want = "tc" if dname == "bfloat16" and d >= 16 else "simt"
+    assert fa_mod.kernel_variant(DTYPES[dname][0], d) == want
+
+
+def test_tma_addressable():
+    """TMA takes a 16-byte aligned base and strides that are multiples of
+    16 bytes on the axes longer than 1; else the wrapper copies."""
+    base = torch.zeros(4 * 64 * 16 * 64 + 8, dtype=torch.bfloat16)
+    dense = base[:4 * 64 * 16 * 64].view(4, 16, 64, 64)
+    assert fa_mod.tma_addressable(dense)
+    assert fa_mod.tma_addressable(dense.transpose(1, 2).contiguous()
+                                  .transpose(1, 2))
+    assert not fa_mod.tma_addressable(base[1:1 + dense.numel()]
+                                      .view(4, 16, 64, 64))
+    odd = torch.zeros(1, 2, 8, 72, dtype=torch.bfloat16)[..., :64]
+    assert fa_mod.tma_addressable(odd)          # 144-byte rows
+    odd = torch.zeros(1, 2, 8, 68, dtype=torch.bfloat16)[..., :64]
+    assert not fa_mod.tma_addressable(odd)      # 136-byte rows
+    one = torch.zeros(1, 1, 1, 68, dtype=torch.bfloat16)[..., :64]
+    assert fa_mod.tma_addressable(one)          # no axis longer than 1
+
+
+def _on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the flash_attention kernels are "
+                    "CUDA C++ and have no CPU or interpreter mode")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,s,d,causal,window", [
     (1, 2, 2, 32, 16, True, None), (2, 4, 2, 64, 32, True, None),
@@ -212,24 +351,56 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     (2, 2, 2, 128, 128, True, None), (1, 2, 2, 64, 16, True, 8),
     (1, 2, 2, 100, 16, True, 24), (1, 2, 2, 32, 16, False, None),
     (2, 16, 8, 300, 128, True, None),
+    # ragged lengths around the tensor-core kernel's 64/128-row tiles,
+    # GQA groups 1-8, windows across a tile edge
+    (1, 2, 2, 1, 128, True, None), (1, 4, 2, 63, 64, True, None),
+    (1, 4, 1, 65, 128, True, None), (2, 8, 1, 127, 64, True, 63),
+    (1, 8, 2, 129, 128, True, 1), (1, 8, 8, 300, 64, True, 200),
+    (1, 4, 1, 300, 128, False, None),
 ])
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(b, h, hkv, s, d, causal, window,
                                       dname):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the flash_attention kernel is "
-                    "CUDA C++ and has no CPU or interpreter mode")
+    _on_card()
     tdt = DTYPES[dname][0]
     q, k, v = _qkv(b, h, hkv, s, s, d, seed=11)
     # (B, S, H, D) storage, passed as (B, H, S, D) views, as the model does
     tq, tk, tv = (torch.from_numpy(a).to(tdt).cuda().transpose(1, 2)
                   .contiguous().transpose(1, 2) for a in (q, k, v))
-    before = fa_mod.flash_attention.launches
-    got = fa_mod.flash_attention(tq, tk, tv, causal=causal, window=window)
+    fn = fa_mod.flash_attention
+    before = (fn.launches, fn.launches_tc, fn.launches_simt)
+    got = fn(tq, tk, tv, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fa_mod.flash_attention.launches == before + 1
+    tc = fa_mod.kernel_variant(tdt, d) == "tc"
+    assert tc == (dname == "bfloat16" and d >= 16)
+    assert (fn.launches, fn.launches_tc, fn.launches_simt) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc))
     assert got.transpose(1, 2).is_contiguous()
     torch.backends.cuda.matmul.allow_tf32 = False
     want = fa_mod.flash_attention_plain(tq, tk, tv, causal, window)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **TOL[dname])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_misaligned_bf16_view_runs_on_tensor_cores(d):
+    """A view at an odd element offset (no 16-byte aligned base for TMA)
+    is copied by the wrapper and still runs the tensor-core kernel."""
+    _on_card()
+    b, h, hkv, s = 2, 4, 2, 100
+    n = b * s * (h + 2 * hkv) * d
+    flat = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        n + 1).astype(np.float32)).to(torch.bfloat16).cuda()
+    qkv = flat[1:].view(b, s, h + 2 * hkv, d).transpose(1, 2)
+    q, k, v = qkv[:, :h], qkv[:, h:h + hkv], qkv[:, h + hkv:]
+    assert not fa_mod.tma_addressable(q)
+    fn = fa_mod.flash_attention
+    before = (fn.launches_tc, fn.launches_simt)
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert (fn.launches_tc, fn.launches_simt) == (before[0] + 1, before[1])
+    want = fa_mod.flash_attention_plain(q, k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **TOL["bfloat16"])
