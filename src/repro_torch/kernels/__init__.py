@@ -12,4 +12,8 @@ Kernels:
   ``repro/kernels/selective_scan.py:42``.
 - ``rwkv6_wkv`` — the RWKV-6 WKV recurrence (the RWKV prefill), CUDA C++
   for sm_90a; replaces ``repro/kernels/rwkv6_wkv.py:47``.
+
+The kernels are forward only: each wrapper refuses an input that requires
+grad while grad is enabled (``guard``), so no gradient is dropped
+silently.
 """

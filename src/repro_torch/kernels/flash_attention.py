@@ -32,7 +32,9 @@ first, so such a call still runs on the tensor cores.
 takes CUDA tensors only. The choice between kernel and plain version is
 made in one place, :func:`repro_torch.kernels.ops.flash_attention_op`:
 CPU tensors go to :func:`flash_attention_plain` — only because they lie
-on the CPU — and a CUDA tensor never reaches the plain version. Any
+on the CPU — and a CUDA tensor never reaches the plain version. The
+kernel has no backward yet: the wrapper raises when grad is enabled and
+an input requires grad (``guard.autograd_guard``). Any
 (b, h, s) strides are taken as long as D has unit stride, so the
 model's ``(B, S, H, D)`` projections go in as transposed views; the
 output is laid out like q. ``flash_attention.launches`` counts kernel
@@ -48,6 +50,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import autograd_guard
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -149,6 +152,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int | None = None) -> torch.Tensor:
     """The kernel on CUDA tensors -> ``(B, H, Sq, D)`` in q's dtype, laid
     out like q. Raises on any other device."""
+    autograd_guard("flash_attention", q, k, v)
     check_inputs(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: the kernel takes CUDA tensors, "

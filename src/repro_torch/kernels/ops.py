@@ -4,11 +4,14 @@ the fold, attention, selective-scan and WKV parts).
 Each wrapper dispatches on the device of the tensors it is given: CUDA
 tensors go through the hand-written kernel (``fedagg``,
 ``flash_attention``, ``selective_scan``, ``rwkv6_wkv``), CPU tensors
-through its plain version (for the fold, the per-leaf
+through its plain version (for the simulator's fold, the per-leaf
 :func:`repro_torch.core.treeops.tree_combine` — as the JAX dispatcher
 picks the einsum on CPU, ``repro/kernels/ops.py:99-103``). There is no
 override and no fallback: a CUDA tensor goes
-through the kernel or the call raises.
+through the kernel or the call raises. The kernels have no backward yet:
+on CUDA inputs that require grad (with grad enabled) the kernel wrappers
+raise (``guard.autograd_guard``); the plain versions the CPU path runs
+stay differentiable.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Any, Mapping
 import torch
 
 from repro_torch.core.treeops import tree_combine
-from repro_torch.kernels.fedagg import fedagg
+from repro_torch.kernels import fedagg as _fedagg
 from repro_torch.kernels import rwkv6_wkv as _wkv
 from repro_torch.kernels import selective_scan as _scan
 from repro_torch.kernels.flash_attention import (
@@ -30,24 +33,40 @@ def _weights(weights: Any, device: torch.device) -> torch.Tensor:
 
 
 def fedagg_op(stacked: torch.Tensor, weights: Any) -> torch.Tensor:
-    """``Σ_s w[s]·stacked[s]`` over a flat ``(S, P)`` tensor; weights are
-    cast to f32 on ``stacked``'s device."""
-    return fedagg(stacked, _weights(weights, stacked.device))
+    """``Σ_s w[s]·stacked[s]`` over a flat ``(S, P)`` tensor: the
+    ``fedagg`` kernel on a CUDA tensor, :func:`~repro_torch.kernels.fedagg
+    .fedagg_plain` on a CPU tensor (inputs checked the same way on both);
+    weights are cast to f32 on ``stacked``'s device."""
+    w = _weights(weights, stacked.device)
+    if stacked.device.type == "cuda":
+        return _fedagg.fedagg(stacked, w)
+    if stacked.device.type == "cpu":
+        _fedagg.check_inputs(stacked, w)
+        return _fedagg.fedagg_plain(stacked, w)
+    raise ValueError(f"fedagg_op: unsupported device {stacked.device}")
 
 
 def fedagg_tree(params_stacked: Mapping[str, torch.Tensor],
                 weights: Any) -> dict:
-    """The fold of a replica-stacked param dict, leaf by leaf: each
-    ``(S, *shape)`` leaf is folded as its contiguous ``(S, P_leaf)`` view
-    (no concatenation into one flat buffer, which would cost an extra
-    pass over the whole stack)."""
-    out = {}
-    w = None
-    for k, x in params_stacked.items():
-        if w is None:
-            w = _weights(weights, x.device)
-        out[k] = fedagg(x.reshape(x.shape[0], -1), w).reshape(x.shape[1:])
-    return out
+    """The fold of a replica-stacked param dict: each ``(S, *shape)`` leaf
+    is folded as its contiguous ``(S, P_leaf)`` view (no concatenation
+    into one flat buffer, which would cost an extra pass over the whole
+    stack). CUDA leaves go through one ``fedagg_leaves`` call (one kernel
+    launch for up to ``MAX_LEAVES`` leaves), CPU leaves through
+    ``fedagg_leaves_plain``."""
+    keys = list(params_stacked)
+    xs = [params_stacked[k] for k in keys]
+    w = _weights(weights, xs[0].device)
+    flat = [x.reshape(x.shape[0], -1) for x in xs]
+    if w.device.type == "cuda":
+        folded = _fedagg.fedagg_leaves(flat, w)
+    elif w.device.type == "cpu":
+        for x in flat:
+            _fedagg.check_inputs(x, w)
+        folded = _fedagg.fedagg_leaves_plain(flat, w)
+    else:
+        raise ValueError(f"fedagg_tree: unsupported device {w.device}")
+    return {k: y.view(x.shape[1:]) for k, x, y in zip(keys, xs, folded)}
 
 
 def pad_stacked_rows(params_stacked: Mapping[str, torch.Tensor],
@@ -72,8 +91,8 @@ def fold_stacked_tree(params_stacked: Mapping[str, torch.Tensor],
                       weights: Any) -> dict:
     """The simulator's weighted model fold: Σ_s weights[s]·stacked[s].
 
-    On CUDA leaves it runs the ``fedagg`` kernel leaf by leaf
-    (:func:`fedagg_tree`); on CPU leaves the plain per-leaf fold
+    On CUDA leaves it runs the ``fedagg`` kernel, one launch for the
+    whole tree (:func:`fedagg_tree`); on CPU leaves the plain per-leaf fold
     (:func:`tree_combine`)."""
     first = next(iter(params_stacked.values()))
     if first.device.type == "cuda":

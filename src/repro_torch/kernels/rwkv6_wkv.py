@@ -18,10 +18,16 @@ TPU kernel ``rwkv6_wkv`` of ``repro/kernels/rwkv6_wkv.py:47``.
 CUDA tensors only. The choice between kernel and plain version is made
 in one place, :func:`repro_torch.kernels.ops.rwkv6_wkv_op`: CPU tensors
 go to :func:`rwkv6_wkv_plain` — only because they lie on the CPU — and a
-CUDA tensor never reaches the plain version. Any (b, h, s) strides are
+CUDA tensor never reaches the plain version. The kernel has no backward
+yet: the wrapper raises when grad is enabled and an input requires grad
+(``guard.autograd_guard``). Any (b, h, s) strides are
 taken as long as N has unit stride, so the model's ``(B, S, H, N)``
 projections go in as transposed views; the output is laid out like r.
-``rwkv6_wkv.launches`` counts kernel launches.
+The kernel stages its tiles by TMA, whose boxes need a base and strides
+in multiples of 16 bytes (8 bytes for N = 4 in bf16, which copies by
+cp.async): the wrapper copies any other view into a dense tensor first.
+``rwkv6_wkv.launches`` counts kernel launches, ``rwkv6_wkv.copies`` the
+inputs copied so.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import autograd_guard
 
 HEAD_SIZES = (4, 8, 16, 32, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -99,10 +106,23 @@ def check_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "have unit stride")
 
 
+def addressable(t: torch.Tensor, n: int) -> bool:
+    """Whether the kernel's tile copies can address view ``t`` as it
+    is: its base, and the (b, h, s) stride of every axis longer than 1,
+    positive multiples of ``min(16, n * element size)`` bytes (16 for a
+    TMA box; 8 for N = 4 in bf16)."""
+    e = t.element_size()
+    g = min(16, n * e)
+    return t.data_ptr() % g == 0 and all(
+        size == 1 or (st > 0 and st * e % g == 0)
+        for size, st in zip(t.shape[:3], t.stride()[:3]))
+
+
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The kernel on CUDA tensors -> ``(B, H, S, N)`` in r's dtype, laid out
     like r. Raises on any other device."""
+    autograd_guard("rwkv6_wkv", r, k, v, w, u)
     check_inputs(r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_wkv: the kernel takes CUDA tensors, got "
@@ -111,6 +131,13 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, n = r.shape
     u = u.contiguous()
     y = torch.empty_like(r)
+    ins = []
+    for t in (r, k, v, w):
+        if not addressable(t, n):
+            t = t.clone(memory_format=torch.contiguous_format)
+            rwkv6_wkv.copies += 1
+        ins.append(t)
+    r, k, v, w = ins
     strides = (ctypes.c_int64 * 15)(*(
         st for t in (r, k, v, w, y) for st in t.stride()[:3]))
     lib = _lib()
@@ -131,3 +158,4 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 rwkv6_wkv.launches = 0
+rwkv6_wkv.copies = 0

@@ -22,7 +22,9 @@ Pallas TPU kernel ``selective_scan`` of
 takes CUDA tensors only. The choice between kernel and plain version is
 made in one place, :func:`repro_torch.kernels.ops.selective_scan_op`: CPU
 tensors go to :func:`selective_scan_plain` — only because they lie on the
-CPU — and a CUDA tensor never reaches the plain version. abar and bx must
+CPU — and a CUDA tensor never reaches the plain version. The kernel has
+no backward yet: the wrapper raises when grad is enabled and an input
+requires grad (``guard.autograd_guard``). abar and bx must
 be contiguous; c may be a strided view (the model's split of ``x_proj``'s
 output) as long as N has unit stride. ``selective_scan.launches`` counts
 kernel launches.
@@ -35,6 +37,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import autograd_guard
 
 STATE_SIZES = (4, 8, 16)
 # (abar dtype, bx dtype); c takes bx's dtype, and so does y.
@@ -106,6 +109,7 @@ def selective_scan(abar: torch.Tensor, bx: torch.Tensor,
                    c: torch.Tensor) -> torch.Tensor:
     """The kernel on CUDA tensors -> y ``(B, S, D)`` in bx's dtype,
     contiguous. Raises on any other device."""
+    autograd_guard("selective_scan", abar, bx, c)
     check_inputs(abar, bx, c)
     if abar.device.type != "cuda":
         raise ValueError(f"selective_scan: the kernel takes CUDA tensors, "

@@ -1,9 +1,9 @@
 """The port's fold (``repro_torch.kernels``) against the JAX package's.
 
-On the CPU the ``fedagg`` wrapper runs its plain version (the CUDA
-kernel cannot run here); the same numpy inputs go through the JAX
-package's Pallas ``fedagg`` in interpret mode, as
-``tests/test_kernels.py`` runs it. The kernel itself is held against
+On the CPU ``ops.fedagg_op`` and ``ops.fedagg_tree`` run the plain
+versions (the CUDA kernel cannot run here, and its wrappers take CUDA
+tensors only); the same numpy inputs go through the JAX package's Pallas
+``fedagg`` in interpret mode, as ``tests/test_kernels.py`` runs it. The kernel itself is held against
 the plain version on the card by the ``cuda``-marked test below and by
 ``chip_smoke.py``.
 """
@@ -183,3 +183,122 @@ def test_kernel_matches_plain_on_card(s, p, offset, dname):
     want = fedagg_mod.fedagg_plain(xd, wd)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **TOL[dname])
+
+
+# --- The multi-leaf fold: one launch per MAX_LEAVES leaves ---------------
+
+def test_leaves_plain_matches_jax_fedagg_tree_on_cnn_tree():
+    """fedagg_leaves_plain over the CNN's leaves against the JAX package's
+    fedagg_tree (one Pallas call over the concatenated tree, in interpret
+    mode on the CPU)."""
+    stacked = _cnn_stack(n=3, seed=3)
+    w = np.array([0.25, 0.5, 0.25], np.float32)
+    want = jax_ops.fedagg_tree({k: jnp.asarray(v) for k, v in stacked.items()},
+                               jnp.asarray(w))
+    keys = list(stacked)
+    got = fedagg_mod.fedagg_leaves_plain(
+        [_t(stacked[k].reshape(3, -1)) for k in keys], _t(w))
+    for k, g in zip(keys, got):
+        assert g.shape == (stacked[k][0].size,)
+        np.testing.assert_allclose(g.numpy(),
+                                   np.asarray(want[k]).reshape(-1),
+                                   **TOL["float32"])
+
+
+@pytest.mark.parametrize("elem,p,x_ptr,out_ptr,vec", [
+    (4, 1_605_632, 0, 0, True), (4, 10, 0, 0, False), (4, 12, 0, 0, True),
+    (4, 12, 4, 0, False), (4, 12, 0, 8, False), (2, 16, 0, 0, True),
+    (2, 12, 0, 0, False), (2, 16, 2, 0, False), (4, 1, 0, 0, False),
+])
+def test_vector_path_choice_per_leaf(elem, p, x_ptr, out_ptr, vec):
+    """16-byte loads need P a multiple of 4 (f32) or 8 (bf16) and both x
+    and out 16-byte aligned, each leaf on its own."""
+    (table,) = fedagg_mod.plan_launches([(4096 + x_ptr, 8192 + out_ptr, p)],
+                                        elem)
+    assert table == [dict(leaf=0, x=4096 + x_ptr, out=8192 + out_ptr, P=p,
+                          vec=vec)]
+
+
+def test_plan_splits_past_the_leaf_maximum():
+    """Leaves beyond MAX_LEAVES go to further launches, in order, each
+    leaf's vector flag its own; empty leaves have no entry."""
+    n = 2 * fedagg_mod.MAX_LEAVES + 5
+    ps = [(i % 7) * 300 for i in range(n)]
+    leaves = [(16 * (i + 1), 32 * (i + 1), p) for i, p in enumerate(ps)]
+    tables = fedagg_mod.plan_launches(leaves, 4)
+    kept = [i for i, p in enumerate(ps) if p]
+    assert [e["leaf"] for t in tables for e in t] == kept
+    assert all(len(t) == fedagg_mod.MAX_LEAVES for t in tables[:-1])
+    assert 0 < len(tables[-1]) <= fedagg_mod.MAX_LEAVES
+    assert len(tables) == -(-len(kept) // fedagg_mod.MAX_LEAVES)
+    for e in (e for t in tables for e in t):
+        assert e["P"] == ps[e["leaf"]] and e["vec"] == (e["P"] % 4 == 0)
+    assert fedagg_mod.plan_launches([(0, 0, 0)], 4) == []
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+def test_out_offsets_are_16_byte_aligned(elem):
+    ps = [800, 32, 51200, 64, 1605632, 512, 5120, 10, 1, 7]
+    offsets, total = fedagg_mod.out_offsets(ps, elem)
+    assert offsets[0] == 0 and all(o * elem % 16 == 0 for o in offsets)
+    ends = [o + p for o, p in zip(offsets, ps)]
+    assert all(e <= o for e, o in zip(ends, offsets[1:]))
+    assert ends[-1] <= total < ends[-1] + 16 // elem
+
+
+def test_tree_wrapper_launches_nothing_on_cpu_and_keeps_leaf_order():
+    tree = {k: _t(v) for k, v in _cnn_stack(n=2, seed=4).items()}
+    before = fedagg_mod.fedagg.launches
+    got = ops.fedagg_tree(tree, [0.5, 0.5])
+    assert fedagg_mod.fedagg.launches == before
+    assert list(got) == list(tree)
+    for k in tree:
+        torch.testing.assert_close(got[k], tree[k].mean(0), atol=1e-7,
+                                   rtol=1e-6)
+
+
+def _ragged(dtype, device, seed=0):
+    """Ragged, mixed-alignment leaves: unaligned views, P = 1, P not a
+    multiple of the vector width, and aligned vector leaves."""
+    rng = np.random.default_rng(seed)
+    xs = []
+    for s_p_off in [(5, 1, 0), (5, 7, 1), (5, 1001, 3), (5, 4096, 0),
+                    (5, 4096, 1), (5, 333, 0), (5, 8, 0), (5, 24, 2)]:
+        s, p, off = s_p_off
+        base = torch.from_numpy(rng.standard_normal(s * p + off).astype(
+            np.float32)).to(dtype).to(device)
+        xs.append(base[off:].view(s, p))
+    return xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cnn", "ragged", "many"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_leaves_match_plain_on_card(case, dname):
+    """fedagg_leaves on the card: within the tolerance of the plain fold,
+    bit-equal to one-leaf launches of the same kernel (the per-leaf fold's
+    arithmetic), one launch per MAX_LEAVES leaves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the fedagg kernel is CUDA C++ "
+                    "and has no CPU or interpreter mode")
+    tdt = DTYPES[dname][0]
+    rng = np.random.default_rng(7)
+    if case == "cnn":
+        xs = [_t(v.reshape(40, -1), tdt).cuda()
+              for v in _cnn_stack(n=40, seed=5).values()]
+    elif case == "ragged":
+        xs = _ragged(tdt, "cuda")
+    else:
+        xs = _ragged(tdt, "cuda") * 9                  # 72 leaves
+    w = _t(rng.random(xs[0].shape[0]).astype(np.float32)).cuda()
+    before = fedagg_mod.fedagg.launches
+    got = fedagg_mod.fedagg_leaves(xs, w)
+    torch.cuda.synchronize()
+    assert fedagg_mod.fedagg.launches == before + -(
+        -len(xs) // fedagg_mod.MAX_LEAVES)
+    for g, x, one, want in zip(got, xs, [fedagg_mod.fedagg(x, w) for x in xs],
+                               fedagg_mod.fedagg_leaves_plain(xs, w)):
+        assert g.dtype == tdt and g.shape == (x.shape[1],)
+        assert torch.equal(g, one)
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **TOL[dname])
