@@ -17,7 +17,9 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    plain version and the one-call PyTorch yardstick (``library_ms``,
    timed here only; the port never calls it) back to back with each
    call's host cost, and kernel and yardstick also as device time with
-   the host's cost hidden (``device_ms``); then show
+   the host's cost hidden (``device_ms``), at S=40 (a round's fold of
+   the 40 satellites) and at S=8 (a cycle event's fold of one orbit's
+   members, ``fold_s8``); then show
    that each of the four kernel wrappers refuses a CUDA input that
    requires grad (the kernels have no backward yet);
 4. card vs CPU — one round of the default config at full width (except
@@ -99,10 +101,24 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     ``selective_scan`` and 1 ``flash_attention`` launches, that one of the
     tensor-core kernel), the share of
     its abar in (0.01, 0.99), ``greedy_generate`` at serve's defaults,
-    and the profiles of phase 10.
+    and the profiles of phase 10;
+19. routed — each routed strategy at full width on the card with its
+    station scenario (fedisl/gs, fedisl_ideal/meo, fedsink/haps:2,
+    fedhap_async/haps:2, fedhap_buffered/haps:2), default local steps,
+    batch and plan block, ``max_rounds=16`` (two blocks or more): the
+    counts zeroed just before each run and read just after must show
+    one ``fedagg`` launch per valid round or cycle event (the S=40 fold
+    of a round, the S=8 fold of an orbit's members); accuracies finite
+    and above chance; s/round or s/event, peak memory and clocks logged;
+20. cycle card vs CPU — one ``cycle_block`` of 4 planned fedhap_buffered
+    events (two flushes, two buffered) at full width with
+    ``local_steps=2`` on the card and on the CPU from the same init and
+    tensors: params, cycle bases and buffer must agree.
 
-Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
+Prints a ``{"kernels": [...]}`` JSON line (``fedagg``'s entry with the
+phase 19 launch counts by strategy, ``launches_routed``), the card line,
+and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+``repro``.
 """
 from __future__ import annotations
 
@@ -357,6 +373,7 @@ def phase_kernels(torch, fedagg_mod, ops, leaf_shapes, n_sats):
         f"time: kernel {fold_dev:.4f} ms ({total_bytes / fold_dev / 1e6:.1f}"
         f" GB/s, {bound_ms / fold_dev:.3f} of its bound), torch.mv per leaf "
         f"{lib_dev:.4f} ms")
+    fold_s8 = phase_fold_s8(torch, leaves, leaves_plain, xs, gen, dev)
 
     # Ragged shapes and unaligned views, one leaf at a time and as one
     # list; a list longer than MAX_LEAVES; f32 and bf16.
@@ -416,7 +433,47 @@ def phase_kernels(torch, fedagg_mod, ops, leaf_shapes, n_sats):
                 launches=None, max_abs_err=worst, ms=fold_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms, device_ms=fold_dev,
-                library_device_ms=lib_dev)
+                library_device_ms=lib_dev, fold_s8=fold_s8)
+
+
+# The routed cycle family folds one orbit's members per event: S = k = 8.
+CYCLE_MEMBERS = 8
+
+
+def phase_fold_s8(torch, leaves, leaves_plain, xs, gen, dev) -> dict:
+    """The fold of the CNN's 8 leaves at S = 8 (one orbit's members, as
+    each fedhap_async / fedhap_buffered event folds them): checked against
+    the plain fold, then timed back to back with the host's cost and as
+    device time, beside its bound and torch.mv per leaf."""
+    s = CYCLE_MEMBERS
+    x8 = [x[:s].contiguous() for x in xs]
+    w8 = torch.rand(s, generator=gen, device=dev)
+    err = 0.0
+    for i, (g, want) in enumerate(zip(leaves(x8, w8),
+                                      leaves_plain(x8, w8))):
+        err = max(err, check_close(torch, g, want, "float32",
+                                   f"fedagg_leaves S={s} leaf {i}"))
+    nbytes = sum((s * x.shape[1] + x.shape[1]) * 4 + s * 4 for x in x8)
+    flop = sum(2 * s * x.shape[1] for x in x8)
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S)
+    fold = lambda: leaves(x8, w8)                               # noqa: E731
+    mv = lambda: [torch.mv(x.t(), w8) for x in x8]              # noqa: E731
+    out = dict(S=s, bytes=nbytes, max_abs_err=err, ms=time_ms(torch, fold),
+               device_ms=device_ms(torch, fold),
+               plain_ms=time_ms(torch, lambda: leaves_plain(x8, w8)),
+               library_ms=time_ms(torch, mv),
+               library_device_ms=device_ms(torch, mv), bound_ms=bound_ms,
+               bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flop / F32_FLOP_PER_S else "operations"))
+    log("kernels", f"fedagg fold of {len(x8)} leaves, S={s} (one orbit's "
+        f"members per cycle event), {nbytes} bytes, bound "
+        f"{bound_ms:.4f} ms; back to back with the host's cost: kernel "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, torch.mv per "
+        f"leaf {out['library_ms']:.4f} ms; device time: kernel "
+        f"{out['device_ms']:.4f} ms ({bound_ms / out['device_ms']:.3f} of "
+        f"its bound), torch.mv per leaf {out['library_device_ms']:.4f} ms; "
+        f"max |err| {err:.3e}")
+    return out
 
 
 def phase_guard(torch, kernels: dict) -> None:
@@ -1833,6 +1890,163 @@ def phase_jamba_prefill_reads(torch, model, params, serve, tokens, ops,
         f"{float(want.float().abs().mean()):.4f}")
 
 
+# Phase 19: the routed strategies with the station scenarios of the JAX
+# package's tests (tests/test_sim_fused.py).
+ROUTED_SCENARIOS = (("fedisl", "gs"), ("fedisl_ideal", "meo"),
+                    ("fedsink", "haps:2"), ("fedhap_async", "haps:2"),
+                    ("fedhap_buffered", "haps:2"))
+# Rounds (round family) or aggregations (cycle family) per run: at least
+# two blocks of 8 each.
+ROUTED_MAX_ROUNDS = 16
+
+
+def count_valid(ex, method: str, valid_arg: int, counter: list) -> None:
+    """Wrap ``ex.<method>`` so that each call adds the number of valid
+    rounds or events it executes to ``counter[0]`` and one block to
+    ``counter[1]``. ``args[valid_arg]`` is the call's valid flags, or
+    the event tensor dict that holds them."""
+    inner = getattr(ex, method)
+
+    def counted(*args, **kw):
+        valid = args[valid_arg]
+        if isinstance(valid, dict):
+            valid = valid["valid"]
+        counter[0] += int(np.sum(valid))
+        counter[1] += 1
+        return inner(*args, **kw)
+    setattr(ex, method, counted)
+
+
+def phase_routed(torch, sim, fedagg_mod) -> dict:
+    """Each routed strategy at full width on the card (default
+    local_steps, batch and plan_block; ``max_rounds`` 16): the fedagg
+    counts zeroed just before the run and read just after must show one
+    launch per valid round (round family) or valid event (cycle family),
+    as the executor counts them; accuracies finite and above chance.
+    Returns the launch counts and timings by strategy."""
+    from repro_torch.sim.strategies import CycleStrategy
+
+    out = {}
+    for strategy, stations in ROUTED_SCENARIOS:
+        t0 = time.perf_counter()
+        eng = sim.RoundEngine(sim.SimConfig(strategy=strategy,
+                                            stations=stations,
+                                            max_rounds=ROUTED_MAX_ROUNDS))
+        cycle = issubclass(sim.get_strategy(strategy), CycleStrategy)
+        counter = [0, 0]
+        if cycle:
+            count_valid(eng.executor, "cycle_block", 3, counter)
+        else:
+            count_valid(eng.executor, "run_block", 4, counter)
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        fedagg_mod.fedagg.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fedagg_mod.fedagg.launches
+        n_valid, blocks = counter
+        unit = "event" if cycle else "round"
+        accs = [a for _, _, a in res.history]
+        log("routed", f"{strategy}/{stations}: engine built in {build_s:.2f}"
+            f" s; {res.rounds} evals, {res.history[-1][1] if accs else 0} "
+            f"aggregations, {n_valid} valid {unit}s in {blocks} blocks, "
+            f"{res.sim_hours:.4f} simulated h, in {wall:.3f} s: "
+            f"{wall / max(n_valid, 1):.4f} s/{unit} (plan + train + fold "
+            f"+ eval, the first block included); fedagg launches "
+            f"{launches}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card now "
+            f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+        log("routed", f"{strategy}: accuracies "
+            f"{[round(a, 4) for a in accs]}")
+        if blocks < 2:
+            raise AssertionError(f"{strategy}: {blocks} block(s); expected "
+                                 f"at least two")
+        if launches != n_valid:
+            raise AssertionError(f"{strategy}: fedagg launched {launches} "
+                                 f"times for {n_valid} valid {unit}s; "
+                                 f"expected one per {unit}")
+        if not accs or not all(math.isfinite(a) for a in accs) \
+                or accs[-1] <= 0.10:
+            raise AssertionError(f"{strategy}: accuracies not finite or "
+                                 f"not above chance: {accs}")
+        out[strategy] = dict(launches=launches, valid=n_valid, unit=unit,
+                             blocks=blocks, s_per_unit=wall / n_valid,
+                             evals=res.rounds, sim_hours=res.sim_hours,
+                             final_acc=accs[-1])
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cycle_card_vs_cpu(torch, sim) -> None:
+    """One ``cycle_block`` of planned fedhap_buffered events at full width
+    (``local_steps=2``) on the card and on a CPU ``FusedExecutor``, from
+    the same init and the same planned tensors: global params, cycle
+    bases and buffer must agree to PARAM_TOL, each evaluated accuracy
+    within two flipped predictions; the events hold a flush and a
+    buffered, unflushed event."""
+    from repro_torch.models.params import params_to_numpy, params_from_numpy
+    from repro_torch.sim.strategies import FedHapBuffered
+
+    eng = sim.RoundEngine(sim.SimConfig(strategy="fedhap_buffered",
+                                        stations="haps:2", local_steps=2))
+    strat = FedHapBuffered()
+    K = 4
+    events = strat.plan_events(eng, strat.init_plan_state(eng, 0.0), K)
+    for e in events:
+        e["do_eval"] = bool(e["folds"])
+    ev = strat.event_tensors(eng, events, K)
+    if not (ev["valid"].all() and ev["flush"].any()
+            and (~ev["flush"]).any()):
+        raise AssertionError(f"planned events: valid {ev['valid']}, flush "
+                             f"{ev['flush']}; want {K} valid events with a "
+                             f"flush and an unflushed one")
+    L, B = eng.cfg.num_orbits, ev["rhos"].shape[1]
+    init = params_to_numpy(eng.trainer.init(eng.cfg.seed))
+    outs = {}
+    for device, ex in (("cuda", eng.executor),
+                       ("cpu", sim.FusedExecutor(
+                           sim.LocalTrainer(eng.trainer.model,
+                                            eng.cfg.learning_rate,
+                                            eng.cfg.batch_size, "cpu"),
+                           eng.fd, eng.eval_images, eng.eval_labels))):
+        p = params_from_numpy(init, device)
+        t0 = time.perf_counter()
+        g, bases, buf, accs = ex.cycle_block(
+            p, ex.broadcast_rows(p, L), ex.zero_rows(p, B), ev)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        outs[device] = ({"params": params_to_numpy(g),
+                         "bases": params_to_numpy(bases),
+                         "buffer": params_to_numpy(buf)}, accs)
+        log("cycle-card-vs-cpu", f"{device}: {K} events (orbits "
+            f"{ev['l'].tolist()}, flush {ev['flush'].tolist()}; "
+            f"{eng.cfg.sats_per_orbit} members x {eng.cfg.local_steps} "
+            f"steps + fold each) in {time.perf_counter() - t0:.3f} s, "
+            f"accs {accs.tolist()}")
+    worst = 0.0
+    for part, want_tree in outs["cpu"][0].items():
+        for k, want in want_tree.items():
+            got = outs["cuda"][0][part][k]
+            worst = max(worst, float(np.abs(got - want).max()))
+            np.testing.assert_allclose(got, want, **PARAM_TOL,
+                                       err_msg=f"{part} {k}: card vs CPU")
+    n_eval = len(eng.eval_labels)
+    card, cpu = outs["cuda"][1], outs["cpu"][1]
+    if not np.array_equal(np.isnan(card), np.isnan(cpu)):
+        raise AssertionError(f"evaluated events differ: {card} vs {cpu}")
+    done = ~np.isnan(cpu)
+    dacc = float(np.abs(card[done] - cpu[done]).max())
+    if dacc > 2.0 / n_eval + 1e-7:
+        raise AssertionError(f"card vs CPU accuracy differs by {dacc}")
+    log("cycle-card-vs-cpu", f"params, bases and buffer agree: max |card - "
+        f"cpu| {worst:.3e} ({PARAM_TOL}); accuracy differs by at most "
+        f"{dacc:.6f}")
+
+
 def main() -> int:
     import torch
 
@@ -1984,7 +2198,15 @@ def main() -> int:
     phase_jamba_prefill_reads(torch, model, params, serve, tokens, ops,
                               fa_mod)
     phase_serve_profile(torch, model, params, serve, tokens, "scan_fwd")
-    del params
+    del params, model
+    torch.cuda.empty_cache()
+
+    # 19. the routed strategies on the card; counts zeroed per run.
+    routed = phase_routed(torch, sim, fedagg_mod)
+    entry["launches_routed"] = {k: v["launches"] for k, v in routed.items()}
+
+    # 20. one cycle block, card against CPU
+    phase_cycle_card_vs_cpu(torch, sim)
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
                                   scan_entry]}))

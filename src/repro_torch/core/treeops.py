@@ -11,6 +11,17 @@ from typing import Any, Mapping
 import torch
 
 
+def tree_scale(tree: Mapping[str, torch.Tensor], s: Any) -> dict:
+    """Every leaf times the scalar ``s``."""
+    return {k: x * s for k, x in tree.items()}
+
+
+def tree_add(a: Mapping[str, torch.Tensor],
+             b: Mapping[str, torch.Tensor]) -> dict:
+    """Leafwise ``a + b`` of two trees with the same keys."""
+    return {k: x + b[k] for k, x in a.items()}
+
+
 def tree_combine(stacked: Mapping[str, torch.Tensor],
                  weights: Any) -> dict:
     """Σ_s weights[s] · stacked[s] per leaf — the plain fold: f32
@@ -52,4 +63,5 @@ def tree_set_row(stacked: Mapping[str, torch.Tensor], i: int,
     return out
 
 
-__all__ = ["tree_combine", "tree_broadcast", "tree_row", "tree_set_row"]
+__all__ = ["tree_scale", "tree_add", "tree_combine", "tree_broadcast",
+           "tree_row", "tree_set_row"]

@@ -1,9 +1,10 @@
-"""Orbital mechanics, visibility geometry, and link budgets (numpy copies
-of ``repro.orbits``).
+"""Orbital mechanics, visibility geometry, link budgets and ISL routing
+(numpy copies of ``repro.orbits``).
 
-The ISL routing subsystem (``repro.orbits.routing``) is not part of this
-slice: only the routed strategies (fedsink, fedhap_async,
-fedhap_buffered) need it, and it comes with them (ROADMAP Queue A).
+The routing subsystem (:mod:`repro_torch.orbits.routing`: time-expanded
+ISL contact graphs, earliest-arrival search, stitched window chains and
+sink elections) is the substrate of the routed strategies (fedsink,
+fedhap_async, fedhap_buffered).
 """
 from repro_torch.orbits.constellation import (
     EARTH_RADIUS_M,
@@ -36,6 +37,20 @@ from repro_torch.orbits.visibility import (
     visibility_windows,
     windows_from_mask,
 )
+from repro_torch.orbits.routing import (
+    ContactGraph,
+    SinkElection,
+    SparseContactGraph,
+    WindowedRouter,
+    build_contact_graph,
+    earliest_arrival,
+    earliest_arrival_dense,
+    earliest_arrival_reference,
+    elect_sinks,
+    extract_path,
+    extract_paths,
+    predecessors,
+)
 from repro_torch.orbits.links import (
     FSO_DEFAULTS,
     RF_DEFAULTS,
@@ -61,6 +76,10 @@ __all__ = [
     "sat_sat_visibility_mask", "sat_sat_visible", "stations_eci",
     "visibility_mask", "visibility_mask_pairwise", "visibility_windows",
     "windows_from_mask",
+    "ContactGraph", "SinkElection", "SparseContactGraph", "WindowedRouter",
+    "build_contact_graph", "earliest_arrival", "earliest_arrival_dense",
+    "earliest_arrival_reference", "elect_sinks",
+    "extract_path", "extract_paths", "predecessors",
     "FSO_DEFAULTS", "RF_DEFAULTS", "FsoLinkParams", "RfLinkParams",
     "fso_channel_gain", "fso_snr", "link_delay_s", "model_transfer_delay_s",
     "rf_snr", "shannon_rate_bps",

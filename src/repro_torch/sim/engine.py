@@ -8,16 +8,19 @@ of the digits dataset. The output is accuracy vs. *simulated* hours.
 
 The plan half is the reference's numpy, unchanged and held bit-equal to
 it by the tests: the batched visibility grid, the SHL-delay tables, the
-next-contact tables, the Eq. 14-16 weights and the client plane. The
-execute half runs on tensors on ``SimConfig.device`` — the card by
-default (``"cuda"``); ``"cpu"`` only when the caller asks for it. A
-missing card raises; there is no fallback to the CPU.
+next-contact tables, the Eq. 14-16 weights, the client plane, and the
+ISL routing substrate of the routed strategies (contact-graph windows
+over ``SimConfig.isl_grid_max_bytes``, stitched past it; routed exits;
+station-upload pricing with lost-upload retries; memoized sink
+elections). The execute half runs on tensors on ``SimConfig.device`` —
+the card by default (``"cuda"``); ``"cpu"`` only when the caller asks
+for it. A missing card raises; there is no fallback to the CPU.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): strategies other than ``fedhap``, the satellite-sharded
-mesh (``data_shards > 1`` / ``mesh``), checkpoint and resume
-(``run(checkpoint_dir=...)``), and the ISL routing substrate that only
-the routed strategies use.
+ROADMAP item): the tick strategies ``fedsat`` and ``fedspace``, the
+satellite-sharded mesh (``data_shards > 1`` / ``mesh``), and checkpoint
+and resume (``run(checkpoint_dir=...)``; the engine's checkpoint hooks
+``ckpt_resume`` / ``ckpt_meta`` / ``ckpt_tick`` are no-ops until then).
 
 ``SimConfig.clients`` and ``SimConfig.faults`` take the reference's
 grammars (``static | sampled:FRAC[xCLIENTS] | geo:REGIONSxCLIENTS[@FRAC]``
@@ -42,7 +45,7 @@ from repro_torch.data import (
     partition_iid,
     partition_noniid_by_orbit,
 )
-from repro_torch.faults import FaultPlane, parse_faults
+from repro_torch.faults import MAX_UPLOAD_RETRIES, FaultPlane, parse_faults
 from repro_torch.kernels.ops import fold_stacked_tree
 from repro_torch.models import CNN, MLP, params_from_numpy
 from repro_torch.orbits import (
@@ -56,6 +59,19 @@ from repro_torch.orbits import (
     next_contact_table,
     parse_shells,
     stations_eci,
+)
+from repro_torch.orbits.routing import (
+    ContactGraph,
+    SinkElection,
+    SparseContactGraph,
+    WindowedRouter,
+    build_contact_graph,
+    earliest_arrival,
+    elect_sinks,
+    extract_paths,
+    onehot_chain_weights,
+    predecessors,
+    subgraph,
 )
 from repro_torch.orbits.visibility import DALLAS, ROLLA
 from repro_torch.sim.strategies import RunState, Strategy, get_strategy
@@ -109,11 +125,22 @@ class SimConfig:
     seed: int = 0
     # fault-injection plane ("" = none, the exact pre-fault path)
     faults: str = ""
+    # fedhap_async / fedhap_buffered knobs
+    buffer_fraction: float = 0.5
+    staleness_power: float = 0.5
     # geometry engine: budget for the eager (n_st, n_sat, T) float32
     # SHL-delay table; grids past it fall back to lazy per-column compute
     delay_table_max_bytes: int = 512 * 2**20
     # LRU capacity (in columns) of the lazy per-column delay cache
     delay_column_cache: int = 4096
+    # routing subsystem: budget for one windowed (S, S, W) contact graph
+    # (ISL LoS grid + int16 edge table); grids past it route over a
+    # stitched chain of half-overlapping windows (WindowedRouter) —
+    # exact against the whole-grid oracle, windows built lazily
+    isl_grid_max_bytes: int = 256 * 2**20
+    isl_grazing_altitude_m: float = 80_000.0
+    # LRU capacity (in windows) of the compiled contact-graph cache
+    contact_graph_cache: int = 4
 
     def __post_init__(self):
         # `shells:` specs are the source of truth for the constellation
@@ -264,12 +291,15 @@ class RoundEngine:
         # phase. faults="" builds no plane: the pre-fault code path.
         fault_spec = parse_faults(cfg.faults)
         self.fault_plane: Optional[FaultPlane] = None
+        self._isl_fault: Optional[np.ndarray] = None
         if fault_spec.any_faults:
             self.fault_plane = FaultPlane(
                 fault_spec, seed=cfg.seed, n_sats=self.n_sats,
                 st_is_hap=self._st_is_hap, grid_t=self.grid_t)
             self.vis &= self.fault_plane.st_up[:, None, :]
             self.vis &= self.fault_plane.sat_up[None, :, :]
+            if self.fault_plane.has_isl_faults:
+                self._isl_fault = self.fault_plane.isl_fault
 
         table_bytes = len(self.stations) * self.n_sats * n_steps * 4
         if table_bytes <= cfg.delay_table_max_bytes:
@@ -285,6 +315,35 @@ class RoundEngine:
         self.orbit_vis = self.any_vis.reshape(L, k, -1).any(axis=1)  # (L, T)
         self.orbit_next = next_contact_table(self.orbit_vis)     # (L, T)
         self.sat_next = next_contact_table(self.any_vis)         # (S, T)
+
+        # Routing substrate: the stacked satellite ephemeris is kept for
+        # windowed contact-graph builds; graphs, per-orbit intra-plane
+        # subgraphs, and sink elections are built lazily and memoized
+        # (route/sink caches). The one-hot Eq.-14 chain weights behind
+        # sink scoring are time-independent: computed once per orbit.
+        self._sat_pos = sat_pos                             # (S, T, 3)
+        self._contact_graphs: OrderedDict[int, ContactGraph] = OrderedDict()
+        self._orbit_graphs: OrderedDict[Any, ContactGraph] = OrderedDict()
+        self._intra_graphs: OrderedDict[int, SparseContactGraph] = \
+            OrderedDict()
+        self._sink_cache: OrderedDict[Any, SinkElection] = OrderedDict()
+        # Intra-plane locality mask: the CSR candidate filter that turns
+        # election routing into L independent k x k blocks (E = L*k^2
+        # candidate pairs instead of S^2) relaxed in ONE call.
+        self._same_plane = self.constellation.same_plane_mask()
+        # Window length (grid steps) of one compiled contact graph under
+        # the byte budget; the whole horizon when it fits. Windows stay
+        # under the int16 sentinel so the edge table never silently
+        # widens to int32 (which would bust the byte budget).
+        per_step = self.n_sats * self.n_sats * 3   # 1B LoS + 2B int16
+        self._window_steps = int(max(32, min(
+            n_steps, np.iinfo(np.int16).max,
+            cfg.isl_grid_max_bytes // max(1, per_step))))
+        self._router: Optional[WindowedRouter] = None
+        self._orbit_routers: dict[int, WindowedRouter] = {}
+        self._intra_router: Optional[WindowedRouter] = None
+        self._onehot_lam = onehot_chain_weights(
+            self.sizes.reshape(L, k), cfg.partial_mode)     # (L, k, k)
 
         # Static intra-orbit ISL geometry (circular orbits: constant).
         a, b = (self.constellation.orbit_members(0)[0],
@@ -434,6 +493,422 @@ class RoundEngine:
         ok = (j < T) & (tt <= self.horizon_s)
         return np.where(ok, tt, np.nan)
 
+    # ----------------------------------------------- routing subsystem
+    @staticmethod
+    def _find_reuse(cache: OrderedDict, i0: int):
+        """The cached window with the largest head overlap into a new
+        window at ``i0`` — the incremental-advance donor
+        (``build_contact_graph(reuse=...)``). None when no cached window
+        starts at or before ``i0`` and reaches past it."""
+        best, best_ov = None, 0
+        for p0, g in cache.items():
+            if p0 <= i0:
+                ov = p0 + g.n_steps - i0
+                if ov > best_ov:
+                    best, best_ov = g, ov
+        return best
+
+    def _window_graph(self, i0: int) -> ContactGraph:
+        """Compile (or fetch) the contact-graph window starting at grid
+        index ``i0``, memoized in an LRU of
+        ``SimConfig.contact_graph_cache`` windows (mirrors the lazy
+        delay-column cache: stitched sweeps revisit neighboring windows,
+        eviction drops the least-recently routed one). A miss advances
+        incrementally from the cached window with the largest overlap —
+        the stitched chain steps by half a window, so typically only
+        half the LoS geometry is ever recomputed (bit-equal either way)."""
+        graph = self._contact_graphs.get(i0)
+        if graph is None:
+            sl = slice(i0, min(i0 + self._window_steps, len(self.grid_t)))
+            graph = build_contact_graph(
+                self.constellation, self.grid_t[sl],
+                self.model_bits // 32,
+                grazing_altitude_m=self.cfg.isl_grazing_altitude_m,
+                positions=self._sat_pos[:, sl],
+                fault_mask=self._isl_fault,
+                reuse=self._find_reuse(self._contact_graphs, i0))
+            self._contact_graphs[i0] = graph
+            if len(self._contact_graphs) > max(1,
+                                               self.cfg.contact_graph_cache):
+                self._contact_graphs.popitem(last=False)
+        else:
+            self._contact_graphs.move_to_end(i0)
+        return graph
+
+    def _intra_window(self, i0: int) -> SparseContactGraph:
+        """One CSR *intra-plane* window at grid index ``i0``: the
+        block-diagonal contact graph over the same-plane candidate
+        pairs only (``E = L*k^2`` instead of ``S^2``), LRU-cached and
+        incrementally advanced like the full windows. Disjoint blocks
+        relax independently, so routing global member ids over this
+        graph is bit-equal to routing each orbit's induced subgraph —
+        which is what lets one relaxation score a whole batch of sink
+        elections."""
+        graph = self._intra_graphs.get(i0)
+        if graph is None:
+            sl = slice(i0, min(i0 + self._window_steps, len(self.grid_t)))
+            graph = build_contact_graph(
+                self.constellation, self.grid_t[sl],
+                self.model_bits // 32,
+                grazing_altitude_m=self.cfg.isl_grazing_altitude_m,
+                positions=self._sat_pos[:, sl],
+                sparse=True, pair_mask=self._same_plane,
+                fault_mask=self._isl_fault,
+                reuse=self._find_reuse(self._intra_graphs, i0))
+            self._intra_graphs[i0] = graph
+            if len(self._intra_graphs) > max(1,
+                                             self.cfg.contact_graph_cache):
+                self._intra_graphs.popitem(last=False)
+        else:
+            self._intra_graphs.move_to_end(i0)
+        return graph
+
+    def intra_plane_graph(self, t_s: float = 0.0) \
+            -> Union[SparseContactGraph, WindowedRouter]:
+        """The block-diagonal intra-plane routing substrate covering
+        ``t_s``: one CSR graph when a window spans the horizon, else a
+        stitched router over the LRU-cached intra windows (the election
+        path cuts its chain once the member columns settle — see
+        :func:`repro_torch.orbits.routing.elect_sinks`)."""
+        if self._window_steps >= len(self.grid_t):
+            return self._intra_window(0)
+        if self._intra_router is None:
+            self._intra_router = WindowedRouter(
+                self.grid_t, self.n_sats, self._window_steps,
+                self._intra_window)
+        return self._intra_router
+
+    def contact_graph(self, t_s: float = 0.0) -> Union[ContactGraph,
+                                                       WindowedRouter]:
+        """The routing substrate covering ``t_s`` (route cache).
+
+        When the whole-horizon ``(S, S, T)`` structures fit
+        ``SimConfig.isl_grid_max_bytes`` one :class:`ContactGraph` is
+        built and reused for every query. Past the budget the engine
+        hands out a :class:`WindowedRouter` instead: half-overlapping
+        windows of the grid are compiled on demand (through the
+        ``contact_graph_cache`` LRU) and arrival frontiers are stitched
+        across them, so mega-constellation shells route exactly like
+        the single-graph oracle — including routes that cross a window
+        boundary — without materializing the full edge table. Both
+        returns answer the same `repro_torch.orbits.routing` API
+        (``earliest_arrival`` / ``predecessors`` / ``subgraph`` /
+        ``elect_sinks`` dispatch on the type).
+        """
+        if self._window_steps >= len(self.grid_t):
+            return self._window_graph(0)
+        if self._router is None:
+            self._router = WindowedRouter(
+                self.grid_t, self.n_sats, self._window_steps,
+                self._window_graph)
+        return self._router
+
+    def full_contact_graph(self) -> ContactGraph:
+        """Single-graph oracle over the whole horizon grid, ignoring
+        ``isl_grid_max_bytes`` — the stitched-equivalence baseline for
+        the tests. Built fresh on every call; not part of the route caches."""
+        return build_contact_graph(
+            self.constellation, self.grid_t, self.model_bits // 32,
+            grazing_altitude_m=self.cfg.isl_grazing_altitude_m,
+            positions=self._sat_pos, fault_mask=self._isl_fault)
+
+    def route_exit_end(self, sat_idx: int, t_s: float) -> float:
+        """Earliest completed station upload reachable from ``sat_idx``
+        holding a model at ``t_s``, allowed to ride cross-plane ISL
+        routes — the routed exit decision behind ``fedhap_buffered``;
+        the scalar form of :meth:`route_exit_ends`. Returns inf when no
+        route completes before the horizon."""
+        return float(self.route_exit_ends([int(sat_idx)], [t_s])[0])
+
+    def route_exit_ends(self, sat_idx, t_s) -> np.ndarray:
+        """Batched routed exits: ``(N,)`` earliest completed station
+        uploads of models held at satellites ``sat_idx`` from times
+        ``t_s`` (per-row). One shared frontier-masked earliest-arrival
+        sweep over all rows plus one exit-pricing gather
+        (:meth:`station_upload_end`) over the landings — the whole
+        batch of a plan block's exit decisions in one relaxation. The
+        sweep is bound-pruned (``cap``): a label at or past its row's
+        current best upload end cannot seed a better exit (arrivals
+        propagate monotonically and upload ends never precede
+        arrival), so the frontier collapses to the labels that can
+        still matter — exact for the returned ends. On a stitched
+        router the chain is additionally cut (``stop``) as soon as
+        every row's best exit already beats the next window's start:
+        any later candidate lands at or after that start, so its
+        upload ends no earlier. Rows with non-finite ``t_s`` price
+        inf."""
+        sats = np.atleast_1d(np.asarray(sat_idx, dtype=np.int64))
+        ts = np.atleast_1d(np.asarray(t_s, dtype=np.float64))
+        ends = np.full(len(sats), np.inf)
+        ok = np.isfinite(ts)
+        if not ok.any():
+            return ends
+        sats, tv = sats[ok], ts[ok]
+        graph = self.contact_graph(float(tv.min()))
+        allsat = np.arange(self.n_sats)[None, :]
+
+        def best_ends(a: np.ndarray) -> np.ndarray:
+            # Lost-upload-aware pricing: under a fault plane a routed
+            # exit retries through later contacts (upload_end is still
+            # monotone in arrival time, so bound-pruning stays exact).
+            return self.upload_end(allsat, a).min(axis=1)
+
+        if isinstance(graph, WindowedRouter):
+            def exits_settled(a: np.ndarray, t_next: float) -> bool:
+                best = best_ends(a)
+                return bool(np.all(np.isfinite(best) & (best <= t_next)))
+
+            arr = graph.earliest_arrival(sats, tv, stop=exits_settled,
+                                         cap=best_ends)
+        else:
+            arr = earliest_arrival(graph, sats, tv, cap=best_ends)
+        ends[ok] = best_ends(arr)
+        return ends
+
+    def route_exit_plan(self, sat_idx: int,
+                        t_s: float) -> tuple[float, int, list[int]]:
+        """The routed exit of :meth:`route_exit_end` *with its path*:
+        ``(end, exit_sat, hops)`` where ``hops`` is the ISL hop list
+        from ``sat_idx`` to the exit satellite (``[]`` when no route
+        completes). One stitched sweep, one spliced predecessor table,
+        one vectorized ``extract_paths`` walk — the diagnostic behind
+        the mega-shell benches' hop-count reporting."""
+        graph = self.contact_graph(float(t_s))
+        arr = earliest_arrival(graph, [int(sat_idx)], float(t_s))
+        ends = self.station_upload_end(np.arange(self.n_sats), arr[0])
+        exit_sat = int(np.argmin(ends))
+        end = float(ends[exit_sat])
+        if not np.isfinite(end):
+            return end, -1, []
+        pred = predecessors(graph, [int(sat_idx)], arr)
+        hops = extract_paths(pred, [int(sat_idx)], [exit_sat])[0, 0]
+        return end, exit_sat, [int(h) for h in hops[hops >= 0]]
+
+    def station_upload_end(self, sat_idx, t_s) -> np.ndarray:
+        """Earliest completion of an upload from satellite(s) ready at
+        ``t_s``: wait for the satellite's next station contact, then one
+        SHL transfer through the first station that sees it. Inputs
+        broadcast; returns absolute end times (inf when no contact
+        remains before the horizon) — the batched per-segment pricing
+        behind the routed strategies' exit decisions.
+        """
+        step = self.cfg.time_step_s
+        T = self.sat_next.shape[1]
+        sat, t = np.broadcast_arrays(np.asarray(sat_idx, dtype=np.int64),
+                                     np.asarray(t_s, dtype=np.float64))
+        fin = np.isfinite(t) & (t <= self.horizon_s)
+        ti = np.where(fin, t, 0.0)
+        i0 = self.tidx(ti)
+        j = self.sat_next[sat, i0]
+        tt = ti + np.maximum(0, j - i0) * step
+        ok = fin & (j < T) & (tt <= self.horizon_s)
+        jj = np.minimum(j, T - 1)
+        owner = self.vis[:, sat, jj].argmax(axis=0)
+        shl = self.shl_delays(owner, sat, jj)
+        return np.where(ok, tt + shl, np.inf)
+
+    def upload_survives(self, sat_idx, t_s) -> np.ndarray:
+        """True where an upload attempted by ``sat_idx`` at sim time
+        ``t_s`` is NOT lost (fault plane ``upload_loss`` stream; inputs
+        broadcast). All-True when no fault plane is configured — the
+        plan phases gate on :attr:`fault_plane` first, so the no-fault
+        path never even asks."""
+        sat = np.asarray(sat_idx, dtype=np.int64)
+        if self.fault_plane is None:
+            return np.ones(np.broadcast_shapes(
+                sat.shape, np.shape(t_s)), dtype=bool)
+        return self.fault_plane.upload_ok[sat, self.tidx(t_s)]
+
+    def upload_end(self, sat_idx, t_s) -> np.ndarray:
+        """:meth:`station_upload_end` made lost-upload aware: an upload
+        whose contact step is marked lost by the fault plane retries
+        through the *next* contact, up to ``MAX_UPLOAD_RETRIES``
+        consecutive losses (then inf — the next-contact-horizon
+        timeout). Monotone nondecreasing in ``t_s`` like the base
+        pricer, so ``cap=``-pruned routed sweeps stay exact. Delegates
+        untouched (bit-identical) when no upload losses are configured.
+        The cycle strategies price their exits through this; round
+        strategies instead drop lost uploads from the fold weights at
+        plan time (a round barrier can't wait on a straggler retry).
+        """
+        plane = self.fault_plane
+        if plane is None or plane.spec.upload_loss <= 0.0:
+            return self.station_upload_end(sat_idx, t_s)
+        step = self.cfg.time_step_s
+        T = self.sat_next.shape[1]
+        sat, t = np.broadcast_arrays(np.asarray(sat_idx, dtype=np.int64),
+                                     np.asarray(t_s, dtype=np.float64))
+        scalar = sat.ndim == 0
+        sat = np.atleast_1d(np.ascontiguousarray(sat))
+        t = np.atleast_1d(t)
+        cur = np.array(t, dtype=np.float64)
+        out = np.full(sat.shape, np.inf)
+        pending = np.ones(sat.shape, dtype=bool)
+        for _ in range(MAX_UPLOAD_RETRIES):
+            fin = pending & np.isfinite(cur) & (cur <= self.horizon_s)
+            if not fin.any():
+                break
+            ti = np.where(fin, cur, 0.0)
+            i0 = self.tidx(ti)
+            j = self.sat_next[sat, i0]
+            tt = ti + np.maximum(0, j - i0) * step
+            ok = fin & (j < T) & (tt <= self.horizon_s)
+            jj = np.minimum(j, T - 1)
+            survives = plane.upload_ok[sat, jj]
+            done = ok & survives
+            if done.any():
+                owner = self.vis[:, sat, jj].argmax(axis=0)
+                shl = self.shl_delays(owner, sat, jj)
+                out = np.where(done, tt + shl, out)
+            # Lost attempts restart after the contact step they burned;
+            # everything else (no contact left / out of horizon) stays
+            # inf and stops retrying.
+            pending = ok & ~survives
+            cur = np.where(pending, (jj + 1) * step, cur)
+        return out[0] if scalar else out
+
+    def _orbit_window(self, l: int, i0: int) -> ContactGraph:
+        """One induced intra-plane window of orbit ``l`` (LRU-cached
+        gathers of the compiled full window at ``i0``)."""
+        key = (l, i0)
+        sub = self._orbit_graphs.get(key)
+        if sub is None:
+            sub = subgraph(self._window_graph(i0),
+                           self.constellation._orbit_table[l])
+            self._orbit_graphs[key] = sub
+            if len(self._orbit_graphs) > 4 * self.cfg.num_orbits:
+                self._orbit_graphs.popitem(last=False)
+        else:
+            self._orbit_graphs.move_to_end(key)
+        return sub
+
+    def orbit_subgraph(self, l: int, t_s: float = 0.0) \
+            -> Union[ContactGraph, WindowedRouter]:
+        """Induced intra-plane contact graph of orbit ``l`` covering
+        ``t_s`` (cached): the ring members plus every intra-plane chord
+        with line of sight — the substrate of sink-election routing.
+        Past the grid byte budget this is a stitched sub-router whose
+        windows gather lazily from the full-shell windows."""
+        if self._window_steps >= len(self.grid_t):
+            return self._orbit_window(l, 0)
+        sub = self._orbit_routers.get(l)
+        if sub is None:
+            sub = WindowedRouter(
+                self.grid_t, self.cfg.sats_per_orbit, self._window_steps,
+                lambda i0, l=l: self._orbit_window(l, i0))
+            self._orbit_routers[l] = sub
+        return sub
+
+    def _sink_cache_put(self, key: Any, el: SinkElection) -> None:
+        self._sink_cache[key] = el
+        if len(self._sink_cache) > 1024:
+            self._sink_cache.popitem(last=False)
+
+    def _elect_rows(self, ls, ts) -> list[SinkElection]:
+        """Per-(orbit, time) election rows for a batch of cycle events:
+        cache-hit rows come from the sink cache, every miss is scored in
+        ONE :func:`repro_torch.orbits.routing.elect_sinks` call over the
+        block-diagonal intra-plane graph (global member ids, per-orbit
+        ``t0`` vector) — the batched plan-phase path. Disjoint blocks
+        relax independently, so each returned row is bit-equal to the
+        orbit's own induced-subgraph election."""
+        cfg = self.cfg
+        L, k = cfg.num_orbits, cfg.sats_per_orbit
+        table = self.constellation._orbit_table
+        out: list[Optional[SinkElection]] = [None] * len(ls)
+        miss: dict[tuple, list[int]] = {}
+        for i, (l, t) in enumerate(zip(ls, ts)):
+            key = ((int(l),), round(float(t), 6))
+            el = self._sink_cache.get(key)
+            if el is not None:
+                self._sink_cache.move_to_end(key)
+                out[i] = el
+            else:
+                miss.setdefault(key, []).append(i)
+        if miss:
+            keys = list(miss)
+            ml = [key[0][0] for key in keys]
+            mt = np.array([float(ts[miss[key][0]]) for key in keys])
+            members = table[ml]                              # (M, k)
+            sizes = self.sizes.reshape(L, k)[ml]
+
+            def exit_cost(mem, ready):
+                # contact wait + SHL from the candidate's own delivery
+                # time (the delivery delta itself is already in the
+                # chain-weighted arrival-delay term of the score).
+                ok = np.isfinite(ready)
+                rf = np.where(ok, ready, 0.0)
+                end = self.station_upload_end(mem, rf)
+                return np.where(ok, end - rf, np.inf)
+
+            el = elect_sinks(
+                self.intra_plane_graph(float(mt.min())), members, sizes,
+                mt, exit_cost, cfg.partial_mode,
+                lam=self._onehot_lam[ml])
+            for j, key in enumerate(keys):
+                row = SinkElection(
+                    sinks=el.sinks[j:j + 1],
+                    sink_slots=el.sink_slots[j:j + 1],
+                    scores=el.scores[j:j + 1],
+                    lam=el.lam[j:j + 1],
+                    delivery=el.delivery[j:j + 1],
+                    all_scores=el.all_scores[j:j + 1])
+                self._sink_cache_put(key, row)
+                for i in miss[key]:
+                    out[i] = row
+        return out
+
+    @staticmethod
+    def _concat_elections(rows) -> SinkElection:
+        return SinkElection(
+            sinks=np.concatenate([r.sinks for r in rows]),
+            sink_slots=np.concatenate([r.sink_slots for r in rows]),
+            scores=np.concatenate([r.scores for r in rows]),
+            lam=np.concatenate([r.lam for r in rows]),
+            delivery=np.concatenate([r.delivery for r in rows]),
+            all_scores=np.concatenate([r.all_scores for r in rows]),
+        )
+
+    def elect_sinks_batch(self, orbits, ts) -> SinkElection:
+        """Sink elections for a *batch* of cycle events — orbit ``i``
+        ready at ``ts[i]`` — scored in one vectorized call over the
+        block-diagonal intra-plane graph (cache-missing rows only);
+        the known remaining host cost of the async/buffered plan phase.
+        Rows concatenate in event order; ``sinks`` are global ids."""
+        rows = self._elect_rows([int(l) for l in orbits],
+                                [float(t) for t in ts])
+        return self._concat_elections(rows)
+
+    def elect_sinks(self, t_s: float,
+                    orbits: Optional[Any] = None) -> SinkElection:
+        """Per-orbit sink election at ``t_s`` (memoized — the sink cache).
+
+        Scores every orbit member by Eq.-14-chain-weighted *intra-plane*
+        routed arrival delay plus its station exit cost — priced by
+        :meth:`station_upload_end` at each candidate's own delivery
+        time, so a contact window that closes while the chain is still
+        folding never wins an election — and elects the argmin; see
+        :func:`repro_torch.orbits.routing.elect_sinks`. All selected orbits
+        are scored by one vectorized call over the block-diagonal
+        intra-plane graph (:meth:`intra_plane_graph`) — bit-equal to
+        routing each orbit's induced subgraph (:meth:`orbit_subgraph`,
+        the blocks are disjoint) with the per-orbit Python eliminated.
+        ``orbits`` restricts the election (e.g. one orbit of an async
+        cycle); default all. Returned ``sinks`` are global ids.
+        """
+        L = self.cfg.num_orbits
+        sel = tuple(range(L)) if orbits is None \
+            else tuple(int(x) for x in orbits)
+        key = (sel, round(float(t_s), 6))
+        el = self._sink_cache.get(key)
+        if el is not None:
+            self._sink_cache.move_to_end(key)
+            return el
+        el = self._concat_elections(
+            self._elect_rows(list(sel), [float(t_s)] * len(sel)))
+        self._sink_cache_put(key, el)
+        return el
+
     # ------------------------------------------------- training/agg ops
     def sample_indices(self, sats, t_s: float = 0.0) -> np.ndarray:
         """Resolve the ``(len(sats), local_steps * batch)`` sample-index
@@ -457,6 +932,21 @@ class RoundEngine:
         s.acc = self.trainer.evaluate(s.params, self.eval_images,
                                       self.eval_labels)
         s.history.append((s.t / 3600.0, s.events, s.acc))
+
+    # ----------------------------------------------------- checkpointing
+    # Checkpoint and resume are ROADMAP Queue A item 9; until then the
+    # hooks the fused loops call are no-ops.
+    def ckpt_resume(self, s: RunState, tree: Any) -> Optional[Any]:
+        """The loaded state to resume from: always None (nothing is
+        saved)."""
+        return None
+
+    def ckpt_meta(self) -> Any:
+        """The resumed strategy's host plan state: always None."""
+        return None
+
+    def ckpt_tick(self, s: RunState, tree: Any, meta: Any = None) -> None:
+        """Snapshot at a block boundary: nothing to do."""
 
     # -------------------------------------------------------------- run
     def run(self, strategy: Union[str, Strategy, None] = None,

@@ -1,9 +1,10 @@
 """Fused on-device execution for the timeline simulator (port of
-``repro.sim.executor.FusedExecutor.run_block``).
+``repro.sim.executor``: ``run_block`` for the round family,
+``cycle_block`` for the routed cycle family, and their helpers).
 
-Strategies plan K rounds in pure numpy; :meth:`FusedExecutor.run_block`
-executes them with the model, the dataset and the eval set resident on
-the device:
+Strategies plan K rounds (or cycle events) in pure numpy;
+:meth:`FusedExecutor.run_block` executes K rounds with the model, the
+dataset and the eval set resident on the device:
 
 - the plan tensors (sample indices ``(K, S, need)`` and weights
   ``mu (K, S)``) are uploaded once per block;
@@ -20,8 +21,18 @@ The per-round ``valid`` and ``do_eval`` flags are host numpy, so the
 reference's ``lax.cond``s are host ``if``s: an invalid round (padding or
 an all-lost fault round) carries params through unchanged.
 
-Not ported yet: the satellite-sharded mesh path, the cycle and tick
-programs (ROADMAP Queue A items 7, 8 and 12).
+:meth:`FusedExecutor.cycle_block` executes K planned cycle events the
+same way, carrying the global model, the per-orbit cycle bases and the
+staleness buffer on the device: each valid event trains one orbit's
+members from its base, folds them with the planned chain weights
+(``fold_stacked_tree``: one ``fedagg`` launch per event on the card),
+writes the orbit model to its buffer slot and, on a flush, applies
+``keep·g + Σ_b rhos[b]·buf[b]`` (a plain einsum, as in the reference).
+The event's orbit, slot and flags are host numpy from the plan, so the
+loop branches on them with no device sync.
+
+Not ported yet: the satellite-sharded mesh path and the tick programs
+(ROADMAP Queue A items 12 and 8).
 """
 from __future__ import annotations
 
@@ -30,8 +41,21 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.treeops import tree_broadcast
+from repro_torch.core.treeops import tree_broadcast, tree_row
 from repro_torch.kernels.ops import fold_stacked_tree
+
+
+def tree_combine_many(stacked: dict, weight_rows: Any) -> dict:
+    """K weighted folds of one stacked tree: ``weight_rows`` is ``(K, S)``;
+    returns a tree of ``(K, ...)`` leaves with row k equal to the fold of
+    ``stacked`` with ``weight_rows[k]`` (one einsum per leaf, as the
+    reference computes it outside the kernel)."""
+    out = {}
+    for k, x in stacked.items():
+        w = torch.as_tensor(weight_rows, dtype=torch.float32,
+                            device=x.device)
+        out[k] = torch.einsum("ks,s...->k...", w, x)
+    return out
 
 
 class FusedExecutor:
@@ -95,6 +119,21 @@ class FusedExecutor:
                                              x, y)
         return trained
 
+    def broadcast_rows(self, params: dict, n: int) -> dict:
+        """Materialized ``(n, ...)`` stacked copies of ``params`` on the
+        device (per-orbit base-model tables)."""
+        return {k: x.unsqueeze(0).repeat(n, *([1] * x.dim()))
+                for k, x in params.items()}
+
+    def zero_rows(self, params: dict, n: int) -> dict:
+        """``(n, ...)`` zero-filled stacked tree matching ``params``."""
+        return {k: x.new_zeros((n,) + tuple(x.shape))
+                for k, x in params.items()}
+
+    def _h2d(self, x: Any, dtype: Any) -> torch.Tensor:
+        """Upload of a plan tensor, cast in numpy first."""
+        return torch.from_numpy(np.asarray(x, dtype)).to(self.device)
+
     def run_block(self, params: dict, idx: np.ndarray, mu: np.ndarray,
                   do_eval: np.ndarray, valid: np.ndarray):
         """Execute K planned rounds.
@@ -119,3 +158,81 @@ class FusedExecutor:
             accs.append(self._device_acc(params)
                         if do_eval[k] and valid[k] else nan)
         return params, torch.stack(accs).cpu().numpy()
+
+    def fold_block(self, stacked: dict, weight_rows: np.ndarray) -> dict:
+        """K planned folds of a fixed stacked tree (see
+        :func:`tree_combine_many`)."""
+        return tree_combine_many(stacked,
+                                 self._h2d(weight_rows, np.float32))
+
+    # ------------------------------------------------- routed event family
+    @staticmethod
+    def _absorb(g: dict, buf: dict, orbit_model: dict, slot: int,
+                flush: bool, keep: float, rhos: torch.Tensor) -> dict:
+        """One event's buffer write (in place) and, on a flush, the
+        planned fold ``keep·g + Σ_b rhos[b]·buf[b]``; returns the
+        global."""
+        for k, x in buf.items():
+            x[slot] = orbit_model[k]
+        if not flush:
+            return g
+        return {k: keep * x + torch.einsum("s,s...->...", rhos, buf[k])
+                for k, x in g.items()}
+
+    def cycle_block(self, params: dict, bases: dict, buf: dict, ev: dict):
+        """Execute K planned cycle events.
+
+        Carries ``(global, per-orbit cycle bases, staleness buffer)``:
+        each valid event trains orbit ``l``'s members from the base the
+        cycle launched against, folds them with the planned Eq.-14 chain
+        weights (one ``fold_stacked_tree`` call: one ``fedagg`` launch on
+        the card), writes the orbit model into its buffer slot, on flush
+        events applies the planned staleness-discounted fold ``keep*g +
+        rhos @ buffer``, and sets the orbit's base to the global. Event
+        tensors (host numpy, leading dim K): ``l`` int, ``idx`` (K, k,
+        need), ``lam`` (K, k), ``rhos`` (K, B), ``keep``, ``slot`` int,
+        ``flush``, ``do_eval``, ``valid``. ``bases`` and ``buf`` are
+        updated in place (the reference donates them). Returns
+        ``(params, bases, buf, accs)`` with the (K,) accuracies (NaN
+        where not evaluated) in ONE transfer.
+        """
+        K, k, need = ev["idx"].shape
+        n_steps = need // self.trainer.batch_size
+        idx = self._h2d(ev["idx"], np.int64)
+        lam = self._h2d(ev["lam"], np.float32)
+        rhos = self._h2d(ev["rhos"], np.float32)
+        keep = np.asarray(ev["keep"], np.float32)
+        nan = torch.full((), float("nan"), dtype=torch.float32,
+                         device=self.device)
+        g, accs = params, []
+        for i in range(K):
+            if ev["valid"][i]:
+                l = int(ev["l"][i])
+                trained = self._train(tree_row(bases, l), idx[i], k,
+                                      n_steps)
+                g = self._absorb(g, buf, fold_stacked_tree(trained, lam[i]),
+                                 int(ev["slot"][i]), bool(ev["flush"][i]),
+                                 float(keep[i]), rhos[i])
+                for name, x in bases.items():
+                    x[l] = g[name]
+            accs.append(self._device_acc(g)
+                        if ev["do_eval"][i] and ev["valid"][i] else nan)
+        return g, bases, buf, torch.stack(accs).cpu().numpy()
+
+    def cycle_fold_block(self, params: dict, buf: dict, stacked_k: dict,
+                         ev: dict):
+        """:meth:`cycle_block`'s fold, buffer and flush arithmetic with the
+        orbit model folded from a FIXED stacked member tree instead of
+        freshly trained replicas (local SGD excluded). ``params`` and
+        ``buf`` are not written (the reference does not donate them here).
+        Returns ``(params, buf)``; no eval."""
+        lam = self._h2d(ev["lam"], np.float32)
+        rhos = self._h2d(ev["rhos"], np.float32)
+        keep = np.asarray(ev["keep"], np.float32)
+        g, buf = params, {k: x.clone() for k, x in buf.items()}
+        for i in range(len(ev["l"])):
+            if ev["valid"][i]:
+                g = self._absorb(g, buf, fold_stacked_tree(stacked_k, lam[i]),
+                                 int(ev["slot"][i]), bool(ev["flush"][i]),
+                                 float(keep[i]), rhos[i])
+        return g, buf

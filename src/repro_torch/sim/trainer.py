@@ -118,6 +118,12 @@ class LocalTrainer:
         new_params, losses = self.multi_step(stacked_params, x, y)
         return new_params, losses[:, -1].cpu().numpy()
 
+    @staticmethod
+    def stack(params_list: Sequence[dict]) -> dict:
+        """Stack param dicts along a new leading replica axis."""
+        return {k: torch.stack([p[k] for p in params_list])
+                for k in params_list[0]}
+
     def evaluate(self, params: dict, images: np.ndarray,
                  labels: np.ndarray, batch: int = 2048) -> float:
         """Chunked accuracy with ONE device->host transfer: per-chunk

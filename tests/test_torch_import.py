@@ -21,6 +21,11 @@ MODULES = [
     "repro_torch.models",
     "repro_torch.clients",
     "repro_torch.orbits",
+    "repro_torch.orbits.routing",
+    "repro_torch.sim.strategies.fedisl",
+    "repro_torch.sim.strategies.fedsink",
+    "repro_torch.sim.strategies.fedhap_async",
+    "repro_torch.sim.strategies.fedhap_buffered",
     "repro_torch.faults",
     "repro_torch.configs",
     "repro_torch.kernels.flash_attention",

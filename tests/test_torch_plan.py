@@ -33,6 +33,9 @@ COPIED = [
     "faults/plane.py", "faults/__init__.py",
     "clients/partitioners.py", "clients/plane.py",
     "sim/strategies/fedhap.py",
+    "orbits/routing.py",
+    "sim/strategies/fedisl.py", "sim/strategies/fedsink.py",
+    "sim/strategies/fedhap_async.py", "sim/strategies/fedhap_buffered.py",
 ]
 
 SMALL = dict(num_orbits=2, sats_per_orbit=4, num_samples=1500,

@@ -134,10 +134,11 @@ def test_cuda_device_raises_without_a_card():
 
 
 @pytest.mark.parametrize("kw,call", [
-    (dict(strategy="fedisl"), "run"),
+    (dict(strategy="fedsat"), "run"),
+    (dict(strategy="fedspace"), "run"),
     (dict(data_shards=2), "init"),
     (dict(), "checkpoint"),
-], ids=["strategy", "data_shards", "checkpoint_dir"])
+], ids=["strategy", "strategy_fedspace", "data_shards", "checkpoint_dir"])
 def test_features_outside_the_slice_raise(kw, call, tmp_path):
     cfg = SimConfig(device="cpu", **dict(CFG, **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
