@@ -113,12 +113,28 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 20. cycle card vs CPU — one ``cycle_block`` of 4 planned fedhap_buffered
     events (two flushes, two buffered) at full width with
     ``local_steps=2`` on the card and on the CPU from the same init and
-    tensors: params, cycle bases and buffer must agree.
+    tensors: params, cycle bases and buffer must agree;
+21. ticks — the tick baselines at full width on the card with the JAX
+    tests' scenarios, default local steps and batch: fedsat/gs_np for 16
+    orbit-events and fedspace/gs for 4 flushes; the counts zeroed just
+    before each run and read just after must show one ``fedagg`` launch
+    per orbit-event (S=8) and one per flush (S = the rows buffered);
+    accuracies finite and above chance; s/event, peak memory and the
+    card's draw logged; then the fold at the first flush's S, timed as
+    phase 3 times S=8 (``fold_flush``);
+22. resume — fedhap/one_hap, fedspace/gs and fedhap_buffered/haps:2 at
+    full width with ``checkpoint_every=1`` and cuDNN deterministic: a
+    run of 4 events, a run cut at 2 and the cut run resumed; times and
+    events equal, accuracies within two flipped predictions, final
+    params and strategy state within ``PARAM_TOL``; then a checkpoint
+    written on the card loads into a CPU engine leaf for leaf; and the
+    run-to-run spread of fedspace with cuDNN's default algorithms,
+    reported only.
 
 Prints a ``{"kernels": [...]}`` JSON line (``fedagg``'s entry with the
-phase 19 launch counts by strategy, ``launches_routed``), the card line,
-and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
-``repro``.
+phase 19 and 21 launch counts by strategy, ``launches_routed`` and
+``launches_ticks``), the card line, and last ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -373,7 +389,10 @@ def phase_kernels(torch, fedagg_mod, ops, leaf_shapes, n_sats):
         f"time: kernel {fold_dev:.4f} ms ({total_bytes / fold_dev / 1e6:.1f}"
         f" GB/s, {bound_ms / fold_dev:.3f} of its bound), torch.mv per leaf "
         f"{lib_dev:.4f} ms")
-    fold_s8 = phase_fold_s8(torch, leaves, leaves_plain, xs, gen, dev)
+    fold_s8 = phase_fold_rows(
+        torch, leaves, leaves_plain,
+        [x[:CYCLE_MEMBERS].contiguous() for x in xs], gen, dev,
+        "one orbit's members per cycle event")
 
     # Ragged shapes and unaligned views, one leaf at a time and as one
     # list; a list longer than MAX_LEAVES; f32 and bf16.
@@ -440,33 +459,33 @@ def phase_kernels(torch, fedagg_mod, ops, leaf_shapes, n_sats):
 CYCLE_MEMBERS = 8
 
 
-def phase_fold_s8(torch, leaves, leaves_plain, xs, gen, dev) -> dict:
-    """The fold of the CNN's 8 leaves at S = 8 (one orbit's members, as
-    each fedhap_async / fedhap_buffered event folds them): checked against
-    the plain fold, then timed back to back with the host's cost and as
-    device time, beside its bound and torch.mv per leaf."""
-    s = CYCLE_MEMBERS
-    x8 = [x[:s].contiguous() for x in xs]
-    w8 = torch.rand(s, generator=gen, device=dev)
+def phase_fold_rows(torch, leaves, leaves_plain, xs, gen, dev,
+                    what: str) -> dict:
+    """The fold of the CNN's 8 leaves ``xs`` (each ``(S, P)``, S rows as
+    a main path folds them: ``what``): checked against the plain fold,
+    then timed back to back with the host's cost and as device time,
+    beside its bound, (S+1)·P·4 bytes over the card's memory rate, and
+    torch.mv per leaf."""
+    s = xs[0].shape[0]
+    w = torch.rand(s, generator=gen, device=dev)
     err = 0.0
-    for i, (g, want) in enumerate(zip(leaves(x8, w8),
-                                      leaves_plain(x8, w8))):
+    for i, (g, want) in enumerate(zip(leaves(xs, w), leaves_plain(xs, w))):
         err = max(err, check_close(torch, g, want, "float32",
                                    f"fedagg_leaves S={s} leaf {i}"))
-    nbytes = sum((s * x.shape[1] + x.shape[1]) * 4 + s * 4 for x in x8)
-    flop = sum(2 * s * x.shape[1] for x in x8)
+    nbytes = sum((s * x.shape[1] + x.shape[1]) * 4 + s * 4 for x in xs)
+    flop = sum(2 * s * x.shape[1] for x in xs)
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S)
-    fold = lambda: leaves(x8, w8)                               # noqa: E731
-    mv = lambda: [torch.mv(x.t(), w8) for x in x8]              # noqa: E731
+    fold = lambda: leaves(xs, w)                                # noqa: E731
+    mv = lambda: [torch.mv(x.t(), w) for x in xs]               # noqa: E731
     out = dict(S=s, bytes=nbytes, max_abs_err=err, ms=time_ms(torch, fold),
                device_ms=device_ms(torch, fold),
-               plain_ms=time_ms(torch, lambda: leaves_plain(x8, w8)),
+               plain_ms=time_ms(torch, lambda: leaves_plain(xs, w)),
                library_ms=time_ms(torch, mv),
                library_device_ms=device_ms(torch, mv), bound_ms=bound_ms,
                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flop / F32_FLOP_PER_S else "operations"))
-    log("kernels", f"fedagg fold of {len(x8)} leaves, S={s} (one orbit's "
-        f"members per cycle event), {nbytes} bytes, bound "
+    log("kernels", f"fedagg fold of {len(xs)} leaves, S={s} ({what}), "
+        f"{nbytes} bytes, bound "
         f"{bound_ms:.4f} ms; back to back with the host's cost: kernel "
         f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, torch.mv per "
         f"leaf {out['library_ms']:.4f} ms; device time: kernel "
@@ -2047,7 +2066,292 @@ def phase_cycle_card_vs_cpu(torch, sim) -> None:
         f"{dacc:.6f}")
 
 
+# Phase 21: the tick baselines with the station scenarios of the JAX
+# package's tests (tests/test_sim_fused.py); max_rounds counts fedsat's
+# orbit-events and fedspace's flushes.
+TICK_RUNS = (("fedsat", "gs_np", 16), ("fedspace", "gs", 4))
+
+
+@contextlib.contextmanager
+def recorded_folds(ex_mod, rows: list):
+    """Within the block, each ``fold_stacked_tree`` call of the executor
+    appends the number of rows it folds to ``rows``."""
+    real = ex_mod.fold_stacked_tree
+
+    def recorded(stacked, weights):
+        rows.append(int(next(iter(stacked.values())).shape[0]))
+        return real(stacked, weights)
+    ex_mod.fold_stacked_tree = recorded
+    try:
+        yield
+    finally:
+        ex_mod.fold_stacked_tree = real
+
+
+def phase_ticks(torch, sim, fedagg_mod) -> dict:
+    """fedsat (gs_np, 16 orbit-events) and fedspace (gs, 4 flushes) at
+    full width on the card with default local steps and batch: the
+    fedagg counts zeroed just before each run and read just after must
+    show one launch per fedsat orbit-event, folding the orbit's 8
+    members, and one per fedspace flush, folding the rows buffered;
+    accuracies finite and above chance. Returns the launch counts, the
+    rows of each fold and the timings by strategy."""
+    from repro_torch.sim import executor as ex_mod
+    from repro_torch.sim.strategies import FedSpace
+
+    out = {}
+    for strategy, stations, max_rounds in TICK_RUNS:
+        t0 = time.perf_counter()
+        eng = sim.RoundEngine(sim.SimConfig(strategy=strategy,
+                                            stations=stations,
+                                            max_rounds=max_rounds))
+        build_s = time.perf_counter() - t0
+        rows = []
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_folds(ex_mod, rows):
+            fedagg_mod.fedagg.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fedagg_mod.fedagg.launches
+        accs = [a for _, _, a in res.history]
+        events = res.history[-1][1] if accs else 0
+        if strategy == "fedsat":
+            unit, units = "orbit-event", "orbit-events"
+            ok_rows = rows == [eng.cfg.sats_per_orbit] * events
+        else:
+            unit, units = "flush", "flushes"
+            flush = FedSpace()._flush_size(eng)
+            ok_rows = len(rows) == events and all(r >= flush for r in rows)
+        log("ticks", f"{strategy}/{stations}: engine built in {build_s:.2f} "
+            f"s; {res.rounds} evals, {events} {units}, {res.sim_hours:.4f} "
+            f"simulated h, in {wall:.3f} s: {wall / max(events, 1):.4f} "
+            f"s/{unit} (plan + train + fold + eval, the first tick "
+            f"included); fedagg launches {launches}, rows per fold {rows}; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card now "
+            f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+        log("ticks", f"{strategy}: accuracies {[round(a, 4) for a in accs]}")
+        # A fedsat tick adds one event per visited orbit, so its run may
+        # end past max_rounds.
+        if events < max_rounds or launches != events or not ok_rows:
+            raise AssertionError(f"{strategy}: {launches} fedagg launches "
+                                 f"folding {rows} rows for {events} "
+                                 f"{units} (max_rounds {max_rounds}); "
+                                 f"expected one launch per {unit}")
+        if not all(math.isfinite(a) for a in accs) or accs[-1] <= 0.10:
+            raise AssertionError(f"{strategy}: accuracies not finite or "
+                                 f"not above chance: {accs}")
+        out[strategy] = dict(launches=launches, events=events, unit=unit,
+                             rows=rows, s_per_event=wall / events,
+                             evals=res.rounds, sim_hours=res.sim_hours,
+                             final_acc=accs[-1])
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fold_flush(torch, fedagg_mod, leaf_shapes, s: int) -> dict:
+    """The fold at a fedspace flush's S (phase 21's first flush): the
+    CNN's 8 leaves, f32, timed as phase 3 times S=8."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    xs = [torch.randn((s, int(np.prod(shape))), generator=gen, device=dev)
+          for shape in leaf_shapes.values()]
+    return phase_fold_rows(torch, fedagg_mod.fedagg_leaves,
+                           fedagg_mod.fedagg_leaves_plain, xs, gen, dev,
+                           "the rows of a fedspace flush")
+
+
+# Phase 22: resume at full width; events per uninterrupted run, and the
+# event the cut run stops at. With cuDNN's default algorithms two
+# uninterrupted fedspace runs on an H100 need not agree bit for bit
+# (fedhap's did), so the resume is checked with cudnn.deterministic on,
+# and the default's run-to-run spread over SPREAD_FLUSHES flushes is
+# reported beside it.
+RESUME_SCENARIOS = (("fedhap", "one_hap"), ("fedspace", "gs"),
+                    ("fedhap_buffered", "haps:2"))
+RESUME_EVENTS, RESUME_CUT = 4, 2
+SPREAD_FLUSHES = 2
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN restricted to deterministic algorithms within the block."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def latest_arrays(directory) -> dict:
+    """The arrays of the latest checkpoint in ``directory``, by key."""
+    step = json.loads((directory / "latest.json").read_text())["step"]
+    with np.load(directory / f"ckpt_{step:08d}.npz") as data:
+        return {k: data[k] for k in data.files}
+
+
+def spy_resume(eng, loaded: list) -> None:
+    """Wrap ``eng.ckpt_resume`` so that each call appends what it
+    returned (None: nothing resumed) to ``loaded``."""
+    real = eng.ckpt_resume
+
+    def spy(s, tree):
+        out = real(s, tree)
+        loaded.append(out)
+        return out
+    eng.ckpt_resume = spy
+
+
+def phase_resume(torch, sim) -> dict:
+    """For each scenario at full width with ``checkpoint_every=1``, cuDNN
+    deterministic: an uninterrupted run of RESUME_EVENTS events, a run
+    cut at RESUME_CUT, and the cut run resumed (on the uninterrupted
+    run's engine: the resume restores its rng and plane counters). The
+    resumed history must equal the uninterrupted one in times and
+    events, accuracies within two flipped predictions, and the final
+    checkpoints' params and strategy state within PARAM_TOL (bit-equal
+    is expected, and logged). Then one checkpoint written on the card
+    loads into a CPU engine, leaf for leaf, and two uninterrupted
+    fedspace runs with cuDNN's default algorithms give the card's
+    run-to-run spread (reported only). Returns the readings by
+    strategy."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, cudnn_deterministic(torch):
+        tmp = pathlib.Path(tmp)
+        for strategy, stations in RESUME_SCENARIOS:
+            full_dir = tmp / f"{strategy}-full"
+            cut_dir = tmp / f"{strategy}-cut"
+            cfg = dict(strategy=strategy, stations=stations)
+            eng = sim.RoundEngine(sim.SimConfig(max_rounds=RESUME_EVENTS,
+                                                **cfg))
+            t0 = time.perf_counter()
+            full = eng.run(checkpoint_dir=full_dir, checkpoint_every=1)
+            torch.cuda.synchronize()
+            full_s = time.perf_counter() - t0
+            cut_eng = sim.RoundEngine(sim.SimConfig(max_rounds=RESUME_CUT,
+                                                    **cfg))
+            cut = cut_eng.run(checkpoint_dir=cut_dir, checkpoint_every=1)
+            del cut_eng
+            loaded = []
+            spy_resume(eng, loaded)
+            t0 = time.perf_counter()
+            res = eng.run(checkpoint_dir=cut_dir, resume=True,
+                          checkpoint_every=1)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            n_eval = len(eng.eval_labels)
+            if len(loaded) != 1 or loaded[0] is None:
+                raise AssertionError(f"{strategy}: the resumed run did not "
+                                     f"load the cut run's checkpoint")
+            if (cut.history[-1][1] != RESUME_CUT
+                    or full.history[-1][1] != RESUME_EVENTS):
+                raise AssertionError(f"{strategy}: cut at "
+                                     f"{cut.history[-1][1]}, uninterrupted "
+                                     f"to {full.history[-1][1]} events")
+            got = [(t, e) for t, e, _ in res.history]
+            want = [(t, e) for t, e, _ in full.history]
+            if got != want or res.sim_hours != full.sim_hours:
+                raise AssertionError(f"{strategy}: resumed history {got} "
+                                     f"differs from the uninterrupted "
+                                     f"{want}")
+            dacc = max(abs(a - b) for (_, _, a), (_, _, b)
+                       in zip(res.history, full.history))
+            if dacc > 2.0 / n_eval + 1e-7:
+                raise AssertionError(f"{strategy}: resumed accuracy differs "
+                                     f"by {dacc}")
+            a_full, a_res = latest_arrays(full_dir), latest_arrays(cut_dir)
+            if sorted(a_full) != sorted(a_res):
+                raise AssertionError(f"{strategy}: checkpoint keys differ")
+            worst = 0.0
+            for k, want_arr in a_full.items():
+                worst = max(worst, float(np.abs(a_res[k] - want_arr).max()))
+                np.testing.assert_allclose(a_res[k], want_arr, **PARAM_TOL,
+                                           err_msg=f"{strategy} {k}")
+            exact = res.history == full.history and worst == 0.0
+            log("resume", f"{strategy}/{stations}: uninterrupted "
+                f"{RESUME_EVENTS} events in {full_s:.3f} s, cut at "
+                f"{RESUME_CUT}, resumed to {res.history[-1][1]} in "
+                f"{resume_s:.3f} s; times and events equal; accuracy "
+                f"differs by at most {dacc:.6f}; final state "
+                f"({len(a_full)} leaves: "
+                f"{sorted({k.split('/')[0] for k in a_full})}) max |resumed - "
+                f"uninterrupted| {worst:.3e} ({PARAM_TOL}); bit-identical: "
+                f"{exact}")
+            out[strategy] = dict(max_abs_diff=worst, acc_diff=dacc,
+                                 bit_identical=exact, full_s=full_s,
+                                 resume_s=resume_s)
+            del eng
+            torch.cuda.empty_cache()
+
+        # The card's last fedhap checkpoint into a CPU engine.
+        strategy, stations = RESUME_SCENARIOS[0]
+        ck_dir = tmp / f"{strategy}-cut"
+        cpu = sim.RoundEngine(sim.SimConfig(
+            strategy=strategy, stations=stations, device="cpu",
+            max_rounds=RESUME_EVENTS))
+        loaded = []
+        spy_resume(cpu, loaded)
+        res = cpu.run(checkpoint_dir=ck_dir, resume=True)
+        arrays = latest_arrays(ck_dir)
+        tree = loaded[0] if loaded else None
+        if tree is None:
+            raise AssertionError("the CPU engine did not load the card's "
+                                 "checkpoint")
+        leaves = {f"params/{k}": v for k, v in tree["params"].items()}
+        if sorted(leaves) != sorted(arrays):
+            raise AssertionError(f"CPU load keys {sorted(leaves)} != "
+                                 f"{sorted(arrays)}")
+        for k, v in leaves.items():
+            if v.device.type != "cpu" or not np.array_equal(v.numpy(),
+                                                            arrays[k]):
+                raise AssertionError(f"{k}: the CPU engine's leaf differs "
+                                     f"from the card's checkpoint")
+        if res.history[-1][1] != RESUME_EVENTS:
+            raise AssertionError(f"CPU engine resumed at {res.history}")
+        log("resume", f"{strategy}: the card's checkpoint (events "
+            f"{RESUME_EVENTS}) loads into a CPU engine leaf for leaf "
+            f"({len(leaves)} leaves, bit-equal), history restored")
+    out["spread_default_cudnn"] = fedspace_spread(torch, sim)
+    return out
+
+
+def fedspace_spread(torch, sim) -> float:
+    """Max |diff| of the final params and bases of two uninterrupted
+    fedspace/gs runs of SPREAD_FLUSHES flushes with cuDNN's default
+    algorithms, and whether their histories are equal (reported
+    only)."""
+    import tempfile
+
+    arrays, hists = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(2):
+            d = pathlib.Path(tmp) / f"run{i}"
+            eng = sim.RoundEngine(sim.SimConfig(
+                strategy="fedspace", stations="gs",
+                max_rounds=SPREAD_FLUSHES))
+            hists.append(eng.run(checkpoint_dir=d,
+                                 checkpoint_every=SPREAD_FLUSHES).history)
+            arrays.append(latest_arrays(d))
+            del eng
+    worst = max(float(np.abs(arrays[0][k] - arrays[1][k]).max())
+                for k in arrays[0])
+    log("resume", f"fedspace/gs, cuDNN's default algorithms, two "
+        f"uninterrupted runs of {SPREAD_FLUSHES} flushes: max |diff| of "
+        f"params and bases {worst:.3e}, histories equal: "
+        f"{hists[0] == hists[1]} (reported only)")
+    torch.cuda.empty_cache()
+    return worst
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2207,6 +2511,17 @@ def main() -> int:
 
     # 20. one cycle block, card against CPU
     phase_cycle_card_vs_cpu(torch, sim)
+
+    # 21. the tick baselines on the card; counts zeroed per run. Then the
+    # fold at the first flush's S.
+    ticks = phase_ticks(torch, sim, fedagg_mod)
+    entry["launches_ticks"] = {k: v["launches"] for k, v in ticks.items()}
+    entry["fold_flush"] = phase_fold_flush(torch, fedagg_mod, leaf_shapes,
+                                           ticks["fedspace"]["rows"][0])
+
+    # 22. checkpoint and resume on the card; a card checkpoint on the CPU
+    phase_resume(torch, sim)
+    log("done", f"phases 1-22 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
                                   scan_entry]}))

@@ -1,5 +1,6 @@
-"""Tensor-dict arithmetic for the execute phase (port of the part of
-``repro.core.treeops`` that the simulator's round path uses).
+"""Tensor-dict arithmetic for the execute phase (port of
+``repro.core.treeops`` without ``tree_weighted_sum``, which nothing in
+the port calls).
 
 Param trees are flat ``dict[str, Tensor]``; a *stacked* tree carries a
 leading replica (satellite) axis on every leaf.
@@ -20,6 +21,12 @@ def tree_add(a: Mapping[str, torch.Tensor],
              b: Mapping[str, torch.Tensor]) -> dict:
     """Leafwise ``a + b`` of two trees with the same keys."""
     return {k: x + b[k] for k, x in a.items()}
+
+
+def tree_sub(a: Mapping[str, torch.Tensor],
+             b: Mapping[str, torch.Tensor]) -> dict:
+    """Leafwise ``a - b`` of two trees with the same keys."""
+    return {k: x - b[k] for k, x in a.items()}
 
 
 def tree_combine(stacked: Mapping[str, torch.Tensor],
@@ -63,5 +70,5 @@ def tree_set_row(stacked: Mapping[str, torch.Tensor], i: int,
     return out
 
 
-__all__ = ["tree_scale", "tree_add", "tree_combine", "tree_broadcast",
-           "tree_row", "tree_set_row"]
+__all__ = ["tree_scale", "tree_add", "tree_sub", "tree_combine",
+           "tree_broadcast", "tree_row", "tree_set_row"]

@@ -1,6 +1,7 @@
 """FL-Satcom timeline simulator on PyTorch (port of ``repro.sim``)."""
 from repro_torch.sim.engine import (
     RoundEngine,
+    SatcomSimulator,
     SimConfig,
     SimResult,
 )
@@ -15,7 +16,7 @@ from repro_torch.sim.strategies import (
 from repro_torch.sim.trainer import LocalTrainer
 
 __all__ = [
-    "FusedExecutor", "LocalTrainer", "RoundEngine", "SimConfig",
-    "SimResult", "STRATEGIES", "Strategy", "available_strategies",
-    "get_strategy", "register_strategy",
+    "FusedExecutor", "LocalTrainer", "RoundEngine", "SatcomSimulator",
+    "SimConfig", "SimResult", "STRATEGIES", "Strategy",
+    "available_strategies", "get_strategy", "register_strategy",
 ]

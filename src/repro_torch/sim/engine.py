@@ -16,11 +16,13 @@ elections). The execute half runs on tensors on ``SimConfig.device`` —
 the card by default (``"cuda"``); ``"cpu"`` only when the caller asks
 for it. A missing card raises; there is no fallback to the CPU.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): the tick strategies ``fedsat`` and ``fedspace``, the
-satellite-sharded mesh (``data_shards > 1`` / ``mesh``), and checkpoint
-and resume (``run(checkpoint_dir=...)``; the engine's checkpoint hooks
-``ckpt_resume`` / ``ckpt_meta`` / ``ckpt_tick`` are no-ops until then).
+Strategies: fedhap | fedisl | fedisl_ideal | fedsat | fedspace |
+fedsink | fedhap_async | fedhap_buffered, resolved through the registry
+in ``repro_torch.sim.strategies``. ``run(checkpoint_dir=, resume=)``
+snapshots and resumes a run in the JAX package's checkpoint format
+(:mod:`repro_torch.checkpoint`). Not ported (raises
+``NotImplementedError`` naming its ROADMAP item): the
+satellite-sharded mesh (``data_shards > 1`` / ``mesh``).
 
 ``SimConfig.clients`` and ``SimConfig.faults`` take the reference's
 grammars (``static | sampled:FRAC[xCLIENTS] | geo:REGIONSxCLIENTS[@FRAC]``
@@ -36,6 +38,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.clients import build_plane, load_dataset
 from repro_torch.configs.paper_cnn import CONFIG as CNN_CONFIG
 from repro_torch.configs.paper_mlp import CONFIG as MLP_CONFIG
@@ -74,7 +77,8 @@ from repro_torch.orbits.routing import (
     subgraph,
 )
 from repro_torch.orbits.visibility import DALLAS, ROLLA
-from repro_torch.sim.strategies import RunState, Strategy, get_strategy
+from repro_torch.sim.strategies import (
+    RoundStrategy, RunState, Strategy, get_strategy)
 from repro_torch.sim.trainer import LocalTrainer
 
 
@@ -155,6 +159,22 @@ class SimConfig:
             object.__setattr__(self, "altitude_m", specs[0].altitude_m)
             object.__setattr__(
                 self, "inclination_deg", specs[0].inclination_deg)
+
+
+@dataclasses.dataclass
+class _CkptState:
+    """Live checkpoint state for one ``run(checkpoint_dir=)``.
+
+    The engine owns the cadence (save every ``every`` events at safe
+    block boundaries); strategies only hand their device-state template
+    to :meth:`RoundEngine.ckpt_resume` / :meth:`RoundEngine.ckpt_tick`.
+    """
+    directory: Any
+    every: int
+    resume: bool
+    step: int = 0            # monotonically increasing save counter
+    last_saved: int = 0      # s.events at the last snapshot
+    strategy_meta: Any = None  # host-side plan state restored on resume
 
 
 @dataclasses.dataclass
@@ -362,6 +382,8 @@ class RoundEngine:
 
         # Fused execute backend (built on first use; see `executor`).
         self._executor = None
+        # Checkpoint state, live only inside run(checkpoint_dir=).
+        self._ckpt: Optional[_CkptState] = None
 
     # ------------------------------------------------------------ helpers
     @property
@@ -934,56 +956,132 @@ class RoundEngine:
         s.history.append((s.t / 3600.0, s.events, s.acc))
 
     # ----------------------------------------------------- checkpointing
-    # Checkpoint and resume are ROADMAP Queue A item 9; until then the
-    # hooks the fused loops call are no-ops.
     def ckpt_resume(self, s: RunState, tree: Any) -> Optional[Any]:
-        """The loaded state to resume from: always None (nothing is
-        saved)."""
-        return None
+        """Restore run state from the latest snapshot, if resuming.
+
+        Called once by every fused loop (and the per-round loop) before
+        its first block, with ``tree`` the strategy's device-state
+        template (matching what it hands :meth:`ckpt_tick`). Returns the
+        loaded tree, its leaves on the template's device — the caller
+        swaps its device state in — or None when there is nothing to
+        resume. Restores the run counters (t/acc/events/history), the
+        engine rng stream (the static plane's sampler), the sampled/geo
+        client-plane call counter, and stashes the strategy's host plan
+        state for :meth:`ckpt_meta`. The fault plane and all
+        contact/election caches are pure functions of (config, grid
+        time) and rebuild identically.
+        """
+        ck = self._ckpt
+        if ck is None or not ck.resume:
+            return None
+        try:
+            loaded, manifest = load_checkpoint(ck.directory, tree)
+        except FileNotFoundError:
+            return None          # nothing saved yet: fresh start
+        meta = manifest["metadata"]
+        s.t = float(meta["t"])
+        s.acc = float(meta["acc"])
+        s.events = int(meta["events"])
+        s.history = [(float(t), int(e), float(a))
+                     for t, e, a in meta["history"]]
+        self.rng.bit_generator.state = meta["rng_state"]
+        if meta.get("plane_calls") is not None and \
+                hasattr(self.client_plane, "_calls"):
+            self.client_plane._calls = int(meta["plane_calls"])
+        ck.strategy_meta = meta.get("strategy_meta")
+        ck.step = int(manifest["step"])
+        ck.last_saved = s.events
+        return loaded
 
     def ckpt_meta(self) -> Any:
-        """The resumed strategy's host plan state: always None."""
-        return None
+        """The resumed strategy's host plan state (``strategy_meta`` of
+        the loaded snapshot); None outside a resume."""
+        return None if self._ckpt is None else self._ckpt.strategy_meta
 
     def ckpt_tick(self, s: RunState, tree: Any, meta: Any = None) -> None:
-        """Snapshot at a block boundary: nothing to do."""
+        """Snapshot at a safe block boundary when the cadence is due
+        (every ``checkpoint_every`` events since the last save). No-op
+        outside a ``run(checkpoint_dir=)``. ``tree`` is the strategy's
+        full device state; ``meta`` its JSON-able host plan state."""
+        ck = self._ckpt
+        if ck is None or s.events - ck.last_saved < ck.every:
+            return
+        ck.step += 1
+        md = {
+            "t": float(s.t), "acc": float(s.acc), "events": int(s.events),
+            "history": [[float(t), int(e), float(a)]
+                        for t, e, a in s.history],
+            "rng_state": self.rng.bit_generator.state,
+            "plane_calls": getattr(self.client_plane, "_calls", None),
+            "strategy_meta": meta,
+        }
+        save_checkpoint(ck.directory, tree, ck.step, metadata=md)
+        ck.last_saved = s.events
 
     # -------------------------------------------------------------- run
     def run(self, strategy: Union[str, Strategy, None] = None,
             fused: Optional[bool] = None, *,
             init_params: Optional[dict] = None,
-            checkpoint_dir: Any = None) -> SimResult:
+            checkpoint_dir: Any = None, resume: bool = False,
+            checkpoint_every: int = 8) -> SimResult:
         """Drive the configured (or given) strategy to completion.
 
         ``fused`` selects the execution path (default
         ``SimConfig.fused``): the plan-ahead block loop — K planned
-        rounds per :meth:`FusedExecutor.run_block`, host only between
-        blocks — or the per-round reference loop.
+        rounds or events per executor call, host only between blocks —
+        or the per-round reference loop.
 
         ``init_params`` is a numpy param tree (for example the JAX
         package's init, exported leaf by leaf) to start from instead of
         the port's own seeded init; it is carried over with
         :func:`repro_torch.models.params_from_numpy`.
+
+        ``checkpoint_dir`` turns on crash recovery: every
+        ``checkpoint_every`` events the loop snapshots params (plus any
+        strategy device state), run counters, rng/plane counters, and
+        history through :mod:`repro_torch.checkpoint`; ``resume=True``
+        picks up from the latest snapshot, and the resumed run is
+        bit-identical to an uninterrupted one on the CPU (the planes
+        are time-indexed, so replanning from the restored clock
+        reproduces the schedule). On the per-round reference path only
+        the round-barrier strategies checkpoint (cycle/tick strategies
+        keep per-event host trees there; use the fused loop).
         """
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: checkpoint and resume are not ported yet "
-                "(ROADMAP Queue A item 9)")
         strat = strategy if isinstance(strategy, Strategy) else \
             get_strategy(strategy or self.cfg.strategy)()
         cfg = self.cfg
         use_fused = cfg.fused if fused is None else fused
+        if checkpoint_dir is not None:
+            if not use_fused and not isinstance(strat, RoundStrategy):
+                raise ValueError(
+                    "checkpoint_dir on the per-round reference path is "
+                    "only supported for round-barrier strategies; the "
+                    f"{type(strat).__name__} event loop checkpoints "
+                    "through the fused loop (fused=True)")
+            self._ckpt = _CkptState(checkpoint_dir,
+                                    max(1, int(checkpoint_every)), resume)
         params = (self.trainer.init(cfg.seed) if init_params is None
                   else params_from_numpy(init_params, self.device))
         s = RunState(params=params)
-        if use_fused:
-            strat.run_fused(self, s)
-        else:
-            while (s.events < cfg.max_rounds and s.t <= self.horizon_s
-                   and s.acc < cfg.target_accuracy):
-                if not strat.step(self, s):
-                    break
+        try:
+            if use_fused:
+                strat.run_fused(self, s)
+            else:
+                loaded = self.ckpt_resume(s, {"params": s.params})
+                if loaded is not None:
+                    s.params = loaded["params"]
+                while (s.events < cfg.max_rounds and s.t <= self.horizon_s
+                       and s.acc < cfg.target_accuracy):
+                    if not strat.step(self, s):
+                        break
+                    self.ckpt_tick(s, {"params": s.params})
+        finally:
+            self._ckpt = None
         return SimResult(s.history, s.acc, len(s.history), s.t / 3600.0)
 
 
-__all__ = ["SimConfig", "SimResult", "RoundEngine", "_make_stations"]
+# The engine is API-compatible with the pre-registry monolith.
+SatcomSimulator = RoundEngine
+
+__all__ = ["SimConfig", "SimResult", "RoundEngine", "SatcomSimulator",
+           "_make_stations"]

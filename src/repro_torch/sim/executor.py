@@ -31,8 +31,22 @@ writes the orbit model to its buffer slot and, on a flush, applies
 The event's orbit, slot and flags are host numpy from the plan, so the
 loop branches on them with no device sync.
 
-Not ported yet: the satellite-sharded mesh path and the tick programs
-(ROADMAP Queue A items 12 and 8).
+The tick baselines run one program per tick: :meth:`FusedExecutor
+.fedsat_event` trains every member of the visited orbits from its
+orbit's base and folds the orbits one after another (one
+``fold_stacked_tree`` call each: one ``fedagg`` launch per orbit on the
+card); :meth:`~FusedExecutor.fedspace_train` trains the fresh passes
+from their bases and returns the deltas, and
+:meth:`~FusedExecutor.fedspace_flush` folds the buffered deltas into the
+global (one launch per flush). The reference pads V, N and B up to a
+power of two only to bound jit's cache of programs; eager PyTorch has
+no such cache, so these run at the true counts. The reference's pads
+carry rho = 0 and zero weights, and (1 - 0)·g + 0·o = g for finite o,
+so dropping them does not change the result (the tests hold the port
+against the padded reference).
+
+Not ported yet: the satellite-sharded mesh path (ROADMAP Queue A item
+12).
 """
 from __future__ import annotations
 
@@ -108,15 +122,16 @@ class FusedExecutor:
                 correct = correct + (pred == y).float().sum()
         return correct / self._eval_n
 
-    def _train(self, base: dict, idx: torch.Tensor, n_rep: int,
-               n_steps: int) -> dict:
-        """Device gather of the sampled mini-batches + one replica-stacked
-        SGD burst of ``n_rep`` replicas broadcast from ``base``."""
+    def _train(self, rows: dict, idx: torch.Tensor) -> dict:
+        """Device gather of the sampled mini-batches ``idx`` ``(n, need)``
+        + one replica-stacked SGD burst of the ``n`` replicas ``rows``
+        (a stacked tree; broadcast views are fine)."""
+        n, need = idx.shape
         bs = self.trainer.batch_size
-        x = self._x[idx].reshape(n_rep, n_steps, bs, *self._x.shape[1:])
-        y = self._y[idx].reshape(n_rep, n_steps, bs)
-        trained, _ = self.trainer.multi_step(tree_broadcast(base, n_rep),
-                                             x, y)
+        n_steps = need // bs
+        x = self._x[idx].reshape(n, n_steps, bs, *self._x.shape[1:])
+        y = self._y[idx].reshape(n, n_steps, bs)
+        trained, _ = self.trainer.multi_step(rows, x, y)
         return trained
 
     def broadcast_rows(self, params: dict, n: int) -> dict:
@@ -144,8 +159,7 @@ class FusedExecutor:
         after the last valid round and a (K,) host array of accuracies
         (NaN where not evaluated): ONE transfer per block.
         """
-        K, S, need = idx.shape
-        n_steps = need // self.trainer.batch_size
+        K, S, _ = idx.shape
         idx_d = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
         mu_d = torch.from_numpy(np.asarray(mu, np.float32)).to(self.device)
         nan = torch.full((), float("nan"), dtype=torch.float32,
@@ -153,7 +167,7 @@ class FusedExecutor:
         accs = []
         for k in range(K):
             if valid[k]:
-                trained = self._train(params, idx_d[k], S, n_steps)
+                trained = self._train(tree_broadcast(params, S), idx_d[k])
                 params = fold_stacked_tree(trained, mu_d[k])
             accs.append(self._device_acc(params)
                         if do_eval[k] and valid[k] else nan)
@@ -196,8 +210,7 @@ class FusedExecutor:
         ``(params, bases, buf, accs)`` with the (K,) accuracies (NaN
         where not evaluated) in ONE transfer.
         """
-        K, k, need = ev["idx"].shape
-        n_steps = need // self.trainer.batch_size
+        K, k, _ = ev["idx"].shape
         idx = self._h2d(ev["idx"], np.int64)
         lam = self._h2d(ev["lam"], np.float32)
         rhos = self._h2d(ev["rhos"], np.float32)
@@ -208,8 +221,8 @@ class FusedExecutor:
         for i in range(K):
             if ev["valid"][i]:
                 l = int(ev["l"][i])
-                trained = self._train(tree_row(bases, l), idx[i], k,
-                                      n_steps)
+                trained = self._train(tree_broadcast(tree_row(bases, l), k),
+                                      idx[i])
                 g = self._absorb(g, buf, fold_stacked_tree(trained, lam[i]),
                                  int(ev["slot"][i]), bool(ev["flush"][i]),
                                  float(keep[i]), rhos[i])
@@ -236,3 +249,57 @@ class FusedExecutor:
                                  int(ev["slot"][i]), bool(ev["flush"][i]),
                                  float(keep[i]), rhos[i])
         return g, buf
+
+    # ------------------------------------------------ tick baselines
+    def fedsat_event(self, params: dict, bases: dict, visited: np.ndarray,
+                     idx: np.ndarray, lam_rows: np.ndarray,
+                     rhos: np.ndarray):
+        """One fedsat tick: train every member of the ``V`` visited orbits
+        from its orbit's base in one replica-stacked burst, then the
+        method's sequential per-orbit async folds: orbit ``j``'s members
+        (rows ``j*k .. (j+1)*k`` of the burst, a contiguous slice) fold
+        with ``lam_rows[j]`` (one ``fold_stacked_tree`` call), the global
+        becomes ``(1 - rhos[j])·g + rhos[j]·orbit_model``, and orbit
+        ``visited[j]``'s base is set to it. ``bases`` is written in place
+        (the reference donates it). Returns ``(params, bases)``."""
+        V, k = lam_rows.shape
+        vis = self._h2d(visited, np.int64)
+        rows = {n: b[vis].repeat_interleave(k, dim=0)
+                for n, b in bases.items()}
+        trained = self._train(rows, self._h2d(idx, np.int64))
+        lam = self._h2d(lam_rows, np.float32)
+        g = params
+        for j in range(V):
+            members = {n: x[j * k:(j + 1) * k] for n, x in trained.items()}
+            orbit_model = fold_stacked_tree(members, lam[j])
+            # rho and 1 - rho in f32, as the reference computes them
+            rho = np.float32(rhos[j])
+            keep = float(np.float32(1.0) - rho)
+            g = {n: keep * x + float(rho) * orbit_model[n]
+                 for n, x in g.items()}
+            for n, b in bases.items():
+                b[int(visited[j])] = g[n]
+        return g, bases
+
+    def fedspace_train(self, params: dict, bases: dict, sats: np.ndarray,
+                       idx: np.ndarray):
+        """One fedspace pass burst: train ``sats`` from their
+        per-satellite bases, return the stacked deltas (trained minus
+        base), and reset those base rows to the current global.
+        ``bases`` is written in place (the reference donates it).
+        Returns ``(deltas, bases)``."""
+        rows_idx = self._h2d(sats, np.int64)
+        rows = {n: b[rows_idx] for n, b in bases.items()}
+        trained = self._train(rows, self._h2d(idx, np.int64))
+        deltas = {n: x - rows[n] for n, x in trained.items()}
+        for n, b in bases.items():
+            b[rows_idx] = params[n]
+        return deltas, bases
+
+    def fedspace_flush(self, params: dict, stacked_deltas: dict,
+                       wts: np.ndarray) -> dict:
+        """Buffered flush: ``params + Σ_j wts[j]·delta_j``, the fold one
+        ``fold_stacked_tree`` call (one ``fedagg`` launch on the card)."""
+        upd = fold_stacked_tree(stacked_deltas,
+                                self._h2d(wts, np.float32))
+        return {n: x + upd[n] for n, x in params.items()}

@@ -1,15 +1,12 @@
 """Timeline strategy registry of the port.
 
-Importing this package registers the ported FL-Satcom methods: the round
-family (fedhap | fedisl | fedisl_ideal | fedsink) and the routed cycle
-family built on the ISL contact-graph router (fedhap_async |
-fedhap_buffered), which shares the :class:`CycleStrategy` event
-machinery from ``base``. The JAX package's other strategies raise
-``NotImplementedError`` naming the ROADMAP item that ports them
-(:data:`repro_torch.sim.strategies.base.NOT_PORTED`).
+Importing this package registers the FL-Satcom methods: the round family
+(fedhap | fedisl | fedisl_ideal | fedsink), the tick baselines (fedsat |
+fedspace) and the routed cycle family built on the ISL contact-graph
+router (fedhap_async | fedhap_buffered), which shares the
+:class:`CycleStrategy` event machinery from ``base``.
 """
 from repro_torch.sim.strategies.base import (
-    NOT_PORTED,
     AsyncFoldPlan,
     CycleStrategy,
     RoundStrategy,
@@ -24,16 +21,17 @@ from repro_torch.sim.strategies.fedhap import FedHap, RoundPlan
 from repro_torch.sim.strategies.fedhap_async import FedHapAsync
 from repro_torch.sim.strategies.fedhap_buffered import FedHapBuffered
 from repro_torch.sim.strategies.fedisl import FedIsl
+from repro_torch.sim.strategies.fedsat import FedSat
 from repro_torch.sim.strategies.fedsink import FedSink, SinkRoundPlan
+from repro_torch.sim.strategies.fedspace import FedSpace
 
-# The JAX package's order, without the strategies not ported yet.
-STRATEGIES = ("fedhap", "fedisl", "fedisl_ideal", "fedsink", "fedhap_async",
-              "fedhap_buffered")
+STRATEGIES = ("fedhap", "fedisl", "fedisl_ideal", "fedsat", "fedspace",
+              "fedsink", "fedhap_async", "fedhap_buffered")
 
 __all__ = [
-    "NOT_PORTED", "AsyncFoldPlan", "CycleStrategy", "RoundStrategy",
-    "RunState", "Strategy", "available_strategies", "get_strategy",
+    "AsyncFoldPlan", "CycleStrategy", "RoundStrategy", "RunState",
+    "Strategy", "available_strategies", "get_strategy",
     "register_strategy", "STRATEGIES",
     "FedHap", "RoundPlan", "FedHapAsync", "FedHapBuffered", "FedIsl",
-    "FedSink", "SinkRoundPlan",
+    "FedSat", "FedSink", "SinkRoundPlan", "FedSpace",
 ]

@@ -33,14 +33,6 @@ from repro_torch.core.weights import staleness_discount
 
 _REGISTRY: Dict[str, Type["Strategy"]] = {}
 
-# Strategies of the JAX package that this port does not have yet, with
-# the ROADMAP item that brings each.
-NOT_PORTED = {
-    "fedsat": "ROADMAP Queue A item 8",
-    "fedspace": "ROADMAP Queue A item 8",
-}
-
-
 def register_strategy(name: str) -> Callable[[type], type]:
     """Class decorator: register a Strategy under ``name``."""
     def deco(cls: type) -> type:
@@ -58,10 +50,6 @@ def get_strategy(name: str) -> Type["Strategy"]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"strategy {name!r} is not ported to PyTorch yet "
-                f"({NOT_PORTED[name]})") from None
         raise ValueError(
             f"unknown strategy {name!r}; available: "
             f"{sorted(_REGISTRY)}") from None
@@ -161,6 +149,9 @@ class RoundStrategy(Strategy):
         n_sats = eng.n_sats
         all_clients = list(range(n_sats))
         need = cfg.local_steps * eng.trainer.batch_size
+        loaded = eng.ckpt_resume(s, {"params": s.params})
+        if loaded is not None:
+            s.params = loaded["params"]
         while (s.events < cfg.max_rounds and s.t <= eng.horizon_s
                and s.acc < cfg.target_accuracy):
             # Plan ahead: chain K rounds (plans are param-independent).
@@ -209,6 +200,7 @@ class RoundStrategy(Strategy):
                         eng.eval_and_record(s)
                     if s.acc >= cfg.target_accuracy:
                         return
+            eng.ckpt_tick(s, {"params": s.params})
             if terminal:
                 s.t = eng.horizon_s + 1.0
                 return
@@ -388,8 +380,6 @@ class CycleStrategy(Strategy):
     # Checkpoint plan-state codec: the inflight schedule and buffer
     # bookkeeping round-trip through JSON (repr-exact for float64), in
     # dict insertion order — arrival ties break on it in plan_events.
-    # The engine's checkpoint hooks are no-ops until checkpointing is
-    # ported (ROADMAP Queue A item 9).
     @staticmethod
     def _encode_plan_state(st: dict) -> dict:
         return {
@@ -507,7 +497,7 @@ class AsyncFoldPlan:
 
 
 __all__ = [
-    "AsyncFoldPlan", "CycleStrategy", "NOT_PORTED", "RoundStrategy",
-    "RunState", "Strategy", "available_strategies", "get_strategy",
+    "AsyncFoldPlan", "CycleStrategy", "RoundStrategy", "RunState",
+    "Strategy", "available_strategies", "get_strategy",
     "register_strategy",
 ]

@@ -124,6 +124,11 @@ class LocalTrainer:
         return {k: torch.stack([p[k] for p in params_list])
                 for k in params_list[0]}
 
+    @staticmethod
+    def unstack(stacked: dict, i: int) -> dict:
+        """Replica ``i`` of a stacked param dict (views)."""
+        return {k: x[i] for k, x in stacked.items()}
+
     def evaluate(self, params: dict, images: np.ndarray,
                  labels: np.ndarray, batch: int = 2048) -> float:
         """Chunked accuracy with ONE device->host transfer: per-chunk

@@ -37,6 +37,13 @@ MODULES = [
     "repro_torch.configs.jamba_v01_52b",
     "repro_torch.models.transformer",
     "repro_torch.launch.serve",
+    "repro_torch.sim.strategies.fedsat",
+    "repro_torch.sim.strategies.fedspace",
+    "repro_torch.checkpoint",
+    "repro_torch.core",
+    "repro_torch.core.aggregation",
+    "repro_torch.core.strategies",
+    "repro_torch.sim.timeline",
 ]
 
 

@@ -51,6 +51,30 @@ def test_copied_module_differs_only_in_imports(rel):
     assert port == rewritten
 
 
+# The plan-phase methods of modules that are not copied whole (their
+# execute halves differ): each method's source is the reference's.
+PLAN_METHODS = [
+    ("sim/strategies/fedsat.py", "FedSat", "_plan_tick"),
+    ("sim/strategies/fedspace.py", "FedSpace", "_flush_size"),
+]
+
+
+@pytest.mark.parametrize("rel,cls,method", PLAN_METHODS,
+                         ids=[f"{c}.{m}" for _, c, m in PLAN_METHODS])
+def test_plan_method_verbatim(rel, cls, method):
+    import ast
+
+    def source(root):
+        text = (ROOT / "src" / root / rel).read_text()
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.ClassDef) and node.name == cls:
+                for fn in node.body:
+                    if isinstance(fn, ast.FunctionDef) and fn.name == method:
+                        return ast.get_source_segment(text, fn)
+        raise AssertionError(f"{root}/{rel}: no {cls}.{method}")
+    assert source("repro_torch") == source("repro")
+
+
 def _engines(**overrides):
     kw = dict(SMALL, **overrides)
     return JaxEngine(JaxConfig(**kw)), RoundEngine(SimConfig(device="cpu",

@@ -38,8 +38,9 @@ from repro_torch.models import params_from_numpy
 from repro_torch.sim import RoundEngine, SimConfig
 from repro_torch.sim import executor as executor_mod
 from repro_torch.sim.executor import tree_combine_many
+from repro.sim.strategies import STRATEGIES as JAX_STRATEGIES
 from repro_torch.sim.strategies import (
-    NOT_PORTED, STRATEGIES, CycleStrategy, get_strategy)
+    STRATEGIES, CycleStrategy, available_strategies, get_strategy)
 from test_torch_sim import _assert_histories
 
 torch.set_num_threads(2)
@@ -83,15 +84,13 @@ def _eq(a, b, what):
 
 
 def test_registry_resolves_the_routed_strategies():
-    assert STRATEGIES == ("fedhap", "fedisl", "fedisl_ideal", "fedsink",
-                          "fedhap_async", "fedhap_buffered")
+    assert STRATEGIES == JAX_STRATEGIES
+    assert available_strategies() == tuple(sorted(STRATEGIES))
     for name in STRATEGIES:
         assert get_strategy(name).name == name
     assert issubclass(get_strategy("fedhap_async"), CycleStrategy)
-    assert set(NOT_PORTED) == {"fedsat", "fedspace"}
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            get_strategy(name)
+    with pytest.raises(ValueError, match="unknown strategy"):
+        get_strategy("fedavg")
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
