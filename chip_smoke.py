@@ -129,12 +129,50 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     params and strategy state within ``PARAM_TOL``; then a checkpoint
     written on the card loads into a CPU engine leaf for leaf; and the
     run-to-run spread of fedspace with cuDNN's default algorithms,
-    reported only.
+    reported only;
+23. flash backward — ``flash_attention_bwd`` (three kernels: Δ, dK/dV,
+    dQ) against ``flash_attention_bwd_plain`` and the forward's lse
+    against ``flash_attention_lse_plain`` on the card: a sweep in f32 and
+    bf16 over every head dim, GQA groups 1/2/4, causal and not, windows,
+    Sq != Sk and transposed views (autograd through ``FlashAttentionFn``
+    bit-equal to the direct call); then the training shape (B=2, H=16,
+    Hkv=8, S=1024, D=128) and the serve shape (B=4, S=4096) in bf16,
+    where three planted faults (the GQA sum dropped, Δ not subtracted, the
+    causal mask off by one) in a dense copy must break the tolerance that
+    the copy without a fault meets; the backward timed (back to back and
+    as device time) beside the plain version, its bound and SDPA's
+    backward, and the forward with and without lse (the serving path
+    passes none);
+24. train card vs CPU — qwen3-0.6b at full width cut to 4 layers, f32,
+    from one CPU-drawn init: each leaf's gradient of one satellite's
+    loss (batch 1 x seq 256) on the card and on the CPU, within a
+    relative norm that a planted backward fault (Δ not subtracted) must
+    break; then one ``single_device_round`` (2 satellites, both
+    visible, 1 local step) on both: loss and every leaf after the fold
+    agree;
+25. train — the slice, ``launch/train.py``'s round at full width, bf16,
+    remat on: 4 satellites (2 orbits x 2), seq 1024, batch 2 per
+    satellite, 2 local steps, 3 rounds, visibility 0.5, seed 0; the
+    counts zeroed just before each round and read just after: one
+    ``fedagg`` launch, 56 forward launches (all ``flash_fwd_tc``) and 28
+    backward launches per satellite step; finite losses, all rows
+    bit-equal after each fold; s/round, peak memory, the card's draw, a
+    profile of one round split into GEMMs, ``flash_bwd``, elementwise
+    work and the fold; the S=4 bf16 LM fold timed against its bound and
+    ``torch.mv`` per leaf; one more round whose fold is held to the plain
+    fold at one bf16 ulp on the rows it folds, then on those rows plus
+    seeded noise under non-uniform weights, where a planted fault (row 0
+    read S times) must break it; a checkpoint of row 0 written to a
+    ``tempfile`` directory and loaded back bit for bit.
 
 Prints a ``{"kernels": [...]}`` JSON line (``fedagg``'s entry with the
 phase 19 and 21 launch counts by strategy, ``launches_routed`` and
-``launches_ticks``), the card line, and last ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX or ``repro``.
+``launches_ticks``, phase 25's ``launches_train`` and the LM fold's
+times ``fold_lm``; ``flash_attention``'s with phase 25's
+``launches_train``; and the backward's entry, ``flash_attention_bwd``,
+timed at the training shape with the serve shape's numbers under
+``serve``), the card line, and last ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -495,10 +533,12 @@ def phase_fold_rows(torch, leaves, leaves_plain, xs, gen, dev,
     return out
 
 
-def phase_guard(torch, kernels: dict) -> None:
-    """Each kernel wrapper refuses a CUDA input that requires grad while
-    grad is enabled (the kernels have no backward yet), and launches
-    nothing."""
+def phase_guard(torch, kernels: dict, fa_mod) -> None:
+    """With grad enabled and a CUDA input that requires grad: the
+    ``fedagg``, ``rwkv6_wkv`` and ``selective_scan`` wrappers raise (no
+    backward kernel yet) and launch nothing; the ``flash_attention``
+    wrapper goes through its backward kernel, and each input's gradient
+    must agree with ``flash_attention_bwd_plain`` (f32 tolerance)."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(9)
 
@@ -506,7 +546,6 @@ def phase_guard(torch, kernels: dict) -> None:
         return torch.rand(shape, generator=gen, device=dev)
     calls = {
         "fedagg": (t(3, 10), t(3)),
-        "flash_attention": (t(1, 2, 8, 16), t(1, 1, 8, 16), t(1, 1, 8, 16)),
         "rwkv6_wkv": (t(1, 2, 6, 8), t(1, 2, 6, 8), t(1, 2, 6, 8),
                       t(1, 2, 6, 8), t(2, 8)),
         "selective_scan": (t(1, 6, 4, 4), t(1, 6, 4, 4), t(1, 6, 4)),
@@ -530,6 +569,33 @@ def phase_guard(torch, kernels: dict) -> None:
     log("guard", f"grad enabled, a CUDA input requiring grad: "
         f"{', '.join(raised)} each raise RuntimeError (no backward yet), "
         f"no launch")
+
+    fa = kernels["flash_attention"]
+    qkv = (t(1, 2, 8, 16), t(1, 1, 8, 16), t(1, 1, 8, 16))
+    do = t(1, 2, 8, 16)
+    want = fa_mod.flash_attention_bwd_plain(
+        *qkv, fa_mod.flash_attention_plain(*qkv),
+        fa_mod.flash_attention_lse_plain(qkv[0], qkv[1]), do)
+    worst = 0.0
+    for which in range(3):
+        args = [x.clone().requires_grad_() if i == which else x
+                for i, x in enumerate(qkv)]
+        before = (fa.launches, fa.launches_bwd)
+        out = fa(*args)
+        if "FlashAttentionFn" not in type(out.grad_fn).__name__:
+            raise AssertionError(f"flash_attention under grad built "
+                                 f"{out.grad_fn}, not FlashAttentionFn")
+        (got,) = torch.autograd.grad(out, [args[which]], do)
+        if (fa.launches, fa.launches_bwd) != (before[0] + 1, before[1] + 1):
+            raise AssertionError("flash_attention under grad did not run "
+                                 "one forward and one backward launch")
+        worst = max(worst, check_close(
+            torch, got, want[which], "float32",
+            f"flash_attention gradient of input {which}"))
+    log("guard", f"flash_attention under grad: a FlashAttentionFn node, one "
+        f"forward and one backward launch per call, gradients of q, k, v "
+        f"within {TOL['float32']} of flash_attention_bwd_plain (max |err| "
+        f"{worst:.3e})")
 
 
 def phase_card_vs_cpu(torch, eng, sim):
@@ -1198,12 +1264,14 @@ def phase_decode_vs_prefill(torch, model, params, faults: dict,
 def launch_counters(kernels: dict) -> dict:
     """Every count of the wrappers in ``kernels``: ``name`` -> (wrapper,
     "launches"), ``name.tc`` / ``name.simt`` -> the per-variant launch
-    counts, and ``name.copies`` -> the inputs a wrapper copied before its
-    launch, where a wrapper has them."""
+    counts, ``name.bwd`` -> the backward launches (flash), and
+    ``name.copies`` -> the inputs a wrapper copied before its launch,
+    where a wrapper has them."""
     out = {}
     for name, fn in kernels.items():
         out[name] = (fn, "launches")
-        for attr in ("launches_tc", "launches_simt", "copies"):
+        for attr in ("launches_tc", "launches_simt", "launches_bwd",
+                     "copies"):
             if hasattr(fn, attr):
                 out[f"{name}.{attr.removeprefix('launches_')}"] = (fn, attr)
     return out
@@ -2350,6 +2418,605 @@ def fedspace_spread(torch, sim) -> float:
     return worst
 
 
+# Phase 23's sweep as (B, H, Hkv, Sq, Sk, D, causal, window): every head
+# dim, GQA groups 1, 2 and 4, causal and not, windows, Sq != Sk both ways,
+# ragged lengths around the backward's 64-row tiles; the model's
+# transposed (B, S, H, D) views throughout.
+FLASH_BWD_SWEEP = (
+    (1, 2, 2, 32, 32, 8, True, None), (2, 4, 2, 64, 64, 16, True, None),
+    (1, 8, 2, 48, 48, 32, True, 7), (1, 4, 1, 100, 70, 64, False, None),
+    (1, 4, 4, 70, 100, 128, True, None), (2, 8, 2, 130, 130, 128, True, 63),
+    (1, 2, 1, 65, 65, 8, False, 5), (1, 8, 4, 129, 129, 64, False, None),
+    (1, 16, 8, 300, 300, 128, True, None), (2, 4, 2, 1, 1, 32, True, None))
+# The training slice's attention shape (phase 25: batch 2 per satellite,
+# seq 1024, qwen3-0.6b's heads).
+TRAIN_ATTN = dict(b=2, h=16, hkv=8, s=1024, d=128)
+# The forward's log-sum-exp against the plain logsumexp: both in f32 from
+# the same inputs, |lse| <= ~16 (log S plus the largest scaled score); a
+# few f32 ulps, the tensor-core kernel's exp2.approx sums adding ~2^-22
+# relative per term.
+LSE_TOL = dict(atol=1e-5, rtol=1e-6)
+# Backward kernel vs plain at the training and serve shapes in bf16: both
+# compute every product and sum in f32 from the same bf16 inputs, o and
+# lse, and round each gradient once, so they differ by at most one bf16
+# ulp where the f32 values straddle a rounding boundary (rtol two ulps),
+# atol covering gradients near 0; the same reasoning as
+# PREFILL_BF16_TOL. Phase 23 shows that three planted faults break it.
+BWD_BF16_TOL = PREFILL_BF16_TOL
+
+
+def _flash_views(torch, gen, b, h, hkv, sq, sk, d, dtype):
+    """q, k, v and an output gradient as the model passes them: (B, S, H,
+    D) storage viewed as (B, H, S, D)."""
+    return [torch.randn((b, s, n, d), generator=gen, device="cuda")
+            .to(dtype).transpose(1, 2)
+            for n, s in ((h, sq), (hkv, sk), (hkv, sk), (h, sq))]
+
+
+def dense_bwd(torch, q, k, v, o, lse, do, fault: str | None = None):
+    """Causal flash backward in dense f32 with one planted ``fault``:
+    ``"gqa"`` dK and dV from only the first query head of each group (the
+    group sum dropped), ``"delta"`` dS = P ⊙ dP (Δ not subtracted),
+    ``"causal"`` one future key (k = q + 1) let through the mask."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    kq = k.repeat_interleave(g, 1).float()
+    vq = v.repeat_interleave(g, 1).float()
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    ok = qpos + (1 if fault == "causal" else 0) >= kpos
+    p = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq).mul_(scale)
+    p = p.sub_(lse[..., None]).exp_().masked_fill_(~ok, 0.0)
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = torch.einsum("bhqd,bhkd->bhqk", dof, vq)
+    if fault != "delta":
+        ds.sub_((dof * o.float()).sum(-1, keepdim=True))
+    ds.mul_(p)
+    del p
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kq).mul_(scale)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).mul_(scale)
+    del ds
+    dk, dv = (x.view(b, hkv, g, sk, d) for x in (dk, dv))
+    dk, dv = ((x[:, :, 0] if fault == "gqa" else x.sum(2)) for x in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float) -> dict:
+    """Phase 23: the backward kernel against flash_attention_bwd_plain on
+    the card (and the forward's lse against flash_attention_lse_plain);
+    the sweep in f32 and bf16, then the training and serve shapes in bf16
+    with three planted faults; timed beside the plain version, its bound
+    and SDPA's backward. Returns the kernels-line entry (launches filled
+    in from phase 25)."""
+    fa = fa_mod.flash_attention
+    fwd, bwd = fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd
+    bwd_plain = fa_mod.flash_attention_bwd_plain
+    lse_plain = fa_mod.flash_attention_lse_plain
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for b, h, hkv, sq, sk, d, causal, window in FLASH_BWD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            what = (f"{dname} B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
+                    f"causal={causal} window={window}")
+            q, k, v, do = _flash_views(torch, gen, b, h, hkv, sq, sk, d,
+                                       dtype)
+            out, lse = fwd(q, k, v, causal, window, with_lse=True)
+            lerr = check_close(torch, lse, lse_plain(q, k, causal, window),
+                               "float32", f"flash lse {what}", LSE_TOL)
+            before = fa.launches_bwd
+            got = bwd(q, k, v, out, lse, do, causal, window)
+            if fa.launches_bwd != before + 1:
+                raise AssertionError("flash_attention_bwd did not count "
+                                     "its launch")
+            want = bwd_plain(q, k, v, out, lse, do, causal, window)
+            errs = []
+            for name, g, w, x in zip(("dq", "dk", "dv"), got, want,
+                                     (q, k, v)):
+                if g.stride() != x.stride() or g.dtype != x.dtype:
+                    raise AssertionError(f"flash bwd {what}: {name} is not "
+                                         f"laid out like its input")
+                errs.append(check_close(torch, g, w, dname,
+                                        f"flash bwd {name} {what}"))
+            # The autograd path (FlashAttentionFn) runs the same two
+            # deterministic kernels: bit-equal gradients.
+            args = [x.detach().requires_grad_() for x in (q, k, v)]
+            auto = torch.autograd.grad(fa(*args, causal, window), args, do)
+            if not all(torch.equal(a, g) for a, g in zip(auto, got)):
+                raise AssertionError(f"flash bwd {what}: autograd through "
+                                     f"FlashAttentionFn differs from the "
+                                     f"kernel called directly")
+            log("flash-bwd", f"{what}: lse max |err| {lerr:.3e}; dq, dk, "
+                f"dv max |err| {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = {"train": dict(TRAIN_ATTN), "serve": dict(PREFILL)}
+    out_entry = {}
+    for label, shape in shapes.items():
+        b, h, hkv, s, d = (shape[x] for x in ("b", "h", "hkv", "s", "d"))
+        what = f"{label} shape B={b} H={h} Hkv={hkv} S={s} D={d}"
+        if label == "train":
+            q, k, v, do = _flash_views(torch, gen, b, h, hkv, s, s, d,
+                                       torch.float32)
+            out, lse = fwd(q, k, v, with_lse=True)
+            got, want = (bwd(q, k, v, out, lse, do),
+                         bwd_plain(q, k, v, out, lse, do))
+            err32 = max(check_close(torch, g, w, "float32",
+                                    f"flash bwd f32 {what}")
+                        for g, w in zip(got, want))
+            ms32 = time_ms(torch, lambda: bwd(q, k, v, out, lse, do),
+                           reps=5, warmup=1)
+            log("flash-bwd", f"{what} f32: max |err| {err32:.3e} "
+                f"({TOL['float32']}); kernel {ms32:.4f} ms")
+            del got, want
+        q, k, v, do = _flash_views(torch, gen, b, h, hkv, s, s, d,
+                                   torch.bfloat16)
+        out, lse = fwd(q, k, v, with_lse=True)
+        lerr = check_close(torch, lse, lse_plain(q, k), "float32",
+                           f"flash lse {what}", LSE_TOL)
+        got = bwd(q, k, v, out, lse, do)
+        want = bwd_plain(q, k, v, out, lse, do)
+        worst = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = check_close(torch, g, w, "bfloat16",
+                              f"flash bwd {name} bf16 {what}", BWD_BF16_TOL)
+            worst = max(worst, err)
+            log("flash-bwd", f"{what} bf16 {name}: max |err| {err:.3e} "
+                f"({BWD_BF16_TOL}); max |{name}| "
+                f"{float(w.float().abs().max()):.4f}")
+        del got
+        # The dense copy without a fault must pass the same tolerance, so
+        # that each fault below is caught for the fault alone.
+        sound = dense_bwd(torch, q, k, v, out, lse, do)
+        serr = max(check_close(torch, x, w, "bfloat16",
+                               f"dense_bwd without a fault, {what}",
+                               BWD_BF16_TOL) for x, w in zip(sound, want))
+        del sound
+        log("flash-bwd", f"{what}: dense_bwd without a fault max |err| "
+            f"{serr:.3e}, within {BWD_BF16_TOL}")
+        for fault in ("gqa", "delta", "causal"):
+            bad = dense_bwd(torch, q, k, v, out, lse, do, fault)
+            errs = [max_err(torch, x, w) for x, w in zip(bad, want)]
+            if all(torch.allclose(x.float(), w.float(), **BWD_BF16_TOL)
+                   for x, w in zip(bad, want)):
+                raise AssertionError(f"planted backward fault {fault!r} "
+                                     f"passes the tolerance at the {what}")
+            log("flash-bwd", f"{what}: planted fault {fault!r}: dq, dk, dv "
+                f"max |err| {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}, "
+                f"caught by {BWD_BF16_TOL}")
+            del bad
+        del want
+        big = label == "serve"
+        ms = time_ms(torch, lambda: bwd(q, k, v, out, lse, do),
+                     reps=3 if big else 20, warmup=1)
+        dev_ms = device_ms(torch, lambda: bwd(q, k, v, out, lse, do),
+                           reps=3 if big else 20, warmup=1)
+        plain_ms = time_ms(torch, lambda: bwd_plain(q, k, v, out, lse, do),
+                           reps=2 if big else 5, warmup=1)
+        fwd_ms = time_ms(torch, lambda: fwd(q, k, v), reps=10)
+        fwd_lse_ms = time_ms(torch, lambda: fwd(q, k, v, with_lse=True),
+                             reps=10)
+        args = [x.detach().requires_grad_() for x in (q, k, v)]
+        ref_out = sdpa(*args, is_causal=True, enable_gqa=True)
+        sdpa_bwd = lambda: torch.autograd.grad(                  # noqa: E731
+            ref_out, args, do, retain_graph=True)
+        # Back to back, autograd's host cost (~0.1-0.4 ms a call) sets
+        # SDPA's time at the training shape; the device time hides it
+        # (20 calls enqueue well inside device_ms's ~25 ms sleep).
+        lib_ms = time_ms(torch, sdpa_bwd, reps=10)
+        lib_dev = device_ms(torch, sdpa_bwd, reps=20)
+        del ref_out, args
+        # 2.5x the forward's causal FLOP (QKᵀ again, dP, dV, dK, dQ).
+        flop = 2.5 * 4 * b * h * d * s * (s + 1) / 2
+        nbytes = (sum(x.numel() * x.element_size()
+                      for x in (q, k, v, out, do, q, k, v))
+                  + lse.numel() * 4)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log("flash-bwd", f"{what} bf16 causal: backward kernel {ms:.4f} ms "
+            f"({flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+            f"backward {lib_ms:.4f} ms (back to back with the host's "
+            f"cost); device time: kernel {dev_ms:.4f} ms, sdpa backward "
+            f"{lib_dev:.4f} ms, {dev_ms / lib_dev:.2f}x; {nbytes} bytes, "
+            f"{flop:.4e} FLOP, bound {bound_ms:.4f} ms ({bound_by}); kernel "
+            f"at {bound_ms / dev_ms:.4f} of its bound in device time; lse "
+            f"max |err| {lerr:.3e}")
+        log("flash-bwd", f"{what}: forward (flash_fwd_tc) without lse "
+            f"{fwd_ms:.4f} ms, with lse {fwd_lse_ms:.4f} ms"
+            + (f"; phase 7's forward at this shape {fwd_prefill_ms:.4f} ms"
+               if big else ""))
+        out_entry[label] = dict(max_abs_err=worst, ms=ms, device_ms=dev_ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=lib_ms,
+                                library_device_ms=lib_dev, fwd_ms=fwd_ms,
+                                fwd_lse_ms=fwd_lse_ms)
+        del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    train = out_entry["train"]
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention.py:87",
+                launches=None, max_abs_err=max(
+                    e["max_abs_err"] for e in out_entry.values()),
+                ms=train["ms"], device_ms=train["device_ms"],
+                plain_ms=train["plain_ms"], bound_ms=train["bound_ms"],
+                bound_by=train["bound_by"], library_ms=train["library_ms"],
+                library_device_ms=train["library_device_ms"],
+                serve=out_entry["serve"])
+
+
+# Phase 24: card (kernels) vs CPU (plain), f32, TF32 off. The round's
+# update lr·Σ_s μ_s·g_s (lr 0.01) is far below PARAM_TOL on the params,
+# and writing p - lr·g rounds it to the params' f32 spacing, so the
+# params after a round cannot show a gradient error. The backward is held
+# by the gradients themselves: each leaf's gradient of one satellite's
+# loss, card against CPU, in relative Frobenius norm. Both sides differ
+# only in the order of their f32 sums (cuBLAS and the kernels vs the
+# CPU's BLAS and the plain versions; sums of up to 151,936 terms, the
+# logits' gradient into the tied embedding) over 4 layers: ~1e-6, and
+# TRAIN_GRAD_RTOL sits 100x above that. Phase 24 plants one backward
+# fault (Δ not subtracted: the kernel given o = 0) and requires it to
+# break this limit.
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-5
+
+
+def _train_parts():
+    from repro_torch.core.dissemination import ConstellationMeshMap
+    from repro_torch.core.fed_step import FedTrainConfig, stack_params
+    from repro_torch.core.mesh_round import FedRoundConfig
+    from repro_torch.launch import train
+
+    def fed_cfg(n_orbits, per_orbit, local_steps, lr=0.01):
+        return FedTrainConfig(
+            round_cfg=FedRoundConfig(
+                cmap=ConstellationMeshMap(n_orbits=n_orbits,
+                                          sats_per_orbit=per_orbit),
+                ship_global_echo=False),
+            local_steps=local_steps, learning_rate=lr)
+    return train, fed_cfg, stack_params
+
+
+def _leaf_grads(torch, model, params: dict, batch: dict) -> dict:
+    """Each leaf's gradient of one satellite's loss (``satellite_loss``,
+    as ``single_device_round`` takes it), returned on the CPU."""
+    from repro_torch.core.fed_step import satellite_loss
+
+    p = {k: v.detach().requires_grad_() for k, v in params.items()}
+    grads = torch.autograd.grad(satellite_loss(model, p, batch),
+                                list(p.values()))
+    return {k: g.cpu() for k, g in zip(p, grads)}
+
+
+def _grad_rel(torch, got: dict, want: dict) -> tuple[float, str]:
+    """The largest per-leaf |got - want| / |want| (Frobenius), and its
+    leaf."""
+    rel = {k: float((got[k] - w).norm()) / max(float(w.norm()), 1e-30)
+           for k, w in want.items()}
+    key = max(rel, key=rel.get)
+    return rel[key], key
+
+
+def phase_train_card_vs_cpu(torch, Transformer, get_config,
+                            fa_mod) -> dict:
+    """Phase 24: full width, 4 layers, f32, from one CPU-drawn init.
+    Each leaf's gradient of satellite 0's loss on the card (the flash
+    kernels forward and backward) against the CPU (the plain versions),
+    then with one planted backward fault, which must break the limit.
+    Then one round of ``single_device_round`` (2 satellites of one orbit,
+    both visible, batch 1 x seq 256, 1 local step) on both: losses and
+    every leaf after the fold agree."""
+    import dataclasses
+
+    train, fed_cfg, stack_params = _train_parts()
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=4,
+                              param_dtype="float32", act_dtype="float32")
+    model = Transformer(cfg)
+    params = model.init(torch.Generator().manual_seed(24), "cpu")
+    batches = {d: train.make_batches(cfg, 2, 1, 256, 0, cfg.vocab_size,
+                                     device=d) for d in ("cuda", "cpu")}
+
+    def sat0(device):
+        return {k: v[0] for k, v in batches[device].items()}
+    params_card = {k: v.to("cuda") for k, v in params.items()}
+    want = _leaf_grads(torch, model, params, sat0("cpu"))
+    sound, sound_key = _grad_rel(
+        torch, _leaf_grads(torch, model, params_card, sat0("cuda")), want)
+    if not sound <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train card vs CPU: the gradient of "
+                             f"{sound_key} differs by {sound:.3e} of its "
+                             f"norm (want <= {TRAIN_GRAD_RTOL})")
+    # Planted fault: Δ = rowsum(dO ⊙ O) taken as 0 (the kernel given o =
+    # 0, which only Δ reads), i.e. dS = P ⊙ dP.
+    real_bwd = fa_mod.flash_attention_bwd
+
+    def no_delta(q, k, v, o, lse, do, causal=True, window=None):
+        return real_bwd(q, k, v, torch.zeros_like(o), lse, do, causal,
+                        window)
+    fa_mod.flash_attention_bwd = no_delta
+    try:
+        bad, bad_key = _grad_rel(
+            torch, _leaf_grads(torch, model, params_card, sat0("cuda")),
+            want)
+    finally:
+        fa_mod.flash_attention_bwd = real_bwd
+    if bad <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train card vs CPU: the planted backward "
+                             f"fault (Δ not subtracted) passes the "
+                             f"gradient limit ({bad:.3e} at {bad_key})")
+    log("train-cvc", f"{cfg.name} x 4 layers, f32, satellite 0's loss: "
+        f"each leaf's gradient, card vs CPU, within {sound:.3e} of its "
+        f"norm (worst {sound_key}; limit {TRAIN_GRAD_RTOL}); planted fault "
+        f"Δ not subtracted: {bad:.3e} (worst {bad_key}), caught")
+    del params_card
+
+    fed = fed_cfg(1, 2, 1)
+    visible = np.array([True, True])
+    sizes = np.ones(2, np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        stacked = stack_params({k: v.to(device) for k, v in params.items()},
+                               2)
+        t0 = time.perf_counter()
+        stacked, metrics = train.single_device_round(model, fed)(
+            stacked, batches[device], sizes, visible)
+        loss = float(metrics["local_loss"])
+        log("train-cvc", f"{device}: one round (2 satellites, forward + "
+            f"backward, fold) in {time.perf_counter() - t0:.3f} s, loss "
+            f"{loss:.6f}")
+        out[device] = (loss, {k: v[0].cpu() for k, v in stacked.items()})
+        del stacked
+    (loss, got), (want_loss, want) = out["cuda"], out["cpu"]
+    if not (math.isfinite(loss) and abs(loss - want_loss)
+            <= TRAIN_LOSS_RTOL * abs(want_loss)):
+        raise AssertionError(f"train card vs CPU: loss {loss} vs "
+                             f"{want_loss} (rtol {TRAIN_LOSS_RTOL})")
+    worst = max(check_close(torch, got[k], w, "float32",
+                            f"train card vs CPU leaf {k}", PARAM_TOL)
+                for k, w in want.items())
+    log("train-cvc", f"one round, both satellites visible: losses agree "
+        f"({loss:.6f} vs {want_loss:.6f}, rtol {TRAIN_LOSS_RTOL}); all "
+        f"{len(want)} leaves within {PARAM_TOL} (max |err| {worst:.3e})")
+    return dict(grad_rel=sound, grad_rel_fault=bad)
+
+
+# Phase 25: the slice, as `python -m repro_torch.launch.train --full`
+# runs it with these flags.
+TRAIN_SLICE = dict(sats=4, orbits=2, seq=1024, batch_per_sat=2,
+                   local_steps=2, rounds=3, visibility=0.5, seed=0)
+# The LM fold (bf16 rows, f32 weights) vs fedagg_plain: both accumulate
+# Σ_s w_s·x_s in f32 (the kernel by FMAs, the plain version by rounded
+# products and a sum) and round once to bf16, so they differ by at most
+# one bf16 ulp (<= 2^-7 relative) where their f32 values straddle a
+# rounding boundary; atol covers outputs that cancel to near 0, whose f32
+# sums differ by ~S·2^-24 of the largest |w·x| (~1e-7 at most here).
+FOLD_BF16_TOL = dict(atol=1e-6, rtol=2.0 ** -7)
+# Seeded noise added to each row before the fold is held on rows that
+# differ everywhere: 0.05, above the weights' ~0.02-0.03 and ~6 bf16
+# ulps of the norms' gains of 1.
+FOLD_NOISE = 0.05
+
+
+def _category(name: str) -> str:
+    if "flash_bwd" in name:
+        return "flash_bwd"
+    if "flash_fwd" in name:
+        return "flash_fwd"
+    if "fedagg" in name:
+        return "fold (fedagg)"
+    if any(w in name for w in ("gemm", "nvjet", "cutlass", "Gemm", "sm90_")):
+        return "GEMMs"
+    return "elementwise, reductions, copies"
+
+
+def lm_fold_check(torch, fedagg_mod, tree: dict, mu, got: dict,
+                  gen) -> dict:
+    """The LM fold held against ``fedagg_plain`` on the rows a round
+    folds (``tree``, just before the fold; ``got`` is the round's fold of
+    them with its μ), then, with seeded noise added to every row in place
+    (the round overwrites the rows with ``got`` next), under non-uniform
+    weights; a planted fault (row 0 read S times) must break the
+    tolerance there."""
+    plain = fedagg_mod.fedagg_leaves_plain
+    flat = [x.reshape(x.shape[0], -1) for x in tree.values()]
+    n = flat[0].shape[0]
+    w = torch.as_tensor(np.asarray(mu, np.float32), device="cuda")
+    spread = max(float((x - x[:1]).abs().max()) for x in flat)
+    err = max(check_close(torch, got[k].reshape(-1), want, "bfloat16",
+                          f"LM fold leaf {k} on the round's rows",
+                          FOLD_BF16_TOL)
+              for k, want in zip(tree, plain(flat, w)))
+    for x in flat:
+        x.add_(torch.randn(x.shape, generator=gen, device="cuda",
+                           dtype=x.dtype), alpha=FOLD_NOISE)
+    w = torch.arange(1, n + 1, dtype=torch.float32, device="cuda")
+    w /= w.sum()
+    wants = plain(flat, w)
+    err_noise = max(check_close(torch, g, want, "bfloat16",
+                                f"LM fold leaf {k} on noisy rows",
+                                FOLD_BF16_TOL)
+                    for k, g, want in zip(tree, fedagg_mod.fedagg_leaves(
+                        flat, w), wants))
+    faults = plain([x[:1].expand_as(x) for x in flat], w)
+    fault = max(max_err(torch, f, want) for f, want in zip(faults, wants))
+    if all(torch.allclose(f.float(), want.float(), **FOLD_BF16_TOL)
+           for f, want in zip(faults, wants)):
+        raise AssertionError("planted fold fault (row 0 read S times) "
+                             "passes the LM fold's tolerance")
+    log("train", f"LM fold on the round's own rows (rows differ by up to "
+        f"{spread:.3e}), μ {[round(float(x), 4) for x in mu]}: max |err| "
+        f"vs plain {err:.3e}; on rows with seeded noise {FOLD_NOISE}, μ "
+        f"{[round(float(x), 4) for x in w.tolist()]}: "
+        f"{err_noise:.3e}; planted fault row 0 read {n} times: "
+        f"{fault:.3e}, caught by {FOLD_BF16_TOL}")
+    return dict(max_abs_err=max(err, err_noise), fault=fault,
+                row_spread=spread)
+
+
+def phase_train(torch, Transformer, get_config, kernels: dict,
+                fedagg_mod, ops) -> dict:
+    """Phase 25: full-width qwen3-0.6b, bf16, remat on, federated training
+    on the card: each round's counts zeroed just before and read just
+    after (one ``fedagg`` launch; 56 forward launches, all on the tensor
+    cores, and 28 backward launches per satellite step), finite losses,
+    all rows bit-equal after each fold; s/round, peak memory, the card's
+    draw and a profile of one round; the LM fold timed; a checkpoint
+    written and loaded back bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    train, fed_cfg, stack_params = _train_parts()
+    c = TRAIN_SLICE
+    cfg = get_config("qwen3-0.6b")
+    model = Transformer(cfg)
+    n_sats, steps = c["sats"], c["local_steps"]
+    fed = fed_cfg(c["orbits"], n_sats // c["orbits"], steps)
+    params = stack_params(model.init(
+        torch.Generator(device="cuda").manual_seed(c["seed"]), "cuda"),
+        n_sats)
+    n_params = model.count_params()
+    log("train", f"{cfg.name}: {n_params} params x {n_sats} satellites in "
+        f"{cfg.param_dtype}, remat={cfg.remat}, seq {c['seq']}, batch "
+        f"{c['batch_per_sat']} per satellite, {steps} local steps, lr "
+        f"{fed.learning_rate}")
+    step = train.single_device_round(model, fed)
+    sizes = np.ones(n_sats, np.float32)
+    rng = np.random.default_rng(c["seed"])
+    counters = launch_counters(kernels)
+    sat_steps = n_sats * steps
+    layers = cfg.num_layers
+    want = {name: 0 for name in counters}
+    want.update({"fedagg": 1, "flash_attention": 2 * layers * sat_steps,
+                 "flash_attention.tc": 2 * layers * sat_steps,
+                 "flash_attention.bwd": layers * sat_steps})
+    totals = {name: 0 for name in counters}
+    walls, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for rnd in range(c["rounds"]):
+        batch = train.make_batches(cfg, n_sats, c["batch_per_sat"], c["seq"],
+                                   rnd, cfg.vocab_size, device="cuda")
+        visible = train._ensure_coverage(rng, fed.round_cfg.cmap,
+                                         c["visibility"])
+        torch.cuda.synchronize()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        params, metrics = step(params, batch, sizes, visible)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = {name: getattr(fn, attr)
+                  for name, (fn, attr) in counters.items()}
+        if counts != want:
+            raise AssertionError(f"train round {rnd} launched {counts}; "
+                                 f"want {want}")
+        for name in totals:
+            totals[name] += counts[name]
+        loss = float(metrics["local_loss"])
+        losses.append(loss)
+        if not math.isfinite(loss):
+            raise AssertionError(f"train round {rnd}: loss {loss}")
+        for key, leaf in params.items():
+            if not all(torch.equal(leaf[s], leaf[0])
+                       for s in range(1, n_sats)):
+                raise AssertionError(f"train round {rnd}: rows of {key} "
+                                     f"differ after the fold")
+        log("train", f"round {rnd}: loss {loss:.4f}, {walls[-1]:.3f} s, "
+            f"visible {visible.astype(int).tolist()}; rows bit-equal after "
+            f"the fold; launches {counts}")
+    tokens = n_sats * steps * c["batch_per_sat"] * c["seq"]
+    log("train", f"s/round {', '.join(f'{w:.4f}' for w in walls)} "
+        f"({tokens / walls[-1]:.1f} trained tokens/s in the last round); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; card now "
+        f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+
+    # Where one round's device time goes (after the counts were read).
+    prof = profile_device(torch, lambda: step(params, batch, sizes, visible))
+    log_profile("train", "one round", prof, "flash_bwd", top=10)
+    by_cat: dict[str, float] = {}
+    for name, (us, _) in prof[0].items():
+        by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + us
+    total = sum(by_cat.values())
+    if total:
+        log("train", "split of one round's device time: " + ", ".join(
+            f"{k} {v / 1e3:.1f} ms ({100 * v / total:.1f}%)"
+            for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])))
+
+    # The LM fold (S=4, bf16), as phase 3 times the CNN's.
+    mu = train._mu_weights(visible, sizes, fed.round_cfg.cmap, "paper",
+                           "paper")
+    w = torch.as_tensor(mu, device="cuda")
+    fold = lambda: ops.fedagg_tree(params, mu)                  # noqa: E731
+    flat = [x.view(n_sats, -1) for x in params.values()]
+    wb = w.to(torch.bfloat16)
+    mv = lambda: [torch.mv(x.t(), wb) for x in flat]            # noqa: E731
+    nbytes = sum((n_sats + 1) * x.shape[1] * 2 for x in flat) + n_sats * 4
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    fold_ms, fold_dev = time_ms(torch, fold), device_ms(torch, fold, reps=20)
+    lib_ms, lib_dev = time_ms(torch, mv), device_ms(torch, mv, reps=20)
+    plain = fedagg_mod.fedagg_leaves_plain
+    plain_ms = time_ms(torch, lambda: plain(flat, w), reps=5, warmup=1)
+    n_p = sum(x.shape[1] for x in flat)
+    log("train", f"LM fold, S={n_sats}, bf16, P={n_p} in {len(flat)} "
+        f"leaves: {nbytes} bytes, bound {bound_ms:.4f} ms (bytes); device "
+        f"time: kernel {fold_dev:.4f} ms ({bound_ms / fold_dev:.3f} of its "
+        f"bound), torch.mv per leaf {lib_dev:.4f} ms; back to back "
+        f"with the host's cost: kernel {fold_ms:.4f} ms, torch.mv per leaf "
+        f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    del flat
+
+    # One more round, its fold held on the rows it folds (not counted:
+    # the check launches the kernel again).
+    real_tree = ops.fedagg_tree
+    held = []
+
+    def spy(tree, weights):
+        got = real_tree(tree, weights)
+        held.append(lm_fold_check(torch, fedagg_mod, tree, weights, got,
+                                  torch.Generator(device="cuda")
+                                  .manual_seed(25)))
+        return got
+    ops.fedagg_tree = spy
+    try:
+        params, _ = step(params, batch, sizes, visible)
+    finally:
+        ops.fedagg_tree = real_tree
+    if len(held) != 1:
+        raise AssertionError(f"the check round folded {len(held)} times")
+    check = held[0]
+    for key, leaf in params.items():
+        if not all(torch.equal(leaf[s], leaf[0]) for s in range(1, n_sats)):
+            raise AssertionError(f"check round: rows of {key} differ after "
+                                 f"the fold")
+
+    # The checkpoint of row 0, written and loaded back bit for bit.
+    row0 = {k: x[0] for k, x in params.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, row0, c["rounds"], {"arch": cfg.name})
+        t_save = time.perf_counter() - t0
+        loaded, manifest = load_checkpoint(tmp, row0)
+        if manifest["step"] != c["rounds"] or not all(
+                loaded[k].dtype == v.dtype and torch.equal(loaded[k], v)
+                for k, v in row0.items()):
+            raise AssertionError("train checkpoint did not load back bit "
+                                 "for bit")
+    log("train", f"checkpoint of row 0 ({len(row0)} leaves, "
+        f"{sum(v.numel() * v.element_size() for v in row0.values())} "
+        f"bytes) written in {t_save:.2f} s and loaded back bit for bit")
+    del params, row0, loaded
+    torch.cuda.empty_cache()
+    return dict(launches=totals, losses=losses, s_per_round=walls,
+                fold=dict(S=n_sats, dtype="bfloat16", device_ms=fold_dev,
+                          ms=fold_ms, bound_ms=bound_ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, library_device_ms=lib_dev,
+                          **check))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2405,7 +3072,7 @@ def main() -> int:
                "flash_attention": fa_mod.flash_attention,
                "rwkv6_wkv": wkv_mod.rwkv6_wkv,
                "selective_scan": scan_mod.selective_scan}
-    phase_guard(torch, kernels)
+    phase_guard(torch, kernels, fa_mod)
 
     # 4. card vs CPU
     phase_card_vs_cpu(torch, eng, sim)
@@ -2521,10 +3188,24 @@ def main() -> int:
 
     # 22. checkpoint and resume on the card; a card checkpoint on the CPU
     phase_resume(torch, sim)
-    log("done", f"phases 1-22 in {time.perf_counter() - t_start:.1f} s")
+
+    # 23. the flash backward kernel against its plain version
+    bwd_entry = phase_flash_bwd(torch, fa_mod, flash_entry["ms"])
+
+    # 24. one training round, card vs CPU (4 layers, f32)
+    phase_train_card_vs_cpu(torch, Transformer, get_config, fa_mod)
+
+    # 25. the training slice at full width; counts zeroed per round.
+    trained = phase_train(torch, Transformer, get_config, kernels,
+                          fedagg_mod, ops)
+    bwd_entry["launches"] = trained["launches"]["flash_attention.bwd"]
+    flash_entry["launches_train"] = trained["launches"]["flash_attention"]
+    entry["launches_train"] = trained["launches"]["fedagg"]
+    entry["fold_lm"] = trained["fold"]
+    log("done", f"phases 1-25 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
-                                  scan_entry]}))
+                                  scan_entry, bwd_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,9 +9,17 @@ arithmetic of the execute phase.
   aggregation; per-orbit weight API wrapping `weights`.
 - `treeops`: tensor-dict arithmetic (scale/add/sub/combine).
 - `strategies`: the paper's Table II setups over `repro_torch.sim`.
+- `dissemination`: `ConstellationMeshMap` (orbit-major satellite layout,
+  ring permutations) and the HAP chains.
+- `mesh_round`: `FedRoundConfig`; the mesh rounds (`build_round`,
+  `sharded_fold`) raise until the multi-device port (ROADMAP Queue A
+  item 12).
+- `fed_step`: `FedTrainConfig`, `satellite_loss`, `stack_params` /
+  `unstack_params`; the mesh train step waits on item 12, and
+  `repro_torch.launch.train.single_device_round` is the one-device step.
 
-The JAX package's `mesh_round` and `dissemination` wait on the
-multi-device port (ROADMAP Queue A item 12).
+`fed_step` imports the model stack, so it is imported by path, not
+from this package (the kernels import `core.treeops`).
 """
 from repro_torch.core.aggregation import (
     chain_weights,

@@ -5,15 +5,18 @@ Kernels:
 - ``fedagg`` — weighted multi-replica parameter fold (the FedHAP hot
   loop), CUDA C++ for sm_90a; replaces ``repro/kernels/fedagg.py:30``.
 - ``flash_attention`` — causal / windowed GQA attention forward (the LM
-  prefill), CUDA C++ for sm_90a; replaces
-  ``repro/kernels/flash_attention.py:87``.
+  prefill and training), CUDA C++ for sm_90a; replaces
+  ``repro/kernels/flash_attention.py:87``; and its backward
+  (``csrc/flash_attention_bwd.cu``, LM training), the port's own: the
+  JAX package differentiates a jnp analogue instead.
 - ``selective_scan`` — the Mamba selective-SSM recurrence (the jamba
   prefill), CUDA C++ for sm_90a; replaces
   ``repro/kernels/selective_scan.py:42``.
 - ``rwkv6_wkv`` — the RWKV-6 WKV recurrence (the RWKV prefill), CUDA C++
   for sm_90a; replaces ``repro/kernels/rwkv6_wkv.py:47``.
 
-The kernels are forward only: each wrapper refuses an input that requires
-grad while grad is enabled (``guard``), so no gradient is dropped
-silently.
+``flash_attention`` differentiates through its backward kernel
+(``FlashAttentionFn``). The other kernels are forward only: their
+wrappers refuse an input that requires grad while grad is enabled
+(``guard``), so no gradient is dropped silently.
 """

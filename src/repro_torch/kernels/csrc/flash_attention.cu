@@ -69,6 +69,12 @@
 // TMA wants 16-byte aligned bases and strides: the wrapper copies a view
 // that misses that to a contiguous tensor before the launch.
 //
+// Both kernels take an optional f32 (B, H, Sq) `lse` buffer: where it is
+// not null, the epilogue also stores each row's log-sum-exp of its scaled,
+// masked scores, m + log(max(l, 1e-30)), which the backward
+// (flash_attention_bwd.cu) reads to rebuild P. Training passes it; the
+// serving path passes null and stores nothing more.
+//
 // flash_fwd (the SIMT kernel, unchanged from the first port):
 // - One block of 256 threads per (64-row query tile, query head, batch),
 //   tiles launched last-first, unreachable K tiles skipped.
@@ -123,6 +129,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                            // (B, H, Sq) or null
   int64_t q_sb, q_sh, q_ss;
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
@@ -307,6 +314,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
     const int r = q0 + 4 * ty + i;
     if (r >= a.Sq) continue;
     const float denom = fmaxf(l[i], kMinDenom);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(int64_t(b) * a.H + h) * a.Sq + r] = m[i] + logf(denom);
     T* orow = O + int64_t(r) * a.o_ss;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
@@ -329,13 +338,13 @@ int launch_d(const Args& a, int B, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int64_t* strides, int B, int H, int Hkv, int Sq, int Sk,
            int D, int causal, int window, cudaStream_t stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv != 0 ||
       Sq < 1 || Sk < 1)
     return int(cudaErrorInvalidValue);
-  Args a{q, k, v, o,
+  Args a{q, k, v, o, lse,
          strides[0], strides[1], strides[2],
          strides[3], strides[4], strides[5],
          strides[6], strides[7], strides[8],
@@ -383,6 +392,7 @@ struct Smem {
 
 struct Args {
   void* o;
+  float* lse;                            // (B, H, Sq) or null
   int64_t o_sb, o_sh, o_ss;
   int H, Hkv, Sq, Sk;
   int causal;
@@ -865,6 +875,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     denom[r] = fmaxf(l[r], kMinDenom);
   }
+  // The row's log-sum-exp of the scaled scores, for the backward; the
+  // quad's four lanes hold the same m and l.
+  if (a.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < a.Sq)
+        a.lse[(int64_t(b) * a.H + h) * a.Sq + row] = m[r] + logf(denom[r]);
+    }
+  }
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
     if (8 * j >= D) continue;
@@ -953,7 +973,7 @@ int launch_d(const CUtensorMap& mq, const CUtensorMap& mk,
   return int(cudaGetLastError());
 }
 
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int64_t* st, int B, int H, int Hkv, int Sq, int Sk, int D,
            int causal, int window, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
@@ -965,7 +985,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (reinterpret_cast<uintptr_t>(o) % 4 != 0 || st[9] % 2 != 0 ||
       st[10] % 2 != 0 || st[11] % 2 != 0)
     return int(cudaErrorInvalidValue);
-  const Args a{o, st[9], st[10], st[11], H, Hkv, Sq, Sk, causal, window,
+  const Args a{o, lse, st[9], st[10], st[11], H, Hkv, Sq, Sk, causal, window,
                1.0f / sqrtf(float(D))};
   switch (D) {
     case 16: return launch_d<16>(mq, mk, mv, a, B, stream);
@@ -992,8 +1012,9 @@ int variant_for(int bf16, int D) {
 }
 
 int dispatch(int bf16, const void* q, const void* k, const void* v, void* o,
-             const int64_t* strides, int B, int H, int Hkv, int Sq, int Sk,
-             int D, int causal, int window, int* variant, void* stream) {
+             float* lse, const int64_t* strides, int B, int H, int Hkv,
+             int Sq, int Sk, int D, int causal, int window, int* variant,
+             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv != 0 ||
       Sq < 1 || Sk < 1)
@@ -1001,13 +1022,13 @@ int dispatch(int bf16, const void* q, const void* k, const void* v, void* o,
   const int var = variant_for(bf16, D);
   *variant = var;
   if (var == kVariantTc)
-    return tc::launch(q, k, v, o, strides, B, H, Hkv, Sq, Sk, D, causal,
+    return tc::launch(q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, causal,
                       window, st);
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, strides, B, H, Hkv, Sq, Sk, D,
+    return launch<__nv_bfloat16>(q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D,
                                  causal, window, st);
-  return launch<float>(q, k, v, o, strides, B, H, Hkv, Sq, Sk, D, causal,
-                       window, st);
+  return launch<float>(q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D,
+                       causal, window, st);
 }
 
 }  // namespace
@@ -1015,21 +1036,24 @@ int dispatch(int bf16, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // strides: 12 element strides, (b, h, s) of q, k, v, o in that order;
-// the D axis of each must have unit stride. *variant is set to the
-// variant launched: 1 tensor cores, 0 SIMT.
+// the D axis of each must have unit stride. lse: null (the serving path),
+// or a contiguous f32 (B, H, Sq) buffer that receives each row's
+// log-sum-exp of its scaled, masked scores, m + log(max(l, 1e-30)), for
+// the backward (flash_attention_bwd.cu). *variant is set to the variant
+// launched: 1 tensor cores, 0 SIMT.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        const int64_t* strides, int B, int H, int Hkv,
-                        int Sq, int Sk, int D, int causal, int window,
-                        int* variant, void* stream) {
-  return dispatch(0, q, k, v, o, strides, B, H, Hkv, Sq, Sk, D, causal,
+                        float* lse, const int64_t* strides, int B, int H,
+                        int Hkv, int Sq, int Sk, int D, int causal,
+                        int window, int* variant, void* stream) {
+  return dispatch(0, q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, causal,
                   window, variant, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, const int64_t* strides, int B, int H,
-                         int Hkv, int Sq, int Sk, int D, int causal,
+                         void* o, float* lse, const int64_t* strides, int B,
+                         int H, int Hkv, int Sq, int Sk, int D, int causal,
                          int window, int* variant, void* stream) {
-  return dispatch(1, q, k, v, o, strides, B, H, Hkv, Sq, Sk, D, causal,
+  return dispatch(1, q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, causal,
                   window, variant, stream);
 }
 

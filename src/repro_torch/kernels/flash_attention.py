@@ -1,4 +1,5 @@
-"""Causal / sliding-window GQA flash attention (forward) on Hopper.
+"""Causal / sliding-window GQA flash attention on Hopper: the forward and
+its backward.
 
 ``O = softmax(Q·Kᵀ/√D + mask)·V`` per (batch, query head), with q of
 shape ``(B, H, Sq, D)``, k and v ``(B, Hkv, Sk, D)`` and the output
@@ -7,9 +8,9 @@ sums in f32). Query head ``h`` reads KV head ``h // (H/Hkv)``. Masks:
 ``k_pos < Sk``, causal ``q_pos >= k_pos``, optional window
 ``q_pos - k_pos < W``; masked scores are -1e30, as in the TPU kernel.
 
-The kernels are in ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a; its
-header has the bound at the prefill shape and the designs); they replace
-the Pallas TPU kernel ``flash_attention`` of
+The forward kernels are in ``csrc/flash_attention.cu`` (CUDA C++ for
+sm_90a; its header has the bound at the prefill shape and the designs);
+they replace the Pallas TPU kernel ``flash_attention`` of
 ``repro/kernels/flash_attention.py:87``. It holds two hand-written
 kernels, and the C launcher dispatches between them by dtype and D
 (:func:`kernel_variant` is its Python mirror; the wrapper raises if the
@@ -28,18 +29,32 @@ strides that are multiples of 16 bytes; for the tensor-core kernel the
 wrapper copies a q, k or v view that misses that to a contiguous tensor
 first, so such a call still runs on the tensor cores.
 
-:func:`flash_attention` checks its inputs and launches the kernel; it
-takes CUDA tensors only. The choice between kernel and plain version is
-made in one place, :func:`repro_torch.kernels.ops.flash_attention_op`:
-CPU tensors go to :func:`flash_attention_plain` — only because they lie
-on the CPU — and a CUDA tensor never reaches the plain version. The
-kernel has no backward yet: the wrapper raises when grad is enabled and
-an input requires grad (``guard.autograd_guard``). Any
+The backward is ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`,
+SIMT, f32 and bf16, every D of the forward): from q, k, v, the output o,
+the forward's per-row log-sum-exp ``lse`` (``(B, H, Sq)`` f32, which the
+forward kernels store only when asked) and the output's gradient dO it
+computes dQ, dK and dV, dK and dV summed over the query heads of each KV
+head. The JAX package has no backward kernel (it takes this gradient by
+autodiff of its blockwise jnp analogue); the port's forward is a kernel,
+so its gradient is one too. :class:`FlashAttentionFn` ties the two
+together for autograd.
+
+:func:`flash_attention` checks its inputs and dispatches: with grad
+enabled and an input that requires grad it applies
+:class:`FlashAttentionFn` (the forward kernel with ``lse``, then
+``flash_attention_bwd``); otherwise it launches the forward with no
+``lse``, as the serving path always does. The launchers take CUDA
+tensors only. The choice between kernel and plain version is made in
+one place, :func:`repro_torch.kernels.ops.flash_attention_op`: CPU
+tensors go to :func:`flash_attention_plain` — only because they lie on
+the CPU — and a CUDA tensor never reaches the plain version. Any
 (b, h, s) strides are taken as long as D has unit stride, so the
 model's ``(B, S, H, D)`` projections go in as transposed views; the
-output is laid out like q. ``flash_attention.launches`` counts kernel
-launches, ``flash_attention.launches_tc`` and ``.launches_simt`` those
-of each variant.
+output and the gradients are laid out like their inputs.
+``flash_attention.launches`` counts forward launches,
+``flash_attention.launches_tc`` and ``.launches_simt`` those of each
+variant, ``flash_attention.launches_bwd`` backward calls (each enqueues
+the backward's three kernels: Δ, dK/dV, dQ).
 """
 from __future__ import annotations
 
@@ -50,7 +65,6 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.guard import autograd_guard
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -86,21 +100,75 @@ def _mask(sq: int, sk: int, causal: bool, window: int | None,
     return ok
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 scaled scores ``(B, H, Sq, Sk)`` with masked entries at
+    -1e30, and the boolean ``(Sq, Sk)`` mask."""
+    group = q.shape[1] // k.shape[1]
+    kq = k.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * (
+        1.0 / math.sqrt(q.shape[-1]))
+    ok = _mask(q.shape[2], k.shape[2], causal, window, q.device)
+    return torch.where(ok, s, torch.full_like(s, NEG_INF)), ok
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
                           window: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (the CPU path and the card-side
     reference of ``chip_smoke.py``): dense f32 scores, the -1e30 mask,
-    softmax, ``P·V`` in f32, cast to q's dtype."""
+    softmax, ``P·V`` in f32, cast to q's dtype. Differentiable: its
+    autograd is the CPU path's gradient."""
     group = q.shape[1] // k.shape[1]
-    kq = k.repeat_interleave(group, dim=1).float()
     vq = v.repeat_interleave(group, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * (
-        1.0 / math.sqrt(q.shape[-1]))
-    ok = _mask(q.shape[2], k.shape[2], causal, window, q.device)
-    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    s, _ = _scores(q, k, causal, window)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vq).to(q.dtype)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              causal: bool = True,
+                              window: int | None = None) -> torch.Tensor:
+    """Plain version of the ``lse`` the forward kernels store: each row's
+    log-sum-exp of its scaled scores under the -1e30 mask, ``(B, H, Sq)``
+    f32."""
+    s, _ = _scores(q, k, causal, window)
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = True, window: int | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of :func:`flash_attention_bwd` (the tests' and
+    ``chip_smoke.py``'s reference), the kernel's formulas in f32:
+    ``P = exp(S·scale − lse)`` (0 where masked), ``dV = Pᵀ·dO``,
+    ``dP = dO·Vᵀ``, ``Δ = rowsum(dO ⊙ O)``, ``dS = P ⊙ (dP − Δ)``,
+    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``; dK and dV summed over each
+    KV head's query heads. Returns (dq, dk, dv) in the inputs' dtype."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    kq = k.repeat_interleave(group, dim=1).float()
+    vq = v.repeat_interleave(group, dim=1).float()
+    s, ok = _scores(q, k, causal, window)
+    p = torch.where(ok, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros_like(s))
+    del s
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vq)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    del p, dp
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kq) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dk = dk.view(b, hkv, group, sk, d).sum(2)
+    dv = dv.view(b, hkv, group, sk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.cache
@@ -108,10 +176,22 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (first call)."""
     lib = build.load("flash_attention")
     for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
-        fn.argtypes = ([ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 5
                        + [ctypes.POINTER(ctypes.c_int64)]
                        + [ctypes.c_int] * 8
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    """The backward's library with its C signatures declared."""
+    lib = build.load("flash_attention_bwd")
+    for fn in (lib.flash_attention_bwd_f32, lib.flash_attention_bwd_bf16):
+        fn.argtypes = ([ctypes.c_void_p] * 10
+                       + [ctypes.POINTER(ctypes.c_int64)]
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -147,20 +227,29 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{window}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
-    """The kernel on CUDA tensors -> ``(B, H, Sq, D)`` in q's dtype, laid
-    out like q. Raises on any other device."""
-    autograd_guard("flash_attention", q, k, v)
+def _require_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{t.device} (ops.flash_attention_op runs the "
+                         f"plain version on the CPU)")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int | None = None,
+                        with_lse: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One launch of the forward kernel on CUDA tensors -> ``(out,
+    lse)``: out ``(B, H, Sq, D)`` in q's dtype, laid out like q; ``lse``
+    the ``(B, H, Sq)`` f32 log-sum-exp of each row when ``with_lse``,
+    else None (the kernel is passed null). Raises on any other device.
+    Counts the launch."""
     check_inputs(q, k, v, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: the kernel takes CUDA tensors, "
-                         f"got {q.device} (ops.flash_attention_op runs "
-                         f"the plain version on the CPU)")
+    _require_cuda("flash_attention", q)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     variant = kernel_variant(q.dtype, d)
     if variant == "tc":
         # A fresh allocation: .contiguous() would return a contiguous view
@@ -177,6 +266,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  strides, b, h, hkv, sq, sk, d, int(causal),
                  0 if window is None else int(window),
                  ctypes.byref(launched), stream)
@@ -192,9 +282,102 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_attention.launches_tc += 1
     else:
         flash_attention.launches_simt += 1
-    return out
+    return out, lse
+
+
+def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     window: int | None) -> None:
+    """The backward's inputs: q, k, v as the forward takes them; o and do
+    shaped and typed like q with unit stride on D; lse a contiguous f32
+    ``(B, H, Sq)`` on q's device."""
+    check_inputs(q, k, v, window)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}; "
+                             f"want q's {tuple(q.shape)} {q.dtype} on "
+                             f"{q.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention_bwd: the head dim of {name} "
+                             f"must have unit stride")
+    if (lse.shape != q.shape[:3] or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse is {tuple(lse.shape)} "
+                         f"{lse.dtype}; want a contiguous float32 "
+                         f"{tuple(q.shape[:3])} on {q.device}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel on CUDA tensors -> (dq, dk, dv) in the inputs'
+    dtype, each laid out like its input. ``o`` and ``lse`` are the
+    forward's output and log-sum-exp, ``do`` the output's gradient.
+    Raises on any other device."""
+    check_bwd_inputs(q, k, v, o, lse, do, window)
+    _require_cuda("flash_attention_bwd", q)
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 24)(*(
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    lib = _lib_bwd()
+    fn = (lib.flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
+          else lib.flash_attention_bwd_f32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
+                 b, h, hkv, sq, sk, d, int(causal),
+                 0 if window is None else int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    flash_attention.launches_bwd += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a kernel on both sides: the forward kernel with
+    ``lse`` (saving q, k, v, o and lse), the backward kernel for dq, dk
+    and dv. CUDA tensors only (the launchers raise otherwise)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, causal, window,
+                                       with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """The kernel on CUDA tensors -> ``(B, H, Sq, D)`` in q's dtype, laid
+    out like q. With grad enabled and an input that requires grad, through
+    :class:`FlashAttentionFn` (the output carries the kernel backward's
+    autograd node); otherwise one forward launch with no ``lse``. Raises
+    on any other device (the launchers check the inputs)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return flash_attention_fwd(q, k, v, causal, window)[0]
 
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_simt = 0
+flash_attention.launches_bwd = 0

@@ -1,11 +1,14 @@
 """The kernel wrappers' refusal to drop gradients.
 
-The hand-written kernels (``csrc/``) are forward only: a wrapper writes
-into a fresh tensor through ctypes, so an input's gradient path would end
-there without an error. Each CUDA kernel wrapper calls
-:func:`autograd_guard` first; the plain versions, which the ``ops``
-dispatchers run on CPU tensors, stay differentiable. Backward kernels
-(ROADMAP Queue B) will replace the guard.
+``fedagg`` (and ``fedagg_leaves``), ``rwkv6_wkv`` and ``selective_scan``
+are forward only: a wrapper writes into a fresh tensor through ctypes,
+so an input's gradient path would end there without an error. Each of
+those wrappers calls :func:`autograd_guard` first; the plain versions,
+which the ``ops`` dispatchers run on CPU tensors, stay differentiable.
+``flash_attention`` no longer calls it: it has a backward kernel, and
+its wrapper applies ``FlashAttentionFn`` when an input requires grad.
+Backward kernels for ``rwkv6_wkv`` and ``selective_scan`` (ROADMAP Queue
+B) will replace the guard there; the fold is applied under no grad.
 """
 from __future__ import annotations
 

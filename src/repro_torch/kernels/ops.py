@@ -8,10 +8,13 @@ through its plain version (for the simulator's fold, the per-leaf
 :func:`repro_torch.core.treeops.tree_combine` — as the JAX dispatcher
 picks the einsum on CPU, ``repro/kernels/ops.py:99-103``). There is no
 override and no fallback: a CUDA tensor goes
-through the kernel or the call raises. The kernels have no backward yet:
-on CUDA inputs that require grad (with grad enabled) the kernel wrappers
-raise (``guard.autograd_guard``); the plain versions the CPU path runs
-stay differentiable.
+through the kernel or the call raises. ``flash_attention`` has a
+backward kernel: on CUDA inputs that require grad (with grad enabled)
+its wrapper goes through ``FlashAttentionFn`` (forward kernel with the
+log-sum-exp, backward kernel), and otherwise launches the forward alone,
+as serving does. The other kernels have no backward yet: on CUDA inputs
+that require grad their wrappers raise (``guard.autograd_guard``). The
+plain versions the CPU path runs stay differentiable.
 """
 from __future__ import annotations
 
@@ -109,7 +112,12 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(B,Hkv,Sk,D)`` -> ``(B,H,Sq,D)``: the ``flash_attention`` kernel on
     CUDA tensors, :func:`~repro_torch.kernels.flash_attention
     .flash_attention_plain` on CPU tensors; the inputs are checked the
-    same way on both. The JAX wrapper's block sizes are the TPU kernel's
+    same way on both. On CUDA tensors with grad enabled and an input that
+    requires grad, the wrapper applies ``FlashAttentionFn`` (forward
+    kernel with the log-sum-exp saved, backward kernel); otherwise it
+    launches the forward with no log-sum-exp, so the serving path is the
+    forward kernel alone. On CPU tensors the plain version's autograd is
+    the gradient. The JAX wrapper's block sizes are the TPU kernel's
     tiling and do not change the result; the CUDA kernel picks its
     own."""
     check_inputs(q, k, v, window)

@@ -7,9 +7,13 @@ period are stacked along a leading axis under ``layers/b{j}/...`` keys,
 as the JAX package stacks them (``add_leading_axis``), so a key such as
 ``layers/b0/mixer/wq`` has shape ``(num_layers, d_model, H·D)``. The JAX
 package's ``lax.scan`` over the stack becomes a Python loop over views
-``params[key][i]``. ``remat`` is a training knob and does nothing here
-(no autograd on the serving path), and the JAX package's ``unroll``
-(a cost-analysis knob for its scans) has no counterpart.
+``params[key][i]``. ``cfg.remat`` is activation checkpointing for
+training, as the JAX package's ``jax.checkpoint`` of its period body:
+with grad enabled each period runs under ``torch.utils.checkpoint``
+(non-reentrant), so only its input is kept and its forward is run again
+in the backward; with grad disabled (serving) it changes nothing. The
+JAX package's ``unroll`` (a cost-analysis knob for its scans) has no
+counterpart.
 
 Decode keeps per-layer caches stacked the same way over the periods
 (an attention block's ``layers/b4/k`` of shape ``(num_periods, B, S_max,
@@ -28,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -201,13 +206,25 @@ class Transformer:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(self.num_periods):
+
+        def period(x: torch.Tensor, aux: torch.Tensor, i: int):
             for j, kind in enumerate(self.pattern):
                 x, a = _apply_block(cfg, kind, cfg.layer_is_moe(j),
                                     _layer(params, f"layers/b{j}/", i), x,
                                     positions)
                 if a is not None:
                     aux = aux + a
+            return x, aux
+
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i in range(self.num_periods):
+            if remat:
+                # The blocks draw no random numbers: no RNG state to keep.
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    period, x, aux, i, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                x, aux = period(x, aux, i)
         return apply_norm(_layer(params, "final_norm/"), x,
                           cfg.norm_kind), aux
 
@@ -217,10 +234,18 @@ class Transformer:
             return unembed(params["embed/table"], x)
         return x @ params["head"]
 
-    def forward(self, params: dict, tokens: torch.Tensor
+    def forward(self, params: dict, tokens: torch.Tensor,
+                aux_in: Optional[dict] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B, S, V), aux_loss: the MoE blocks' summed
-        load-balance loss, an f32 scalar, 0 without MoE)."""
+        load-balance loss, an f32 scalar, 0 without MoE). ``aux_in`` is the
+        reference's frames / patches stub inputs, for encoder-decoder and
+        vision stacks, which are not ported yet (raises)."""
+        if aux_in:
+            raise NotImplementedError(
+                f"{self.cfg.name}: aux inputs {sorted(aux_in)} (frames / "
+                f"patches) are for encoder-decoder and vision stacks, not "
+                f"ported yet ({_ITEM})")
         x, aux = self.hidden_states(params, tokens)
         return self.logits(params, x), aux
 

@@ -44,6 +44,12 @@ MODULES = [
     "repro_torch.core.aggregation",
     "repro_torch.core.strategies",
     "repro_torch.sim.timeline",
+    "repro_torch.optim",
+    "repro_torch.optim.optimizers",
+    "repro_torch.core.dissemination",
+    "repro_torch.core.mesh_round",
+    "repro_torch.core.fed_step",
+    "repro_torch.launch.train",
 ]
 
 

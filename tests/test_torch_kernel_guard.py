@@ -1,11 +1,15 @@
 """The kernel wrappers refuse inputs whose gradient they would drop.
 
-The port's CUDA kernels are forward only (ROADMAP Queue B), so each
-kernel wrapper raises ``RuntimeError`` when grad is enabled and an input
-requires grad, before it looks at the device; without grad it goes on to
-its device check. The ``*_op`` dispatchers send CPU tensors to the plain
+``fedagg``, ``rwkv6_wkv`` and ``selective_scan`` are forward only
+(ROADMAP Queue B), so each of those wrappers raises ``RuntimeError``
+when grad is enabled and an input requires grad, before it looks at the
+device; without grad it goes on to its device check. ``flash_attention``
+has a backward kernel: under grad its wrapper builds a
+``FlashAttentionFn`` autograd node instead (checked here with its two
+launchers replaced by the plain versions, since the kernels run only on
+the card). The ``*_op`` dispatchers send CPU tensors to the plain
 versions, which stay differentiable. The ``cuda``-marked test shows the
-raise on the card.
+raise, and flash's gradient against the plain one, on the card.
 """
 import numpy as np
 import pytest
@@ -16,6 +20,8 @@ from repro_torch.kernels import (fedagg as fedagg_mod,
                                  rwkv6_wkv as wkv_mod,
                                  selective_scan as scan_mod)
 from repro_torch.kernels.guard import autograd_guard
+
+from _torch_flash import plain_launchers
 
 torch.set_num_threads(2)
 
@@ -56,6 +62,8 @@ OPS = {
     "selective_scan": ops.selective_scan_op,
 }
 NAMES = {"fedagg_leaves": "fedagg"}
+# Wrappers with a backward kernel: under grad they build an autograd node.
+DIFFERENTIABLE = ("flash_attention",)
 
 
 def _requiring_grad(args: list, which: int) -> list:
@@ -63,9 +71,32 @@ def _requiring_grad(args: list, which: int) -> list:
             for i, a in enumerate(args)]
 
 
+def _check_flash_gradient(args: list, which: int, tol: dict) -> None:
+    """The wrapper under grad with input ``which`` requiring grad: an
+    autograd node whose gradient equals the plain version's."""
+    inputs = _requiring_grad(args, which)
+    out = fa_mod.flash_attention(*inputs)
+    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    weight = torch.linspace(-1, 1, out.numel(), device=out.device).view(
+        out.shape)
+    (got,) = torch.autograd.grad((out * weight).sum(), [inputs[which]])
+    plain = _requiring_grad(args, which)
+    (want,) = torch.autograd.grad(
+        (fa_mod.flash_attention_plain(*plain) * weight).sum(),
+        [plain[which]])
+    assert torch.isfinite(got).all() and got.abs().sum() > 0
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
 @pytest.mark.parametrize("kernel", list(WRAPPERS))
-def test_wrapper_raises_on_input_that_requires_grad(kernel):
+def test_wrapper_raises_on_input_that_requires_grad(kernel, monkeypatch):
     args = _inputs(kernel)
+    if kernel in DIFFERENTIABLE:
+        calls = plain_launchers(monkeypatch)
+        for which in range(len(args)):
+            _check_flash_gradient(args, which, dict(atol=1e-6, rtol=1e-6))
+        assert calls == [("fwd", True), ("bwd", True, None)] * len(args)
+        return
     for which in range(len(args)):
         launches = getattr(WRAPPERS[kernel], "launches", None)
         with pytest.raises(RuntimeError, match="no backward") as info:
@@ -131,6 +162,16 @@ def test_wrapper_raises_on_card(kernel):
         pytest.skip("needs an NVIDIA card: the kernels are CUDA C++ and "
                     "have no CPU or interpreter mode")
     args = _inputs(kernel, "cuda")
+    if kernel in DIFFERENTIABLE:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        n = (fa_mod.flash_attention.launches,
+             fa_mod.flash_attention.launches_bwd)
+        for which in range(len(args)):
+            _check_flash_gradient(args, which, dict(atol=3e-5, rtol=1e-4))
+        assert (fa_mod.flash_attention.launches,
+                fa_mod.flash_attention.launches_bwd) == (
+            n[0] + len(args), n[1] + len(args))
+        return
     launches = WRAPPERS[kernel].launches if hasattr(
         WRAPPERS[kernel], "launches") else None
     with pytest.raises(RuntimeError, match="no backward"):
