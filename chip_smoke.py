@@ -130,19 +130,23 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     written on the card loads into a CPU engine leaf for leaf; and the
     run-to-run spread of fedspace with cuDNN's default algorithms,
     reported only;
-23. flash backward — ``flash_attention_bwd`` (three kernels: Δ, dK/dV,
-    dQ) against ``flash_attention_bwd_plain`` and the forward's lse
-    against ``flash_attention_lse_plain`` on the card: a sweep in f32 and
-    bf16 over every head dim, GQA groups 1/2/4, causal and not, windows,
+23. flash backward — ``flash_attention_bwd`` (three kernels: a
+    pre-pass, dK/dV, dQ; bf16 at D >= 16 runs the tensor-core ones,
+    f32 and D=8 the SIMT ones, and each call's variant is counted)
+    against ``flash_attention_bwd_plain`` and the forward's lse against
+    ``flash_attention_lse_plain`` on the card: a sweep in f32 and bf16
+    over every head dim, GQA groups 1/2/4, causal and not, windows,
     Sq != Sk and transposed views (autograd through ``FlashAttentionFn``
     bit-equal to the direct call); then the training shape (B=2, H=16,
-    Hkv=8, S=1024, D=128) and the serve shape (B=4, S=4096) in bf16,
-    where three planted faults (the GQA sum dropped, Δ not subtracted, the
-    causal mask off by one) in a dense copy must break the tolerance that
-    the copy without a fault meets; the backward timed (back to back and
-    as device time) beside the plain version, its bound and SDPA's
-    backward, and the forward with and without lse (the serving path
-    passes none);
+    Hkv=8, S=1024, D=128) and the serve shape (B=4, S=4096) in bf16, on
+    the tensor cores, where three planted faults (the GQA sum dropped, Δ
+    not subtracted, the causal mask off by one) in a dense copy must
+    break the tolerance that the copy without a fault meets; the backward
+    timed (back to back and as device time) beside the plain version, its
+    bounds (the function's 2.5x the forward's FLOP, 3.5x with S and dP
+    recomputed, the design's 5x) and SDPA's backward, and the forward
+    with and without lse (the serving path passes none); ptxas' registers
+    and spills of each new backward kernel;
 24. train card vs CPU — qwen3-0.6b at full width cut to 4 layers, f32,
     from one CPU-drawn init: each leaf's gradient of one satellite's
     loss (batch 1 x seq 256) on the card and on the CPU, within a
@@ -155,7 +159,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     satellite, 2 local steps, 3 rounds, visibility 0.5, seed 0; the
     counts zeroed just before each round and read just after: one
     ``fedagg`` launch, 56 forward launches (all ``flash_fwd_tc``) and 28
-    backward launches per satellite step; finite losses, all rows
+    backward launches (all on the tensor cores) per satellite step;
+    finite losses, all rows
     bit-equal after each fold; s/round, peak memory, the card's draw, a
     profile of one round split into GEMMs, ``flash_bwd``, elementwise
     work and the fold; the S=4 bf16 LM fold timed against its bound and
@@ -170,8 +175,9 @@ phase 19 and 21 launch counts by strategy, ``launches_routed`` and
 ``launches_ticks``, phase 25's ``launches_train`` and the LM fold's
 times ``fold_lm``; ``flash_attention``'s with phase 25's
 ``launches_train``; and the backward's entry, ``flash_attention_bwd``,
-timed at the training shape with the serve shape's numbers under
-``serve``), the card line, and last ``{"ok": true, "device": {...}}``.
+with its variant, timed at the training shape with the serve shape's
+numbers under ``serve`` and ptxas' report under ``ptxas``), the card
+line, and last ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -180,6 +186,7 @@ import contextlib
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -284,6 +291,34 @@ def nvidia_smi(query: str) -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip()
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Registers and spill bytes of each flash kernel in nvcc's ``-Xptxas
+    -v`` report: {"name<dtype, D=..>": (registers, spill stores, spill
+    loads)}, the mangled names shortened."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            short = re.search(r"\d+(flash_\w+?)I(f|13__nv_bfloat16)?Li(\d+)E",
+                              name)
+            if short:
+                dtype = {"f": "f32, ", "13__nv_bfloat16": "bf16, "}.get(
+                    short.group(2), "")
+                out[f"{short.group(1)}<{dtype}D={short.group(3)}>"] = (
+                    int(m.group(1)), *spills)
+            name = None
+    return out
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1264,14 +1299,15 @@ def phase_decode_vs_prefill(torch, model, params, faults: dict,
 def launch_counters(kernels: dict) -> dict:
     """Every count of the wrappers in ``kernels``: ``name`` -> (wrapper,
     "launches"), ``name.tc`` / ``name.simt`` -> the per-variant launch
-    counts, ``name.bwd`` -> the backward launches (flash), and
+    counts, ``name.bwd`` -> the backward launches (flash) and
+    ``name.bwd_tc`` / ``name.bwd_simt`` those of each variant, and
     ``name.copies`` -> the inputs a wrapper copied before its launch,
     where a wrapper has them."""
     out = {}
     for name, fn in kernels.items():
         out[name] = (fn, "launches")
         for attr in ("launches_tc", "launches_simt", "launches_bwd",
-                     "copies"):
+                     "launches_bwd_tc", "launches_bwd_simt", "copies"):
             if hasattr(fn, attr):
                 out[f"{name}.{attr.removeprefix('launches_')}"] = (fn, attr)
     return out
@@ -2436,12 +2472,19 @@ TRAIN_ATTN = dict(b=2, h=16, hkv=8, s=1024, d=128)
 # few f32 ulps, the tensor-core kernel's exp2.approx sums adding ~2^-22
 # relative per term.
 LSE_TOL = dict(atol=1e-5, rtol=1e-6)
-# Backward kernel vs plain at the training and serve shapes in bf16: both
-# compute every product and sum in f32 from the same bf16 inputs, o and
-# lse, and round each gradient once, so they differ by at most one bf16
-# ulp where the f32 values straddle a rounding boundary (rtol two ulps),
-# atol covering gradients near 0; the same reasoning as
-# PREFILL_BF16_TOL. Phase 23 shows that three planted faults break it.
+# Backward kernel vs plain at the training and serve shapes in bf16. The
+# plain version computes in f32 from the bf16 inputs, o and lse. The
+# tensor-core kernels compute S, dP, P, Δ, dS and every sum in f32 from
+# the same inputs too, but their products dV = Pᵀ·dO, dK = dSᵀ·Q and
+# dQ = dS·K take P and dS as bf16 operands: each goes in as two bf16
+# parts, hi = bf16(x) and lo = bf16(x − hi), which carry it to ~2^-17 of
+# itself (rounded once, 2^-9, the large P of rows with few keys moves
+# gradients near 0 past atol: tests/test_torch_flash_backward_tc.py
+# emulates both). Both round each gradient once, so they differ by at
+# most one bf16 ulp where the f32 values straddle a rounding boundary
+# (rtol two ulps) plus that ~2^-17 share, atol covering gradients near 0;
+# the same tolerance as PREFILL_BF16_TOL. Phase 23 shows that three
+# planted faults break it.
 BWD_BF16_TOL = PREFILL_BF16_TOL
 
 
@@ -2484,13 +2527,17 @@ def dense_bwd(torch, q, k, v, o, lse, do, fault: str | None = None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float) -> dict:
-    """Phase 23: the backward kernel against flash_attention_bwd_plain on
-    the card (and the forward's lse against flash_attention_lse_plain);
-    the sweep in f32 and bf16, then the training and serve shapes in bf16
-    with three planted faults; timed beside the plain version, its bound
-    and SDPA's backward. Returns the kernels-line entry (launches filled
-    in from phase 25)."""
+def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float,
+                    ptxas: dict) -> dict:
+    """Phase 23: the backward kernels against flash_attention_bwd_plain
+    on the card (and the forward's lse against flash_attention_lse_plain);
+    the sweep in f32 and bf16, each call's variant counted (bf16 at D >=
+    16 on the tensor cores, f32 and D = 8 on the SIMT kernels), then the
+    training and serve shapes in bf16 with three planted faults; timed
+    beside the plain version, its bounds and SDPA's backward; ptxas'
+    report of each tensor-core backward kernel (``ptxas``, from phase
+    2). Returns the kernels-line entry (launches filled in from phase
+    25)."""
     fa = fa_mod.flash_attention
     fwd, bwd = fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd
     bwd_plain = fa_mod.flash_attention_bwd_plain
@@ -2506,11 +2553,18 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float) -> dict:
             out, lse = fwd(q, k, v, causal, window, with_lse=True)
             lerr = check_close(torch, lse, lse_plain(q, k, causal, window),
                                "float32", f"flash lse {what}", LSE_TOL)
-            before = fa.launches_bwd
+            counts = ("launches_bwd", "launches_bwd_tc",
+                      "launches_bwd_simt")
+            before = [getattr(fa, c) for c in counts]
             got = bwd(q, k, v, out, lse, do, causal, window)
-            if fa.launches_bwd != before + 1:
-                raise AssertionError("flash_attention_bwd did not count "
-                                     "its launch")
+            variant = fa_mod.kernel_variant(dtype, d)
+            tc = variant == "tc"
+            if [getattr(fa, c) for c in counts] != [
+                    before[0] + 1, before[1] + tc, before[2] + (not tc)]:
+                raise AssertionError(f"flash_attention_bwd {what}: did not "
+                                     f"count one {variant} launch")
+            if tc != (dtype == torch.bfloat16 and d >= 16):
+                raise AssertionError(f"flash bwd {what}: variant {variant}")
             want = bwd_plain(q, k, v, out, lse, do, causal, window)
             errs = []
             for name, g, w, x in zip(("dq", "dk", "dv"), got, want,
@@ -2528,8 +2582,9 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float) -> dict:
                 raise AssertionError(f"flash bwd {what}: autograd through "
                                      f"FlashAttentionFn differs from the "
                                      f"kernel called directly")
-            log("flash-bwd", f"{what}: lse max |err| {lerr:.3e}; dq, dk, "
-                f"dv max |err| {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}")
+            log("flash-bwd", f"{what}: variant {variant}; lse max |err| "
+                f"{lerr:.3e}; dq, dk, dv max |err| {errs[0]:.3e}, "
+                f"{errs[1]:.3e}, {errs[2]:.3e}")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes = {"train": dict(TRAIN_ATTN), "serve": dict(PREFILL)}
@@ -2556,7 +2611,11 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float) -> dict:
         out, lse = fwd(q, k, v, with_lse=True)
         lerr = check_close(torch, lse, lse_plain(q, k), "float32",
                            f"flash lse {what}", LSE_TOL)
+        before = fa.launches_bwd_tc
         got = bwd(q, k, v, out, lse, do)
+        if fa.launches_bwd_tc != before + 1:
+            raise AssertionError(f"flash bwd bf16 {what}: not on the tensor "
+                                 f"cores")
         want = bwd_plain(q, k, v, out, lse, do)
         worst = 0.0
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -2608,7 +2667,9 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float) -> dict:
         lib_ms = time_ms(torch, sdpa_bwd, reps=10)
         lib_dev = device_ms(torch, sdpa_bwd, reps=20)
         del ref_out, args
-        # 2.5x the forward's causal FLOP (QKᵀ again, dP, dV, dK, dQ).
+        # The function: 2.5x the forward's causal FLOP (QKᵀ again, dP, dV,
+        # dK, dQ). The design: 3.5x with S and dP recomputed for dQ, 5x
+        # with dV, dK and dQ each two products (P and dS as hi + lo).
         flop = 2.5 * 4 * b * h * d * s * (s + 1) / 2
         nbytes = (sum(x.numel() * x.element_size()
                       for x in (q, k, v, out, do, q, k, v))
@@ -2616,36 +2677,56 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float) -> dict:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
         bound_ms = 1e3 * max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log("flash-bwd", f"{what} bf16 causal: backward kernel {ms:.4f} ms "
-            f"({flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
-            f"backward {lib_ms:.4f} ms (back to back with the host's "
-            f"cost); device time: kernel {dev_ms:.4f} ms, sdpa backward "
-            f"{lib_dev:.4f} ms, {dev_ms / lib_dev:.2f}x; {nbytes} bytes, "
-            f"{flop:.4e} FLOP, bound {bound_ms:.4f} ms ({bound_by}); kernel "
-            f"at {bound_ms / dev_ms:.4f} of its bound in device time; lse "
-            f"max |err| {lerr:.3e}")
+        bound_recompute = 1e3 * max(t_bytes, t_ops * 3.5 / 2.5)
+        bound_design = 1e3 * max(t_bytes, t_ops * 5.0 / 2.5)
+        log("flash-bwd", f"{what} bf16 causal: backward kernels (tc) "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+            f"{lib_ms:.4f} ms (back to back with the host's cost); device "
+            f"time: kernels {dev_ms:.4f} ms ({flop / dev_ms / 1e9:.2f} "
+            f"TFLOP/s of the function's FLOP, {2 * flop / dev_ms / 1e9:.2f} "
+            f"of the design's), sdpa backward {lib_dev:.4f} ms, "
+            f"{dev_ms / lib_dev:.2f}x; {nbytes} bytes, {flop:.4e} FLOP, "
+            f"bound {bound_ms:.4f} ms ({bound_by}; {bound_recompute:.4f} ms "
+            f"at 3.5x with S and dP recomputed, {bound_design:.4f} ms at "
+            f"the design's 5x); kernels at {bound_ms / dev_ms:.4f} of the "
+            f"bound and {bound_design / dev_ms:.4f} of the design's in "
+            f"device time; lse max |err| {lerr:.3e}")
         log("flash-bwd", f"{what}: forward (flash_fwd_tc) without lse "
             f"{fwd_ms:.4f} ms, with lse {fwd_lse_ms:.4f} ms"
             + (f"; phase 7's forward at this shape {fwd_prefill_ms:.4f} ms"
                if big else ""))
         out_entry[label] = dict(max_abs_err=worst, ms=ms, device_ms=dev_ms,
                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, library_ms=lib_ms,
+                                bound_by=bound_by,
+                                bound_ms_recompute=bound_recompute,
+                                bound_ms_design=bound_design,
+                                library_ms=lib_ms,
                                 library_device_ms=lib_dev, fwd_ms=fwd_ms,
                                 fwd_lse_ms=fwd_lse_ms)
         del q, k, v, do, out, lse
     torch.cuda.empty_cache()
     train = out_entry["train"]
-    return dict(name="flash_attention_bwd", route="cuda",
+    report = {k: v for k, v in ptxas.items()
+              if k.startswith(("flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
+                               "flash_bwd_prep"))}
+    for label, (regs, stores, loads) in report.items():
+        log("flash-bwd", f"ptxas {label}: {regs} registers, {stores} bytes "
+            f"spill stores, {loads} bytes spill loads")
+    return dict(name="flash_attention_bwd", route="cuda", variant="tc",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 replaces="src/repro/kernels/flash_attention.py:87",
                 launches=None, max_abs_err=max(
                     e["max_abs_err"] for e in out_entry.values()),
                 ms=train["ms"], device_ms=train["device_ms"],
                 plain_ms=train["plain_ms"], bound_ms=train["bound_ms"],
-                bound_by=train["bound_by"], library_ms=train["library_ms"],
+                bound_by=train["bound_by"],
+                bound_ms_recompute=train["bound_ms_recompute"],
+                bound_ms_design=train["bound_ms_design"],
+                library_ms=train["library_ms"],
                 library_device_ms=train["library_device_ms"],
-                serve=out_entry["serve"])
+                serve=out_entry["serve"],
+                ptxas={k: dict(registers=r, spill_stores=st, spill_loads=ld)
+                       for k, (r, st, ld) in report.items()})
 
 
 # Phase 24: card (kernels) vs CPU (plain), f32, TF32 off. The round's
@@ -2860,8 +2941,8 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
                 fedagg_mod, ops) -> dict:
     """Phase 25: full-width qwen3-0.6b, bf16, remat on, federated training
     on the card: each round's counts zeroed just before and read just
-    after (one ``fedagg`` launch; 56 forward launches, all on the tensor
-    cores, and 28 backward launches per satellite step), finite losses,
+    after (one ``fedagg`` launch; 56 forward launches and 28 backward
+    launches per satellite step, all on the tensor cores), finite losses,
     all rows bit-equal after each fold; s/round, peak memory, the card's
     draw and a profile of one round; the LM fold timed; a checkpoint
     written and loaded back bit for bit."""
@@ -2892,7 +2973,8 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
     want = {name: 0 for name in counters}
     want.update({"fedagg": 1, "flash_attention": 2 * layers * sat_steps,
                  "flash_attention.tc": 2 * layers * sat_steps,
-                 "flash_attention.bwd": layers * sat_steps})
+                 "flash_attention.bwd": layers * sat_steps,
+                 "flash_attention.bwd_tc": layers * sat_steps})
     totals = {name: 0 for name in counters}
     walls, losses = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -3043,6 +3125,7 @@ def main() -> int:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     built = build.build()
+    ptxas = {}
     for name, info in built.items():
         log("build", f"{name}: {info['seconds']:.2f} s "
             f"(cached={info['cached']})")
@@ -3052,6 +3135,11 @@ def main() -> int:
             if any(w in line for w in ("Function properties", "Used ",
                                        "spill", "Performance Loss")):
                 log("build", f"  {line.strip()}")
+        ptxas.update(ptxas_report(info["log"]))
+    for label, (regs, stores, loads) in ptxas.items():
+        if "_tc" in label:
+            log("build", f"ptxas {label}: {regs} registers, {stores} bytes "
+                f"spill stores, {loads} bytes spill loads")
     log("build", f"all kernels built in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels
@@ -3190,7 +3278,7 @@ def main() -> int:
     phase_resume(torch, sim)
 
     # 23. the flash backward kernel against its plain version
-    bwd_entry = phase_flash_bwd(torch, fa_mod, flash_entry["ms"])
+    bwd_entry = phase_flash_bwd(torch, fa_mod, flash_entry["ms"], ptxas)
 
     # 24. one training round, card vs CPU (4 layers, f32)
     phase_train_card_vs_cpu(torch, Transformer, get_config, fa_mod)

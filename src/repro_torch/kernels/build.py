@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
 so a build takes seconds. Libraries are built at first use into
 ``build/repro_torch/`` at the root of the checkout (``.gitignore`` lists
-it), named by a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded. Nothing here runs at
+it), named by a hash of the source, the shared headers ``csrc/*.cuh``
+that sources include, and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. Nothing here runs at
 import time.
 """
 from __future__ import annotations
@@ -42,9 +43,13 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source and flags."""
+    source, headers and flags. Every ``csrc/*.cuh`` is hashed with each
+    source: an edited header rebuilds the sources that may include it."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.name.encode() + p.read_bytes()
+                       for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 

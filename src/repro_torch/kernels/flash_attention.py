@@ -29,15 +29,26 @@ strides that are multiples of 16 bytes; for the tensor-core kernel the
 wrapper copies a q, k or v view that misses that to a contiguous tensor
 first, so such a call still runs on the tensor cores.
 
-The backward is ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`,
-SIMT, f32 and bf16, every D of the forward): from q, k, v, the output o,
-the forward's per-row log-sum-exp ``lse`` (``(B, H, Sq)`` f32, which the
-forward kernels store only when asked) and the output's gradient dO it
-computes dQ, dK and dV, dK and dV summed over the query heads of each KV
-head. The JAX package has no backward kernel (it takes this gradient by
-autodiff of its blockwise jnp analogue); the port's forward is a kernel,
-so its gradient is one too. :class:`FlashAttentionFn` ties the two
-together for autograd.
+The backward is ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd`, f32 and bf16, every D of the forward): from
+q, k, v, the output o, the forward's per-row log-sum-exp ``lse``
+(``(B, H, Sq)`` f32, which the forward kernels store only when asked) and
+the output's gradient dO it computes dQ, dK and dV, dK and dV summed over
+the query heads of each KV head. Its C launcher chooses between two
+variants by the forward's rule (:func:`kernel_variant` again):
+
+- ``"tc"``, bf16 with D in {16, 32, 64, 128}: TMA and ``wgmma``, a dK/dV
+  kernel per key tile and a dQ kernel per query tile (the training
+  path's). The products take P and dS as two bf16 parts each (hi and the
+  remainder lo), so its only rounding beyond the plain version's is ~2^-17
+  of each term; the wrapper copies a q, k, v, o or dO view that TMA cannot
+  address first, as the forward does.
+- ``"simt"``, f32 and D = 8: f32 FMAs on the CUDA cores.
+
+Both are deterministic: every gradient element has one writer. The JAX
+package has no backward kernel (it takes this gradient by autodiff of its
+blockwise jnp analogue); the port's forward is a kernel, so its gradient
+is one too. :class:`FlashAttentionFn` ties the two together for autograd.
 
 :func:`flash_attention` checks its inputs and dispatches: with grad
 enabled and an input that requires grad it applies
@@ -54,7 +65,8 @@ output and the gradients are laid out like their inputs.
 ``flash_attention.launches`` counts forward launches,
 ``flash_attention.launches_tc`` and ``.launches_simt`` those of each
 variant, ``flash_attention.launches_bwd`` backward calls (each enqueues
-the backward's three kernels: Δ, dK/dV, dQ).
+the backward's three kernels: a pre-pass for Δ, dK/dV, dQ) and
+``.launches_bwd_tc`` / ``.launches_bwd_simt`` those of each variant.
 """
 from __future__ import annotations
 
@@ -70,13 +82,31 @@ NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 TMA_ALIGN = 16          # bytes: TMA's base and stride granule
+BWD_ROW_PAD = 128       # the tc backward's scratch rows: Sq rounded up
 
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
-    """Which kernel a CUDA call runs: ``"tc"`` (tensor cores) for bf16 at
-    D >= 16, ``"simt"`` for f32 and D = 8. Mirrors ``variant_for`` in
-    ``csrc/flash_attention.cu``, which makes the choice."""
+    """Which kernels a CUDA call runs, forward and backward alike: ``"tc"``
+    (tensor cores) for bf16 at D >= 16, ``"simt"`` for f32 and D = 8.
+    Mirrors ``variant_for`` in ``csrc/flash_attention.cu`` and
+    ``csrc/flash_attention_bwd.cu``, which make the choice."""
     return "tc" if dtype == torch.bfloat16 and d >= 16 else "simt"
+
+
+def bwd_scratch_floats(b: int, h: int, sq: int) -> int:
+    """Floats of f32 scratch a backward call takes: lse·log2(e) and Δ of
+    every (b, h) row, rows padded to ``BWD_ROW_PAD`` (the tc variant's
+    need, which covers the SIMT one's Δ). Mirrors ``tc::scratch_floats``
+    in ``csrc/flash_attention_bwd.cu``, whose launcher refuses less."""
+    return 2 * b * h * (-(-sq // BWD_ROW_PAD) * BWD_ROW_PAD)
+
+
+def _check_variant(name: str, launched: int, variant: str) -> None:
+    """Raise unless the C launcher ran the variant kernel_variant names
+    (it reports 1 for the tensor cores, 0 for SIMT)."""
+    if {1: "tc", 0: "simt"}.get(launched) != variant:
+        raise RuntimeError(f"{name}: the launcher ran variant {launched}, "
+                           f"kernel_variant says {variant!r}")
 
 
 def tma_addressable(t: torch.Tensor) -> bool:
@@ -189,9 +219,11 @@ def _lib_bwd() -> ctypes.CDLL:
     """The backward's library with its C signatures declared."""
     lib = build.load("flash_attention_bwd")
     for fn in (lib.flash_attention_bwd_f32, lib.flash_attention_bwd_bf16):
-        fn.argtypes = ([ctypes.c_void_p] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
+                       + [ctypes.c_void_p] * 3
                        + [ctypes.POINTER(ctypes.c_int64)]
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 8
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -273,10 +305,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel ({variant}) launch "
                            f"failed: cudaError {err}")
-    if {1: "tc", 0: "simt"}.get(launched.value) != variant:
-        raise RuntimeError(f"flash_attention: the launcher ran variant "
-                           f"{launched.value}, kernel_variant says "
-                           f"{variant!r}")
+    _check_variant("flash_attention", launched.value, variant)
     flash_attention.launches += 1
     if variant == "tc":
         flash_attention.launches_tc += 1
@@ -312,32 +341,48 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         causal: bool = True, window: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel on CUDA tensors -> (dq, dk, dv) in the inputs'
+    """The backward kernels on CUDA tensors -> (dq, dk, dv) in the inputs'
     dtype, each laid out like its input. ``o`` and ``lse`` are the
     forward's output and log-sum-exp, ``do`` the output's gradient.
-    Raises on any other device."""
+    Raises on any other device. Counts the call and its variant."""
     check_bwd_inputs(q, k, v, o, lse, do, window)
     _require_cuda("flash_attention_bwd", q)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    variant = kernel_variant(q.dtype, d)
+    if variant == "tc":
+        # TMA reads q, k, v and dO (autograd's dO is often a view it
+        # cannot address); the pre-pass reads rows of o and dO 8 bytes at
+        # a time, so o must be as aligned.
+        q, k, v, o, do = (t if tma_addressable(t)
+                          else t.clone(memory_format=torch.contiguous_format)
+                          for t in (q, k, v, o, do))
+    n_scratch = bwd_scratch_floats(b, h, sq)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
     lib = _lib_bwd()
     fn = (lib.flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
           else lib.flash_attention_bwd_f32)
+    launched = ctypes.c_int(-1)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
-                 b, h, hkv, sq, sk, d, int(causal),
-                 0 if window is None else int(window), stream)
+                 do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                 n_scratch, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 strides, b, h, hkv, sq, sk, d, int(causal),
+                 0 if window is None else int(window),
+                 ctypes.byref(launched), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention_bwd kernels ({variant}) "
+                           f"launch failed: cudaError {err}")
+    _check_variant("flash_attention_bwd", launched.value, variant)
     flash_attention.launches_bwd += 1
+    if variant == "tc":
+        flash_attention.launches_bwd_tc += 1
+    else:
+        flash_attention.launches_bwd_simt += 1
     return dq, dk, dv
 
 
@@ -381,3 +426,5 @@ flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_simt = 0
 flash_attention.launches_bwd = 0
+flash_attention.launches_bwd_tc = 0
+flash_attention.launches_bwd_simt = 0

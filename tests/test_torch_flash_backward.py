@@ -221,10 +221,16 @@ def test_bwd_kernel_matches_plain_on_card(case, dname):
         lse.cpu().numpy(),
         fa_mod.flash_attention_lse_plain(q, k, causal, window).cpu().numpy(),
         atol=1e-4, rtol=1e-5)
-    before = fa_mod.flash_attention.launches_bwd
+    fn = fa_mod.flash_attention
+    before = (fn.launches_bwd, fn.launches_bwd_tc, fn.launches_bwd_simt)
     got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
     torch.cuda.synchronize()
-    assert fa_mod.flash_attention.launches_bwd == before + 1
+    # bf16 at D >= 16 runs the tensor-core kernels, f32 and D = 8 the SIMT
+    # ones.
+    tc = fa_mod.kernel_variant(dt, d) == "tc"
+    assert tc == (dname == "bfloat16" and d >= 16)
+    assert (fn.launches_bwd, fn.launches_bwd_tc, fn.launches_bwd_simt) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc))
     want = fa_mod.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                             window)
     for g, w, t in zip(got, want, (q, k, v)):
@@ -253,3 +259,51 @@ def test_autograd_on_card_matches_plain(case):
     want, _ = _jax_grads(q, k, v, do, causal, window)
     _assert_grads([g.cpu().numpy() for g in got], want,
                   CARD_TOL["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_misaligned_bf16_views_run_bwd_on_tensor_cores(d):
+    """q, k, v and dO as views TMA cannot address (an odd element offset,
+    as a fused projection or autograd may hand them over): the wrapper
+    copies them, and the call still runs the tensor-core kernels."""
+    _on_card()
+    b, h, hkv, s = 2, 4, 2, 100
+    rng = np.random.default_rng(13)
+    n = b * s * (h + 2 * hkv) * d
+    flat = torch.from_numpy(rng.standard_normal(n + 1).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    qkv = flat[1:].view(b, s, h + 2 * hkv, d).transpose(1, 2)
+    q, k, v = qkv[:, :h], qkv[:, h:h + hkv], qkv[:, h + hkv:]
+    dflat = torch.from_numpy(rng.standard_normal(b * s * h * d + 1).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    do = dflat[1:].view(b, s, h, d).transpose(1, 2)
+    assert not any(fa_mod.tma_addressable(t) for t in (q, k, v, do))
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, with_lse=True)
+    fn = fa_mod.flash_attention
+    before = (fn.launches_bwd_tc, fn.launches_bwd_simt)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert (fn.launches_bwd_tc, fn.launches_bwd_simt) == (before[0] + 1,
+                                                          before[1])
+    want = fa_mod.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(),
+                                   **CARD_TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_bwd_kernel_is_deterministic_on_card(dname):
+    """Every gradient element has one writer (no atomics): repeated calls
+    give bit-equal gradients."""
+    _on_card()
+    dt = getattr(torch, dname)
+    q, k, v, do = (_bshd(a).to(dt).cuda() for a in _inputs(
+        2, 16, 8, 300, 300, 128, seed=6))
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, with_lse=True)
+    first = fa_mod.flash_attention_bwd(q, k, v, out, lse, do)
+    for _ in range(3):
+        again = fa_mod.flash_attention_bwd(q, k, v, out, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))

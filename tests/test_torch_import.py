@@ -50,6 +50,7 @@ MODULES = [
     "repro_torch.core.mesh_round",
     "repro_torch.core.fed_step",
     "repro_torch.launch.train",
+    "repro_torch.launch.flash_bwd_time",
 ]
 
 
