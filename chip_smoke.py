@@ -123,13 +123,13 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     card's draw logged; then the fold at the first flush's S, timed as
     phase 3 times S=8 (``fold_flush``);
 22. resume — fedhap/one_hap, fedspace/gs and fedhap_buffered/haps:2 at
-    full width with ``checkpoint_every=1`` and cuDNN deterministic: a
-    run of 4 events, a run cut at 2 and the cut run resumed; times and
-    events equal, accuracies within two flipped predictions, final
-    params and strategy state within ``PARAM_TOL``; then a checkpoint
-    written on the card loads into a CPU engine leaf for leaf; and the
-    run-to-run spread of fedspace with cuDNN's default algorithms,
-    reported only;
+    full width with ``checkpoint_every=1`` and the executor's own cuDNN
+    settings (it must set ``cudnn.deterministic``): a run of 4 events, a
+    run cut at 2 and the cut run resumed; the history equal and the final
+    params and strategy state bit-equal; then a checkpoint written on the
+    card loads into a CPU engine leaf for leaf; and the run-to-run spread
+    of fedspace with cuDNN's default algorithms (the flag cleared for
+    those two runs), reported only;
 23. flash backward — ``flash_attention_bwd`` (three kernels: a
     pre-pass, dK/dV, dQ; bf16 at D >= 16 runs the tensor-core ones,
     f32 and D=8 the SIMT ones, and each call's variant is counted)
@@ -168,11 +168,21 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     fold at one bf16 ulp on the rows it folds, then on those rows plus
     seeded noise under non-uniform weights, where a planted fault (row 0
     read S times) must break it; a checkpoint of row 0 written to a
-    ``tempfile`` directory and loaded back bit for bit.
+    ``tempfile`` directory and loaded back bit for bit;
+26. sanitize — ``repro_torch.debug.sanitized_run`` of all 8 strategies
+    (the JAX package's tests/test_sanitize.py scenarios) at full width,
+    2-3 events each, with the CUDA sync-debug mode "error" and the
+    dispatch guard around each fused loop: every history equal to a
+    plain run's, the ``fedagg`` counts zeroed just before each run and
+    read just after equal to the folds the plan called for, s per fold
+    sanitized vs plain logged; then three planted faults in a sanitized
+    fedhap run (a ``float()`` of a device scalar, a float64 upload, a
+    ``.cpu()`` outside the explicit-transfer scope) must each raise.
 
 Prints a ``{"kernels": [...]}`` JSON line (``fedagg``'s entry with the
-phase 19 and 21 launch counts by strategy, ``launches_routed`` and
-``launches_ticks``, phase 25's ``launches_train`` and the LM fold's
+phase 19, 21 and 26 launch counts by strategy, ``launches_routed``,
+``launches_ticks`` and ``launches_sanitized``, phase 25's
+``launches_train`` and the LM fold's
 times ``fold_lm``; ``flash_attention``'s with phase 25's
 ``launches_train``; and the backward's entry, ``flash_attention_bwd``,
 with its variant, timed at the training shape with the serve shape's
@@ -183,6 +193,7 @@ Imports nothing of JAX or ``repro``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import pathlib
@@ -2270,26 +2281,16 @@ def phase_fold_flush(torch, fedagg_mod, leaf_shapes, s: int) -> dict:
 
 
 # Phase 22: resume at full width; events per uninterrupted run, and the
-# event the cut run stops at. With cuDNN's default algorithms two
-# uninterrupted fedspace runs on an H100 need not agree bit for bit
-# (fedhap's did), so the resume is checked with cudnn.deterministic on,
-# and the default's run-to-run spread over SPREAD_FLUSHES flushes is
+# event the cut run stops at. The executor restricts cuDNN to its
+# deterministic algorithms, so a resumed run must equal the uninterrupted
+# one bit for bit; with cuDNN's default algorithms (turned back on
+# explicitly for two runs) two uninterrupted fedspace runs on an H100
+# differ, and that run-to-run spread over SPREAD_FLUSHES flushes is
 # reported beside it.
 RESUME_SCENARIOS = (("fedhap", "one_hap"), ("fedspace", "gs"),
                     ("fedhap_buffered", "haps:2"))
 RESUME_EVENTS, RESUME_CUT = 4, 2
 SPREAD_FLUSHES = 2
-
-
-@contextlib.contextmanager
-def cudnn_deterministic(torch):
-    """cuDNN restricted to deterministic algorithms within the block."""
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = before
 
 
 def latest_arrays(directory) -> dict:
@@ -2312,29 +2313,37 @@ def spy_resume(eng, loaded: list) -> None:
 
 
 def phase_resume(torch, sim) -> dict:
-    """For each scenario at full width with ``checkpoint_every=1``, cuDNN
-    deterministic: an uninterrupted run of RESUME_EVENTS events, a run
-    cut at RESUME_CUT, and the cut run resumed (on the uninterrupted
-    run's engine: the resume restores its rng and plane counters). The
-    resumed history must equal the uninterrupted one in times and
-    events, accuracies within two flipped predictions, and the final
-    checkpoints' params and strategy state within PARAM_TOL (bit-equal
-    is expected, and logged). Then one checkpoint written on the card
-    loads into a CPU engine, leaf for leaf, and two uninterrupted
-    fedspace runs with cuDNN's default algorithms give the card's
-    run-to-run spread (reported only). Returns the readings by
+    """For each scenario at full width with ``checkpoint_every=1`` and
+    the executor's own cuDNN settings (the flag is cleared before each
+    engine is built, and the executor must have set it): an
+    uninterrupted run of RESUME_EVENTS events, a run cut at RESUME_CUT,
+    and the cut run resumed (on the uninterrupted run's engine: the
+    resume restores its rng and plane counters). The resumed history
+    must equal the uninterrupted one exactly, and the final checkpoints'
+    params and strategy state bit for bit. Then one checkpoint written on
+    the card loads into a CPU engine, leaf for leaf, and two
+    uninterrupted fedspace runs with cuDNN's default algorithms give the
+    card's run-to-run spread (reported only). Returns the readings by
     strategy."""
     import tempfile
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp, cudnn_deterministic(torch):
+    with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         for strategy, stations in RESUME_SCENARIOS:
             full_dir = tmp / f"{strategy}-full"
             cut_dir = tmp / f"{strategy}-cut"
             cfg = dict(strategy=strategy, stations=stations)
+            torch.backends.cudnn.deterministic = False
             eng = sim.RoundEngine(sim.SimConfig(max_rounds=RESUME_EVENTS,
                                                 **cfg))
+            eng.executor
+            if not torch.backends.cudnn.deterministic \
+                    or torch.backends.cudnn.benchmark:
+                raise AssertionError(
+                    f"{strategy}: the executor left cudnn.deterministic "
+                    f"{torch.backends.cudnn.deterministic}, benchmark "
+                    f"{torch.backends.cudnn.benchmark}; want True, False")
             t0 = time.perf_counter()
             full = eng.run(checkpoint_dir=full_dir, checkpoint_every=1)
             torch.cuda.synchronize()
@@ -2367,27 +2376,27 @@ def phase_resume(torch, sim) -> dict:
                                      f"{want}")
             dacc = max(abs(a - b) for (_, _, a), (_, _, b)
                        in zip(res.history, full.history))
-            if dacc > 2.0 / n_eval + 1e-7:
-                raise AssertionError(f"{strategy}: resumed accuracy differs "
-                                     f"by {dacc}")
             a_full, a_res = latest_arrays(full_dir), latest_arrays(cut_dir)
             if sorted(a_full) != sorted(a_res):
                 raise AssertionError(f"{strategy}: checkpoint keys differ")
-            worst = 0.0
-            for k, want_arr in a_full.items():
-                worst = max(worst, float(np.abs(a_res[k] - want_arr).max()))
-                np.testing.assert_allclose(a_res[k], want_arr, **PARAM_TOL,
-                                           err_msg=f"{strategy} {k}")
-            exact = res.history == full.history and worst == 0.0
+            worst = max(float(np.abs(a_res[k] - want_arr).max())
+                        for k, want_arr in a_full.items())
+            exact = res.history == full.history and all(
+                np.array_equal(a_res[k], a_full[k]) for k in a_full)
             log("resume", f"{strategy}/{stations}: uninterrupted "
                 f"{RESUME_EVENTS} events in {full_s:.3f} s, cut at "
                 f"{RESUME_CUT}, resumed to {res.history[-1][1]} in "
                 f"{resume_s:.3f} s; times and events equal; accuracy "
-                f"differs by at most {dacc:.6f}; final state "
-                f"({len(a_full)} leaves: "
+                f"differs by {dacc:.6f} (of {n_eval} eval samples); final "
+                f"state ({len(a_full)} leaves: "
                 f"{sorted({k.split('/')[0] for k in a_full})}) max |resumed - "
-                f"uninterrupted| {worst:.3e} ({PARAM_TOL}); bit-identical: "
-                f"{exact}")
+                f"uninterrupted| {worst:.3e}; bit-identical: {exact}")
+            if not exact:
+                raise AssertionError(f"{strategy}: the resumed run is not "
+                                     f"bit-identical to the uninterrupted "
+                                     f"one (history equal: "
+                                     f"{res.history == full.history}, max "
+                                     f"|diff| of the state {worst:.3e})")
             out[strategy] = dict(max_abs_diff=worst, acc_diff=dacc,
                                  bit_identical=exact, full_s=full_s,
                                  resume_s=resume_s)
@@ -2429,8 +2438,9 @@ def phase_resume(torch, sim) -> dict:
 def fedspace_spread(torch, sim) -> float:
     """Max |diff| of the final params and bases of two uninterrupted
     fedspace/gs runs of SPREAD_FLUSHES flushes with cuDNN's default
-    algorithms, and whether their histories are equal (reported
-    only)."""
+    algorithms (the executor's deterministic flag cleared after it is
+    built, and set again after), and whether their histories are equal
+    (reported only)."""
     import tempfile
 
     arrays, hists = [], []
@@ -2440,8 +2450,14 @@ def fedspace_spread(torch, sim) -> float:
             eng = sim.RoundEngine(sim.SimConfig(
                 strategy="fedspace", stations="gs",
                 max_rounds=SPREAD_FLUSHES))
-            hists.append(eng.run(checkpoint_dir=d,
-                                 checkpoint_every=SPREAD_FLUSHES).history)
+            eng.executor
+            torch.backends.cudnn.deterministic = False
+            try:
+                hists.append(eng.run(
+                    checkpoint_dir=d,
+                    checkpoint_every=SPREAD_FLUSHES).history)
+            finally:
+                torch.backends.cudnn.deterministic = True
             arrays.append(latest_arrays(d))
             del eng
     worst = max(float(np.abs(arrays[0][k] - arrays[1][k]).max())
@@ -2452,6 +2468,200 @@ def fedspace_spread(torch, sim) -> float:
         f"{hists[0] == hists[1]} (reported only)")
     torch.cuda.empty_cache()
     return worst
+
+
+# Phase 26: the sanitizer at full width, with the scenario table of the
+# JAX package's tests/test_sanitize.py on the default SimConfig (paper CNN,
+# 5x8 shell); max_rounds counts rounds, aggregations, fedsat's
+# orbit-events (one tick visits several orbits) or fedspace's flushes.
+SANITIZE_RUNS = (("fedhap", "one_hap", 2), ("fedisl", "gs", 2),
+                 ("fedisl_ideal", "meo", 2), ("fedsat", "gs_np", 2),
+                 ("fedspace", "gs", 2), ("fedsink", "haps:2", 2),
+                 ("fedhap_async", "haps:2", 3),
+                 ("fedhap_buffered", "haps:2", 2))
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, wrap):
+    """``obj.<name>`` replaced by ``wrap(original)`` within the block (a
+    class keeps its own attribute's descriptor, e.g. a staticmethod)."""
+    real = vars(obj)[name] if isinstance(obj, type) else getattr(obj, name)
+    setattr(obj, name, wrap(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def planned_folds(sim, ex_cls, counter: list):
+    """Within the block, every engine's fused loop adds the folds its plan
+    calls for to ``counter[0]``: the valid rounds of each ``run_block``,
+    the valid events of each ``cycle_block``, the orbits of each fedsat
+    tick and one per fedspace flush; and ``sim.RoundEngine.run``'s wall
+    time, bracketed by ``torch.cuda.synchronize``, to ``counter[1]``."""
+    import torch
+
+    def valid_rows(arg):
+        def wrap(real):
+            def counted(self, *args, **kw):
+                valid = args[arg]
+                counter[0] += int(np.sum(valid["valid"] if isinstance(
+                    valid, dict) else valid))
+                return real(self, *args, **kw)
+            return counted
+        return wrap
+
+    def per_call(rows):
+        def wrap(real):
+            def counted(self, *args, **kw):
+                counter[0] += rows(args)
+                return real(self, *args, **kw)
+            return counted
+        return wrap
+
+    def timed(real):
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(self, *args, **kw)
+            torch.cuda.synchronize()
+            counter[1] += time.perf_counter() - t0
+            return out
+        return run
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(patched(ex_cls, "run_block", valid_rows(4)))
+    stack.enter_context(patched(ex_cls, "cycle_block", valid_rows(3)))
+    stack.enter_context(patched(ex_cls, "fedsat_event",
+                                per_call(lambda a: len(a[2]))))
+    stack.enter_context(patched(ex_cls, "fedspace_flush",
+                                per_call(lambda a: 1)))
+    stack.enter_context(patched(sim.RoundEngine, "run", timed))
+    return stack
+
+
+def phase_sanitize(torch, sim, fedagg_mod) -> dict:
+    """``sanitized_run`` of all 8 strategies at full width on the card
+    (CUDA sync-debug mode "error" plus the dispatch guard around each
+    fused loop), each against a plain run of the same config: histories
+    equal exactly, ``fedagg`` launches equal to the folds the plan called
+    for in both, s per fold logged for both (the guard's one-time cost,
+    torch's imports at its first entry, is paid and logged before the
+    runs; the phase's 17 engines load one dataset, generated once).
+    Then three planted faults
+    in a sanitized fedhap run must each raise: a ``float()`` of a device
+    scalar inside a block, a float64 upload, and a ``.cpu()`` of the
+    block's accuracies outside the explicit-transfer scope. Returns the
+    readings by strategy."""
+    from repro_torch.sim import engine as engine_mod
+
+    # Every engine of this phase loads the same 70k digits (one seed, one
+    # size): memoized, they are generated once, not 17 times.
+    with patched(engine_mod, "load_dataset", functools.cache):
+        return _sanitize_runs(torch, sim, fedagg_mod)
+
+
+def _sanitize_runs(torch, sim, fedagg_mod) -> dict:
+    """The body of :func:`phase_sanitize`."""
+    from repro_torch.debug import (DtypePromotionError,
+                                   ImplicitTransferError, sanitized,
+                                   sanitized_run)
+
+    ex_cls = sim.FusedExecutor
+    t0 = time.perf_counter()
+    with sanitized(device="cuda"):
+        torch.ones(1, device="cuda") + 1
+    log("sanitize", f"the guard's first entry (torch's dispatch-mode "
+        f"imports, once per process): {time.perf_counter() - t0:.3f} s")
+    out = {}
+    for strategy, stations, max_rounds in SANITIZE_RUNS:
+        cfg = dict(strategy=strategy, stations=stations,
+                   max_rounds=max_rounds)
+        readings = {}
+        for mode in ("sanitized", "plain"):
+            counter = [0, 0.0]
+            fedagg_mod.fedagg.launches = 0
+            with planned_folds(sim, ex_cls, counter):
+                if mode == "sanitized":
+                    res, counts = sanitized_run(cfg)
+                else:
+                    res = sim.RoundEngine(sim.SimConfig(**cfg)).run()
+            readings[mode] = dict(launches=fedagg_mod.fedagg.launches,
+                                  folds=counter[0], wall=counter[1],
+                                  history=res.history,
+                                  sim_hours=res.sim_hours)
+            if torch.cuda.get_sync_debug_mode() != 0:
+                raise AssertionError(f"{strategy}: sync-debug mode "
+                                     f"{torch.cuda.get_sync_debug_mode()} "
+                                     f"left on after the run")
+        san, plain = readings["sanitized"], readings["plain"]
+        per = {m: r["wall"] / max(r["folds"], 1) for m, r in readings.items()}
+        log("sanitize", f"{strategy}/{stations}: {san['folds']} folds "
+            f"planned, fedagg launches {san['launches']} sanitized / "
+            f"{plain['launches']} plain; {per['sanitized']:.4f} s/fold "
+            f"sanitized vs {per['plain']:.4f} plain (x"
+            f"{per['sanitized'] / per['plain']:.3f}; the run, the first "
+            f"block included); compile counts {counts}; histories equal: "
+            f"{san['history'] == plain['history']}")
+        if san["history"] != plain["history"] \
+                or san["sim_hours"] != plain["sim_hours"] \
+                or not san["history"]:
+            raise AssertionError(f"{strategy}: the sanitized history "
+                                 f"{san['history']} differs from the plain "
+                                 f"{plain['history']}")
+        for mode, r in readings.items():
+            if r["folds"] < 1 or r["launches"] != r["folds"]:
+                raise AssertionError(f"{strategy} {mode}: {r['launches']} "
+                                     f"fedagg launches for {r['folds']} "
+                                     f"planned folds")
+        out[strategy] = dict(folds=san["folds"],
+                             launches=san["launches"],
+                             s_per_fold=per["sanitized"],
+                             plain_s_per_fold=per["plain"])
+
+    # Planted faults, each inside the fused loop of a sanitized fedhap run.
+    eng = sim.RoundEngine(sim.SimConfig(max_rounds=1))
+    eng._fused_cm = lambda: sanitized(device=eng.device)
+
+    def reads_scalar(real):
+        def acc(self, params):
+            a = real(self, params)
+            float(a)
+            return a
+        return acc
+
+    def widens(real):
+        return lambda self, x, dtype: real(
+            self, x, np.float64 if dtype == np.float32 else dtype)
+
+    def implicit_download(real):
+        return staticmethod(lambda x: x.cpu().numpy())
+
+    # (label, method, fault, the error, words its message must hold): the
+    # first two are the dispatch guard's, the third the card's own
+    # sync-debug mode (the guard does not see a copy).
+    faults = (("float() of a device scalar", "_device_acc", reads_scalar,
+               ImplicitTransferError, "device->host"),
+              ("float64 upload", "_h2d", widens, DtypePromotionError,
+               "float64"),
+              (".cpu() outside the explicit scope", "_d2h",
+               implicit_download, RuntimeError, "synchronizing"))
+    for label, name, wrap, err, words in faults:
+        try:
+            with patched(ex_cls, name, wrap):
+                eng.run()
+        except err as e:
+            if words not in str(e):
+                raise AssertionError(f"planted {label}: raised {e!r}, not "
+                                     f"the guard's error") from e
+            log("sanitize", f"planted {label}: raised {type(e).__name__}: "
+                f"{str(e).splitlines()[0][:160]}")
+        else:
+            raise AssertionError(f"planted {label}: the sanitized run did "
+                                 f"not raise")
+        if torch.cuda.get_sync_debug_mode() != 0:
+            raise AssertionError(f"planted {label}: sync-debug mode left on")
+    return out
 
 
 # Phase 23's sweep as (B, H, Hkv, Sq, Sk, D, causal, window): every head
@@ -3290,7 +3500,14 @@ def main() -> int:
     flash_entry["launches_train"] = trained["launches"]["flash_attention"]
     entry["launches_train"] = trained["launches"]["fedagg"]
     entry["fold_lm"] = trained["fold"]
-    log("done", f"phases 1-25 in {time.perf_counter() - t_start:.1f} s")
+
+    # 26. the sanitizer: all 8 strategies' fused loops at full width,
+    # each against a plain run; three planted faults. Counts zeroed per
+    # run.
+    sanitize = phase_sanitize(torch, sim, fedagg_mod)
+    entry["launches_sanitized"] = {k: v["launches"]
+                                   for k, v in sanitize.items()}
+    log("done", f"phases 1-26 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
                                   scan_entry, bwd_entry]}))

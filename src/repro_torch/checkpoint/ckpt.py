@@ -20,6 +20,8 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.debug.sanitize import explicit_transfer
+
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
     """``{"/"-joined path: leaf}`` of a nested dict tree."""
@@ -37,8 +39,10 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 def _to_storable(t: torch.Tensor) -> np.ndarray:
-    """Host numpy array of a tensor; bf16 as its ``uint16`` bits."""
-    t = t.detach().cpu()
+    """Host numpy array of a tensor; bf16 as its ``uint16`` bits (an
+    explicit download)."""
+    with explicit_transfer():
+        t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -68,12 +72,14 @@ def save_checkpoint(directory: str | pathlib.Path, tree: Any, step: int,
 
 def _from_stored(arr: np.ndarray, dtype: Optional[str],
                  device: torch.device) -> torch.Tensor:
-    """A stored array as a tensor on ``device``, bf16 viewed back from
-    its bits through torch."""
+    """A stored array as a tensor on ``device`` (an explicit upload),
+    bf16 viewed back from its bits through torch."""
     if dtype == "bfloat16":
-        return torch.as_tensor(arr.view(np.int16)).view(
-            torch.bfloat16).to(device)
-    return torch.as_tensor(arr).to(device)
+        t = torch.as_tensor(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.as_tensor(arr)
+    with explicit_transfer():
+        return t.to(device)
 
 
 def _rebuild(tree_like: Any, flat: dict, prefix: str = "") -> Any:

@@ -1,5 +1,5 @@
-"""Client plane: datasets, partitioners, virtual clients (numpy copies of
-``repro.clients``; only the ``digits`` dataset is registered)."""
+"""Client plane: datasets (``digits``, ``tokens``, ``synthetic_eo``),
+partitioners, virtual clients (numpy copies of ``repro.clients``)."""
 from repro_torch.clients.registry import (available_datasets, get_dataset,
                                           load_dataset, register_dataset)
 from repro_torch.clients.partitioners import (available_partitioners,

@@ -1,8 +1,9 @@
 """Dataset registry: one entry point over the procedural datasets.
 
-Copy of ``repro.clients.registry`` with only ``digits`` registered (the
-``tokens`` and ``synthetic_eo`` loaders come with the slices that need
-them, ROADMAP Queue A item 1):
+Absorbs the ad-hoc ``data/digits.py`` / ``data/tokens.py`` /
+``data/eo.py`` constructors behind ``register_dataset(name)`` so the
+engine, benches, and client planes load supervised arrays through one
+interface:
 
     x, y = load_dataset("digits", num_samples=70_000, seed=0)
 
@@ -19,6 +20,8 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.data.digits import make_digits_dataset
+from repro_torch.data.eo import make_eo_dataset
+from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
 
 DatasetFn = Callable[..., tuple[np.ndarray, np.ndarray]]
 
@@ -65,3 +68,28 @@ def load_dataset(
 def _digits(num_samples: int = 70_000, seed: int = 0,
             **kw) -> tuple[np.ndarray, np.ndarray]:
     return make_digits_dataset(num_samples=num_samples, seed=seed, **kw)
+
+
+@register_dataset("tokens")
+def _tokens(num_samples: int = 20_000, seed: int = 0, seq_len: int = 32,
+            vocab_size: int = 4096,
+            num_classes: int = 16) -> tuple[np.ndarray, np.ndarray]:
+    """Next-token windows as a supervised task.
+
+    ``x`` is ``(N, seq_len)`` int32 context windows over one generated
+    stream; ``y`` is the following token bucketed into ``num_classes``
+    (vocab-sized label spaces would starve the per-client histograms).
+    """
+    cfg = TokenTaskConfig(vocab_size=vocab_size, seed=seed)
+    stream = make_token_dataset(num_samples + seq_len, cfg)
+    windows = np.lib.stride_tricks.sliding_window_view(
+        stream[:-1], seq_len)[:num_samples]
+    nxt = stream[seq_len:seq_len + num_samples]
+    y = (nxt.astype(np.int64) * num_classes // vocab_size).astype(np.int32)
+    return np.ascontiguousarray(windows), y
+
+
+@register_dataset("synthetic_eo")
+def _synthetic_eo(num_samples: int = 20_000, seed: int = 0,
+                  **kw) -> tuple[np.ndarray, np.ndarray]:
+    return make_eo_dataset(num_samples=num_samples, seed=seed, **kw)

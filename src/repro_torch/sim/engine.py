@@ -384,6 +384,11 @@ class RoundEngine:
         self._executor = None
         # Checkpoint state, live only inside run(checkpoint_dir=).
         self._ckpt: Optional[_CkptState] = None
+        # Optional context-manager factory wrapped around the fused
+        # block loop only (params init / dataset staging stay outside).
+        # Installed by repro_torch.debug.sanitize to run the loop under
+        # its transfer, dtype and rank guards.
+        self._fused_cm: Optional[Any] = None
 
     # ------------------------------------------------------------ helpers
     @property
@@ -1041,9 +1046,10 @@ class RoundEngine:
         strategy device state), run counters, rng/plane counters, and
         history through :mod:`repro_torch.checkpoint`; ``resume=True``
         picks up from the latest snapshot, and the resumed run is
-        bit-identical to an uninterrupted one on the CPU (the planes
-        are time-indexed, so replanning from the restored clock
-        reproduces the schedule). On the per-round reference path only
+        bit-identical to an uninterrupted one (the planes are
+        time-indexed, so replanning from the restored clock reproduces
+        the schedule; on the card the executor restricts cuDNN to its
+        deterministic algorithms). On the per-round reference path only
         the round-barrier strategies checkpoint (cycle/tick strategies
         keep per-event host trees there; use the fused loop).
         """
@@ -1065,7 +1071,11 @@ class RoundEngine:
         s = RunState(params=params)
         try:
             if use_fused:
-                strat.run_fused(self, s)
+                if self._fused_cm is not None:
+                    with self._fused_cm():
+                        strat.run_fused(self, s)
+                else:
+                    strat.run_fused(self, s)
             else:
                 loaded = self.ckpt_resume(s, {"params": s.params})
                 if loaded is not None:

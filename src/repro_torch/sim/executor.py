@@ -15,7 +15,10 @@ dataset and the eval set resident on the device:
   CUDA kernel on the card, the plain fold on CPU) and, when due,
   evaluates accuracy in fixed chunks on the device;
 - accuracies stay device scalars and come back as ONE stacked transfer
-  per block. Nothing in the loop reads a device value on the host.
+  per block. Nothing in the loop reads a device value on the host, and
+  every copy between host and device goes through :meth:`FusedExecutor
+  ._h2d` / :meth:`~FusedExecutor._d2h` (explicit transfers: the
+  sanitizer, :mod:`repro_torch.debug.sanitize`, refuses any other).
 
 The per-round ``valid`` and ``do_eval`` flags are host numpy, so the
 reference's ``lax.cond``s are host ``if``s: an invalid round (padding or
@@ -56,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.treeops import tree_broadcast, tree_row
+from repro_torch.debug.sanitize import to_device, to_host
 from repro_torch.kernels.ops import fold_stacked_tree
 
 
@@ -75,11 +79,16 @@ def tree_combine_many(stacked: dict, weight_rows: Any) -> dict:
 class FusedExecutor:
     """Device-resident data + the block program for one engine.
 
-    Precision: when built on CUDA it sets
+    Precision and determinism: when built on CUDA it sets
     ``torch.backends.cudnn.allow_tf32 = False`` and
     ``torch.backends.cuda.matmul.allow_tf32 = False`` (process-wide), so
-    convolutions and matmuls run in full f32 like the reference; cuDNN
-    would otherwise run the f32 convolutions in TF32.
+    convolutions and matmuls run in full f32 like the reference (cuDNN
+    would otherwise run the f32 convolutions in TF32), and
+    ``torch.backends.cudnn.deterministic = True`` (``benchmark`` stays
+    False), so two runs of one config agree bit for bit and a resumed run
+    equals an uninterrupted one, as the reference promises; cuDNN's
+    default algorithms for the replica-grouped convolutions differ from
+    run to run.
     """
 
     def __init__(self, trainer: Any, fd: Any, eval_images: np.ndarray,
@@ -89,9 +98,9 @@ class FusedExecutor:
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self._x = torch.from_numpy(np.asarray(fd.images)).to(self.device)
-        self._y = torch.from_numpy(
-            np.asarray(fd.labels, np.int64)).to(self.device)
+            torch.backends.cudnn.deterministic = True
+        self._x = self._h2d(fd.images, None)
+        self._y = self._h2d(fd.labels, np.int64)
 
         # Eval set, padded to whole chunks; pad labels are -1 so they
         # never match an argmax in [0, num_classes).
@@ -105,9 +114,8 @@ class FusedExecutor:
             ex = np.concatenate(
                 [ex, np.zeros((pad,) + ex.shape[1:], ex.dtype)])
             ey = np.concatenate([ey, np.full(pad, -1, ey.dtype)])
-        self._ex = torch.from_numpy(
-            ex.reshape(-1, c, *ex.shape[1:])).to(self.device)
-        self._ey = torch.from_numpy(ey.reshape(-1, c)).to(self.device)
+        self._ex = self._h2d(ex.reshape(-1, c, *ex.shape[1:]), None)
+        self._ey = self._h2d(ey.reshape(-1, c), None)
 
     def _device_acc(self, params: dict) -> torch.Tensor:
         """Fraction of the eval set classified correctly, as a device f32
@@ -146,8 +154,14 @@ class FusedExecutor:
                 for k, x in params.items()}
 
     def _h2d(self, x: Any, dtype: Any) -> torch.Tensor:
-        """Upload of a plan tensor, cast in numpy first."""
-        return torch.from_numpy(np.asarray(x, dtype)).to(self.device)
+        """Explicit upload of host data, cast in numpy first (``dtype``
+        None keeps the array's)."""
+        return to_device(x, self.device, dtype)
+
+    @staticmethod
+    def _d2h(x: torch.Tensor) -> np.ndarray:
+        """Explicit download of a block's results."""
+        return to_host(x)
 
     def run_block(self, params: dict, idx: np.ndarray, mu: np.ndarray,
                   do_eval: np.ndarray, valid: np.ndarray):
@@ -160,8 +174,8 @@ class FusedExecutor:
         (NaN where not evaluated): ONE transfer per block.
         """
         K, S, _ = idx.shape
-        idx_d = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
-        mu_d = torch.from_numpy(np.asarray(mu, np.float32)).to(self.device)
+        idx_d = self._h2d(idx, np.int64)
+        mu_d = self._h2d(mu, np.float32)
         nan = torch.full((), float("nan"), dtype=torch.float32,
                          device=self.device)
         accs = []
@@ -171,7 +185,7 @@ class FusedExecutor:
                 params = fold_stacked_tree(trained, mu_d[k])
             accs.append(self._device_acc(params)
                         if do_eval[k] and valid[k] else nan)
-        return params, torch.stack(accs).cpu().numpy()
+        return params, self._d2h(torch.stack(accs))
 
     def fold_block(self, stacked: dict, weight_rows: np.ndarray) -> dict:
         """K planned folds of a fixed stacked tree (see
@@ -230,7 +244,7 @@ class FusedExecutor:
                     x[l] = g[name]
             accs.append(self._device_acc(g)
                         if ev["do_eval"][i] and ev["valid"][i] else nan)
-        return g, bases, buf, torch.stack(accs).cpu().numpy()
+        return g, bases, buf, self._d2h(torch.stack(accs))
 
     def cycle_fold_block(self, params: dict, buf: dict, stacked_k: dict,
                          ev: dict):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.loader import FederatedData
+from repro_torch.debug.sanitize import to_device, to_host
 
 
 class LocalTrainer:
@@ -107,8 +108,7 @@ class LocalTrainer:
                                    *fd.images.shape[1:])
         y = fd.labels[sel].astype(np.int64).reshape(
             n_clients, n_steps, self.batch_size)
-        return (torch.from_numpy(x).to(self.device),
-                torch.from_numpy(y).to(self.device))
+        return to_device(x, self.device), to_device(y, self.device)
 
     def train_selection(self, stacked_params: dict, fd: FederatedData,
                         sel: np.ndarray):
@@ -116,7 +116,7 @@ class LocalTrainer:
         returns the stacked params and the ``(C,)`` last-step losses."""
         x, y = self.gather_selection(fd, sel)
         new_params, losses = self.multi_step(stacked_params, x, y)
-        return new_params, losses[:, -1].cpu().numpy()
+        return new_params, to_host(losses[:, -1])
 
     @staticmethod
     def stack(params_list: Sequence[dict]) -> dict:
@@ -134,15 +134,15 @@ class LocalTrainer:
         """Chunked accuracy with ONE device->host transfer: per-chunk
         means stay on the device, come back stacked, and are averaged in
         float64 on the host weighted by chunk length (the reference's
-        arithmetic)."""
+        arithmetic). Both copies are explicit transfers, so the fused
+        loops may call it under the sanitizer."""
         n = len(images)
         means, lens = [], []
         with torch.no_grad():
             for i in range(0, n, batch):
-                x = torch.from_numpy(images[i:i + batch]).to(self.device)
-                y = torch.from_numpy(
-                    labels[i:i + batch].astype(np.int64)).to(self.device)
+                x = to_device(images[i:i + batch], self.device)
+                y = to_device(labels[i:i + batch], self.device, np.int64)
                 means.append(self.model.accuracy(params, x, y))
                 lens.append(len(x))
-        host = torch.stack(means).cpu().numpy()          # ONE transfer
+        host = to_host(torch.stack(means))               # ONE transfer
         return sum(float(m) * l for m, l in zip(host, lens)) / n

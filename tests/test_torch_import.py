@@ -51,6 +51,10 @@ MODULES = [
     "repro_torch.core.fed_step",
     "repro_torch.launch.train",
     "repro_torch.launch.flash_bwd_time",
+    "repro_torch.debug",
+    "repro_torch.debug.sanitize",
+    "repro_torch.data.eo",
+    "repro_torch.launch.sim_time",
 ]
 
 

@@ -36,6 +36,7 @@ COPIED = [
     "orbits/routing.py",
     "sim/strategies/fedisl.py", "sim/strategies/fedsink.py",
     "sim/strategies/fedhap_async.py", "sim/strategies/fedhap_buffered.py",
+    "data/eo.py", "data/__init__.py", "clients/registry.py",
 ]
 
 SMALL = dict(num_orbits=2, sats_per_orbit=4, num_samples=1500,
