@@ -20,8 +20,11 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    the host's cost hidden (``device_ms``), at S=40 (a round's fold of
    the 40 satellites) and at S=8 (a cycle event's fold of one orbit's
    members, ``fold_s8``); then show
-   that each of the four kernel wrappers refuses a CUDA input that
-   requires grad (the kernels have no backward yet);
+   that the fold's wrapper refuses a CUDA input that requires grad (it
+   has no backward), and that the ``flash_attention``, ``rwkv6_wkv`` and
+   ``selective_scan`` wrappers under grad build their autograd nodes, one
+   forward and one backward launch each, with every input's gradient
+   equal to the plain backward's;
 4. card vs CPU — one round of the default config at full width (except
    ``local_steps=2``) through ``FusedExecutor.run_block`` on the card
    and on the CPU from the same init: params must agree;
@@ -177,17 +180,52 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     read just after equal to the folds the plan called for, s per fold
     sanitized vs plain logged; then three planted faults in a sanitized
     fedhap run (a ``float()`` of a device scalar, a float64 upload, a
-    ``.cpu()`` outside the explicit-transfer scope) must each raise.
+    ``.cpu()`` outside the explicit-transfer scope) must each raise;
+27. wkv backward — ``rwkv6_wkv_bwd`` (three kernels: checkpoints, the
+    reverse sweep, a fixed-order finish) against ``rwkv6_wkv_bwd_plain``
+    on the card, each gradient within ``BWD_REL`` of its largest value: a
+    sweep in f32, bf16 with f32 w and bf16 over every head size on the
+    model's transposed views, w = 0 and w = 1 over 300 steps; the
+    training shape (B=2, H=40, S=1024, N=64) in the model's dtypes, two
+    calls bit-equal, two planted faults (the adjoint's decay skipped, dw
+    from the state after the step) that must break the tolerance; timed
+    there and at the serve shape (B=4, S=4096) against the operations
+    bound; ptxas' registers and spills;
+28. scan backward — ``selective_scan_bwd`` likewise: the scan sweep in
+    its three dtype cases, abar = 0 and 1 over 300 steps, jamba's
+    training shape (B=2, S=1024, D=8192, N=16; abar f32, bx/c/dy bf16)
+    at two abar regimes with two planted faults each (the adjoint's decay
+    skipped, d abar from the state after the step), bit-equal calls,
+    timed against the byte bound there and at the serve shape; then one
+    full-width jamba Mamba block (bf16, own fan-in, B=2, S=1024): the
+    gradients of its leaves and input through the kernels (one forward
+    and one backward launch) against the plain scan's on the card;
+29. train card vs CPU, the other families — rwkv6-3b at full width cut
+    to 2 layers, f32: each leaf's gradient card vs CPU within
+    ``TRAIN_GRAD_RTOL``, a planted backward fault (the WKV backward given
+    w = 1) caught, one ``single_device_round`` on both; then the reduced
+    jamba-v0.1-52b at own fan-in, one round on both, the card's 14 scan
+    forward and 14 backward launches counted;
+30. rwkv train — the slice of phase 25 for rwkv6-3b at full width (bf16,
+    remat, ``TRAIN_SLICE``, the CLI's init): per round one ``fedagg``
+    launch and per satellite step 64 ``rwkv6_wkv`` forward (32 + 32
+    recomputed) and 32 backward launches, finite losses, rows bit-equal
+    after each fold, s/round, trained tokens/s, peak memory, the card's
+    draw and a profile of one round by category.
 
 Prints a ``{"kernels": [...]}`` JSON line (``fedagg``'s entry with the
 phase 19, 21 and 26 launch counts by strategy, ``launches_routed``,
 ``launches_ticks`` and ``launches_sanitized``, phase 25's
-``launches_train`` and the LM fold's
+``launches_train``, phase 30's ``launches_train_rwkv`` and the LM fold's
 times ``fold_lm``; ``flash_attention``'s with phase 25's
-``launches_train``; and the backward's entry, ``flash_attention_bwd``,
-with its variant, timed at the training shape with the serve shape's
-numbers under ``serve`` and ptxas' report under ``ptxas``), the card
-line, and last ``{"ok": true, "device": {...}}``.
+``launches_train``; ``rwkv6_wkv``'s with phase 30's; the backward's
+entry, ``flash_attention_bwd``, with its variant, timed at the training
+shape with the serve shape's numbers under ``serve`` and ptxas' report
+under ``ptxas``; and the recurrences' backward entries,
+``rwkv6_wkv_bwd`` (launches from phase 30, the slice's readings under
+``train_slice``) and ``selective_scan_bwd`` (launches from phase 29's
+jamba round, the Mamba block's under ``block``), shaped the same way),
+the card line, and last ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -305,9 +343,10 @@ def nvidia_smi(query: str) -> str:
 
 
 def ptxas_report(log_text: str) -> dict:
-    """Registers and spill bytes of each flash kernel in nvcc's ``-Xptxas
-    -v`` report: {"name<dtype, D=..>": (registers, spill stores, spill
-    loads)}, the mangled names shortened."""
+    """Registers and spill bytes of each flash kernel and of the
+    recurrences' backward kernels in nvcc's ``-Xptxas -v`` report:
+    {"name<dtype, D=..>" or "name<types, N=..>": (registers, spill
+    stores, spill loads)}, the mangled names shortened."""
     out, name, spills = {}, None, (0, 0)
     for line in log_text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -327,6 +366,16 @@ def ptxas_report(log_text: str) -> dict:
                 dtype = {"f": "f32, ", "13__nv_bfloat16": "bf16, "}.get(
                     short.group(2), "")
                 out[f"{short.group(1)}<{dtype}D={short.group(3)}>"] = (
+                    int(m.group(1)), *spills)
+            # The recurrences' backward kernels: <types..., N=n>, the types
+            # in template order ("S1_" repeats the bf16 before it).
+            short = re.search(r"\d+((?:wkv|scan)_bwd_[a-z]+)I(.*?)"
+                              r"(?:Li(\d+)E)?EEv", name)
+            if short:
+                types = [{"f": "f32"}.get(x, "bf16") for x in re.findall(
+                    r"f|13__nv_bfloat16|S\d*_", short.group(2))]
+                n = f", N={short.group(3)}" if short.group(3) else ""
+                out[f"{short.group(1)}<{', '.join(types)}{n}>"] = (
                     int(m.group(1)), *spills)
             name = None
     return out
@@ -579,69 +628,74 @@ def phase_fold_rows(torch, leaves, leaves_plain, xs, gen, dev,
     return out
 
 
-def phase_guard(torch, kernels: dict, fa_mod) -> None:
+def phase_guard(torch, kernels: dict, fa_mod, wkv_mod, scan_mod) -> None:
     """With grad enabled and a CUDA input that requires grad: the
-    ``fedagg``, ``rwkv6_wkv`` and ``selective_scan`` wrappers raise (no
-    backward kernel yet) and launch nothing; the ``flash_attention``
-    wrapper goes through its backward kernel, and each input's gradient
-    must agree with ``flash_attention_bwd_plain`` (f32 tolerance)."""
+    ``fedagg`` wrapper raises (the fold has no backward) and launches
+    nothing; the ``flash_attention``, ``rwkv6_wkv`` and ``selective_scan``
+    wrappers go through their backward kernels, one forward and one
+    backward launch per call, and each input's gradient must agree with
+    the plain backward (f32 tolerance)."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(9)
 
     def t(*shape):
         return torch.rand(shape, generator=gen, device=dev)
-    calls = {
-        "fedagg": (t(3, 10), t(3)),
-        "rwkv6_wkv": (t(1, 2, 6, 8), t(1, 2, 6, 8), t(1, 2, 6, 8),
-                      t(1, 2, 6, 8), t(2, 8)),
-        "selective_scan": (t(1, 6, 4, 4), t(1, 6, 4, 4), t(1, 6, 4)),
-    }
-    raised = []
-    for name, args in calls.items():
-        fn = kernels[name]
-        before = fn.launches
-        args = (args[0].requires_grad_(),) + args[1:]
-        try:
-            fn(*args)
-        except RuntimeError as err:
-            if "no backward" not in str(err):
-                raise
-            raised.append(name)
-        else:
-            raise AssertionError(f"{name} took a CUDA input that requires "
-                                 f"grad with grad enabled")
-        if fn.launches != before:
-            raise AssertionError(f"{name} launched despite the guard")
-    log("guard", f"grad enabled, a CUDA input requiring grad: "
-        f"{', '.join(raised)} each raise RuntimeError (no backward yet), "
-        f"no launch")
+    fn = kernels["fedagg"]
+    before = fn.launches
+    try:
+        fn(t(3, 10).requires_grad_(), t(3))
+    except RuntimeError as err:
+        if "no backward" not in str(err):
+            raise
+    else:
+        raise AssertionError("fedagg took a CUDA input that requires grad "
+                             "with grad enabled")
+    if fn.launches != before:
+        raise AssertionError("fedagg launched despite the guard")
+    log("guard", "grad enabled, a CUDA input requiring grad: fedagg raises "
+        "RuntimeError (the fold has no backward), no launch")
 
-    fa = kernels["flash_attention"]
     qkv = (t(1, 2, 8, 16), t(1, 1, 8, 16), t(1, 1, 8, 16))
-    do = t(1, 2, 8, 16)
-    want = fa_mod.flash_attention_bwd_plain(
-        *qkv, fa_mod.flash_attention_plain(*qkv),
-        fa_mod.flash_attention_lse_plain(qkv[0], qkv[1]), do)
-    worst = 0.0
-    for which in range(3):
-        args = [x.clone().requires_grad_() if i == which else x
-                for i, x in enumerate(qkv)]
-        before = (fa.launches, fa.launches_bwd)
-        out = fa(*args)
-        if "FlashAttentionFn" not in type(out.grad_fn).__name__:
-            raise AssertionError(f"flash_attention under grad built "
-                                 f"{out.grad_fn}, not FlashAttentionFn")
-        (got,) = torch.autograd.grad(out, [args[which]], do)
-        if (fa.launches, fa.launches_bwd) != (before[0] + 1, before[1] + 1):
-            raise AssertionError("flash_attention under grad did not run "
-                                 "one forward and one backward launch")
-        worst = max(worst, check_close(
-            torch, got, want[which], "float32",
-            f"flash_attention gradient of input {which}"))
-    log("guard", f"flash_attention under grad: a FlashAttentionFn node, one "
-        f"forward and one backward launch per call, gradients of q, k, v "
-        f"within {TOL['float32']} of flash_attention_bwd_plain (max |err| "
-        f"{worst:.3e})")
+    wkv_in = (t(1, 2, 6, 8), t(1, 2, 6, 8), t(1, 2, 6, 8), t(1, 2, 6, 8),
+              t(2, 8))
+    scan_in = (t(1, 6, 4, 4), t(1, 6, 4, 4), t(1, 6, 4))
+    cases = {
+        "flash_attention": (qkv, t(1, 2, 8, 16), "FlashAttentionFn",
+                            lambda do: fa_mod.flash_attention_bwd_plain(
+                                *qkv, fa_mod.flash_attention_plain(*qkv),
+                                fa_mod.flash_attention_lse_plain(qkv[0],
+                                                                 qkv[1]),
+                                do)),
+        "rwkv6_wkv": (wkv_in, t(1, 2, 6, 8), "RwkvWkvFn",
+                      lambda dy: wkv_mod.rwkv6_wkv_bwd_plain(*wkv_in, dy)),
+        "selective_scan": (scan_in, t(1, 6, 4), "SelectiveScanFn",
+                           lambda dy: scan_mod.selective_scan_bwd_plain(
+                               *scan_in, dy)),
+    }
+    for name, (args, dout, node, plain_bwd) in cases.items():
+        fn = kernels[name]
+        want = plain_bwd(dout)
+        worst = 0.0
+        for which in range(len(args)):
+            inputs = [x.clone().requires_grad_() if i == which else x
+                      for i, x in enumerate(args)]
+            before = (fn.launches, fn.launches_bwd)
+            out = fn(*inputs)
+            if node not in type(out.grad_fn).__name__:
+                raise AssertionError(f"{name} under grad built "
+                                     f"{out.grad_fn}, not {node}")
+            (got,) = torch.autograd.grad(out, [inputs[which]], dout)
+            if (fn.launches, fn.launches_bwd) != (before[0] + 1,
+                                                  before[1] + 1):
+                raise AssertionError(f"{name} under grad did not run one "
+                                     f"forward and one backward launch")
+            worst = max(worst, check_close(
+                torch, got, want[which], "float32",
+                f"{name} gradient of input {which}"))
+        log("guard", f"{name} under grad: a {node} node, one forward and "
+            f"one backward launch per call, the gradients of all "
+            f"{len(args)} inputs within {TOL['float32']} of its plain "
+            f"backward (max |err| {worst:.3e})")
 
 
 def phase_card_vs_cpu(torch, eng, sim):
@@ -2991,22 +3045,25 @@ def _grad_rel(torch, got: dict, want: dict) -> tuple[float, str]:
     return rel[key], key
 
 
-def phase_train_card_vs_cpu(torch, Transformer, get_config,
-                            fa_mod) -> dict:
-    """Phase 24: full width, 4 layers, f32, from one CPU-drawn init.
-    Each leaf's gradient of satellite 0's loss on the card (the flash
-    kernels forward and backward) against the CPU (the plain versions),
-    then with one planted backward fault, which must break the limit.
-    Then one round of ``single_device_round`` (2 satellites of one orbit,
-    both visible, batch 1 x seq 256, 1 local step) on both: losses and
-    every leaf after the fold agree."""
+def phase_train_card_vs_cpu(torch, Transformer, get_config, arch: str,
+                            layers: int, seed: int, fault: tuple,
+                            phase: str = "train-cvc") -> dict:
+    """Phases 24 and 29: ``arch`` at full width cut to ``layers`` layers,
+    f32, from one CPU-drawn init. Each leaf's gradient of satellite 0's
+    loss on the card (the kernels forward and backward) against the CPU
+    (the plain versions), then with one planted backward fault, which
+    must break the limit: ``fault`` is (label, module, name, wrap), the
+    kernel launcher ``module.name`` replaced by ``wrap(launcher)`` for
+    one gradient. Then one round of ``single_device_round`` (2
+    satellites of one orbit, both visible, batch 1 x seq 256, 1 local
+    step) on both: losses and every leaf after the fold agree."""
     import dataclasses
 
     train, fed_cfg, stack_params = _train_parts()
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=4,
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                               param_dtype="float32", act_dtype="float32")
     model = Transformer(cfg)
-    params = model.init(torch.Generator().manual_seed(24), "cpu")
+    params = model.init(torch.Generator().manual_seed(seed), "cpu")
     batches = {d: train.make_batches(cfg, 2, 1, 256, 0, cfg.vocab_size,
                                      device=d) for d in ("cuda", "cpu")}
 
@@ -3020,44 +3077,58 @@ def phase_train_card_vs_cpu(torch, Transformer, get_config,
         raise AssertionError(f"train card vs CPU: the gradient of "
                              f"{sound_key} differs by {sound:.3e} of its "
                              f"norm (want <= {TRAIN_GRAD_RTOL})")
-    # Planted fault: Δ = rowsum(dO ⊙ O) taken as 0 (the kernel given o =
-    # 0, which only Δ reads), i.e. dS = P ⊙ dP.
-    real_bwd = fa_mod.flash_attention_bwd
-
-    def no_delta(q, k, v, o, lse, do, causal=True, window=None):
-        return real_bwd(q, k, v, torch.zeros_like(o), lse, do, causal,
-                        window)
-    fa_mod.flash_attention_bwd = no_delta
+    label, module, name, wrap = fault
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
     try:
         bad, bad_key = _grad_rel(
             torch, _leaf_grads(torch, model, params_card, sat0("cuda")),
             want)
     finally:
-        fa_mod.flash_attention_bwd = real_bwd
+        setattr(module, name, real)
     if bad <= TRAIN_GRAD_RTOL:
         raise AssertionError(f"train card vs CPU: the planted backward "
-                             f"fault (Δ not subtracted) passes the "
-                             f"gradient limit ({bad:.3e} at {bad_key})")
-    log("train-cvc", f"{cfg.name} x 4 layers, f32, satellite 0's loss: "
+                             f"fault ({label}) passes the gradient limit "
+                             f"({bad:.3e} at {bad_key})")
+    log(phase, f"{cfg.name} x {layers} layers, f32, satellite 0's loss: "
         f"each leaf's gradient, card vs CPU, within {sound:.3e} of its "
         f"norm (worst {sound_key}; limit {TRAIN_GRAD_RTOL}); planted fault "
-        f"Δ not subtracted: {bad:.3e} (worst {bad_key}), caught")
+        f"{label}: {bad:.3e} (worst {bad_key}), caught")
     del params_card
+    out = _round_card_vs_cpu(torch, model, params, batches, fed_cfg(1, 2, 1),
+                             train, stack_params, phase)
+    return dict(grad_rel=sound, grad_rel_fault=bad, **out)
 
-    fed = fed_cfg(1, 2, 1)
+
+def _round_card_vs_cpu(torch, model, params: dict, batches: dict, fed,
+                       train, stack_params, phase: str,
+                       kernels: dict | None = None) -> dict:
+    """One ``single_device_round`` (2 satellites, both visible) on the
+    card and on the CPU from ``params`` (CPU tensors): losses within
+    TRAIN_LOSS_RTOL and every leaf within PARAM_TOL. With ``kernels``,
+    the card round's counts are zeroed just before and returned."""
     visible = np.array([True, True])
     sizes = np.ones(2, np.float32)
-    out = {}
+    out, counts = {}, None
     for device in ("cuda", "cpu"):
         stacked = stack_params({k: v.to(device) for k, v in params.items()},
                                2)
+        counters = launch_counters(kernels) if kernels and \
+            device == "cuda" else {}
+        if device == "cuda":
+            torch.cuda.synchronize()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         t0 = time.perf_counter()
         stacked, metrics = train.single_device_round(model, fed)(
             stacked, batches[device], sizes, visible)
         loss = float(metrics["local_loss"])
-        log("train-cvc", f"{device}: one round (2 satellites, forward + "
+        if counters:
+            counts = {n: getattr(fn, attr)
+                      for n, (fn, attr) in counters.items()}
+        log(phase, f"{device}: one round (2 satellites, forward + "
             f"backward, fold) in {time.perf_counter() - t0:.3f} s, loss "
-            f"{loss:.6f}")
+            f"{loss:.6f}" + (f"; launches {counts}" if counters else ""))
         out[device] = (loss, {k: v[0].cpu() for k, v in stacked.items()})
         del stacked
     (loss, got), (want_loss, want) = out["cuda"], out["cpu"]
@@ -3068,10 +3139,58 @@ def phase_train_card_vs_cpu(torch, Transformer, get_config,
     worst = max(check_close(torch, got[k], w, "float32",
                             f"train card vs CPU leaf {k}", PARAM_TOL)
                 for k, w in want.items())
-    log("train-cvc", f"one round, both satellites visible: losses agree "
+    log(phase, f"one round, both satellites visible: losses agree "
         f"({loss:.6f} vs {want_loss:.6f}, rtol {TRAIN_LOSS_RTOL}); all "
         f"{len(want)} leaves within {PARAM_TOL} (max |err| {worst:.3e})")
-    return dict(grad_rel=sound, grad_rel_fault=bad)
+    return dict(loss=loss, leaf_err=worst, counts=counts)
+
+
+def no_delta(real):
+    """Planted flash backward fault: Δ = rowsum(dO ⊙ O) taken as 0 (the
+    kernel given o = 0, which only Δ reads), i.e. dS = P ⊙ dP."""
+    import torch
+
+    def bwd(q, k, v, o, lse, do, causal=True, window=None):
+        return real(q, k, v, torch.zeros_like(o), lse, do, causal, window)
+    return bwd
+
+
+def wkv_decay_skipped(real):
+    """Planted WKV backward fault: the kernel given w = 1, so the reverse
+    sweep neither decays the adjoint nor rebuilds the decayed state."""
+    def bwd(r, k, v, w, u, dy):
+        return real(r, k, v, w.new_ones(w.shape), u, dy)
+    return bwd
+
+
+def phase_jamba_round_card_vs_cpu(torch, Transformer, get_config,
+                                  kernels: dict) -> dict:
+    """Phase 29: the reduced jamba-v0.1-52b (one period of 8 layers, f32)
+    at own fan-in, as ``tests/_torch_jamba.py`` draws it: one
+    ``single_device_round`` on the card (the Mamba mixers forward and
+    backward through the scan kernels, counted) and on the CPU."""
+    train, fed_cfg, stack_params = _train_parts()
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    model = Transformer(cfg)
+    from repro_torch.models.params import init_params
+    params = init_params(jamba_defs(model, own=True),
+                         torch.Generator().manual_seed(29), "cpu")
+    batches = {d: train.make_batches(cfg, 2, 2, 64, 0, cfg.vocab_size,
+                                     device=d) for d in ("cuda", "cpu")}
+    out = _round_card_vs_cpu(torch, model, params, batches,
+                             fed_cfg(1, 2, 1), train, stack_params,
+                             "train-cvc", kernels)
+    mamba = sum(k == "mamba" for k in cfg.block_pattern)
+    want = {"selective_scan": 2 * mamba, "selective_scan.bwd": 2 * mamba}
+    got = {k: out["counts"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"reduced jamba round launched {got}; want "
+                             f"{want} ({mamba} Mamba layers x 2 "
+                             f"satellites)")
+    log("train-cvc", f"{cfg.name} at own fan-in: {got['selective_scan']} "
+        f"scan forward and {got['selective_scan.bwd']} backward launches "
+        f"in the card's round ({mamba} Mamba layers x 2 satellites)")
+    return out
 
 
 # Phase 25: the slice, as `python -m repro_torch.launch.train --full`
@@ -3092,10 +3211,9 @@ FOLD_NOISE = 0.05
 
 
 def _category(name: str) -> str:
-    if "flash_bwd" in name:
-        return "flash_bwd"
-    if "flash_fwd" in name:
-        return "flash_fwd"
+    for kernel in ("flash_bwd", "flash_fwd", "wkv_bwd", "wkv_fwd"):
+        if kernel in name:
+            return kernel
     if "fedagg" in name:
         return "fold (fedagg)"
     if any(w in name for w in ("gemm", "nvjet", "cutlass", "Gemm", "sm90_")):
@@ -3147,14 +3265,28 @@ def lm_fold_check(torch, fedagg_mod, tree: dict, mu, got: dict,
                 row_spread=spread)
 
 
+# Launches per satellite step of each architecture's training slice, for
+# n = layers: remat runs each period's forward twice.
+TRAIN_LAUNCHES = {
+    "qwen3-0.6b": lambda n: {"flash_attention": 2 * n,
+                             "flash_attention.tc": 2 * n,
+                             "flash_attention.bwd": n,
+                             "flash_attention.bwd_tc": n},
+    "rwkv6-3b": lambda n: {"rwkv6_wkv": 2 * n, "rwkv6_wkv.bwd": n},
+}
+
+
 def phase_train(torch, Transformer, get_config, kernels: dict,
-                fedagg_mod, ops) -> dict:
-    """Phase 25: full-width qwen3-0.6b, bf16, remat on, federated training
-    on the card: each round's counts zeroed just before and read just
-    after (one ``fedagg`` launch; 56 forward launches and 28 backward
-    launches per satellite step, all on the tensor cores), finite losses,
-    all rows bit-equal after each fold; s/round, peak memory, the card's
-    draw and a profile of one round; the LM fold timed; a checkpoint
+                fedagg_mod, ops, arch: str = "qwen3-0.6b",
+                phase: str = "train", needle: str = "flash_bwd") -> dict:
+    """Phases 25 and 30: full-width ``arch``, bf16, remat on, federated
+    training on the card: each round's counts zeroed just before and read
+    just after (one ``fedagg`` launch; per satellite step the forward
+    kernels twice per layer and the backward kernel once:
+    ``TRAIN_LAUNCHES``; qwen3-0.6b's flash launches all on the tensor
+    cores), finite losses, all rows bit-equal after each fold; s/round,
+    peak memory, the card's draw and a profile of one round. For
+    qwen3-0.6b also the LM fold timed and checked, and a checkpoint
     written and loaded back bit for bit."""
     import tempfile
 
@@ -3162,7 +3294,7 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
 
     train, fed_cfg, stack_params = _train_parts()
     c = TRAIN_SLICE
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     model = Transformer(cfg)
     n_sats, steps = c["sats"], c["local_steps"]
     fed = fed_cfg(c["orbits"], n_sats // c["orbits"], steps)
@@ -3170,7 +3302,7 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
         torch.Generator(device="cuda").manual_seed(c["seed"]), "cuda"),
         n_sats)
     n_params = model.count_params()
-    log("train", f"{cfg.name}: {n_params} params x {n_sats} satellites in "
+    log(phase, f"{cfg.name}: {n_params} params x {n_sats} satellites in "
         f"{cfg.param_dtype}, remat={cfg.remat}, seq {c['seq']}, batch "
         f"{c['batch_per_sat']} per satellite, {steps} local steps, lr "
         f"{fed.learning_rate}")
@@ -3181,10 +3313,8 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
     sat_steps = n_sats * steps
     layers = cfg.num_layers
     want = {name: 0 for name in counters}
-    want.update({"fedagg": 1, "flash_attention": 2 * layers * sat_steps,
-                 "flash_attention.tc": 2 * layers * sat_steps,
-                 "flash_attention.bwd": layers * sat_steps,
-                 "flash_attention.bwd_tc": layers * sat_steps})
+    want["fedagg"] = 1
+    want.update(TRAIN_LAUNCHES[arch](layers * sat_steps))
     totals = {name: 0 for name in counters}
     walls, losses = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -3210,33 +3340,39 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
         loss = float(metrics["local_loss"])
         losses.append(loss)
         if not math.isfinite(loss):
-            raise AssertionError(f"train round {rnd}: loss {loss}")
+            raise AssertionError(f"{phase} round {rnd}: loss {loss}")
         for key, leaf in params.items():
             if not all(torch.equal(leaf[s], leaf[0])
                        for s in range(1, n_sats)):
-                raise AssertionError(f"train round {rnd}: rows of {key} "
+                raise AssertionError(f"{phase} round {rnd}: rows of {key} "
                                      f"differ after the fold")
-        log("train", f"round {rnd}: loss {loss:.4f}, {walls[-1]:.3f} s, "
+        log(phase, f"round {rnd}: loss {loss:.4f}, {walls[-1]:.3f} s, "
             f"visible {visible.astype(int).tolist()}; rows bit-equal after "
             f"the fold; launches {counts}")
     tokens = n_sats * steps * c["batch_per_sat"] * c["seq"]
-    log("train", f"s/round {', '.join(f'{w:.4f}' for w in walls)} "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    draw = nvidia_smi('clocks.sm,power.draw,temperature.gpu')
+    log(phase, f"s/round {', '.join(f'{w:.4f}' for w in walls)} "
         f"({tokens / walls[-1]:.1f} trained tokens/s in the last round); "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB; card now "
-        f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+        f"peak device memory {peak:.2f} GiB; card now {draw}")
 
     # Where one round's device time goes (after the counts were read).
     prof = profile_device(torch, lambda: step(params, batch, sizes, visible))
-    log_profile("train", "one round", prof, "flash_bwd", top=10)
+    log_profile(phase, "one round", prof, needle, top=10)
     by_cat: dict[str, float] = {}
     for name, (us, _) in prof[0].items():
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + us
     total = sum(by_cat.values())
     if total:
-        log("train", "split of one round's device time: " + ", ".join(
+        log(phase, "split of one round's device time: " + ", ".join(
             f"{k} {v / 1e3:.1f} ms ({100 * v / total:.1f}%)"
             for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])))
+    if arch != "qwen3-0.6b":
+        del params, batch
+        torch.cuda.empty_cache()
+        return dict(launches=totals, losses=losses, s_per_round=walls,
+                    tokens_per_s=tokens / walls[-1], peak_gib=peak,
+                    card=draw)
 
     # The LM fold (S=4, bf16), as phase 3 times the CNN's.
     mu = train._mu_weights(visible, sizes, fed.round_cfg.cmap, "paper",
@@ -3309,6 +3445,442 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
                           **check))
 
 
+# Phases 27-28: the recurrences' backward kernels against their plain
+# versions on the card. Each gradient is held to its plain version by
+# max |kernel - plain| <= BWD_REL[dtype] * max |plain|, the largest
+# difference against the gradient's own scale (sums over up to 4096 steps
+# grow with the sequence, so an absolute tolerance would not carry over
+# shapes). f32: both compute the same f32 sums in other orders (the
+# kernel with FMAs, the checkpointed state rebuilt), a few ulps of the
+# largest term; the CPU tests measure ~3e-7 of the largest gradient and
+# the card tests hold 1e-5. bf16 outputs: both compute in f32 and round
+# once, so they differ by at most one bf16 ulp of an element, <= 2^-7 of
+# the largest, where their f32 values straddle a rounding boundary; two
+# ulps allowed. The planted faults (below) must break these.
+BWD_REL = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
+# Phase 27's sweep (B, H, S, N): every head size, ragged lengths around
+# the kernel's 8-step checkpoints, and 300 steps at the model's 40 heads
+# of 64; the training slice's shape and the serve prefill's.
+WKV_BWD_SWEEP = [(1, 1, 16, 4), (2, 3, 37, 8), (1, 4, 32, 16),
+                 (2, 2, 48, 32), (1, 2, 40, 64), (2, 40, 300, 64)]
+WKV_TRAIN = dict(b=2, h=40, s=1024, n=64)
+# Phase 28's sweep is SCAN_SWEEP; jamba's training shape.
+SCAN_TRAIN = dict(b=2, s=1024, d=8192, n=16)
+# A full-width jamba Mamba block's gradients, kernels vs plain on the
+# card, bf16 (phase 28): the two paths differ where the scan's outputs
+# and gradients round to bf16 on either side of a boundary (one bf16 ulp,
+# 2^-8 relative, at a few elements), and the bf16 GEMMs downstream carry
+# that along; relative Frobenius norm per leaf.
+MAMBA_GRAD_RTOL = 1e-2
+
+
+def check_grads(torch, got, want, what: str, names) -> dict:
+    """Each gradient within BWD_REL[its dtype] of the plain one's largest
+    value; returns {name: max |err| / max |plain|}."""
+    out = {}
+    for name, g, w in zip(names, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what} {name}: {tuple(g.shape)} {g.dtype}"
+                                 f" vs plain {tuple(w.shape)} {w.dtype}")
+        rel = max_err(torch, g, w) / max(float(w.float().abs().max()),
+                                         1e-30)
+        lim = BWD_REL[str(w.dtype).split(".")[-1]]
+        if not (torch.isfinite(g).all() and rel <= lim):
+            raise AssertionError(f"{what} {name}: kernel vs plain "
+                                 f"{rel:.3e} of the largest gradient "
+                                 f"(limit {lim:.3e})")
+        out[name] = rel
+    return out
+
+
+def breaks(torch, bad, want, names) -> dict:
+    """The relative error of a planted fault per gradient, and whether
+    any gradient breaks its limit."""
+    rel = {n: max_err(torch, b, w) / max(float(w.float().abs().max()),
+                                         1e-30)
+           for n, b, w in zip(names, bad, want)}
+    caught = any(rel[n] > BWD_REL[str(w.dtype).split(".")[-1]]
+                 for n, w in zip(names, want))
+    return rel, caught
+
+
+def _wkv_bwd_planted(torch, r, k, v, w, u, dy, fault: str):
+    """``rwkv6_wkv_bwd_plain`` with one fault planted: "adjoint decay
+    skipped" (G_{t-1} = G_t + r_t dy_tᵀ) or "dw from S_t" (the state
+    after the step instead of before it)."""
+    b, h, s, n = r.shape
+    rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
+    uu = u.float()[None]
+    states = torch.empty(s + 1, b, h, n, n, device=r.device)
+    states[0] = 0
+    for t in range(s):
+        states[t + 1] = (wf[:, :, t, :, None] * states[t]
+                         + kf[:, :, t, :, None] * vf[:, :, t, None, :])
+    vdy = (vf * dyf).sum(-1, keepdim=True)
+    bonus = (rf * uu[:, :, None] * kf).sum(-1, keepdim=True)
+    dr, dk, dv, dw = (torch.empty(b, h, s, n, device=r.device)
+                      for _ in range(4))
+    g = torch.zeros(b, h, n, n, device=r.device)
+    for t in reversed(range(s)):
+        prev, dyt = states[t], dyf[:, :, t]
+        dr[:, :, t] = (torch.einsum("bhnm,bhm->bhn", prev, dyt)
+                       + uu * kf[:, :, t] * vdy[:, :, t])
+        dk[:, :, t] = (torch.einsum("bhnm,bhm->bhn", g, vf[:, :, t])
+                       + uu * rf[:, :, t] * vdy[:, :, t])
+        dv[:, :, t] = (torch.einsum("bhnm,bhn->bhm", g, kf[:, :, t])
+                       + bonus[:, :, t] * dyt)
+        dw[:, :, t] = (g * (states[t + 1] if fault == "dw from S_t"
+                            else prev)).sum(-1)
+        decay = 1.0 if fault == "adjoint decay skipped" \
+            else wf[:, :, t, :, None]
+        g = decay * g + rf[:, :, t, :, None] * dyt[:, :, None, :]
+    du = (rf * kf * vdy).sum((0, 2))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du)
+
+
+def _bwd_timing(torch, bwd, args, plain, flop: float, nbytes: int,
+                what: str, phase: str, plain_reps: int = 2) -> dict:
+    """The backward back to back (``ms``) and as device time, its plain
+    version, and the bound."""
+    ms = time_ms(torch, lambda: bwd(*args), reps=10)
+    dev = device_ms(torch, lambda: bwd(*args), reps=10)
+    plain_ms = (time_ms(torch, lambda: plain(*args), reps=plain_reps,
+                        warmup=1) if plain else None)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(phase, f"{what}: device {dev:.4f} ms, back to back {ms:.4f} ms"
+        + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else "")
+        + f"; {nbytes} bytes, {flop:.4e} FLOP, bound {bound_ms:.4f} ms "
+        f"({bound_by}): {bound_ms / dev:.3f} of it; no one-call PyTorch "
+        f"equivalent")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def _ptxas_of(ptxas: dict, prefix: str) -> dict:
+    return {k: v for k, v in ptxas.items() if k.startswith(prefix)}
+
+
+def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
+    """Phase 27: rwkv6_wkv_bwd against rwkv6_wkv_bwd_plain on the card;
+    returns the kernels-line entry (launches filled in from phase 30)."""
+    bwd, plain = wkv_mod.rwkv6_wkv_bwd, wkv_mod.rwkv6_wkv_bwd_plain
+    f32, bf16 = torch.float32, torch.bfloat16
+    names = ("dr", "dk", "dv", "dw", "du")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    cases = {"f32": (f32, f32), "bf16, w f32": (bf16, f32),
+             "bf16": (bf16, bf16)}
+
+    def inputs(b, h, s, n, dtype, w_dtype, decay):
+        r, k, v, w, u = _wkv_views(torch, gen, b, h, s, n, dtype, w_dtype,
+                                   decay)
+        dy = torch.randn((b, s, h, n), generator=gen, device="cuda") \
+            .to(dtype).transpose(1, 2)
+        return r, k, v, w, u, dy
+
+    for b, h, s, n in WKV_BWD_SWEEP:
+        for case, (dtype, w_dtype) in cases.items():
+            args = inputs(b, h, s, n, dtype, w_dtype, (0.7, 0.999))
+            what = f"wkv bwd {case} B={b} H={h} S={s} N={n}"
+            got = bwd(*args)
+            for g, a in zip(got[:4], args[:4]):
+                if g.stride() != a.stride():
+                    raise AssertionError(f"{what}: a gradient is not laid "
+                                         f"out like its input")
+            rel = check_grads(torch, got, plain(*args), what, names)
+            log("wkv-bwd", f"{what}: max |err| / max |plain| "
+                + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    for decay in (0.0, 1.0):
+        for case in ("f32", "bf16, w f32"):
+            args = inputs(2, 40, 300, 64, *cases[case], decay)
+            what = f"wkv bwd {case} B=2 H=40 S=300 N=64, w = {decay:g}"
+            rel = check_grads(torch, bwd(*args), plain(*args), what, names)
+            log("wkv-bwd", f"{what}: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in rel.items()))
+
+    # The training shape in the model's dtypes: within tolerance, bit-equal
+    # over two calls, two planted faults caught.
+    b, h, s, n = (WKV_TRAIN[x] for x in ("b", "h", "s", "n"))
+    args = inputs(b, h, s, n, bf16, f32, (0.7, 0.999))
+    first, want = bwd(*args), plain(*args)
+    rel = check_grads(torch, first, want, "wkv bwd at the training shape",
+                      names)
+    worst = max(max_err(torch, x, y) for x, y in zip(first, want))
+    second = bwd(*args)
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        raise AssertionError("wkv bwd: two calls on the same inputs differ")
+    log("wkv-bwd", f"training shape B={b} H={h} S={s} N={n}, bf16 r/k/v/dy, "
+        f"f32 w: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + "; two calls bit-equal")
+    faults = {}
+    for fault in ("adjoint decay skipped", "dw from S_t"):
+        frel, caught = breaks(torch, _wkv_bwd_planted(torch, *args, fault),
+                              want, names)
+        if not caught:
+            raise AssertionError(f"planted wkv bwd fault ({fault}) passes "
+                                 f"the tolerance: {frel}")
+        faults[fault] = frel
+        log("wkv-bwd", f"planted fault ({fault}): " + ", ".join(
+            f"{k} {v:.2e}" for k, v in frel.items()) + f"; caught by "
+            f"{BWD_REL}")
+    del first, second, want
+
+    def moved(args):
+        """Bytes read (every input once) and written (dr, dk, dv, dw like
+        r, k, v, w; du f32)."""
+        return sum(t.numel() * t.element_size() for t in args) \
+            + sum(t.numel() * t.element_size() for t in args[:4]) \
+            + 4 * h * n
+    entry = _bwd_timing(torch, bwd, args, plain,
+                        b * h * s * (14 * n * n + 16 * n), moved(args),
+                        f"training shape B={b} H={h} S={s} N={n}",
+                        "wkv-bwd")
+    del args
+    b, s = WKV_PREFILL["b"], WKV_PREFILL["s"]
+    args = inputs(b, h, s, n, bf16, f32, (0.7, 0.999))
+    serve = _bwd_timing(torch, bwd, args, None,
+                        b * h * s * (14 * n * n + 16 * n), moved(args),
+                        f"serve shape B={b} H={h} S={s} N={n}", "wkv-bwd")
+    del args
+    torch.cuda.empty_cache()
+    report = _ptxas_of(ptxas, "wkv_bwd")
+    for label in ("wkv_bwd_ckpt<bf16, f32, N=64>",
+                  "wkv_bwd_rev<bf16, f32, N=64>", "wkv_bwd_fin<bf16, f32>"):
+        if label in report:
+            regs, st, ld = report[label]
+            log("wkv-bwd", f"ptxas {label}: {regs} registers, {st} bytes "
+                f"spill stores, {ld} bytes spill loads")
+    return dict(name="rwkv6_wkv_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/rwkv6_wkv_bwd.cu",
+                replaces="src/repro/kernels/rwkv6_wkv.py:47",
+                launches=None, max_abs_err=worst, rel_err=rel,
+                faults=faults, ms=entry["ms"],
+                device_ms=entry["device_ms"], plain_ms=entry["plain_ms"],
+                bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
+                library_ms=None,
+                serve={k: v for k, v in serve.items() if k != "plain_ms"},
+                ptxas=report)
+
+
+def _scan_bwd_planted(torch, abar, bx, c, dy, fault: str):
+    """``selective_scan_bwd_plain`` with one fault planted: "adjoint decay
+    skipped" (G_t = c_t dy_t + G_{t+1}) or "d abar from h_t" (the state
+    after the step instead of before it)."""
+    b, s, d, n = abar.shape
+    states = torch.zeros(s + 1, b, d, n, device=abar.device)
+    for t in range(s):
+        states[t + 1] = abar[:, t].float() * states[t] + bx[:, t].float()
+    dabar, dbx = torch.empty_like(abar), torch.empty_like(bx)
+    dc = torch.empty((b, s, n), dtype=c.dtype, device=abar.device)
+    g = torch.zeros(b, d, n, device=abar.device)
+    a_next = torch.zeros_like(g)
+    for t in reversed(range(s)):
+        dyt = dy[:, t].float()
+        carry = g if fault == "adjoint decay skipped" else a_next * g
+        g = carry + c[:, t].float()[:, None, :] * dyt[:, :, None]
+        dbx[:, t] = g
+        dabar[:, t] = g * states[t + 1 if fault == "d abar from h_t" else t]
+        dc[:, t] = torch.einsum("bdn,bd->bn", states[t + 1], dyt)
+        a_next = abar[:, t].float()
+    return dabar, dbx, dc
+
+
+def phase_scan_bwd(torch, scan_mod, ptxas: dict) -> dict:
+    """Phase 28: selective_scan_bwd against selective_scan_bwd_plain on the
+    card; returns the kernels-line entry (launches filled in from phase
+    29's jamba round)."""
+    bwd, plain = scan_mod.selective_scan_bwd, scan_mod.selective_scan_bwd_plain
+    names = ("dabar", "dbx", "dc")
+    gen = torch.Generator(device="cuda").manual_seed(28)
+
+    def inputs(b, s, d, n, case, abar_from):
+        abar, bx, c = _scan_inputs(torch, gen, b, s, d, n, case, abar_from)
+        dy = torch.randn((b, s, d), generator=gen, device="cuda").to(bx.dtype)
+        return abar, bx, c, dy
+
+    for b, s, d, n in SCAN_SWEEP:
+        for case in SCAN_CASES:
+            args = inputs(b, s, d, n, case, (0.2, 0.99))
+            what = f"scan bwd {case} B={b} S={s} D={d} N={n}"
+            rel = check_grads(torch, bwd(*args), plain(*args), what, names)
+            log("scan-bwd", f"{what}: max |err| / max |plain| "
+                + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    for abar in (0.0, 1.0):
+        for case in ("f32", "mixed"):
+            args = inputs(2, 300, 130, 16, case, (abar, abar))
+            what = f"scan bwd {case} B=2 S=300 D=130 N=16, abar = {abar:g}"
+            rel = check_grads(torch, bwd(*args), plain(*args), what, names)
+            log("scan-bwd", f"{what}: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in rel.items()))
+
+    b, s, d, n = (SCAN_TRAIN[x] for x in ("b", "s", "d", "n"))
+    rels, faults = {}, {}
+    for abar_from in ((0.8, 0.999), "own fan-in"):
+        label = ("abar ~ U[0.8, 0.999]" if isinstance(abar_from, tuple)
+                 else "abar at own fan-in")
+        args = inputs(b, s, d, n, "mixed", abar_from)
+        first, want = bwd(*args), plain(*args)
+        rel = check_grads(torch, first, want,
+                          f"scan bwd at the training shape, {label}", names)
+        rels[label] = rel
+        worst = max(max_err(torch, x, y) for x, y in zip(first, want))
+        second = bwd(*args)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError("scan bwd: two calls on the same inputs "
+                                 "differ")
+        log("scan-bwd", f"training shape B={b} S={s} D={d} N={n}, abar f32, "
+            f"bx/c/dy bf16, {label}: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in rel.items())
+            + "; two calls bit-equal")
+        del first, second
+        for fault in ("adjoint decay skipped", "d abar from h_t"):
+            frel, caught = breaks(torch, _scan_bwd_planted(torch, *args,
+                                                           fault),
+                                  want, names)
+            if not caught:
+                raise AssertionError(f"planted scan bwd fault ({fault}, "
+                                     f"{label}) passes the tolerance: "
+                                     f"{frel}")
+            faults[f"{fault}, {label}"] = frel
+            log("scan-bwd", f"planted fault ({fault}, {label}): "
+                + ", ".join(f"{k} {v:.2e}" for k, v in frel.items())
+                + f"; caught by {BWD_REL}")
+        del want
+        if isinstance(abar_from, tuple):
+            del args
+    def moved(args):
+        """Bytes read (every input once) and written (d abar, d bx like
+        abar, bx; dc (B, S, N) bf16)."""
+        return sum(t.numel() * t.element_size() for t in args) \
+            + sum(t.numel() * t.element_size() for t in args[:2]) \
+            + args[2].shape[0] * args[2].shape[1] * n * 2
+    entry = _bwd_timing(torch, bwd, args, plain, 8 * b * s * d * n,
+                        moved(args),
+                        f"training shape B={b} S={s} D={d} N={n}",
+                        "scan-bwd")
+    del args
+    torch.cuda.empty_cache()
+    b, s = SCAN_PREFILL["b"], SCAN_PREFILL["s"]
+    args = inputs(b, s, d, n, "mixed", (0.8, 0.999))
+    serve = _bwd_timing(torch, bwd, args, None, 8 * b * s * d * n,
+                        moved(args),
+                        f"serve shape B={b} S={s} D={d} N={n}", "scan-bwd")
+    del args
+    torch.cuda.empty_cache()
+    report = _ptxas_of(ptxas, "scan_bwd")
+    for label in ("scan_bwd_ckpt<f32, bf16, N=16>",
+                  "scan_bwd_rev<f32, bf16, N=16>", "scan_bwd_dc<bf16>"):
+        if label in report:
+            regs, st, ld = report[label]
+            log("scan-bwd", f"ptxas {label}: {regs} registers, {st} bytes "
+                f"spill stores, {ld} bytes spill loads")
+    return dict(name="selective_scan_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+                replaces="src/repro/kernels/selective_scan.py:42",
+                launches=None, max_abs_err=worst, rel_err=rels,
+                faults=faults, ms=entry["ms"], device_ms=entry["device_ms"],
+                plain_ms=entry["plain_ms"], bound_ms=entry["bound_ms"],
+                bound_by=entry["bound_by"], library_ms=None,
+                serve={k: v for k, v in serve.items() if k != "plain_ms"},
+                ptxas=report)
+
+
+def phase_mamba_block_grads(torch, Transformer, get_config, ops,
+                            scan_mod) -> dict:
+    """Phase 28: one full-width jamba Mamba block (d_model 4096, d_inner
+    8192, N=16, bf16, own fan-in) at batch 2 x seq 1024: the gradients of
+    every mixer leaf and of the input through the kernels (one forward
+    and one backward launch, counted) against the same block with the
+    scan's plain version on the card, in relative Frobenius norm."""
+    import dataclasses
+    from repro_torch.models import ssm as ssm_lib, transformer as tr
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=8)
+    model = Transformer(cfg)
+    prefix = "layers/b1/mixer/"
+    defs = {k: v for k, v in jamba_defs(model, own=True).items()
+            if k.startswith(prefix)}
+    dt = getattr(torch, cfg.param_dtype)
+    params = init_params(defs, torch.Generator(device="cuda").manual_seed(28),
+                         "cuda", dt)
+    mixer = {k.removeprefix(prefix): v[0] for k, v in params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    x = torch.randn((2, 1024, cfg.d_model), generator=gen,
+                    device="cuda").to(dt)
+    weight = torch.randn(x.shape, generator=gen, device="cuda")
+
+    def grads(remat: bool = False):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in mixer.items()}
+        xx = x.detach().clone().requires_grad_()
+        if remat:   # as the model's remat runs a period
+            out = torch.utils.checkpoint.checkpoint(
+                ssm_lib.mamba_forward, cfg, leaves, xx, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            out = ssm_lib.mamba_forward(cfg, leaves, xx)
+        g = torch.autograd.grad((out.float() * weight).sum(),
+                                [*leaves.values(), xx])
+        return dict(zip([*leaves, "x"], g))
+    scan = scan_mod.selective_scan
+    torch.cuda.synchronize()
+    scan.launches = scan.launches_bwd = 0
+    t0 = time.perf_counter()
+    got = grads()
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    counts = (scan.launches, scan.launches_bwd)
+    if counts != (1, 1):
+        raise AssertionError(f"the Mamba block launched {counts} scan "
+                             f"forward / backward kernels; want (1, 1)")
+    # Under torch.utils.checkpoint the forward runs again in the backward
+    # (the in-place exp_ of abar included): one more forward launch, the
+    # same gradients bit for bit.
+    scan.launches = scan.launches_bwd = 0
+    again = grads(remat=True)
+    torch.cuda.synchronize()
+    if (scan.launches, scan.launches_bwd) != (2, 1) or not all(
+            torch.equal(again[k], got[k]) for k in got):
+        raise AssertionError(f"the Mamba block under checkpoint: launches "
+                             f"{(scan.launches, scan.launches_bwd)} (want "
+                             f"(2, 1)), gradients bit-equal: "
+                             f"{all(torch.equal(again[k], got[k]) for k in got)}")
+    del again
+    real = ops.selective_scan_op
+    ops.selective_scan_op = (lambda abar, bx, c, chunk=64, block_d=256:
+                             scan_mod.selective_scan_plain(abar, bx, c))
+    try:
+        t0 = time.perf_counter()
+        want = grads()
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    finally:
+        ops.selective_scan_op = real
+    rel = {k: float((got[k].float() - w.float()).norm())
+           / max(float(w.float().norm()), 1e-30) for k, w in want.items()}
+    worst = max(rel, key=rel.get)
+    if not all(torch.isfinite(g).all() for g in got.values()) \
+            or rel[worst] > MAMBA_GRAD_RTOL:
+        raise AssertionError(f"Mamba block gradients, kernels vs plain: "
+                             f"{worst} differs by {rel[worst]:.3e} of its "
+                             f"norm (limit {MAMBA_GRAD_RTOL})")
+    log("scan-bwd", f"jamba Mamba block at full width ({cfg.d_model} -> "
+        f"{cfg.d_inner_mamba} x {cfg.mamba.d_state}, {dt}, own fan-in), B=2 "
+        f"S=1024: one scan forward and one backward launch; the gradients "
+        f"of {len(rel)} tensors (the mixer's leaves and x) within "
+        f"{rel[worst]:.3e} of the plain scan's (worst {worst}; limit "
+        f"{MAMBA_GRAD_RTOL}); forward + backward {t_kernel:.3f} s with the "
+        f"kernels, {t_plain:.3f} s with the plain scan; under "
+        f"torch.utils.checkpoint two forward and one backward launch, the "
+        f"gradients bit-equal")
+    del params, mixer, got, want
+    torch.cuda.empty_cache()
+    return dict(launches=counts[1], grad_rel=rel[worst])
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3370,7 +3942,7 @@ def main() -> int:
                "flash_attention": fa_mod.flash_attention,
                "rwkv6_wkv": wkv_mod.rwkv6_wkv,
                "selective_scan": scan_mod.selective_scan}
-    phase_guard(torch, kernels, fa_mod)
+    phase_guard(torch, kernels, fa_mod, wkv_mod, scan_mod)
 
     # 4. card vs CPU
     phase_card_vs_cpu(torch, eng, sim)
@@ -3491,7 +4063,9 @@ def main() -> int:
     bwd_entry = phase_flash_bwd(torch, fa_mod, flash_entry["ms"], ptxas)
 
     # 24. one training round, card vs CPU (4 layers, f32)
-    phase_train_card_vs_cpu(torch, Transformer, get_config, fa_mod)
+    phase_train_card_vs_cpu(
+        torch, Transformer, get_config, "qwen3-0.6b", 4, 24,
+        ("Δ not subtracted", fa_mod, "flash_attention_bwd", no_delta))
 
     # 25. the training slice at full width; counts zeroed per round.
     trained = phase_train(torch, Transformer, get_config, kernels,
@@ -3507,10 +4081,49 @@ def main() -> int:
     sanitize = phase_sanitize(torch, sim, fedagg_mod)
     entry["launches_sanitized"] = {k: v["launches"]
                                    for k, v in sanitize.items()}
-    log("done", f"phases 1-26 in {time.perf_counter() - t_start:.1f} s")
+    # 27. the WKV backward kernel against its plain version
+    t_new = time.perf_counter()
+    wkv_bwd_entry = phase_wkv_bwd(torch, wkv_mod, ptxas)
+    log("wkv-bwd", f"phase 27 in {time.perf_counter() - t_new:.1f} s")
+
+    # 28. the scan backward kernel; a full-width jamba Mamba block's
+    # gradients, kernels vs plain
+    t0 = time.perf_counter()
+    scan_bwd_entry = phase_scan_bwd(torch, scan_mod, ptxas)
+    scan_bwd_entry["block"] = phase_mamba_block_grads(
+        torch, Transformer, get_config, ops, scan_mod)
+    log("scan-bwd", f"phase 28 in {time.perf_counter() - t0:.1f} s")
+
+    # 29. training card vs CPU: rwkv6-3b (2 layers, f32), then one round
+    # of the reduced jamba, whose scan launches are the backward's count
+    t0 = time.perf_counter()
+    phase_train_card_vs_cpu(
+        torch, Transformer, get_config, "rwkv6-3b", 2, 29,
+        ("decay skipped in the WKV backward", wkv_mod, "rwkv6_wkv_bwd",
+         wkv_decay_skipped), phase="rwkv-train-cvc")
+    jamba_round = phase_jamba_round_card_vs_cpu(torch, Transformer,
+                                                get_config, kernels)
+    scan_bwd_entry["launches"] = jamba_round["counts"]["selective_scan.bwd"]
+    log("train-cvc", f"phase 29 in {time.perf_counter() - t0:.1f} s")
+
+    # 30. the slice: rwkv6-3b federated training at full width; counts
+    # zeroed per round.
+    t0 = time.perf_counter()
+    rwkv_train = phase_train(torch, Transformer, get_config, kernels,
+                             fedagg_mod, ops, arch="rwkv6-3b",
+                             phase="rwkv-train", needle="wkv_bwd")
+    wkv_bwd_entry["launches"] = rwkv_train["launches"]["rwkv6_wkv.bwd"]
+    wkv_bwd_entry["train_slice"] = {k: v for k, v in rwkv_train.items()
+                                    if k != "launches"}
+    wkv_entry["launches_train"] = rwkv_train["launches"]["rwkv6_wkv"]
+    entry["launches_train_rwkv"] = rwkv_train["launches"]["fedagg"]
+    log("rwkv-train", f"phase 30 in {time.perf_counter() - t0:.1f} s; "
+        f"phases 27-30 in {time.perf_counter() - t_new:.1f} s")
+    log("done", f"phases 1-30 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
-                                  scan_entry, bwd_entry]}))
+                                  scan_entry, bwd_entry, wkv_bwd_entry,
+                                  scan_bwd_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

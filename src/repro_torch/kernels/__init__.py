@@ -10,13 +10,17 @@ Kernels:
   (``csrc/flash_attention_bwd.cu``, LM training), the port's own: the
   JAX package differentiates a jnp analogue instead.
 - ``selective_scan`` — the Mamba selective-SSM recurrence (the jamba
-  prefill), CUDA C++ for sm_90a; replaces
-  ``repro/kernels/selective_scan.py:42``.
-- ``rwkv6_wkv`` — the RWKV-6 WKV recurrence (the RWKV prefill), CUDA C++
-  for sm_90a; replaces ``repro/kernels/rwkv6_wkv.py:47``.
+  prefill and training), CUDA C++ for sm_90a; replaces
+  ``repro/kernels/selective_scan.py:42``; and its backward
+  (``csrc/selective_scan_bwd.cu``), the port's own.
+- ``rwkv6_wkv`` — the RWKV-6 WKV recurrence (the RWKV prefill and
+  training), CUDA C++ for sm_90a; replaces
+  ``repro/kernels/rwkv6_wkv.py:47``; and its backward
+  (``csrc/rwkv6_wkv_bwd.cu``), the port's own.
 
-``flash_attention`` differentiates through its backward kernel
-(``FlashAttentionFn``). The other kernels are forward only: their
+``flash_attention``, ``selective_scan`` and ``rwkv6_wkv`` differentiate
+through their backward kernels (``FlashAttentionFn``,
+``SelectiveScanFn``, ``RwkvWkvFn``). The fold is forward only: its
 wrappers refuse an input that requires grad while grad is enabled
 (``guard``), so no gradient is dropped silently.
 """

@@ -1,14 +1,13 @@
-"""The kernel wrappers' refusal to drop gradients.
+"""The fold's refusal to drop gradients.
 
-``fedagg`` (and ``fedagg_leaves``), ``rwkv6_wkv`` and ``selective_scan``
-are forward only: a wrapper writes into a fresh tensor through ctypes,
-so an input's gradient path would end there without an error. Each of
-those wrappers calls :func:`autograd_guard` first; the plain versions,
-which the ``ops`` dispatchers run on CPU tensors, stay differentiable.
-``flash_attention`` no longer calls it: it has a backward kernel, and
-its wrapper applies ``FlashAttentionFn`` when an input requires grad.
-Backward kernels for ``rwkv6_wkv`` and ``selective_scan`` (ROADMAP Queue
-B) will replace the guard there; the fold is applied under no grad.
+``fedagg`` (and ``fedagg_leaves``) is forward only: its wrapper writes
+into a fresh tensor through ctypes, so an input's gradient path would end
+there without an error. The wrapper calls :func:`autograd_guard` first;
+the plain version, which the ``ops`` dispatchers run on CPU tensors,
+stays differentiable. The fold is applied under no grad. The other
+kernels (``flash_attention``, ``rwkv6_wkv``, ``selective_scan``) have
+backward kernels: their wrappers apply an autograd Function when an input
+requires grad, and do not call the guard.
 """
 from __future__ import annotations
 
@@ -17,10 +16,9 @@ import torch
 
 def autograd_guard(name: str, *tensors: torch.Tensor) -> None:
     """Raise ``RuntimeError`` when grad is enabled and any of ``tensors``
-    requires grad: kernel ``name`` has no backward yet."""
+    requires grad: kernel ``name`` has no backward."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but the kernel has no "
-            f"backward yet (ROADMAP Queue B), so its gradient would be "
-            f"dropped silently; call it under torch.no_grad() or on "
-            f"detached inputs")
+            f"backward, so its gradient would be dropped silently; call it "
+            f"under torch.no_grad() or on detached inputs")

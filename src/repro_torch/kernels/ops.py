@@ -8,13 +8,15 @@ through its plain version (for the simulator's fold, the per-leaf
 :func:`repro_torch.core.treeops.tree_combine` — as the JAX dispatcher
 picks the einsum on CPU, ``repro/kernels/ops.py:99-103``). There is no
 override and no fallback: a CUDA tensor goes
-through the kernel or the call raises. ``flash_attention`` has a
-backward kernel: on CUDA inputs that require grad (with grad enabled)
-its wrapper goes through ``FlashAttentionFn`` (forward kernel with the
-log-sum-exp, backward kernel), and otherwise launches the forward alone,
-as serving does. The other kernels have no backward yet: on CUDA inputs
-that require grad their wrappers raise (``guard.autograd_guard``). The
-plain versions the CPU path runs stay differentiable.
+through the kernel or the call raises. ``flash_attention``,
+``selective_scan`` and ``rwkv6_wkv`` have backward kernels: on CUDA
+inputs that require grad (with grad enabled) their wrappers go through
+an autograd Function (``FlashAttentionFn``, ``SelectiveScanFn``,
+``RwkvWkvFn``: the forward kernel, then the backward kernel), and
+otherwise launch the forward alone, as serving does. The fold has no
+backward: on CUDA inputs that require grad its wrapper raises
+(``guard.autograd_guard``). On CPU tensors the plain versions' autograd
+is the gradient.
 """
 from __future__ import annotations
 
@@ -134,11 +136,15 @@ def selective_scan_op(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     y ``(B,S,D)`` in bx's dtype: the ``selective_scan`` kernel on CUDA
     tensors, :func:`~repro_torch.kernels.selective_scan
     .selective_scan_plain` on CPU tensors; the inputs are checked the same
-    way on both. ``chunk`` and ``block_d`` are the JAX wrapper's
-    arguments, kept for its signature: they are the TPU kernel's tiling
-    of S and D (there divisors of them) and do not change the result; the
-    CUDA kernel keeps the state in registers over any S and D and does
-    not read them."""
+    way on both. On CUDA tensors with grad enabled and an input that
+    requires grad, the wrapper applies ``SelectiveScanFn`` (forward
+    kernel, then the backward kernel ``csrc/selective_scan_bwd.cu``);
+    otherwise it launches the forward alone. On CPU tensors the plain
+    version's autograd is the gradient. ``chunk`` and ``block_d`` are the
+    JAX wrapper's arguments, kept for its signature: they are the TPU
+    kernel's tiling of S and D (there divisors of them) and do not change
+    the result; the CUDA kernel keeps the state in registers over any S
+    and D and does not read them."""
     del chunk, block_d
     _scan.check_inputs(abar, bx, c)
     if abar.device.type == "cuda":
@@ -154,11 +160,15 @@ def rwkv6_wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The RWKV-6 WKV recurrence, r/k/v/w ``(B,H,S,N)``, u ``(H,N)`` f32 ->
     y ``(B,H,S,N)`` in r's dtype: the ``rwkv6_wkv`` kernel on CUDA
     tensors, :func:`~repro_torch.kernels.rwkv6_wkv.rwkv6_wkv_plain` on CPU
-    tensors; the inputs are checked the same way on both. ``chunk`` is
-    the JAX wrapper's argument, kept for its signature: it is the TPU
-    kernel's tiling of S (there a divisor of S) and does not change the
-    result; the CUDA kernel keeps the state in registers over any S and
-    does not read it."""
+    tensors; the inputs are checked the same way on both. On CUDA
+    tensors with grad enabled and an input that requires grad, the
+    wrapper applies ``RwkvWkvFn`` (forward kernel, then the backward
+    kernel ``csrc/rwkv6_wkv_bwd.cu``); otherwise it launches the forward
+    alone. On CPU tensors the plain version's autograd is the gradient.
+    ``chunk`` is the JAX wrapper's argument, kept for its signature: it
+    is the TPU kernel's tiling of S (there a divisor of S) and does not
+    change the result; the CUDA kernel keeps the state in registers over
+    any S and does not read it."""
     del chunk
     _wkv.check_inputs(r, k, v, w, u)
     if r.device.type == "cuda":

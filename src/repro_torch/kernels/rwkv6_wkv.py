@@ -1,4 +1,4 @@
-"""RWKV-6 WKV recurrence (prefill) on Hopper.
+"""RWKV-6 WKV recurrence (prefill and training) on Hopper.
 
 Per (batch, head), with an N x N f32 state S that starts at zero::
 
@@ -10,24 +10,32 @@ back ``(B, H, S, N)`` in r's dtype. r, k and v share one dtype, f32 or
 bf16; w is f32 or r's dtype (the model passes its decay in f32, see
 ``csrc/rwkv6_wkv.cu``).
 
-The kernel is ``csrc/rwkv6_wkv.cu`` (CUDA C++ for sm_90a; its header has
-the bound at the prefill shape and the design); it replaces the Pallas
-TPU kernel ``rwkv6_wkv`` of ``repro/kernels/rwkv6_wkv.py:47``.
+The forward kernel is ``csrc/rwkv6_wkv.cu`` (CUDA C++ for sm_90a; its
+header has the bound at the prefill shape and the design); it replaces
+the Pallas TPU kernel ``rwkv6_wkv`` of ``repro/kernels/rwkv6_wkv.py:47``.
+The backward kernel is ``csrc/rwkv6_wkv_bwd.cu`` (the reverse recurrence
+of the state's adjoint, with the state rebuilt from checkpoints; its
+header has the bound at the training shape and the scratch it needs);
+the JAX package has no backward kernel, it differentiates jnp.
 
-:func:`rwkv6_wkv` checks its inputs and launches the kernel; it takes
+:func:`rwkv6_wkv` checks its inputs and launches the kernels; it takes
 CUDA tensors only. The choice between kernel and plain version is made
 in one place, :func:`repro_torch.kernels.ops.rwkv6_wkv_op`: CPU tensors
 go to :func:`rwkv6_wkv_plain` — only because they lie on the CPU — and a
-CUDA tensor never reaches the plain version. The kernel has no backward
-yet: the wrapper raises when grad is enabled and an input requires grad
-(``guard.autograd_guard``). Any (b, h, s) strides are
-taken as long as N has unit stride, so the model's ``(B, S, H, N)``
+CUDA tensor never reaches the plain version. With grad enabled and an
+input that requires grad, the wrapper applies :class:`RwkvWkvFn` (the
+forward kernel, then :func:`rwkv6_wkv_bwd` in the backward); otherwise
+it launches the forward alone, as serving does. Any (b, h, s) strides
+are taken as long as N has unit stride, so the model's ``(B, S, H, N)``
 projections go in as transposed views; the output is laid out like r.
-The kernel stages its tiles by TMA, whose boxes need a base and strides
-in multiples of 16 bytes (8 bytes for N = 4 in bf16, which copies by
-cp.async): the wrapper copies any other view into a dense tensor first.
-``rwkv6_wkv.launches`` counts kernel launches, ``rwkv6_wkv.copies`` the
-inputs copied so.
+The forward kernel stages its tiles by TMA, whose boxes need a base and
+strides in multiples of 16 bytes (8 bytes for N = 4 in bf16, which
+copies by cp.async): the forward launcher copies any other view into a
+dense tensor first. The backward kernel reads rows with plain loads and
+takes any such view as it is; its gradients are laid out like their
+inputs. ``rwkv6_wkv.launches`` counts forward launches,
+``rwkv6_wkv.launches_bwd`` backward launches (one call, three kernels),
+``rwkv6_wkv.copies`` the inputs copied so.
 """
 from __future__ import annotations
 
@@ -37,7 +45,6 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.guard import autograd_guard
 
 HEAD_SIZES = (4, 8, 16, 32, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -62,6 +69,56 @@ def rwkv6_wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(ys, dim=2).to(r.dtype)
 
 
+def rwkv6_wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor
+                        ) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward kernel (the tests' and
+    ``chip_smoke.py``'s reference): the gradients of
+    :func:`rwkv6_wkv_plain` for the output cotangent ``dy`` -> (dr, dk,
+    dv, dw, du), dr, dk, dv in r's dtype, dw in w's, du ``(H, N)`` f32.
+
+    One loop forward keeps every state S_{t-1}; one loop backward carries
+    the adjoint G_t of the state after step t (G_{S-1} = 0,
+    G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ), all in f32::
+
+        dr_t = S_{t-1} dy_t + u ⊙ k_t (v_t · dy_t)
+        dk_t = G_t v_t      + u ⊙ r_t (v_t · dy_t)
+        dv_t = G_tᵀ k_t     + (Σ_n r_t u k_t) dy_t
+        dw_t = Σ_m G_t ⊙ S_{t-1}
+        du   = Σ_{b,t} r_t ⊙ k_t (v_t · dy_t)
+    """
+    b, h, s, n = r.shape
+    rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
+    uu = u.float()[None, :, :]
+    states = torch.empty(s, b, h, n, n, dtype=torch.float32,
+                         device=r.device)
+    state = torch.zeros(b, h, n, n, dtype=torch.float32, device=r.device)
+    for t in range(s):
+        states[t] = state
+        state = (wf[:, :, t, :, None] * state
+                 + kf[:, :, t, :, None] * vf[:, :, t, None, :])
+    vdy = (vf * dyf).sum(-1, keepdim=True)                   # (B, H, S, 1)
+    bonus = (rf * uu[:, :, None] * kf).sum(-1, keepdim=True)
+    grads = [torch.empty(b, h, s, n, dtype=torch.float32, device=r.device)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    g = torch.zeros_like(state)
+    for t in reversed(range(s)):
+        prev, dyt = states[t], dyf[:, :, t]
+        dr[:, :, t] = (torch.einsum("bhnm,bhm->bhn", prev, dyt)
+                       + uu * kf[:, :, t] * vdy[:, :, t])
+        dk[:, :, t] = (torch.einsum("bhnm,bhm->bhn", g, vf[:, :, t])
+                       + uu * rf[:, :, t] * vdy[:, :, t])
+        dv[:, :, t] = (torch.einsum("bhnm,bhn->bhm", g, kf[:, :, t])
+                       + bonus[:, :, t] * dyt)
+        dw[:, :, t] = (g * prev).sum(-1)
+        g = (wf[:, :, t, :, None] * g
+             + rf[:, :, t, :, None] * dyt[:, :, None, :])
+    du = (rf * kf * vdy).sum((0, 2))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (first call)."""
@@ -69,6 +126,19 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.rwkv6_wkv_f32, lib.rwkv6_wkv_bf16,
                lib.rwkv6_wkv_bf16_wbf16):
         fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.POINTER(ctypes.c_int64)]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    """The built backward library with its C signatures declared."""
+    lib = build.load("rwkv6_wkv_bwd")
+    for fn in (lib.rwkv6_wkv_bwd_f32, lib.rwkv6_wkv_bwd_bf16,
+               lib.rwkv6_wkv_bwd_bf16_wbf16):
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64]
                        + [ctypes.POINTER(ctypes.c_int64)]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -118,16 +188,35 @@ def addressable(t: torch.Tensor, n: int) -> bool:
         for size, st in zip(t.shape[:3], t.stride()[:3]))
 
 
-def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """The kernel on CUDA tensors -> ``(B, H, S, N)`` in r's dtype, laid out
-    like r. Raises on any other device."""
-    autograd_guard("rwkv6_wkv", r, k, v, w, u)
+def check_bwd_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor,
+                     dy: torch.Tensor) -> None:
+    """The forward's checks, and dy of r's shape, dtype and device with
+    unit stride on N."""
     check_inputs(r, k, v, w, u)
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_wkv: the kernel takes CUDA tensors, got "
-                         f"{r.device} (ops.rwkv6_wkv_op runs the plain "
+    if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != r.device:
+        raise ValueError(f"rwkv6_wkv_bwd: dy is {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device}; want r's "
+                         f"{tuple(r.shape)} {r.dtype} on {r.device}")
+    if dy.stride(3) != 1:
+        raise ValueError("rwkv6_wkv_bwd: the head axis N of dy must have "
+                         "unit stride")
+
+
+def _require_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{t.device} (ops.rwkv6_wkv_op runs the plain "
                          f"version on the CPU)")
+
+
+def rwkv6_wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The forward kernel on CUDA tensors -> ``(B, H, S, N)`` in r's
+    dtype, laid out like r. Raises on any other device. Counts the
+    launch in ``rwkv6_wkv.launches``."""
+    check_inputs(r, k, v, w, u)
+    _require_cuda("rwkv6_wkv", r)
     b, h, s, n = r.shape
     u = u.contiguous()
     y = torch.empty_like(r)
@@ -157,5 +246,84 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y
 
 
+def bwd_scratch_floats(b: int, h: int, s: int, n: int) -> int:
+    """f32 scratch of the backward kernel (``csrc/rwkv6_wkv_bwd.cu``): the
+    state before every 8 steps, the column blocks' partial dr, dk and dw
+    (2 column blocks at N = 64, else 1), and du's per-(b, h) partials."""
+    split = 2 if n == 64 else 1
+    return (b * h * -(-s // 8) * n * n + 3 * split * b * h * s * n
+            + b * h * n)
+
+
+def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor
+                  ) -> tuple[torch.Tensor, ...]:
+    """The backward kernel on CUDA tensors -> (dr, dk, dv, dw, du): dr,
+    dk, dv in r's dtype and dw in w's, each laid out like its input; du
+    ``(H, N)`` f32. Raises on any other device. Counts the call in
+    ``rwkv6_wkv.launches_bwd``."""
+    check_bwd_inputs(r, k, v, w, u, dy)
+    _require_cuda("rwkv6_wkv_bwd", r)
+    b, h, s, n = r.shape
+    u = u.contiguous()
+    dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
+    du = torch.empty((h, n), dtype=torch.float32, device=r.device)
+    n_scratch = bwd_scratch_floats(b, h, s, n)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=r.device)
+    strides = (ctypes.c_int64 * 27)(*(
+        st for t in (r, k, v, w, dy, dr, dk, dv, dw)
+        for st in t.stride()[:3]))
+    lib = _lib_bwd()
+    if r.dtype == torch.float32:
+        fn = lib.rwkv6_wkv_bwd_f32
+    elif w.dtype == torch.float32:
+        fn = lib.rwkv6_wkv_bwd_bf16
+    else:
+        fn = lib.rwkv6_wkv_bwd_bf16_wbf16
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    with torch.cuda.device(r.device):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), dy.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+                 scratch.data_ptr(), n_scratch, strides, b, h, s, n, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_wkv_bwd kernels launch failed: "
+                           f"cudaError {err}")
+    rwkv6_wkv.launches_bwd += 1
+    return dr, dk, dv, dw, du
+
+
+class RwkvWkvFn(torch.autograd.Function):
+    """The WKV recurrence with a kernel on both sides: the forward kernel
+    (saving r, k, v, w and u), the backward kernel for all five
+    gradients. CUDA tensors only (the launchers raise otherwise)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return rwkv6_wkv_fwd(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, dy):
+        r, k, v, w, u = ctx.saved_tensors
+        if dy.stride(3) != 1:
+            dy = dy.contiguous()
+        return rwkv6_wkv_bwd(r, k, v, w, u, dy)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors -> ``(B, H, S, N)`` in r's dtype, laid
+    out like r. With grad enabled and an input that requires grad,
+    through :class:`RwkvWkvFn` (the output carries the backward kernel's
+    autograd node); otherwise one forward launch. Raises on any other
+    device (the launchers check the inputs)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        return RwkvWkvFn.apply(r, k, v, w, u)
+    return rwkv6_wkv_fwd(r, k, v, w, u)
+
+
 rwkv6_wkv.launches = 0
+rwkv6_wkv.launches_bwd = 0
 rwkv6_wkv.copies = 0

@@ -1,4 +1,4 @@
-"""Mamba selective scan (prefill) on Hopper.
+"""Mamba selective scan (prefill and training) on Hopper.
 
 Per (batch, channel d), with an N-vector f32 state h that starts at
 zero::
@@ -13,21 +13,29 @@ model's path, see ``csrc/selective_scan.cu``). In every uniform case bx's
 dtype is the Pallas kernel's ``abar.dtype``; in the mixed case it is the
 JAX model scan's ``out_dtype`` (``repro/models/ssm.py:55``).
 
-The kernel is ``csrc/selective_scan.cu`` (CUDA C++ for sm_90a; its header
-has the bound at the jamba prefill shape and the design); it replaces the
-Pallas TPU kernel ``selective_scan`` of
-``repro/kernels/selective_scan.py:42``.
+The forward kernel is ``csrc/selective_scan.cu`` (CUDA C++ for sm_90a;
+its header has the bound at the jamba prefill shape and the design); it
+replaces the Pallas TPU kernel ``selective_scan`` of
+``repro/kernels/selective_scan.py:42``. The backward kernel is
+``csrc/selective_scan_bwd.cu`` (the reverse recurrence of the state's
+adjoint, with the state rebuilt from checkpoints; its header has the
+bound at jamba's training shape and the scratch it needs); the JAX
+package has no backward kernel, it differentiates jnp.
 
-:func:`selective_scan` checks its inputs and launches the kernel; it
+:func:`selective_scan` checks its inputs and launches the kernels; it
 takes CUDA tensors only. The choice between kernel and plain version is
 made in one place, :func:`repro_torch.kernels.ops.selective_scan_op`: CPU
 tensors go to :func:`selective_scan_plain` — only because they lie on the
-CPU — and a CUDA tensor never reaches the plain version. The kernel has
-no backward yet: the wrapper raises when grad is enabled and an input
-requires grad (``guard.autograd_guard``). abar and bx must
-be contiguous; c may be a strided view (the model's split of ``x_proj``'s
-output) as long as N has unit stride. ``selective_scan.launches`` counts
-kernel launches.
+CPU — and a CUDA tensor never reaches the plain version. With grad
+enabled and an input that requires grad, the wrapper applies
+:class:`SelectiveScanFn` (the forward kernel, then
+:func:`selective_scan_bwd` in the backward); otherwise it launches the
+forward alone, as serving does. abar and bx must be contiguous; c may be
+a strided view (the model's split of ``x_proj``'s output) as long as N
+has unit stride, and its gradient comes back ``(B, S, N)`` contiguous.
+``selective_scan.launches`` counts forward launches,
+``selective_scan.launches_bwd`` backward launches (one call, three
+kernels).
 """
 from __future__ import annotations
 
@@ -37,7 +45,6 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.guard import autograd_guard
 
 STATE_SIZES = (4, 8, 16)
 # (abar dtype, bx dtype); c takes bx's dtype, and so does y.
@@ -63,6 +70,43 @@ def selective_scan_plain(abar: torch.Tensor, bx: torch.Tensor,
     return y
 
 
+def selective_scan_bwd_plain(abar: torch.Tensor, bx: torch.Tensor,
+                             c: torch.Tensor, dy: torch.Tensor
+                             ) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward kernel (the tests' and
+    ``chip_smoke.py``'s reference): the gradients of
+    :func:`selective_scan_plain` for the output cotangent ``dy`` (B, S,
+    D) -> (d abar, d bx, dc) in abar's, bx's and c's dtypes, dc ``(B, S,
+    N)``.
+
+    One loop forward keeps every state h_t; one loop backward carries the
+    adjoint G_t = ∂L/∂h_t (the output's own step included), all in f32::
+
+        G_t      = c_t dy_t + abar_{t+1} ⊙ G_{t+1}     (G_S = 0)
+        d abar_t = G_t ⊙ h_{t-1},   d bx_t = G_t
+        dc_t     = Σ_d h_t[d] dy_t[d]
+    """
+    b, s, d, n = abar.shape
+    states = torch.empty(s, b, d, n, dtype=torch.float32, device=abar.device)
+    h = torch.zeros(b, d, n, dtype=torch.float32, device=abar.device)
+    for t in range(s):
+        h = abar[:, t].float() * h + bx[:, t].float()
+        states[t] = h
+    dabar = torch.empty_like(abar)
+    dbx = torch.empty_like(bx)
+    dc = torch.empty((b, s, n), dtype=c.dtype, device=abar.device)
+    g = torch.zeros_like(h)
+    a_next = torch.zeros_like(h)
+    for t in reversed(range(s)):
+        dyt = dy[:, t].float()
+        g = a_next * g + c[:, t].float()[:, None, :] * dyt[:, :, None]
+        dbx[:, t] = g
+        dabar[:, t] = g * states[t - 1] if t else 0.0
+        dc[:, t] = torch.einsum("bdn,bd->bn", states[t], dyt)
+        a_next = abar[:, t].float()
+    return dabar, dbx, dc
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (first call)."""
@@ -70,6 +114,18 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.selective_scan_f32, lib.selective_scan_bf16,
                lib.selective_scan_mixed):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    """The built backward library with its C signatures declared."""
+    lib = build.load("selective_scan_bwd")
+    for fn in (lib.selective_scan_bwd_f32, lib.selective_scan_bwd_bf16,
+               lib.selective_scan_bwd_mixed):
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -105,29 +161,50 @@ def check_inputs(abar: torch.Tensor, bx: torch.Tensor,
                          "unit stride")
 
 
-def selective_scan(abar: torch.Tensor, bx: torch.Tensor,
-                   c: torch.Tensor) -> torch.Tensor:
-    """The kernel on CUDA tensors -> y ``(B, S, D)`` in bx's dtype,
-    contiguous. Raises on any other device."""
-    autograd_guard("selective_scan", abar, bx, c)
+def check_bwd_inputs(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                     dy: torch.Tensor) -> None:
+    """The forward's checks, and dy ``(B, S, D)`` in bx's dtype on its
+    device with unit stride on D."""
     check_inputs(abar, bx, c)
+    b, s, d, _ = abar.shape
+    if tuple(dy.shape) != (b, s, d) or dy.dtype != bx.dtype \
+            or dy.device != bx.device:
+        raise ValueError(f"selective_scan_bwd: dy is {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device}; want {(b, s, d)} "
+                         f"{bx.dtype} on {bx.device}")
+    if dy.stride(2) != 1:
+        raise ValueError("selective_scan_bwd: the channel axis D of dy "
+                         "must have unit stride")
+
+
+def _require_cuda(name: str, abar: torch.Tensor, bx: torch.Tensor) -> None:
     if abar.device.type != "cuda":
-        raise ValueError(f"selective_scan: the kernel takes CUDA tensors, "
-                         f"got {abar.device} (ops.selective_scan_op runs "
-                         f"the plain version on the CPU)")
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{abar.device} (ops.selective_scan_op runs the "
+                         f"plain version on the CPU)")
     if abar.data_ptr() % 16 or bx.data_ptr() % 16:
-        raise ValueError("selective_scan: abar and bx must be 16-byte "
-                         "aligned (the kernel loads 16 and 8 bytes at a "
-                         "time)")
+        raise ValueError(f"{name}: abar and bx must be 16-byte aligned (the "
+                         f"kernel loads 16 and 8 bytes at a time)")
+
+
+def _pick(lib, prefix: str, abar: torch.Tensor, bx: torch.Tensor):
+    if bx.dtype == torch.float32:
+        return getattr(lib, prefix + "_f32")
+    if abar.dtype == torch.bfloat16:
+        return getattr(lib, prefix + "_bf16")
+    return getattr(lib, prefix + "_mixed")
+
+
+def selective_scan_fwd(abar: torch.Tensor, bx: torch.Tensor,
+                       c: torch.Tensor) -> torch.Tensor:
+    """The forward kernel on CUDA tensors -> y ``(B, S, D)`` in bx's
+    dtype, contiguous. Raises on any other device. Counts the launch in
+    ``selective_scan.launches``."""
+    check_inputs(abar, bx, c)
+    _require_cuda("selective_scan", abar, bx)
     b, s, d, n = abar.shape
     y = torch.empty((b, s, d), dtype=bx.dtype, device=abar.device)
-    lib = _lib()
-    if bx.dtype == torch.float32:
-        fn = lib.selective_scan_f32
-    elif abar.dtype == torch.bfloat16:
-        fn = lib.selective_scan_bf16
-    else:
-        fn = lib.selective_scan_mixed
+    fn = _pick(_lib(), "selective_scan", abar, bx)
     stream = torch.cuda.current_stream(abar.device).cuda_stream
     with torch.cuda.device(abar.device):
         err = fn(abar.data_ptr(), bx.data_ptr(), c.data_ptr(), y.data_ptr(),
@@ -139,4 +216,71 @@ def selective_scan(abar: torch.Tensor, bx: torch.Tensor,
     return y
 
 
+def bwd_scratch_floats(b: int, s: int, d: int, n: int) -> int:
+    """f32 scratch of the backward kernel (``csrc/selective_scan_bwd.cu``):
+    the state before every 8 steps, and dc's partial per block of
+    128 / (N / 4) channels."""
+    blocks = -(-d // (128 // (n // 4)))
+    return b * -(-s // 8) * d * n + b * blocks * s * n
+
+
+def selective_scan_bwd(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                       dy: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The backward kernel on CUDA tensors -> (d abar, d bx, dc): d abar
+    and d bx contiguous in abar's and bx's dtypes, dc ``(B, S, N)``
+    contiguous in c's. Raises on any other device. Counts the call in
+    ``selective_scan.launches_bwd``."""
+    check_bwd_inputs(abar, bx, c, dy)
+    _require_cuda("selective_scan_bwd", abar, bx)
+    b, s, d, n = abar.shape
+    dabar, dbx = torch.empty_like(abar), torch.empty_like(bx)
+    dc = torch.empty((b, s, n), dtype=c.dtype, device=abar.device)
+    n_scratch = bwd_scratch_floats(b, s, d, n)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=abar.device)
+    fn = _pick(_lib_bwd(), "selective_scan_bwd", abar, bx)
+    stream = torch.cuda.current_stream(abar.device).cuda_stream
+    with torch.cuda.device(abar.device):
+        err = fn(abar.data_ptr(), bx.data_ptr(), c.data_ptr(), dy.data_ptr(),
+                 dabar.data_ptr(), dbx.data_ptr(), dc.data_ptr(),
+                 scratch.data_ptr(), n_scratch, c.stride(0), c.stride(1),
+                 dy.stride(0), dy.stride(1), b, s, d, n, stream)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd kernels launch failed: "
+                           f"cudaError {err}")
+    selective_scan.launches_bwd += 1
+    return dabar, dbx, dc
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The scan with a kernel on both sides: the forward kernel (saving
+    abar, bx and c), the backward kernel for all three gradients. CUDA
+    tensors only (the launchers raise otherwise)."""
+
+    @staticmethod
+    def forward(ctx, abar, bx, c):
+        ctx.save_for_backward(abar, bx, c)
+        return selective_scan_fwd(abar, bx, c)
+
+    @staticmethod
+    def backward(ctx, dy):
+        abar, bx, c = ctx.saved_tensors
+        if dy.stride(2) != 1:
+            dy = dy.contiguous()
+        return selective_scan_bwd(abar, bx, c, dy)
+
+
+def selective_scan(abar: torch.Tensor, bx: torch.Tensor,
+                   c: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors -> y ``(B, S, D)`` in bx's dtype,
+    contiguous. With grad enabled and an input that requires grad,
+    through :class:`SelectiveScanFn` (the output carries the backward
+    kernel's autograd node); otherwise one forward launch. Raises on any
+    other device (the launchers check the inputs)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (abar, bx, c)):
+        return SelectiveScanFn.apply(abar, bx, c)
+    return selective_scan_fwd(abar, bx, c)
+
+
 selective_scan.launches = 0
+selective_scan.launches_bwd = 0

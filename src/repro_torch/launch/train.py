@@ -9,13 +9,21 @@ per-satellite token corpora:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
       --full --rounds 3 --sats 4 --orbits 2 --seq 1024 --batch-per-sat 2 \
       --local-steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
+      --full --rounds 3 --sats 4 --orbits 2 --seq 1024 --batch-per-sat 2 \
+      --local-steps 2
 
 Same flags as the JAX package's CLI, plus ``--device``. A round is
 :func:`single_device_round`, the counterpart of the reference's
-``_single_device_round``: each satellite's local SGD (attention forward
-and backward through the ``flash_attention`` kernels on the card), then
-the FedHAP fold of the S replicas with the closed-form Eq. 14-16 weights
-in one ``fedagg_leaves`` launch. The reference shards satellites over a
+``_single_device_round``: each satellite's local SGD, then the FedHAP
+fold of the S replicas with the closed-form Eq. 14-16 weights in one
+``fedagg_leaves`` launch. On the card each mixer runs forward and
+backward through its kernels: attention through ``flash_attention`` and
+``flash_attention_bwd``, RWKV-6's time mix through ``rwkv6_wkv`` and
+``rwkv6_wkv_bwd``, Mamba's scan through ``selective_scan`` and
+``selective_scan_bwd``. Full-width jamba-v0.1-52b does not fit one card
+(S >= 2 replicas of 52 B params); its mixer trains at reduced size here,
+and full width waits on one replica per card (ROADMAP Queue A item 12). The reference shards satellites over a
 device mesh when it has one device per satellite (``build_fed_train_step``);
 the mesh rounds wait on ROADMAP Queue A item 12, so the port runs the
 single-device round on any number of devices, and ``--round-kind``

@@ -18,7 +18,10 @@ at -60 inside a chunk and departs from the recurrence once a chunk's
 cumulative decay passes it (ROADMAP Queue C); at decays like the
 init's the two agree. The ``(B, S, H, N)`` projections go into the
 kernel as transposed views, no copies, and w stays f32 as ``_decay``
-makes it.
+makes it. Under grad (training) the wrapper applies ``RwkvWkvFn``: the
+same forward kernel, and the backward kernel ``csrc/rwkv6_wkv_bwd.cu``
+for dr, dk, dv, dw and du; with remat (``cfg.remat``) each layer's
+forward kernel runs once more in the backward.
 
 Decode (:func:`rwkv_decode`) carries (S, x_prev) — O(1) per token — and
 updates the cache in place (``copy_``).

@@ -11,7 +11,14 @@ takes any S (no ``S % chunk`` precondition).
 ``abar = exp(dt·A)`` is formed in place (``exp_`` on the f32 product):
 at the jamba prefill shape (4 x 4096 tokens, 8192 channels, 16 states)
 the product is 8.6 GB, and a second f32 temporary of that size would
-leave the one-period model too little room on one card.
+leave the one-period model too little room on one card. Under autograd
+that stays valid: the product's own backward saves dt and A, not the
+product, and ``exp_``'s backward saves its output, which is the abar
+that ``SelectiveScanFn`` saves too; nothing writes abar afterwards.
+Under grad (training) the scan's wrapper applies ``SelectiveScanFn``:
+the same forward kernel, and the backward kernel
+``csrc/selective_scan_bwd.cu`` for d abar, d bx and dc (dc in c's shape;
+c is a view of ``x_proj``'s output).
 
 Decode (:func:`mamba_decode`) is the O(1) recurrence with plain
 einsums, as the JAX package's (``repro/models/ssm.py:129-151``),

@@ -1,0 +1,49 @@
+"""Shared by the WKV and scan tests: the kernel launchers of
+``repro_torch.kernels.rwkv6_wkv`` and ``repro_torch.kernels.selective_scan``
+replaced by their plain versions, so that ``RwkvWkvFn`` and
+``SelectiveScanFn`` can be checked on the CPU (the kernels run only on
+the card)."""
+from repro_torch.kernels import rwkv6_wkv as wkv_mod
+from repro_torch.kernels import selective_scan as scan_mod
+
+
+def wkv_plain_launchers(monkeypatch) -> list:
+    """Replace ``rwkv6_wkv_fwd`` and ``rwkv6_wkv_bwd`` by plain versions
+    with their signatures (each checks its inputs as the launcher does);
+    returns the list of calls, recorded as "fwd" and "bwd"."""
+    calls = []
+
+    def fwd(r, k, v, w, u):
+        calls.append("fwd")
+        wkv_mod.check_inputs(r, k, v, w, u)
+        return wkv_mod.rwkv6_wkv_plain(r, k, v, w, u)
+
+    def bwd(r, k, v, w, u, dy):
+        calls.append("bwd")
+        wkv_mod.check_bwd_inputs(r, k, v, w, u, dy)
+        return wkv_mod.rwkv6_wkv_bwd_plain(r, k, v, w, u, dy)
+
+    monkeypatch.setattr(wkv_mod, "rwkv6_wkv_fwd", fwd)
+    monkeypatch.setattr(wkv_mod, "rwkv6_wkv_bwd", bwd)
+    return calls
+
+
+def scan_plain_launchers(monkeypatch) -> list:
+    """Replace ``selective_scan_fwd`` and ``selective_scan_bwd`` by plain
+    versions with their signatures; returns the list of calls, recorded
+    as "fwd" and "bwd"."""
+    calls = []
+
+    def fwd(abar, bx, c):
+        calls.append("fwd")
+        scan_mod.check_inputs(abar, bx, c)
+        return scan_mod.selective_scan_plain(abar, bx, c)
+
+    def bwd(abar, bx, c, dy):
+        calls.append("bwd")
+        scan_mod.check_bwd_inputs(abar, bx, c, dy)
+        return scan_mod.selective_scan_bwd_plain(abar, bx, c, dy)
+
+    monkeypatch.setattr(scan_mod, "selective_scan_fwd", fwd)
+    monkeypatch.setattr(scan_mod, "selective_scan_bwd", bwd)
+    return calls

@@ -55,6 +55,7 @@ MODULES = [
     "repro_torch.debug.sanitize",
     "repro_torch.data.eo",
     "repro_torch.launch.sim_time",
+    "repro_torch.launch.recurrent_bwd_time",
 ]
 
 

@@ -1,15 +1,16 @@
-"""The kernel wrappers refuse inputs whose gradient they would drop.
+"""The kernel wrappers never drop a gradient.
 
-``fedagg``, ``rwkv6_wkv`` and ``selective_scan`` are forward only
-(ROADMAP Queue B), so each of those wrappers raises ``RuntimeError``
-when grad is enabled and an input requires grad, before it looks at the
-device; without grad it goes on to its device check. ``flash_attention``
-has a backward kernel: under grad its wrapper builds a
-``FlashAttentionFn`` autograd node instead (checked here with its two
-launchers replaced by the plain versions, since the kernels run only on
-the card). The ``*_op`` dispatchers send CPU tensors to the plain
-versions, which stay differentiable. The ``cuda``-marked test shows the
-raise, and flash's gradient against the plain one, on the card.
+``fedagg`` is forward only, so its wrappers raise ``RuntimeError`` when
+grad is enabled and an input requires grad, before they look at the
+device; without grad they go on to their device check.
+``flash_attention``, ``rwkv6_wkv`` and ``selective_scan`` have backward
+kernels: under grad their wrappers build an autograd node instead
+(``FlashAttentionFn``, ``RwkvWkvFn``, ``SelectiveScanFn``; checked here
+with their launchers replaced by the plain versions, since the kernels
+run only on the card). The ``*_op`` dispatchers send CPU tensors to the
+plain versions, which stay differentiable. The ``cuda``-marked test
+shows the raise, and each backward kernel's gradient against the plain
+one, on the card.
 """
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from repro_torch.kernels import (fedagg as fedagg_mod,
 from repro_torch.kernels.guard import autograd_guard
 
 from _torch_flash import plain_launchers
+from _torch_recurrences import scan_plain_launchers, wkv_plain_launchers
 
 torch.set_num_threads(2)
 
@@ -62,8 +64,19 @@ OPS = {
     "selective_scan": ops.selective_scan_op,
 }
 NAMES = {"fedagg_leaves": "fedagg"}
-# Wrappers with a backward kernel: under grad they build an autograd node.
-DIFFERENTIABLE = ("flash_attention",)
+# Wrappers with a backward kernel: under grad they build an autograd node
+# (named here), whose gradient must equal the plain version's autograd.
+DIFFERENTIABLE = {
+    "flash_attention": ("FlashAttentionFn", fa_mod.flash_attention_plain),
+    "rwkv6_wkv": ("RwkvWkvFn", wkv_mod.rwkv6_wkv_plain),
+    "selective_scan": ("SelectiveScanFn", scan_mod.selective_scan_plain),
+}
+# The calls each differentiable wrapper's patched launchers record for one
+# forward and one backward.
+PLAIN_CALLS = {"flash_attention": (plain_launchers,
+                                   [("fwd", True), ("bwd", True, None)]),
+               "rwkv6_wkv": (wkv_plain_launchers, ["fwd", "bwd"]),
+               "selective_scan": (scan_plain_launchers, ["fwd", "bwd"])}
 
 
 def _requiring_grad(args: list, which: int) -> list:
@@ -71,19 +84,20 @@ def _requiring_grad(args: list, which: int) -> list:
             for i, a in enumerate(args)]
 
 
-def _check_flash_gradient(args: list, which: int, tol: dict) -> None:
+def _check_gradient(kernel: str, args: list, which: int, tol: dict) -> None:
     """The wrapper under grad with input ``which`` requiring grad: an
     autograd node whose gradient equals the plain version's."""
+    node, plain_fn = DIFFERENTIABLE[kernel]
     inputs = _requiring_grad(args, which)
-    out = fa_mod.flash_attention(*inputs)
-    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    out = WRAPPERS[kernel](*inputs)
+    assert node in type(out.grad_fn).__name__
     weight = torch.linspace(-1, 1, out.numel(), device=out.device).view(
         out.shape)
     (got,) = torch.autograd.grad((out * weight).sum(), [inputs[which]])
     plain = _requiring_grad(args, which)
-    (want,) = torch.autograd.grad(
-        (fa_mod.flash_attention_plain(*plain) * weight).sum(),
-        [plain[which]])
+    (want,) = torch.autograd.grad((plain_fn(*plain) * weight).sum(),
+                                  [plain[which]])
+    assert got.shape == inputs[which].shape
     assert torch.isfinite(got).all() and got.abs().sum() > 0
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
@@ -92,10 +106,11 @@ def _check_flash_gradient(args: list, which: int, tol: dict) -> None:
 def test_wrapper_raises_on_input_that_requires_grad(kernel, monkeypatch):
     args = _inputs(kernel)
     if kernel in DIFFERENTIABLE:
-        calls = plain_launchers(monkeypatch)
+        patch, per_call = PLAIN_CALLS[kernel]
+        calls = patch(monkeypatch)
         for which in range(len(args)):
-            _check_flash_gradient(args, which, dict(atol=1e-6, rtol=1e-6))
-        assert calls == [("fwd", True), ("bwd", True, None)] * len(args)
+            _check_gradient(kernel, args, which, dict(atol=1e-6, rtol=1e-6))
+        assert calls == per_call * len(args)
         return
     for which in range(len(args)):
         launches = getattr(WRAPPERS[kernel], "launches", None)
@@ -135,7 +150,7 @@ def test_guard_reads_grad_mode_and_requires_grad():
         autograd_guard("k", x, y)             # grad disabled
     with torch.inference_mode():
         autograd_guard("k", y)
-    with pytest.raises(RuntimeError, match="^k: .*ROADMAP Queue B"):
+    with pytest.raises(RuntimeError, match="^k: .*has no backward"):
         autograd_guard("k", y, x)
 
 
@@ -164,13 +179,12 @@ def test_wrapper_raises_on_card(kernel):
     args = _inputs(kernel, "cuda")
     if kernel in DIFFERENTIABLE:
         torch.backends.cuda.matmul.allow_tf32 = False
-        n = (fa_mod.flash_attention.launches,
-             fa_mod.flash_attention.launches_bwd)
+        fn = WRAPPERS[kernel]
+        n = (fn.launches, fn.launches_bwd)
         for which in range(len(args)):
-            _check_flash_gradient(args, which, dict(atol=3e-5, rtol=1e-4))
-        assert (fa_mod.flash_attention.launches,
-                fa_mod.flash_attention.launches_bwd) == (
-            n[0] + len(args), n[1] + len(args))
+            _check_gradient(kernel, args, which, dict(atol=3e-5, rtol=1e-4))
+        assert (fn.launches, fn.launches_bwd) == (n[0] + len(args),
+                                                  n[1] + len(args))
         return
     launches = WRAPPERS[kernel].launches if hasattr(
         WRAPPERS[kernel], "launches") else None
