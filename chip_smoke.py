@@ -181,16 +181,23 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     sanitized vs plain logged; then three planted faults in a sanitized
     fedhap run (a ``float()`` of a device scalar, a float64 upload, a
     ``.cpu()`` outside the explicit-transfer scope) must each raise;
-27. wkv backward — ``rwkv6_wkv_bwd`` (three kernels: checkpoints, the
-    reverse sweep, a fixed-order finish) against ``rwkv6_wkv_bwd_plain``
-    on the card, each gradient within ``BWD_REL`` of its largest value: a
-    sweep in f32, bf16 with f32 w and bf16 over every head size on the
-    model's transposed views, w = 0 and w = 1 over 300 steps; the
-    training shape (B=2, H=40, S=1024, N=64) in the model's dtypes, two
-    calls bit-equal, two planted faults (the adjoint's decay skipped, dw
-    from the state after the step) that must break the tolerance; timed
-    there and at the serve shape (B=4, S=4096) against the operations
-    bound; ptxas' registers and spills;
+27. wkv backward — the forward kernel with the backward's checkpoint
+    stores (``rwkv6_wkv_fwd_ckpt``: y bit-equal to the serving forward's,
+    the state before every 16 steps and c_t within ``BWD_REL["float32"]``
+    of ``rwkv6_wkv_ckpt_plain``'s) and ``rwkv6_wkv_bwd`` on those
+    checkpoints (two kernels: the reverse sweep in clusters of column
+    blocks, du's sum over b) against ``rwkv6_wkv_bwd_plain`` on the card,
+    each gradient within ``BWD_REL`` of its largest value, and bit-equal
+    to the backward that makes its own checkpoints: a sweep in f32, bf16
+    with f32 w and bf16 over every head size on the model's transposed
+    views, w = 0 and w = 1 over 300 steps; the training shape (B=2, H=40,
+    S=1024, N=64) in the model's dtypes, two calls bit-equal, three
+    planted faults (the adjoint's decay skipped, dw from the state after
+    the step, the checkpoints taken one chunk off) that must break the
+    tolerance; the backward on the forward's checkpoints timed there and
+    at the serve shape (B=4, S=4096) against the operations bound, the
+    forward with the stores against the serving forward at both; ptxas'
+    registers and spills;
 28. scan backward — ``selective_scan_bwd`` likewise: the scan sweep in
     its three dtype cases, abar = 0 and 1 over 300 steps, jamba's
     training shape (B=2, S=1024, D=8192, N=16; abar f32, bx/c/dy bf16)
@@ -209,9 +216,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 30. rwkv train — the slice of phase 25 for rwkv6-3b at full width (bf16,
     remat, ``TRAIN_SLICE``, the CLI's init): per round one ``fedagg``
     launch and per satellite step 64 ``rwkv6_wkv`` forward (32 + 32
-    recomputed) and 32 backward launches, finite losses, rows bit-equal
-    after each fold, s/round, trained tokens/s, peak memory, the card's
-    draw and a profile of one round by category.
+    recomputed, all storing checkpoints) and 32 backward launches,
+    finite losses, rows bit-equal after each fold, s/round, trained
+    tokens/s, peak memory, the card's draw and a profile of one round by
+    category, with ``wkv_bwd`` and ``wkv_fwd`` by kernel.
 
 Prints a ``{"kernels": [...]}`` JSON line (``fedagg``'s entry with the
 phase 19, 21 and 26 launch counts by strategy, ``launches_routed``,
@@ -367,16 +375,21 @@ def ptxas_report(log_text: str) -> dict:
                     short.group(2), "")
                 out[f"{short.group(1)}<{dtype}D={short.group(3)}>"] = (
                     int(m.group(1)), *spills)
-            # The recurrences' backward kernels: <types..., N=n>, the types
-            # in template order ("S1_" repeats the bf16 before it).
-            short = re.search(r"\d+((?:wkv|scan)_bwd_[a-z]+)I(.*?)"
-                              r"(?:Li(\d+)E)?EEv", name)
+            # The recurrences' kernels: <types..., N=n> (the WKV forward's
+            # ", ckpt" where it stores the backward's checkpoints), the
+            # types in template order ("S1_" repeats the bf16 before it);
+            # wkv_bwd_du has no template.
+            short = re.search(r"\d+((?:wkv|scan)_(?:bwd_[a-z]+|fwd))I(.*?)"
+                              r"(?:Li(\d+)E)?(?:Lb([01])E)?EEv", name)
             if short:
                 types = [{"f": "f32"}.get(x, "bf16") for x in re.findall(
                     r"f|13__nv_bfloat16|S\d*_", short.group(2))]
                 n = f", N={short.group(3)}" if short.group(3) else ""
-                out[f"{short.group(1)}<{', '.join(types)}{n}>"] = (
+                ck = ", ckpt" if short.group(4) == "1" else ""
+                out[f"{short.group(1)}<{', '.join(types)}{n}{ck}>"] = (
                     int(m.group(1)), *spills)
+            elif re.search(r"\d+wkv_bwd_duE", name):
+                out["wkv_bwd_du"] = (int(m.group(1)), *spills)
             name = None
     return out
 
@@ -783,9 +796,11 @@ def profile_device(torch, fn):
     return by_name, union, spans[-1][1] - spans[0][0], wall_us
 
 
-def log_profile(phase: str, what: str, prof, needle: str, top: int = 12):
+def log_profile(phase: str, what: str, prof, needle: str, top: int = 12,
+                also: tuple = ()):
     """Print a profile_device result: busy share, the share of kernels
-    whose name holds ``needle``, and the ``top`` kernels by time."""
+    whose name holds ``needle`` and each of them by name (those holding a
+    name in ``also`` too), and the ``top`` kernels by time."""
     by_name, union, window, wall_us = prof
     busy_us = sum(r[0] for r in by_name.values())
     if not busy_us:
@@ -800,6 +815,10 @@ def log_profile(phase: str, what: str, prof, needle: str, top: int = 12):
     mine = sum(r[0] for n, r in by_name.items() if needle in n)
     log(phase, f"{needle}: {mine:.1f} us ({100 * mine / busy_us:.3f}% of "
         f"device time)")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        if any(x in name for x in (needle, *also)):
+            log(phase, f"  by kernel: {us / 1e3:9.3f} ms x{n:<5d} "
+                f"({us / max(n, 1):.1f} us each) {name[:110]}")
     for name, (us, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:top]:
         log(phase, f"{100 * us / busy_us:6.2f}%  {us / 1e3:9.3f} ms  "
@@ -1364,15 +1383,17 @@ def phase_decode_vs_prefill(torch, model, params, faults: dict,
 def launch_counters(kernels: dict) -> dict:
     """Every count of the wrappers in ``kernels``: ``name`` -> (wrapper,
     "launches"), ``name.tc`` / ``name.simt`` -> the per-variant launch
-    counts, ``name.bwd`` -> the backward launches (flash) and
+    counts, ``name.ckpt`` -> the forward launches that stored the
+    backward's checkpoints (WKV), ``name.bwd`` -> the backward launches and
     ``name.bwd_tc`` / ``name.bwd_simt`` those of each variant, and
     ``name.copies`` -> the inputs a wrapper copied before its launch,
     where a wrapper has them."""
     out = {}
     for name, fn in kernels.items():
         out[name] = (fn, "launches")
-        for attr in ("launches_tc", "launches_simt", "launches_bwd",
-                     "launches_bwd_tc", "launches_bwd_simt", "copies"):
+        for attr in ("launches_tc", "launches_simt", "launches_ckpt",
+                     "launches_bwd", "launches_bwd_tc", "launches_bwd_simt",
+                     "copies"):
             if hasattr(fn, attr):
                 out[f"{name}.{attr.removeprefix('launches_')}"] = (fn, attr)
     return out
@@ -3156,10 +3177,11 @@ def no_delta(real):
 
 
 def wkv_decay_skipped(real):
-    """Planted WKV backward fault: the kernel given w = 1, so the reverse
-    sweep neither decays the adjoint nor rebuilds the decayed state."""
-    def bwd(r, k, v, w, u, dy):
-        return real(r, k, v, w.new_ones(w.shape), u, dy)
+    """Planted WKV backward fault: the kernel given w = 1 (and the
+    forward's checkpoints), so the reverse sweep neither decays the
+    adjoint nor rebuilds the decayed state."""
+    def bwd(r, k, v, w, u, dy, *ckpts):
+        return real(r, k, v, w.new_ones(w.shape), u, dy, *ckpts)
     return bwd
 
 
@@ -3272,7 +3294,8 @@ TRAIN_LAUNCHES = {
                              "flash_attention.tc": 2 * n,
                              "flash_attention.bwd": n,
                              "flash_attention.bwd_tc": n},
-    "rwkv6-3b": lambda n: {"rwkv6_wkv": 2 * n, "rwkv6_wkv.bwd": n},
+    "rwkv6-3b": lambda n: {"rwkv6_wkv": 2 * n, "rwkv6_wkv.ckpt": 2 * n,
+                           "rwkv6_wkv.bwd": n},
 }
 
 
@@ -3358,7 +3381,8 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
 
     # Where one round's device time goes (after the counts were read).
     prof = profile_device(torch, lambda: step(params, batch, sizes, visible))
-    log_profile(phase, "one round", prof, needle, top=10)
+    log_profile(phase, "one round", prof, needle, top=10,
+                also=("wkv_fwd",) if needle == "wkv_bwd" else ())
     by_cat: dict[str, float] = {}
     for name, (us, _) in prof[0].items():
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + us
@@ -3459,10 +3483,12 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
 # ulps allowed. The planted faults (below) must break these.
 BWD_REL = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
 # Phase 27's sweep (B, H, S, N): every head size, ragged lengths around
-# the kernel's 8-step checkpoints, and 300 steps at the model's 40 heads
-# of 64; the training slice's shape and the serve prefill's.
+# the kernel's 16-step checkpoints (1, 15, 17 at N = 64), and 300 steps
+# at the model's 40 heads of 64; the training slice's shape and the
+# serve prefill's.
 WKV_BWD_SWEEP = [(1, 1, 16, 4), (2, 3, 37, 8), (1, 4, 32, 16),
-                 (2, 2, 48, 32), (1, 2, 40, 64), (2, 40, 300, 64)]
+                 (2, 2, 48, 32), (1, 2, 40, 64), (2, 40, 300, 64),
+                 (1, 2, 1, 64), (2, 2, 15, 64), (2, 2, 17, 64)]
 WKV_TRAIN = dict(b=2, h=40, s=1024, n=64)
 # Phase 28's sweep is SCAN_SWEEP; jamba's training shape.
 SCAN_TRAIN = dict(b=2, s=1024, d=8192, n=16)
@@ -3564,9 +3590,11 @@ def _ptxas_of(ptxas: dict, prefix: str) -> dict:
 
 
 def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
-    """Phase 27: rwkv6_wkv_bwd against rwkv6_wkv_bwd_plain on the card;
-    returns the kernels-line entry (launches filled in from phase 30)."""
+    """Phase 27: the checkpointing forward (``rwkv6_wkv_fwd_ckpt``) and
+    ``rwkv6_wkv_bwd`` against their plain versions on the card; returns
+    the kernels-line entry (launches filled in from phase 30)."""
     bwd, plain = wkv_mod.rwkv6_wkv_bwd, wkv_mod.rwkv6_wkv_bwd_plain
+    fwd, fwd_ckpt = wkv_mod.rwkv6_wkv_fwd, wkv_mod.rwkv6_wkv_fwd_ckpt
     f32, bf16 = torch.float32, torch.bfloat16
     names = ("dr", "dk", "dv", "dw", "du")
     gen = torch.Generator(device="cuda").manual_seed(27)
@@ -3580,44 +3608,81 @@ def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
             .to(dtype).transpose(1, 2)
         return r, k, v, w, u, dy
 
+    def check_ckpt_fwd(args, what):
+        """y bit-equal to the serving forward's; the checkpoints and c_t
+        within BWD_REL["float32"] of the plain ones' largest value."""
+        y, ckpt, c = fwd_ckpt(*args[:5])
+        if not torch.equal(y, fwd(*args[:5])):
+            raise AssertionError(f"{what}: the checkpointing forward's y "
+                                 f"differs from the serving forward's")
+        _, want_ckpt, want_c = wkv_mod.rwkv6_wkv_ckpt_plain(*args[:5])
+        rel = {}
+        for name, got, want in (("ckpt", ckpt, want_ckpt), ("c", c,
+                                                            want_c)):
+            rel[name] = max_err(torch, got, want) / max(
+                float(want.abs().max()), 1e-30)
+            if not rel[name] <= BWD_REL["float32"]:
+                raise AssertionError(f"{what}: forward's {name} vs plain "
+                                     f"{rel[name]:.3e} of its largest "
+                                     f"value")
+        return (ckpt, c), rel
+
     for b, h, s, n in WKV_BWD_SWEEP:
         for case, (dtype, w_dtype) in cases.items():
             args = inputs(b, h, s, n, dtype, w_dtype, (0.7, 0.999))
             what = f"wkv bwd {case} B={b} H={h} S={s} N={n}"
-            got = bwd(*args)
+            ckpts, crel = check_ckpt_fwd(args, what)
+            got = bwd(*args, *ckpts)
             for g, a in zip(got[:4], args[:4]):
                 if g.stride() != a.stride():
                     raise AssertionError(f"{what}: a gradient is not laid "
                                          f"out like its input")
             rel = check_grads(torch, got, plain(*args), what, names)
-            log("wkv-bwd", f"{what}: max |err| / max |plain| "
-                + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+            alone = bwd(*args)
+            if not all(torch.equal(x, y) for x, y in zip(got, alone)):
+                raise AssertionError(f"{what}: the backward on its own "
+                                     f"checkpoints differs from the one "
+                                     f"on the forward's")
+            log("wkv-bwd", f"{what}: y bit-equal to serving; ckpt "
+                f"{crel['ckpt']:.2e}, c {crel['c']:.2e}; max |err| / max "
+                f"|plain| " + ", ".join(f"{k} {v:.2e}"
+                                        for k, v in rel.items()))
     for decay in (0.0, 1.0):
         for case in ("f32", "bf16, w f32"):
             args = inputs(2, 40, 300, 64, *cases[case], decay)
             what = f"wkv bwd {case} B=2 H=40 S=300 N=64, w = {decay:g}"
-            rel = check_grads(torch, bwd(*args), plain(*args), what, names)
+            ckpts, _ = check_ckpt_fwd(args, what)
+            rel = check_grads(torch, bwd(*args, *ckpts), plain(*args), what,
+                              names)
             log("wkv-bwd", f"{what}: " + ", ".join(
                 f"{k} {v:.2e}" for k, v in rel.items()))
 
-    # The training shape in the model's dtypes: within tolerance, bit-equal
-    # over two calls, two planted faults caught.
+    # The training shape in the model's dtypes, on the forward's
+    # checkpoints: within tolerance, bit-equal over two calls, three
+    # planted faults caught.
     b, h, s, n = (WKV_TRAIN[x] for x in ("b", "h", "s", "n"))
     args = inputs(b, h, s, n, bf16, f32, (0.7, 0.999))
-    first, want = bwd(*args), plain(*args)
+    ckpts, crel = check_ckpt_fwd(args, "wkv forward at the training shape")
+    first, want = bwd(*args, *ckpts), plain(*args)
     rel = check_grads(torch, first, want, "wkv bwd at the training shape",
                       names)
     worst = max(max_err(torch, x, y) for x, y in zip(first, want))
-    second = bwd(*args)
+    second = bwd(*args, *ckpts)
     if not all(torch.equal(x, y) for x, y in zip(first, second)):
         raise AssertionError("wkv bwd: two calls on the same inputs differ")
     log("wkv-bwd", f"training shape B={b} H={h} S={s} N={n}, bf16 r/k/v/dy, "
-        f"f32 w: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        f"f32 w: forward's ckpt {crel['ckpt']:.2e}, c {crel['c']:.2e}; "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
         + "; two calls bit-equal")
     faults = {}
-    for fault in ("adjoint decay skipped", "dw from S_t"):
-        frel, caught = breaks(torch, _wkv_bwd_planted(torch, *args, fault),
-                              want, names)
+    shifted = (torch.roll(ckpts[0], -1, dims=2).contiguous(), ckpts[1])
+    for fault, bad in (
+            ("adjoint decay skipped",
+             lambda: _wkv_bwd_planted(torch, *args, "adjoint decay skipped")),
+            ("dw from S_t",
+             lambda: _wkv_bwd_planted(torch, *args, "dw from S_t")),
+            ("checkpoint one chunk off", lambda: bwd(*args, *shifted))):
+        frel, caught = breaks(torch, bad(), want, names)
         if not caught:
             raise AssertionError(f"planted wkv bwd fault ({fault}) passes "
                                  f"the tolerance: {frel}")
@@ -3625,7 +3690,7 @@ def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
         log("wkv-bwd", f"planted fault ({fault}): " + ", ".join(
             f"{k} {v:.2e}" for k, v in frel.items()) + f"; caught by "
             f"{BWD_REL}")
-    del first, second, want
+    del first, second, want, shifted
 
     def moved(args):
         """Bytes read (every input once) and written (dr, dk, dv, dw like
@@ -3633,33 +3698,58 @@ def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
         return sum(t.numel() * t.element_size() for t in args) \
             + sum(t.numel() * t.element_size() for t in args[:4]) \
             + 4 * h * n
-    entry = _bwd_timing(torch, bwd, args, plain,
-                        b * h * s * (14 * n * n + 16 * n), moved(args),
-                        f"training shape B={b} H={h} S={s} N={n}",
-                        "wkv-bwd")
-    del args
+
+    def fwd_times(args, what):
+        """The checkpointing forward against the serving forward, device
+        time, in turns."""
+        serve_ms = device_ms(torch, lambda: fwd(*args[:5]), reps=20)
+        ckpt_ms = device_ms(torch, lambda: fwd_ckpt(*args[:5]), reps=20)
+        serve_ms2 = device_ms(torch, lambda: fwd(*args[:5]), reps=20)
+        log("wkv-bwd", f"{what}: forward device time {serve_ms:.4f} / "
+            f"{serve_ms2:.4f} ms serving, {ckpt_ms:.4f} ms with the "
+            f"checkpoint stores (+{ckpt_ms - min(serve_ms, serve_ms2):.4f})")
+        return dict(fwd_device_ms=min(serve_ms, serve_ms2),
+                    fwd_ckpt_device_ms=ckpt_ms)
+    flop = b * h * s * (14 * n * n + 16 * n)
+    entry = _bwd_timing(torch, lambda *a: bwd(*a, *ckpts), args, plain,
+                        flop, moved(args),
+                        f"training shape B={b} H={h} S={s} N={n}, given "
+                        f"the forward's checkpoints", "wkv-bwd")
+    entry.update(fwd_times(args, f"training shape B={b} S={s}"))
+    alone_ms = device_ms(torch, lambda: bwd(*args), reps=10)
+    log("wkv-bwd", f"training shape: the backward making its own "
+        f"checkpoints {alone_ms:.4f} ms device time")
+    del args, ckpts
     b, s = WKV_PREFILL["b"], WKV_PREFILL["s"]
     args = inputs(b, h, s, n, bf16, f32, (0.7, 0.999))
-    serve = _bwd_timing(torch, bwd, args, None,
+    ckpts = fwd_ckpt(*args[:5])[1:]
+    serve = _bwd_timing(torch, lambda *a: bwd(*a, *ckpts), args, None,
                         b * h * s * (14 * n * n + 16 * n), moved(args),
-                        f"serve shape B={b} H={h} S={s} N={n}", "wkv-bwd")
-    del args
+                        f"serve shape B={b} H={h} S={s} N={n}, given the "
+                        f"forward's checkpoints", "wkv-bwd")
+    serve.update(fwd_times(args, f"serve shape B={b} S={s}"))
+    del args, ckpts
     torch.cuda.empty_cache()
-    report = _ptxas_of(ptxas, "wkv_bwd")
-    for label in ("wkv_bwd_ckpt<bf16, f32, N=64>",
-                  "wkv_bwd_rev<bf16, f32, N=64>", "wkv_bwd_fin<bf16, f32>"):
-        if label in report:
-            regs, st, ld = report[label]
+    report = {k: v for k, v in ptxas.items()
+              if k.startswith("wkv_bwd") or k.startswith("wkv_fwd<bf16, f32, "
+                                                         "N=64")}
+    for label, (regs, st, ld) in report.items():
+        if "N=64" in label or label == "wkv_bwd_du":
             log("wkv-bwd", f"ptxas {label}: {regs} registers, {st} bytes "
                 f"spill stores, {ld} bytes spill loads")
     return dict(name="rwkv6_wkv_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/rwkv6_wkv_bwd.cu",
                 replaces="src/repro/kernels/rwkv6_wkv.py:47",
+                kernels=["wkv_bwd_rev", "wkv_bwd_du",
+                         "wkv_fwd (with the checkpoint stores, "
+                         "csrc/rwkv6_wkv.cu)"],
                 launches=None, max_abs_err=worst, rel_err=rel,
                 faults=faults, ms=entry["ms"],
                 device_ms=entry["device_ms"], plain_ms=entry["plain_ms"],
                 bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
-                library_ms=None,
+                library_ms=None, fwd_device_ms=entry["fwd_device_ms"],
+                fwd_ckpt_device_ms=entry["fwd_ckpt_device_ms"],
+                standalone_device_ms=alone_ms,
                 serve={k: v for k, v in serve.items() if k != "plain_ms"},
                 ptxas=report)
 

@@ -57,7 +57,8 @@ def build(names: list[str] | None = None) -> dict[str, dict]:
     """Compile the named sources (default: every ``csrc/*.cu``) that have
     no library for their current hash yet: one ``nvcc`` per source, all
     started together. Returns ``{name: {"seconds", "log", "cached"}}``
-    with the compiler's resource report in ``log``; raises on a failed
+    with the compiler's resource report in ``log`` (kept beside the
+    library, so a cached build reports it too); raises on a failed
     compile."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -67,7 +68,9 @@ def build(names: list[str] | None = None) -> dict[str, dict]:
     for name in names:
         so = library_path(name)
         if so.exists():
-            out[name] = {"seconds": 0.0, "log": "", "cached": True}
+            log = so.with_suffix(".log")
+            out[name] = {"seconds": 0.0, "cached": True,
+                         "log": log.read_text() if log.exists() else ""}
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -81,6 +84,7 @@ def build(names: list[str] | None = None) -> dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
+        so.with_suffix(".log").write_text(log)
         os.replace(tmp, so)          # atomic: concurrent builds agree
         out[name] = {"seconds": seconds, "log": log, "cached": False}
     if failed:

@@ -75,6 +75,13 @@
 // - Strides (b, h, s) in elements for each of r, k, v, w and y, unit
 //   stride on N: the model's (B, S, H, N) projections go in as views, no
 //   copies. Any S (the last tile is ragged).
+// - Under grad (the backward's checkpoints): the same kernel with kCkpt
+//   also stores, at the start of every tile, the state before it (each
+//   thread its KPT keys x CPT columns as float4s) into ckpt (B, H,
+//   ceil(S/16), N, N) f32, and the c_t it computes into cs (B, H, S) f32
+//   (column block 0 only). `rwkv6_wkv_bwd.cu` rebuilds the states between
+//   checkpoints from these; serving launches the instantiation without
+//   the stores.
 // Registers and spills: `chip_smoke.py` phase 2 prints ptxas's report for
 // every instantiation (PERF.md section 6 records the N = 64 ones).
 //
@@ -268,6 +275,8 @@ struct Args {
   const void* w;
   const float* u;
   void* y;
+  float* ckpt;  // under grad: (B, H, ceil(S/kTile), N, N), else null
+  float* cs;    // under grad: (B, H, S), else null
   int64_t r_sb, r_sh, r_ss;
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
@@ -282,8 +291,9 @@ struct Maps {
   CUtensorMap r, k, w, v;
 };
 
-// T: dtype of r, k, v and y; TW: dtype of w.
-template <typename T, typename TW, int N>
+// T: dtype of r, k, v and y; TW: dtype of w; kCkpt: also store the
+// state before every tile and c_t (the backward's checkpoints).
+template <typename T, typename TW, int N, bool kCkpt>
 __global__ void __launch_bounds__(Layout<N>::THREADS)
     wkv_fwd(const __grid_constant__ Maps maps, Args a) {
   using L = Layout<N>;
@@ -365,6 +375,21 @@ __global__ void __launch_bounds__(Layout<N>::THREADS)
   issue(0, 0);
   issue(1, kTile);
   int prev_t0 = 0, prev_len = 0;
+  [[maybe_unused]] const int64_t bh =
+      int64_t(b) * (gridDim.x / L::SPLIT) + h;
+  // Under grad: the state before tile i (checkpoint i), row n, this
+  // thread's CPT columns.
+  [[maybe_unused]] auto store_ckpt = [&](int i) {
+    const int nt = (a.S + kTile - 1) / kTile;
+    float* ck = a.ckpt + (bh * nt + i) * (N * N) + col0 + cq * CPT;
+#pragma unroll
+    for (int q = 0; q < KPT; ++q) {
+      const int n = 4 * (g + G * (q / 4)) + q % 4;
+      *reinterpret_cast<float4*>(ck + n * N) =
+          make_float4(s[q][0], s[q][1], s[q][2], s[q][3]);
+    }
+  };
+  if constexpr (kCkpt) store_ckpt(0);
   for (int t0 = 0, it = 0; t0 < a.S; t0 += kTile, ++it) {
     const int st = it % kStages;
     const int len = min(kTile, a.S - t0);
@@ -406,7 +431,12 @@ __global__ void __launch_bounds__(Layout<N>::THREADS)
 #pragma unroll
       for (int off = 1; off < P; off <<= 1)
         cp += __shfl_xor_sync(L::MASK, cp, off);
-      if (p == 0 && j < len) sm.c[j] = cp;
+      if (p == 0 && j < len) {
+        sm.c[j] = cp;
+        if constexpr (kCkpt) {
+          if (col0 == 0) a.cs[bh * a.S + t0 + j] = cp;
+        }
+      }
     }
     if constexpr (Sm::kConvRKV) {
       for (int i = tid; i < len * CB; i += TH) sm.vf[i] = to_f32(stg.v[i]);
@@ -473,6 +503,11 @@ __global__ void __launch_bounds__(Layout<N>::THREADS)
       if (j > 0) finish(j - 1, acc[(j - 1) & 1]);
     }
     finish(kTile - 1, acc[(kTile - 1) & 1]);
+    if constexpr (kCkpt) {
+      // Stored here, after the tile's steps: at the top of the tile,
+      // before them, the stores cost three times as much.
+      if (t0 + kTile < a.S) store_ckpt(it + 1);
+    }
     prev_t0 = t0;
     prev_len = len;
   }
@@ -548,7 +583,7 @@ bool aligned(const void* p, int64_t sb, int64_t sh, int64_t ss, int B,
          (S == 1 || ss * e % g == 0);
 }
 
-template <typename T, typename TW, int N>
+template <typename T, typename TW, int N, bool kCkpt>
 int launch_n(Args a, int B, int H, cudaStream_t stream) {
   using L = Layout<N>;
   Maps maps{};
@@ -570,27 +605,35 @@ int launch_n(Args a, int B, int H, cudaStream_t stream) {
       return int(cudaErrorInvalidValue);
   }
   const dim3 grid(H * L::SPLIT, B);
-  wkv_fwd<T, TW, N><<<grid, L::THREADS, 0, stream>>>(maps, a);
+  wkv_fwd<T, TW, N, kCkpt><<<grid, L::THREADS, 0, stream>>>(maps, a);
   return int(cudaGetLastError());
+}
+
+template <typename T, typename TW, bool kCkpt>
+int launch_ck(const Args& a, int B, int H, int N, cudaStream_t stream) {
+  switch (N) {
+    case 4: return launch_n<T, TW, 4, kCkpt>(a, B, H, stream);
+    case 8: return launch_n<T, TW, 8, kCkpt>(a, B, H, stream);
+    case 16: return launch_n<T, TW, 16, kCkpt>(a, B, H, stream);
+    case 32: return launch_n<T, TW, 32, kCkpt>(a, B, H, stream);
+    case 64: return launch_n<T, TW, 64, kCkpt>(a, B, H, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T, typename TW>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, void* y, const int64_t* st, int B, int H, int S,
-           int N, cudaStream_t stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > (1 << 24) || S < 1)
+           const void* u, void* y, void* ckpt, void* cs, const int64_t* st,
+           int B, int H, int S, int N, cudaStream_t stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > (1 << 24) || S < 1 ||
+      (ckpt == nullptr) != (cs == nullptr))
     return int(cudaErrorInvalidValue);
   Args a{r, k, v, w, static_cast<const float*>(u), y,
+         static_cast<float*>(ckpt), static_cast<float*>(cs),
          st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
          st[8], st[9], st[10], st[11], st[12], st[13], st[14], S};
-  switch (N) {
-    case 4: return launch_n<T, TW, 4>(a, B, H, stream);
-    case 8: return launch_n<T, TW, 8>(a, B, H, stream);
-    case 16: return launch_n<T, TW, 16>(a, B, H, stream);
-    case 32: return launch_n<T, TW, 32>(a, B, H, stream);
-    case 64: return launch_n<T, TW, 64>(a, B, H, stream);
-    default: return int(cudaErrorInvalidValue);
-  }
+  return ckpt ? launch_ck<T, TW, true>(a, B, H, N, stream)
+              : launch_ck<T, TW, false>(a, B, H, N, stream);
 }
 
 }  // namespace
@@ -599,30 +642,35 @@ extern "C" {
 
 // strides: 15 element strides, (b, h, s) of r, k, v, w, y in that order;
 // the N axis of each must have unit stride. u: (H, N) f32, contiguous.
+// ckpt and cs: both null (serving), or the backward's checkpoints,
+// (B, H, ceil(S/16), N, N) and (B, H, S) f32, contiguous.
 
 // r, k, v, w, y f32.
 int rwkv6_wkv_f32(const void* r, const void* k, const void* v, const void* w,
-                  const void* u, void* y, const int64_t* strides, int B,
-                  int H, int S, int N, void* stream) {
-  return launch<float, float>(r, k, v, w, u, y, strides, B, H, S, N,
+                  const void* u, void* y, void* ckpt, void* cs,
+                  const int64_t* strides, int B, int H, int S, int N,
+                  void* stream) {
+  return launch<float, float>(r, k, v, w, u, y, ckpt, cs, strides, B, H, S, N,
                               static_cast<cudaStream_t>(stream));
 }
 
 // r, k, v, y bf16; w f32 (the model's path).
 int rwkv6_wkv_bf16(const void* r, const void* k, const void* v, const void* w,
-                   const void* u, void* y, const int64_t* strides, int B,
-                   int H, int S, int N, void* stream) {
-  return launch<__nv_bfloat16, float>(r, k, v, w, u, y, strides, B, H, S, N,
+                   const void* u, void* y, void* ckpt, void* cs,
+                   const int64_t* strides, int B, int H, int S, int N,
+                   void* stream) {
+  return launch<__nv_bfloat16, float>(r, k, v, w, u, y, ckpt, cs, strides, B,
+                                      H, S, N,
                                       static_cast<cudaStream_t>(stream));
 }
 
 // r, k, v, w, y bf16.
 int rwkv6_wkv_bf16_wbf16(const void* r, const void* k, const void* v,
-                         const void* w, const void* u, void* y,
-                         const int64_t* strides, int B, int H, int S, int N,
-                         void* stream) {
+                         const void* w, const void* u, void* y, void* ckpt,
+                         void* cs, const int64_t* strides, int B, int H,
+                         int S, int N, void* stream) {
   return launch<__nv_bfloat16, __nv_bfloat16>(
-      r, k, v, w, u, y, strides, B, H, S, N,
+      r, k, v, w, u, y, ckpt, cs, strides, B, H, S, N,
       static_cast<cudaStream_t>(stream));
 }
 

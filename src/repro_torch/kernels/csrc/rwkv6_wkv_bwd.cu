@@ -13,9 +13,11 @@
 //     du[n]   = sum_{b,t} r_t[n] k_t[n] (v_t . dy_t)
 //
 //   r, k, v, w, dy: (B, H, S, N) with any (b, h, s) strides and unit stride
-//   on N; u: (H, N) f32. dr, dk, dv come back in r's dtype, dw in w's, du
-//   (H, N) f32. r, k, v, dy share one dtype, f32 or bf16; w is f32 or r's
-//   dtype (the model passes f32). All arithmetic in f32.
+//   on N, each row's base and stride a multiple of min(16, N * element
+//   size) bytes (the wrapper copies any other view); u: (H, N) f32. dr, dk,
+//   dv come back in r's dtype, dw in w's, du (H, N) f32. r, k, v, dy share
+//   one dtype, f32 or bf16; w is f32 or r's dtype (the model passes f32).
+//   All arithmetic in f32.
 //
 // The backward of the Pallas TPU kernel `rwkv6_wkv`
 // (src/repro/kernels/rwkv6_wkv.py:47, pallas_call at :64) and of this
@@ -26,65 +28,95 @@
 // Bound: operations. Per (b, h, step) the function needs the state S_{t-1}
 // (3 N^2: w S, k v^T, the sum), S dy (2 N^2), the G update (3 N^2), G v
 // (2 N^2), G^T k (2 N^2) and sum G (.) S (2 N^2): 14 N^2 FLOP, plus O(N).
-// At the training shape (B=2, H=40, S=1024, N=64) that is 4.70e9 FLOP,
-// 0.070 ms at the card's 67 TFLOP/s f32 rate, against 115 MB moved (bf16
+// At the training shape (B=2, H=40, S=1024, N=64) that is 4.78e9 FLOP,
+// 0.071 ms at the card's 67 TFLOP/s f32 rate, against 115 MB moved (bf16
 // r, k, v, dy read and dr, dk, dv written, f32 w read and dw written: 22
 // bytes per (b, h, t, n)), 0.034 ms at 3.35 TB/s. At the serve shape (B=4,
-// S=4096) 3.76e10 FLOP, 0.56 ms.
+// S=4096) 3.83e10 FLOP, 0.57 ms.
 //
-// Design (a first, simple kernel: one pass per state entry, the exact
-// recurrences, no division by w and no cumulative decay products, so
-// w = 0 forgets and w = 1 sums exactly in both directions):
-// - Three launches on the caller's stream.
-//   1. wkv_bwd_ckpt: the forward recurrence of S, writing the state before
-//      every kChunk = 8 steps to a checkpoint buffer.
-//   2. wkv_bwd_rev: the reverse sweep, chunk by chunk from the end. Each
-//      thread rebuilds its entries' states S_{t-1} for the chunk's 8 steps
-//      from the chunk's checkpoint into registers, then walks the steps
-//      backwards with G in registers.
-//   3. wkv_bwd_fin: sums the column blocks' partial dr, dk, dw in a fixed
-//      order and casts them; sums du's per-(b, h) partials over b in order.
-//   No float atomics anywhere: the gradients are bit-reproducible.
-// - A block holds all N keys and CB = min(N, 32) value columns of one
-//   (b, h); SPLIT = N / CB blocks cover a (b, h) (2 at N = 64). A thread
-//   holds one key n and CPT = min(CB, 8) columns of S and of G, so the
-//   sums over m (dr, dk, dw) are in-thread sums added over TPK = CB / CPT
-//   neighbouring lanes by xor shuffles, and the sum over n (dv) a
-//   reduce-scatter over the warp's keys by xor shuffles plus a fixed-order
-//   sum over the block's warps in shared memory. dv is complete in one
-//   block (all keys); dr, dk, dw are partial over the SPLIT column blocks
-//   and go through the scratch partials and launch 3.
-// - Per chunk, the steps' r, k, w, v and dy rows (all N) are staged in
-//   shared memory in f32, with the scalars c_t = sum_n r u k and
-//   v_t . dy_t. The bonus terms are added once, by column block 0.
-// - Ragged S: the staged rows past S are zeros, so G stays 0 there and
-//   nothing past S is stored.
+// Design (the exact recurrences, no division by w and no cumulative decay
+// products, so w = 0 forgets and w = 1 sums exactly in both directions;
+// no float atomics, every sum in a fixed order, so two calls are
+// bit-equal):
+// - The forward kernel writes the checkpoints. Under grad, `wkv_fwd`
+//   (rwkv6_wkv.cu) stores the state before each of its kChunk = 16-step
+//   tiles, ckpt (B, H, ceil(S/16), N, N) f32, and c_t = sum_n r u k,
+//   cs (B, H, S) f32, which it computes anyway. This file has no
+//   checkpoint sweep: its rebuild of S_{t-1} from a checkpoint repeats the
+//   forward's FMAs in the forward's order, so the states are the forward's
+//   bit for bit.
+// - wkv_bwd_rev: one cluster of SPLIT = N / CB blocks per (b, h), CB =
+//   min(N, 16) value columns each (4 blocks of 16 at N = 64: 320 blocks of
+//   128 threads at the training shape, three per SM by registers and
+//   shared memory, so one wave on 132 SMs). A thread holds one key n and
+//   CPT = min(CB, 8) columns of G and, for kHalf = 8 steps at a time, of
+//   the rebuilt states S_{t-1} (64 registers); it rebuilds a chunk's
+//   second half from the checkpoint through the first (24 rebuilt steps
+//   per 16) rather than hold 16 states (4 steps at a time, 40 rebuilt
+//   steps per 16, ran 12% slower).
+// - Prefetched chunks. A chunk's rows (r, k, v, dy, w: all N keys and
+//   columns, in their own dtypes), the block's columns of its checkpoint
+//   and its c_t are copied by cp.async into a stage, and an mbarrier
+//   (every thread arrives through cp.async.mbarrier.arrive.noinc) says
+//   when they have landed. The block converts the stage once into f32
+//   work rows (r, k, w of all keys, v and dy of its columns) and sums
+//   v_t . dy_t over all N columns (8 lanes a step at N = 64); after that
+//   pass's block barrier the stage is free, and the next chunk's copy
+//   lands while this one is swept. (Converting bf16 in the step loop
+//   instead ran 8% slower.) Rows past S are zero-filled: G stays 0 there
+//   and nothing past S is stored.
+// - Per step, a thread's dr, dk, dw partials over its columns are summed
+//   over the TPK = CB / CPT lanes of its key (2 shuffles) and stored in
+//   shared memory, dv's over the warp's keys by a reduce-scatter of xor
+//   shuffles (8 at N = 64) and stored per warp. The bonus terms (u k vdy,
+//   u r vdy, c_t dy) are added there by column block 0.
+// - One cluster barrier and one block barrier per chunk. After a chunk's
+//   first half, each block finishes the previous chunk: JS = 16 / SPLIT
+//   of its steps for all N keys, dr, dk, dw summed over the cluster's
+//   blocks in rank order through distributed shared memory and written
+//   once in their dtypes; its own dv columns for all 16 steps, the warps'
+//   partials summed in order. So those remote reads wait while other
+//   warps sweep. The partial buffers alternate between chunks; the
+//   cluster barrier at each chunk's end keeps a buffer from being
+//   rewritten before every block has read it, and a last one keeps every
+//   block alive until the others are done with it.
+// - wkv_bwd_du (one tiny launch): du's per-(b, h) partials summed over b
+//   in order.
 //
-// Scratch (f32, one buffer from the wrapper): checkpoints B*H*ceil(S/8)*N^2,
-// partials 3*SPLIT*B*H*S*N, du partials B*H*N. At the training shape (B=2,
-// H=40, S=1024, N=64): 41,943,040 + 31,457,280 + 5,120 floats = 293.6 MB.
-// At the serve shape (B=4, S=4096): 335,544,320 + 251,658,240 + 10,240
-// floats = 2.35 GB.
+// Scratch: du's partials, B*H*N f32 (the wrapper's buffer). The forward's
+// checkpoints and c_t (under grad the autograd node keeps them): at the
+// training shape (B=2, H=40, S=1024, N=64) 20,971,520 + 81,920 floats =
+// 84.2 MB, du partials 5,120 floats; at the serve shape (B=4, S=4096)
+// 167,772,160 + 655,360 + 10,240 floats. Shared memory: 73,936 bytes a
+// block at N = 64 in bf16 with f32 w (the stage 16,448, the work rows
+// 18,560, the partials 38,912).
+// Registers and spills: `chip_smoke.py` phase 2 prints ptxas's report.
 //
 // Plain C interface for ctypes (no PyTorch headers): every entry point
 // launches on the caller's stream, never synchronises, allocates nothing
 // and returns the cudaError_t of the launches (0 on success;
 // cudaErrorInvalidValue for an N outside {4, 8, 16, 32, 64}, a size out
-// of range, or a scratch buffer smaller than the layout needs).
+// of range, or a scratch buffer smaller than B*H*N floats).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
+namespace cgp = cooperative_groups;
+
 namespace {
 
-constexpr int kChunk = 8;     // steps per checkpoint (registers per entry)
-constexpr int kFinSteps = 16;  // steps per block of the finishing launch
-constexpr int kFinThreads = 256;
+constexpr int kChunk = 16;  // steps per checkpoint: the forward's tile
+constexpr int kHalf = 8;    // states rebuilt into registers at a time
+constexpr int kParts = kChunk / kHalf;
+constexpr int kDuThreads = 64;
 
 template <int N>
 struct Layout {
-  static constexpr int CB = N >= 32 ? 32 : N;    // value columns per block
+  static constexpr int CB = N >= 16 ? 16 : N;    // value columns per block
   static constexpr int SPLIT = N / CB;           // blocks per (b, h)
   static constexpr int CPT = CB >= 8 ? 8 : CB;   // columns per thread
   static constexpr int TPK = CB / CPT;           // threads per key
@@ -92,11 +124,16 @@ struct Layout {
   static constexpr int WARP = THREADS < 32 ? THREADS : 32;  // lanes in use
   static constexpr int NW = (THREADS + 31) / 32;            // warps
   static constexpr int KW = WARP / TPK;                     // keys per warp
+  static constexpr int JS = kChunk / SPLIT;  // steps each block finishes
+  static constexpr int QS = N + 16;  // row stride of red (two lanes of a
+                                     // key store to other banks)
   static constexpr unsigned MASK =
       THREADS >= 32 ? 0xffffffffu : (1u << THREADS) - 1u;
   static_assert(CPT % 4 == 0, "a thread's columns are float4s");
+  static_assert(TPK == 1 || TPK == 2, "one or two lanes per key");
   static_assert(KW >= CPT, "the dv reduce-scatter ends at one column");
   static_assert(THREADS <= 32 || THREADS % 32 == 0, "whole warps");
+  static_assert(kChunk % SPLIT == 0, "the blocks share a chunk's steps");
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -108,78 +145,43 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-struct Args {
-  const void* r;
-  const void* k;
-  const void* v;
-  const void* w;
-  const float* u;
-  const void* dy;
-  void* dr;
-  void* dk;
-  void* dv;
-  void* dw;
-  float* du;
-  float* ckpt;   // (B, H, nch, N, N)
-  float* part;   // (3, SPLIT, B, H, S, N): dr, dk, dw partials
-  float* dupart;  // (B, H, N)
-  // (b, h, s) element strides of r, k, v, w, dy, dr, dk, dv, dw
-  int64_t st[9][3];
-  int B, H, S;
-};
-
-enum { kR, kK, kV, kW, kDY, kDR, kDK, kDV, kDW };
-
-__device__ __forceinline__ int64_t off(const Args& a, int which, int b,
-                                       int h, int t) {
-  return b * a.st[which][0] + h * a.st[which][1] + t * a.st[which][2];
-}
-
-// Shared memory of one block: a chunk's rows in f32 and the reductions.
-template <int N>
-struct Smem {
-  using L = Layout<N>;
-  __align__(16) float r[kChunk][N];
-  __align__(16) float k[kChunk][N];
-  __align__(16) float w[kChunk][N];
-  __align__(16) float v[kChunk][N];
-  __align__(16) float dy[kChunk][N];
-  float u[N];
-  float cb[kChunk];    // sum_n r u k
-  float vdy[kChunk];   // v . dy
-  float red[3][kChunk][N];          // dr, dk, dw over the block's columns
-  float dvp[kChunk][L::NW][L::CB];  // dv summed over each warp's keys
-};
-
-// Stage the rows of steps c0 .. c0 + kChunk - 1 (zeros past S). `all`
-// false stages only k, w and v (the checkpoint sweep).
-template <typename T, typename TW, int N, bool all>
-__device__ __forceinline__ void stage(Smem<N>& sm, const Args& a, int b,
-                                      int h, int c0) {
-  const T* R = static_cast<const T*>(a.r);
-  const T* K = static_cast<const T*>(a.k);
-  const T* V = static_cast<const T*>(a.v);
-  const TW* W = static_cast<const TW*>(a.w);
-  const T* DY = static_cast<const T*>(a.dy);
-  for (int i = threadIdx.x; i < kChunk * N; i += Layout<N>::THREADS) {
-    const int j = i / N, n = i % N, t = c0 + j;
-    const bool in = t < a.S;
-    sm.k[j][n] = in ? to_f32(K[off(a, kK, b, h, t) + n]) : 0.f;
-    sm.w[j][n] = in ? to_f32(W[off(a, kW, b, h, t) + n]) : 0.f;
-    sm.v[j][n] = in ? to_f32(V[off(a, kV, b, h, t) + n]) : 0.f;
-    if constexpr (all) {
-      sm.r[j][n] = in ? to_f32(R[off(a, kR, b, h, t) + n]) : 0.f;
-      sm.dy[j][n] = in ? to_f32(DY[off(a, kDY, b, h, t) + n]) : 0.f;
-    }
+// CNT consecutive f32 values from shared memory into registers (CNT a
+// multiple of 4).
+template <int CNT>
+__device__ __forceinline__ void load_cols(const float* p, float* out) {
+#pragma unroll
+  for (int q = 0; q < CNT / 4; ++q) {
+    const float4 x = reinterpret_cast<const float4*>(p)[q];
+    out[4 * q] = x.x;
+    out[4 * q + 1] = x.y;
+    out[4 * q + 2] = x.z;
+    out[4 * q + 3] = x.w;
   }
 }
 
-// Sum CNT per-column values over the KW keys of a warp (lanes STRIDE
-// apart per key bit), highest key bit first: while a lane holds more than
-// one column it keeps half and sends half (a reduce-scatter), and `own`
-// gains the offset of the half it keeps; then the remaining key bits are
-// summed in full. At the end acc[0] is the sum of column `own`, held by
-// every lane whose key bits below those used for the scatter differ.
+// One cp.async of BYTES (4, 8 or 16) into shared memory; src_bytes = 0
+// writes zeros and reads nothing.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  const uint32_t d = tc::smem_u32(dst);
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(d), "l"(src), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+// Sum CNT values over the KW lanes (STRIDE apart per lane bit) that
+// differ in `kw`, highest bit first: while a lane holds more than one
+// value it keeps half and sends half (a reduce-scatter), and `own` gains
+// the offset of the half it keeps; then the remaining bits are summed in
+// full. At the end acc[0 .. max(1, CNT / KW) - 1] are the sums of values
+// own, own + 1, ..., held by every lane whose bits below those used for
+// the scatter differ.
 template <int KW, int CNT, int STRIDE>
 __device__ __forceinline__ void reduce_keys(float* acc, int kw, int& own,
                                             unsigned mask) {
@@ -203,236 +205,373 @@ __device__ __forceinline__ void reduce_keys(float* acc, int kw, int& own,
   }
 }
 
-// 1. The forward recurrence of S; the state before chunk ci goes to
-// checkpoint ci.
-template <typename T, typename TW, int N>
-__global__ void __launch_bounds__(Layout<N>::THREADS)
-    wkv_bwd_ckpt(const Args a) {
-  using L = Layout<N>;
-  constexpr int CPT = L::CPT;
-  __shared__ Smem<N> sm;
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n = threadIdx.x / L::TPK, cg = threadIdx.x % L::TPK;
-  const int col = split * L::CB + cg * CPT;
-  const int nch = (a.S + kChunk - 1) / kChunk;
-  float* ck = a.ckpt + ((int64_t(b) * a.H + h) * nch) * (N * N) + n * N + col;
+struct Args {
+  const void* r;
+  const void* k;
+  const void* v;
+  const void* w;
+  const float* u;
+  const void* dy;
+  const float* ckpt;  // (B, H, nch, N, N): the state before each chunk
+  const float* cs;    // (B, H, S): c_t = sum_n r u k
+  void* dr;
+  void* dk;
+  void* dv;
+  void* dw;
+  float* du;
+  float* dupart;  // (B, H, N)
+  // (b, h, s) element strides of r, k, v, w, dy, dr, dk, dv, dw
+  int64_t st[9][3];
+  int B, H, S;
+};
 
-  float s[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) s[c] = 0.f;
-  for (int ci = 0; ci < nch; ++ci) {
-    float4* dst = reinterpret_cast<float4*>(ck + int64_t(ci) * (N * N));
-#pragma unroll
-    for (int q = 0; q < CPT / 4; ++q)
-      dst[q] = make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2],
-                           s[4 * q + 3]);
-    if (ci == nch - 1) break;
-    __syncthreads();  // the last chunk's reads of the stage are done
-    stage<T, TW, N, false>(sm, a, b, h, ci * kChunk);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const float kn = sm.k[j][n], wn = sm.w[j][n];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        s[c] = fmaf(wn, s[c], kn * sm.v[j][col + c]);
-    }
+enum { kR, kK, kV, kW, kDY, kDR, kDK, kDV, kDW };
+
+// One chunk as copied: the steps' rows in their dtypes, the block's
+// columns of the checkpoint, c_t.
+template <typename T, typename TW, int N>
+struct __align__(16) Stage {
+  T r[kChunk * N];
+  T k[kChunk * N];
+  T v[kChunk * N];
+  T dy[kChunk * N];
+  TW w[kChunk * N];
+  float ck[N * Layout<N>::CB];
+  float c[kChunk];
+};
+
+// The chunk the steps read, in f32: r, k, w of all N keys, v and dy of
+// the block's CB columns, the checkpoint, c_t and v_t . dy_t.
+template <int N>
+struct __align__(16) Work {
+  float r[kChunk * N];
+  float k[kChunk * N];
+  float w[kChunk * N];
+  float v[kChunk * Layout<N>::CB];
+  float dy[kChunk * Layout<N>::CB];
+  float ck[N * Layout<N>::CB];
+  float c[kChunk];
+  float vdy[kChunk];
+};
+
+template <typename T, typename TW, int N>
+struct Smem {
+  using L = Layout<N>;
+  Stage<T, TW, N> stage;
+  Work<N> work;
+  // per chunk parity and step: dr, dk, dw summed over the block's columns
+  float red[2][kChunk][3][L::QS];
+  // per chunk parity and step: dv summed over each warp's keys
+  float dvp[2][kChunk][L::NW][L::CB];
+  unsigned long long bar;
+};
+
+// 4 values from shared memory into a float4 (8 bytes of bf16 or 16 of
+// f32).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Rows c0 .. c0 + kChunk - 1 of one (b, h) of a (B, H, S, N) array into
+// dst (kChunk dense rows), zeros past S; every thread of the block.
+template <typename X, int N, int THREADS>
+__device__ __forceinline__ void copy_rows(X* dst, const void* base,
+                                          int64_t sb, int64_t sh, int64_t ss,
+                                          int b, int h, int c0, int S) {
+  constexpr int RB = N * int(sizeof(X));
+  constexpr int G = RB < 16 ? RB : 16;
+  constexpr int P = RB / G;
+  const X* src0 = static_cast<const X*>(base) + b * sb + h * sh;
+  for (int i = threadIdx.x; i < kChunk * P; i += THREADS) {
+    const int j = i / P, p = i % P, t = c0 + j;
+    const bool in = t < S;
+    const char* src = reinterpret_cast<const char*>(
+        src0 + (in ? int64_t(t) * ss : 0)) + p * G;
+    cp_async<G>(reinterpret_cast<char*>(dst) + j * RB + p * G, src,
+                in ? G : 0);
   }
 }
 
-// 2. The reverse sweep: dv complete, dr / dk / dw partial over the
-// block's columns, du's partial over t.
+// The reverse sweep: all five gradients' per-(b, h) parts.
 template <typename T, typename TW, int N>
-__global__ void __launch_bounds__(Layout<N>::THREADS, 2)
+__global__ void __launch_bounds__(Layout<N>::THREADS, 3)
     wkv_bwd_rev(const Args a) {
   using L = Layout<N>;
+  using Sm = Smem<T, TW, N>;
   constexpr int CPT = L::CPT, TPK = L::TPK, KW = L::KW, CB = L::CB;
-  __shared__ Smem<N> sm;
+  constexpr int TH = L::THREADS, QS = L::QS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+  Work<N>& wk = sm.work;
+  cgp::cluster_group cluster = cgp::this_cluster();
+
   const int tid = threadIdx.x;
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = int(cluster.block_rank()), h = blockIdx.y, b = blockIdx.z;
   const int n = tid / TPK, cg = tid % TPK;
-  const int warp = tid / 32, kw = (tid % L::WARP) / TPK;
-  const int col = split * CB + cg * CPT;  // first column of the thread
+  const int warp = tid / 32, lane = tid % L::WARP, kw = lane / TPK;
+  const int lc = cg * CPT;  // the thread's first column within the block
   const int nch = (a.S + kChunk - 1) / kChunk;
-  const float* ck = a.ckpt + ((int64_t(b) * a.H + h) * nch) * (N * N)
-      + n * N + col;
   const int64_t bh = int64_t(b) * a.H + h;
-  const int64_t plane = int64_t(a.B) * a.H * a.S * N;  // one partial array
-  float* P = a.part + int64_t(split) * plane + bh * a.S * N;
-  T* DV = static_cast<T*>(a.dv) + b * a.st[kDV][0] + h * a.st[kDV][1];
-  for (int i = tid; i < N; i += L::THREADS) sm.u[i] = a.u[int64_t(h) * N + i];
+  const float un = a.u[int64_t(h) * N + n];
+  const uint32_t bar = tc::smem_u32(&sm.bar);
+
+  if (tid == 0) {
+    tc::mbar_init(bar, TH);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // The barrier is initialised, and every block of the cluster runs
+  // before any reads another's shared memory.
+  cluster.sync();
+
+  // Chunk nch - 1 - it into the stage; every thread copies its pieces
+  // and arrives on the barrier when they have landed.
+  auto issue = [&](int it) {
+    const int ci = nch - 1 - it, c0 = ci * kChunk;
+    auto& stg = sm.stage;
+    copy_rows<T, N, TH>(stg.r, a.r, a.st[kR][0], a.st[kR][1],
+                        a.st[kR][2], b, h, c0, a.S);
+    copy_rows<T, N, TH>(stg.k, a.k, a.st[kK][0], a.st[kK][1],
+                        a.st[kK][2], b, h, c0, a.S);
+    copy_rows<T, N, TH>(stg.v, a.v, a.st[kV][0], a.st[kV][1],
+                        a.st[kV][2], b, h, c0, a.S);
+    copy_rows<T, N, TH>(stg.dy, a.dy, a.st[kDY][0], a.st[kDY][1],
+                        a.st[kDY][2], b, h, c0, a.S);
+    copy_rows<TW, N, TH>(stg.w, a.w, a.st[kW][0], a.st[kW][1],
+                         a.st[kW][2], b, h, c0, a.S);
+    constexpr int CKP = CB / 4;  // 16-byte pieces per checkpoint row
+    const float* ck = a.ckpt + (bh * nch + ci) * (N * N) + split * CB;
+    for (int i = tid; i < N * CKP; i += TH) {
+      const int row = i / CKP, p = i % CKP;
+      cp_async<16>(&stg.ck[row * CB + 4 * p], ck + row * N + 4 * p, 16);
+    }
+    for (int i = tid; i < kChunk; i += TH) {
+      const int t = c0 + i;
+      cp_async<4>(&stg.c[i], a.cs + bh * a.S + (t < a.S ? t : 0),
+                  t < a.S ? 4 : 0);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(bar) : "memory");
+  };
+
+  // The landed chunk into f32 work rows, and v_t . dy_t over all N
+  // columns (P lanes per step, summed by xor shuffles).
+  auto convert = [&]() {
+    const auto& stg = sm.stage;
+    for (int i = tid; i < kChunk * N / 4; i += TH) {
+      reinterpret_cast<float4*>(wk.r)[i] = load4(stg.r + 4 * i);
+      reinterpret_cast<float4*>(wk.k)[i] = load4(stg.k + 4 * i);
+      reinterpret_cast<float4*>(wk.w)[i] = load4(stg.w + 4 * i);
+    }
+    for (int i = tid; i < kChunk * CB / 4; i += TH) {
+      const int j = i / (CB / 4), q = i % (CB / 4);
+      const int src = j * N + split * CB + 4 * q;
+      reinterpret_cast<float4*>(wk.v)[i] = load4(stg.v + src);
+      reinterpret_cast<float4*>(wk.dy)[i] = load4(stg.dy + src);
+    }
+    for (int i = tid; i < N * CB / 4; i += TH)
+      reinterpret_cast<float4*>(wk.ck)[i] = load4(stg.ck + 4 * i);
+    for (int i = tid; i < kChunk; i += TH) wk.c[i] = stg.c[i];
+    constexpr int P = TH >= kChunk ? TH / kChunk : 1;
+    for (int q = tid; q < kChunk * P; q += TH) {
+      const int j = q / P, p = q % P;
+      float acc = 0.f;
+      for (int m = p; m < N; m += P)
+        acc = fmaf(to_f32(stg.v[j * N + m]), to_f32(stg.dy[j * N + m]), acc);
+#pragma unroll
+      for (int o = 1; o < P; o <<= 1)
+        acc += __shfl_xor_sync(L::MASK, acc, o);
+      if (p == 0) wk.vdy[j] = acc;
+    }
+  };
+
+  // The state after step j - 1 of the chunk: s advanced by step j.
+  auto advance = [&](float* s, int j) {
+    const float kn = wk.k[j * N + n], wn = wk.w[j * N + n];
+    float vv[CPT];
+    load_cols<CPT>(wk.v + j * CB + lc, vv);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) s[c] = fmaf(wn, s[c], kn * vv[c]);
+  };
 
   float g[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) g[c] = 0.f;
   float du_acc = 0.f;
 
-  for (int ci = nch - 1; ci >= 0; --ci) {
-    const int c0 = ci * kChunk;
-    __syncthreads();  // the last chunk's write-out is done with sm
-    stage<T, TW, N, true>(sm, a, b, h, c0);
+  // Steps part*kHalf .. +kHalf - 1 of the chunk, backwards: the states
+  // rebuilt from the checkpoint into registers, then the adjoint walked
+  // back; the partials of dr, dk, dw and dv into red[buf] and dvp[buf].
+  auto sweep = [&](int part, int buf) {
     float s[CPT];
-    {
-      const float4* src =
-          reinterpret_cast<const float4*>(ck + int64_t(ci) * (N * N));
+    load_cols<CPT>(wk.ck + n * CB + lc, s);
+#pragma unroll 1
+    for (int j = 0; j < part * kHalf; ++j) advance(s, j);
+    float sp[kHalf][CPT];
 #pragma unroll
-      for (int q = 0; q < CPT / 4; ++q) {
-        const float4 x = src[q];
-        s[4 * q] = x.x;
-        s[4 * q + 1] = x.y;
-        s[4 * q + 2] = x.z;
-        s[4 * q + 3] = x.w;
-      }
+    for (int jj = 0; jj < kHalf; ++jj) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) sp[jj][c] = s[c];
+      advance(s, part * kHalf + jj);
     }
-    __syncthreads();
-    for (int j = tid; j < kChunk; j += L::THREADS) {
-      float cb = 0.f, vd = 0.f;
-      for (int m = 0; m < N; ++m) {
-        cb = fmaf(sm.r[j][m] * sm.u[m], sm.k[j][m], cb);
-        vd = fmaf(sm.v[j][m], sm.dy[j][m], vd);
-      }
-      sm.cb[j] = cb;
-      sm.vdy[j] = vd;
-    }
-    // S_{t-1} of the chunk's steps, rebuilt from the checkpoint.
-    float sp[kChunk][CPT];
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const float kn = sm.k[j][n], wn = sm.w[j][n];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        sp[j][c] = s[c];
-        s[c] = fmaf(wn, s[c], kn * sm.v[j][col + c]);
-      }
-    }
-    __syncthreads();  // cb, vdy
-
-#pragma unroll
-    for (int j = kChunk - 1; j >= 0; --j) {
-      const float rn = sm.r[j][n], kn = sm.k[j][n], wn = sm.w[j][n];
+    for (int jj = kHalf - 1; jj >= 0; --jj) {
+      const int j = part * kHalf + jj;
+      const float rn = wk.r[j * N + n], kn = wk.k[j * N + n];
+      const float wn = wk.w[j * N + n];
+      float vv[CPT], dd[CPT];
+      load_cols<CPT>(wk.v + j * CB + lc, vv);
+      load_cols<CPT>(wk.dy + j * CB + lc, dd);
       float pr = 0.f, pk = 0.f, pw = 0.f, gv[CPT];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const float vv = sm.v[j][col + c], dd = sm.dy[j][col + c];
-        pr = fmaf(sp[j][c], dd, pr);
-        pk = fmaf(g[c], vv, pk);
-        pw = fmaf(g[c], sp[j][c], pw);
+        pr = fmaf(sp[jj][c], dd[c], pr);
+        pk = fmaf(g[c], vv[c], pk);
+        pw = fmaf(g[c], sp[jj][c], pw);
         gv[c] = g[c] * kn;
-        g[c] = fmaf(wn, g[c], rn * dd);
+        g[c] = fmaf(wn, g[c], rn * dd[c]);
       }
-#pragma unroll
-      for (int o = 1; o < TPK; o <<= 1) {
-        pr += __shfl_xor_sync(L::MASK, pr, o);
-        pk += __shfl_xor_sync(L::MASK, pk, o);
-        pw += __shfl_xor_sync(L::MASK, pw, o);
+      const float vdy = wk.vdy[j];
+      float* red = &sm.red[buf][j][0][0];
+      if constexpr (TPK == 2) {
+        // lane cg 0 ends with dr's sum, lane 1 with dk's; both with dw's
+        const bool hi = cg != 0;
+        float x = (hi ? pk : pr) + __shfl_xor_sync(L::MASK, hi ? pr : pk, 1);
+        pw += __shfl_xor_sync(L::MASK, pw, 1);
+        if (split == 0) x = fmaf(un * (hi ? rn : kn), vdy, x);
+        red[(hi ? QS : 0) + n] = x;
+        if (!hi) red[2 * QS + n] = pw;
+      } else {
+        if (split == 0) {
+          pr = fmaf(un * kn, vdy, pr);
+          pk = fmaf(un * rn, vdy, pk);
+        }
+        red[n] = pr;
+        red[QS + n] = pk;
+        red[2 * QS + n] = pw;
       }
-      if (cg == 0) {
-        sm.red[0][j][n] = pr;
-        sm.red[1][j][n] = pk;
-        sm.red[2][j][n] = pw;
-      }
-      if (split == 0 && cg == 0) du_acc = fmaf(rn * kn, sm.vdy[j], du_acc);
+      if (split == 0 && cg == 0) du_acc = fmaf(rn * kn, vdy, du_acc);
       int own = 0;
       reduce_keys<KW, CPT, TPK>(gv, kw, own, L::MASK);
-      if ((kw & (KW / CPT - 1)) == 0) sm.dvp[j][warp][cg * CPT + own] = gv[0];
-    }
-    __syncthreads();
-
-    // Write the chunk out: the partials of dr, dk (with the bonus terms
-    // from column block 0) and dw; dv in full.
-    for (int i = tid; i < kChunk * N; i += L::THREADS) {
-      const int j = i / N, m = i % N, t = c0 + j;
-      if (t >= a.S) continue;
-      float br = 0.f, bk = 0.f;
-      if (split == 0) {
-        const float uv = sm.u[m] * sm.vdy[j];
-        br = uv * sm.k[j][m];
-        bk = uv * sm.r[j][m];
+      if ((kw & (KW / CPT - 1)) == 0) {
+        const int m = lc + own;  // column within the block
+        float x = gv[0];
+        if (warp == 0) x = fmaf(wk.c[j], wk.dy[j * CB + m], x);
+        sm.dvp[buf][j][warp][m] = x;
       }
-      const int64_t o = int64_t(t) * N + m;
-      P[o] = sm.red[0][j][m] + br;
-      P[int64_t(L::SPLIT) * plane + o] = sm.red[1][j][m] + bk;
-      P[2 * int64_t(L::SPLIT) * plane + o] = sm.red[2][j][m];
     }
-    for (int i = tid; i < kChunk * CB; i += L::THREADS) {
+  };
+
+  // Chunk `it`'s outputs: dr, dk, dw of steps split*JS .. +JS - 1, all N
+  // keys, the cluster's partials summed in rank order; dv of the block's
+  // columns, all the chunk's steps, the warps' partials summed in order.
+  auto finish = [&](int it) {
+    const int c0 = (nch - 1 - it) * kChunk, buf = it & 1;
+    for (int i = tid; i < L::JS * N; i += TH) {
+      const int j = split * L::JS + i / N, nn = i % N, t = c0 + j;
+      if (t >= a.S) continue;
+      float sr = 0.f, sk = 0.f, sw = 0.f;
+#pragma unroll
+      for (int p = 0; p < L::SPLIT; ++p) {
+        const float* rp = cluster.map_shared_rank(&sm.red[buf][j][0][0], p);
+        sr += rp[nn];
+        sk += rp[QS + nn];
+        sw += rp[2 * QS + nn];
+      }
+      store(static_cast<T*>(a.dr) + b * a.st[kDR][0] + h * a.st[kDR][1]
+                + t * a.st[kDR][2] + nn, sr);
+      store(static_cast<T*>(a.dk) + b * a.st[kDK][0] + h * a.st[kDK][1]
+                + t * a.st[kDK][2] + nn, sk);
+      store(static_cast<TW*>(a.dw) + b * a.st[kDW][0] + h * a.st[kDW][1]
+                + t * a.st[kDW][2] + nn, sw);
+    }
+    for (int i = tid; i < kChunk * CB; i += TH) {
       const int j = i / CB, m = i % CB, t = c0 + j;
       if (t >= a.S) continue;
       float acc = 0.f;
 #pragma unroll
-      for (int q = 0; q < L::NW; ++q) acc += sm.dvp[j][q][m];
-      acc = fmaf(sm.cb[j], sm.dy[j][split * CB + m], acc);
-      store(DV + t * a.st[kDV][2] + split * CB + m, acc);
+      for (int q = 0; q < L::NW; ++q) acc += sm.dvp[buf][j][q][m];
+      store(static_cast<T*>(a.dv) + b * a.st[kDV][0] + h * a.st[kDV][1]
+                + t * a.st[kDV][2] + split * CB + m, acc);
     }
+  };
+
+  issue(0);
+  for (int it = 0; it < nch; ++it) {
+    tc::mbar_wait(bar, it & 1);
+    convert();
+    // The work rows are everyone's, and the stage is free: the next
+    // chunk's copy lands while this one is swept.
+    __syncthreads();
+    if (it + 1 < nch) issue(it + 1);
+    sweep(kParts - 1, it & 1);
+    // The last chunk's outputs, after this chunk's first part: their
+    // reads of the other blocks' partials wait while other warps sweep.
+    if (it > 0) finish(it - 1);
+#pragma unroll 1
+    for (int part = kParts - 2; part >= 0; --part) sweep(part, it & 1);
+    // Every block's partials of this chunk are stored, every block has
+    // finished the chunk before (whose buffers the next chunk reuses),
+    // and this block is done with the work rows.
+    cluster.sync();
   }
+  finish(nch - 1);
+  // No block leaves while another may still read its partials.
+  cluster.sync();
   if (split == 0 && cg == 0) a.dupart[bh * N + n] = du_acc;
 }
 
-// 3. dr, dk, dw: the SPLIT partials summed in order and cast; du: the
-// per-(b, h) partials summed over b in order.
-template <typename T, typename TW>
-__global__ void __launch_bounds__(kFinThreads)
-    wkv_bwd_fin(const Args a, int N, int split_n) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int t0 = blockIdx.x * kFinSteps;
-  const int64_t plane = int64_t(a.B) * a.H * a.S * N;
-  const float* P = a.part + (int64_t(b) * a.H + h) * a.S * N;
-  T* DR = static_cast<T*>(a.dr);
-  T* DK = static_cast<T*>(a.dk);
-  TW* DW = static_cast<TW*>(a.dw);
-  for (int i = threadIdx.x; i < kFinSteps * N; i += kFinThreads) {
-    const int t = t0 + i / N, n = i % N;
-    if (t >= a.S) continue;
-    const int64_t o = int64_t(t) * N + n;
-    float sr = 0.f, sk = 0.f, sw = 0.f;
-    for (int sp = 0; sp < split_n; ++sp) {
-      sr += P[int64_t(sp) * plane + o];
-      sk += P[int64_t(split_n + sp) * plane + o];
-      sw += P[int64_t(2 * split_n + sp) * plane + o];
-    }
-    store(DR + off(a, kDR, b, h, t) + n, sr);
-    store(DK + off(a, kDK, b, h, t) + n, sk);
-    store(DW + off(a, kDW, b, h, t) + n, sw);
+// du: the per-(b, h) partials summed over b in order.
+__global__ void __launch_bounds__(kDuThreads)
+    wkv_bwd_du(const float* dupart, float* du, int B, int H, int N) {
+  const int h = blockIdx.x;
+  for (int n = threadIdx.x; n < N; n += kDuThreads) {
+    float s = 0.f;
+    for (int b = 0; b < B; ++b) s += dupart[(int64_t(b) * H + h) * N + n];
+    du[int64_t(h) * N + n] = s;
   }
-  if (blockIdx.x == 0 && b == 0) {
-    for (int n = threadIdx.x; n < N; n += kFinThreads) {
-      float s = 0.f;
-      for (int bb = 0; bb < a.B; ++bb)
-        s += a.dupart[(int64_t(bb) * a.H + h) * N + n];
-      a.du[int64_t(h) * N + n] = s;
-    }
-  }
-}
-
-template <int N>
-int64_t scratch_floats(int B, int H, int S) {
-  const int64_t nch = (S + kChunk - 1) / kChunk;
-  return int64_t(B) * H * nch * N * N
-      + 3 * int64_t(Layout<N>::SPLIT) * B * H * int64_t(S) * N
-      + int64_t(B) * H * N;
 }
 
 template <typename T, typename TW, int N>
-int launch_n(Args a, int64_t n_scratch, cudaStream_t stream) {
+int launch_n(const Args& a, int64_t n_scratch, cudaStream_t stream) {
   using L = Layout<N>;
-  if (n_scratch < scratch_floats<N>(a.B, a.H, a.S))
-    return int(cudaErrorInvalidValue);
-  const int64_t nch = (a.S + kChunk - 1) / kChunk;
-  a.part = a.ckpt + int64_t(a.B) * a.H * nch * N * N;
-  a.dupart = a.part + 3 * int64_t(L::SPLIT) * a.B * a.H * int64_t(a.S) * N;
-  const dim3 grid(L::SPLIT, a.H, a.B);
-  wkv_bwd_ckpt<T, TW, N><<<grid, L::THREADS, 0, stream>>>(a);
-  wkv_bwd_rev<T, TW, N><<<grid, L::THREADS, 0, stream>>>(a);
-  wkv_bwd_fin<T, TW><<<dim3((a.S + kFinSteps - 1) / kFinSteps, a.H, a.B),
-                       kFinThreads, 0, stream>>>(a, N, L::SPLIT);
+  if (n_scratch < int64_t(a.B) * a.H * N) return int(cudaErrorInvalidValue);
+  constexpr int smem = int(sizeof(Smem<T, TW, N>));
+  auto kernel = wkv_bwd_rev<T, TW, N>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(L::SPLIT, a.H, a.B);
+  cfg.blockDim = dim3(L::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L::SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return int(err);
+  wkv_bwd_du<<<a.H, kDuThreads, 0, stream>>>(a.dupart, a.du, a.B, a.H, N);
   return int(cudaGetLastError());
 }
 
 template <typename T, typename TW>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, const void* dy, void* dr, void* dk, void* dv,
-           void* dw, void* du, void* scratch, int64_t n_scratch,
-           const int64_t* strides, int B, int H, int S, int N,
-           cudaStream_t stream) {
+           const void* u, const void* dy, const void* ckpt, const void* cs,
+           void* dr, void* dk, void* dv, void* dw, void* du, void* scratch,
+           int64_t n_scratch, const int64_t* strides, int B, int H, int S,
+           int N, cudaStream_t stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || S < 1)
     return int(cudaErrorInvalidValue);
   Args a{};
@@ -442,12 +581,14 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   a.w = w;
   a.u = static_cast<const float*>(u);
   a.dy = dy;
+  a.ckpt = static_cast<const float*>(ckpt);
+  a.cs = static_cast<const float*>(cs);
   a.dr = dr;
   a.dk = dk;
   a.dv = dv;
   a.dw = dw;
   a.du = static_cast<float*>(du);
-  a.ckpt = static_cast<float*>(scratch);
+  a.dupart = static_cast<float*>(scratch);
   for (int i = 0; i < 9; ++i)
     for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
   a.B = B;
@@ -473,42 +614,46 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 
 extern "C" {
 
-// strides: 27 int64, the (b, h, s) element strides of r, k, v, w, dy, dr,
-// dk, dv, dw in that order. scratch: n_scratch f32 (see the header).
+// ckpt: (B, H, ceil(S/16), N, N) f32 and cs: (B, H, S) f32, contiguous,
+// as the forward kernel writes them under grad. strides: 27 int64, the
+// (b, h, s) element strides of r, k, v, w, dy, dr, dk, dv, dw in that
+// order. scratch: n_scratch >= B*H*N f32 (du's partials).
 
 // r, k, v, w, dy, dr, dk, dv, dw f32.
 int rwkv6_wkv_bwd_f32(const void* r, const void* k, const void* v,
-                      const void* w, const void* u, const void* dy, void* dr,
-                      void* dk, void* dv, void* dw, void* du, void* scratch,
-                      int64_t n_scratch, const int64_t* strides, int B, int H,
-                      int S, int N, void* stream) {
-  return launch<float, float>(r, k, v, w, u, dy, dr, dk, dv, dw, du, scratch,
-                              n_scratch, strides, B, H, S, N,
+                      const void* w, const void* u, const void* dy,
+                      const void* ckpt, const void* cs, void* dr, void* dk,
+                      void* dv, void* dw, void* du, void* scratch,
+                      int64_t n_scratch, const int64_t* strides, int B,
+                      int H, int S, int N, void* stream) {
+  return launch<float, float>(r, k, v, w, u, dy, ckpt, cs, dr, dk, dv, dw,
+                              du, scratch, n_scratch, strides, B, H, S, N,
                               static_cast<cudaStream_t>(stream));
 }
 
 // r, k, v, dy, dr, dk, dv bf16; w, dw f32 (the model's path).
 int rwkv6_wkv_bwd_bf16(const void* r, const void* k, const void* v,
                        const void* w, const void* u, const void* dy,
-                       void* dr, void* dk, void* dv, void* dw, void* du,
-                       void* scratch, int64_t n_scratch,
-                       const int64_t* strides, int B, int H, int S, int N,
-                       void* stream) {
-  return launch<__nv_bfloat16, float>(r, k, v, w, u, dy, dr, dk, dv, dw, du,
-                                      scratch, n_scratch, strides, B, H, S, N,
-                                      static_cast<cudaStream_t>(stream));
+                       const void* ckpt, const void* cs, void* dr, void* dk,
+                       void* dv, void* dw, void* du, void* scratch,
+                       int64_t n_scratch, const int64_t* strides, int B,
+                       int H, int S, int N, void* stream) {
+  return launch<__nv_bfloat16, float>(
+      r, k, v, w, u, dy, ckpt, cs, dr, dk, dv, dw, du, scratch, n_scratch,
+      strides, B, H, S, N, static_cast<cudaStream_t>(stream));
 }
 
-// everything bf16 but u and du.
+// everything bf16 but u, du, the checkpoints and c_t.
 int rwkv6_wkv_bwd_bf16_wbf16(const void* r, const void* k, const void* v,
                              const void* w, const void* u, const void* dy,
-                             void* dr, void* dk, void* dv, void* dw,
-                             void* du, void* scratch, int64_t n_scratch,
+                             const void* ckpt, const void* cs, void* dr,
+                             void* dk, void* dv, void* dw, void* du,
+                             void* scratch, int64_t n_scratch,
                              const int64_t* strides, int B, int H, int S,
                              int N, void* stream) {
   return launch<__nv_bfloat16, __nv_bfloat16>(
-      r, k, v, w, u, dy, dr, dk, dv, dw, du, scratch, n_scratch, strides, B,
-      H, S, N, static_cast<cudaStream_t>(stream));
+      r, k, v, w, u, dy, ckpt, cs, dr, dk, dv, dw, du, scratch, n_scratch,
+      strides, B, H, S, N, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -162,9 +162,9 @@ def rwkv6_wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors, :func:`~repro_torch.kernels.rwkv6_wkv.rwkv6_wkv_plain` on CPU
     tensors; the inputs are checked the same way on both. On CUDA
     tensors with grad enabled and an input that requires grad, the
-    wrapper applies ``RwkvWkvFn`` (forward kernel, then the backward
-    kernel ``csrc/rwkv6_wkv_bwd.cu``); otherwise it launches the forward
-    alone. On CPU tensors the plain version's autograd is the gradient.
+    wrapper applies ``RwkvWkvFn`` (the forward kernel storing the
+    backward's checkpoints, then the backward kernel
+    ``csrc/rwkv6_wkv_bwd.cu``); otherwise it launches the forward alone. On CPU tensors the plain version's autograd is the gradient.
     ``chunk`` is the JAX wrapper's argument, kept for its signature: it
     is the TPU kernel's tiling of S (there a divisor of S) and does not
     change the result; the CUDA kernel keeps the state in registers over

@@ -16,7 +16,10 @@ the Pallas TPU kernel ``rwkv6_wkv`` of ``repro/kernels/rwkv6_wkv.py:47``.
 The backward kernel is ``csrc/rwkv6_wkv_bwd.cu`` (the reverse recurrence
 of the state's adjoint, with the state rebuilt from checkpoints; its
 header has the bound at the training shape and the scratch it needs);
-the JAX package has no backward kernel, it differentiates jnp.
+the JAX package has no backward kernel, it differentiates jnp. The
+checkpoints come from the forward kernel: under grad it also stores the
+state before every ``CKPT_STEPS`` = 16 steps and c_t = Σ_n r u k
+(:func:`rwkv6_wkv_fwd_ckpt`), and the backward reads them.
 
 :func:`rwkv6_wkv` checks its inputs and launches the kernels; it takes
 CUDA tensors only. The choice between kernel and plain version is made
@@ -24,23 +27,27 @@ in one place, :func:`repro_torch.kernels.ops.rwkv6_wkv_op`: CPU tensors
 go to :func:`rwkv6_wkv_plain` — only because they lie on the CPU — and a
 CUDA tensor never reaches the plain version. With grad enabled and an
 input that requires grad, the wrapper applies :class:`RwkvWkvFn` (the
-forward kernel, then :func:`rwkv6_wkv_bwd` in the backward); otherwise
-it launches the forward alone, as serving does. Any (b, h, s) strides
+checkpointing forward kernel, then :func:`rwkv6_wkv_bwd` on its
+checkpoints in the backward); otherwise it launches the forward alone,
+without the checkpoint stores, as serving does. Any (b, h, s) strides
 are taken as long as N has unit stride, so the model's ``(B, S, H, N)``
 projections go in as transposed views; the output is laid out like r.
 The forward kernel stages its tiles by TMA, whose boxes need a base and
 strides in multiples of 16 bytes (8 bytes for N = 4 in bf16, which
 copies by cp.async): the forward launcher copies any other view into a
-dense tensor first. The backward kernel reads rows with plain loads and
-takes any such view as it is; its gradients are laid out like their
-inputs. ``rwkv6_wkv.launches`` counts forward launches,
-``rwkv6_wkv.launches_bwd`` backward launches (one call, three kernels),
+dense tensor first. The backward kernel copies rows by cp.async under
+the same rule (16 bytes, 8 for N = 4 in bf16), and its launcher copies
+dy or an input likewise; its gradients are laid out like their inputs.
+``rwkv6_wkv.launches`` counts forward launches,
+``rwkv6_wkv.launches_ckpt`` those of them that stored checkpoints,
+``rwkv6_wkv.launches_bwd`` backward launches (one call, two kernels),
 ``rwkv6_wkv.copies`` the inputs copied so.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -48,6 +55,35 @@ from repro_torch.kernels import build
 
 HEAD_SIZES = (4, 8, 16, 32, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
+# Steps between the backward's checkpoints: the forward kernel's tile.
+CKPT_STEPS = 16
+
+
+def ckpt_shapes(b: int, h: int, s: int, n: int) -> tuple[tuple, tuple]:
+    """Shapes of the checkpoints the forward stores under grad (f32):
+    the state before every CKPT_STEPS steps ``(B, H, ceil(S/16), N, N)``
+    and c_t ``(B, H, S)``."""
+    return (b, h, -(-s // CKPT_STEPS), n, n), (b, h, s)
+
+
+def _plain_forward(r, k, v, w, u, keep: bool):
+    """The plain forward loop; with ``keep`` also the state before every
+    CKPT_STEPS steps."""
+    b, h, s, n = r.shape
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uu = u.float()[None, :, :, None]
+    state = torch.zeros(b, h, n, n, dtype=torch.float32, device=r.device)
+    ckpt = (torch.empty(ckpt_shapes(b, h, s, n)[0], dtype=torch.float32,
+                        device=r.device) if keep else None)
+    ys = []
+    for t in range(s):
+        if keep and t % CKPT_STEPS == 0:
+            ckpt[:, :, t // CKPT_STEPS] = state
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, :, t],
+                               state + uu * kv))
+        state = wf[:, :, t, :, None] * state + kv
+    return torch.stack(ys, dim=2).to(r.dtype), ckpt
 
 
 def rwkv6_wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,17 +92,19 @@ def rwkv6_wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference of ``chip_smoke.py``), as ``ref.rwkv6_wkv_ref`` of the JAX
     package: a loop over the sequence, vectorised over (B, H, N, N), the
     state in f32 from zero, the output cast to r's dtype."""
-    b, h, s, n = r.shape
-    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
-    uu = u.float()[None, :, :, None]
-    state = torch.zeros(b, h, n, n, dtype=torch.float32, device=r.device)
-    ys = []
-    for t in range(s):
-        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
-        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, :, t],
-                               state + uu * kv))
-        state = wf[:, :, t, :, None] * state + kv
-    return torch.stack(ys, dim=2).to(r.dtype)
+    return _plain_forward(r, k, v, w, u, keep=False)[0]
+
+
+def rwkv6_wkv_ckpt_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         w: torch.Tensor, u: torch.Tensor
+                         ) -> tuple[torch.Tensor, ...]:
+    """Plain version of the checkpointing forward kernel -> (y, ckpt, c):
+    y as :func:`rwkv6_wkv_plain` (the same loop), ckpt the f32 state
+    before steps 0, 16, 32, ... ``(B, H, ceil(S/16), N, N)``, c the f32
+    ``(B, H, S)`` c_t = Σ_n r_t u k_t."""
+    y, ckpt = _plain_forward(r, k, v, w, u, keep=True)
+    c = (r.float() * u.float()[None, :, None, :] * k.float()).sum(-1)
+    return y, ckpt, c
 
 
 def rwkv6_wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -119,13 +157,54 @@ def rwkv6_wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             du)
 
 
+def rwkv6_wkv_bwd_ckpt_plain(r: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, w: torch.Tensor,
+                             u: torch.Tensor, dy: torch.Tensor,
+                             ckpt: torch.Tensor, c: torch.Tensor
+                             ) -> tuple[torch.Tensor, ...]:
+    """Plain version of the backward kernel's algorithm, on the forward's
+    checkpoints (:func:`rwkv6_wkv_ckpt_plain`): interval by interval from
+    the end, the states S_{t-1} rebuilt from the interval's checkpoint,
+    then the adjoint walked back through them; dv's bonus from ``c``.
+    The gradients of :func:`rwkv6_wkv_bwd_plain`, in its dtypes."""
+    check_ckpt(r, ckpt, c)
+    b, h, s, n = r.shape
+    rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
+    uu = u.float()[None, :, :]
+    vdy = (vf * dyf).sum(-1, keepdim=True)                   # (B, H, S, 1)
+    dr, dk, dv, dw = (torch.empty(b, h, s, n, dtype=torch.float32,
+                                  device=r.device) for _ in range(4))
+    g = torch.zeros(b, h, n, n, dtype=torch.float32, device=r.device)
+    for ci in reversed(range(ckpt.shape[2])):
+        t0, t1 = ci * CKPT_STEPS, min(s, (ci + 1) * CKPT_STEPS)
+        state, prevs = ckpt[:, :, ci], []
+        for t in range(t0, t1):
+            prevs.append(state)
+            state = (wf[:, :, t, :, None] * state
+                     + kf[:, :, t, :, None] * vf[:, :, t, None, :])
+        for t in reversed(range(t0, t1)):
+            prev, dyt = prevs[t - t0], dyf[:, :, t]
+            dr[:, :, t] = (torch.einsum("bhnm,bhm->bhn", prev, dyt)
+                           + uu * kf[:, :, t] * vdy[:, :, t])
+            dk[:, :, t] = (torch.einsum("bhnm,bhm->bhn", g, vf[:, :, t])
+                           + uu * rf[:, :, t] * vdy[:, :, t])
+            dv[:, :, t] = (torch.einsum("bhnm,bhn->bhm", g, kf[:, :, t])
+                           + c[:, :, t, None] * dyt)
+            dw[:, :, t] = (g * prev).sum(-1)
+            g = (wf[:, :, t, :, None] * g
+                 + rf[:, :, t, :, None] * dyt[:, :, None, :])
+    du = (rf * kf * vdy).sum((0, 2))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (first call)."""
     lib = build.load("rwkv6_wkv")
     for fn in (lib.rwkv6_wkv_f32, lib.rwkv6_wkv_bf16,
                lib.rwkv6_wkv_bf16_wbf16):
-        fn.argtypes = ([ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 8
                        + [ctypes.POINTER(ctypes.c_int64)]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -138,7 +217,7 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = build.load("rwkv6_wkv_bwd")
     for fn in (lib.rwkv6_wkv_bwd_f32, lib.rwkv6_wkv_bwd_bf16,
                lib.rwkv6_wkv_bwd_bf16_wbf16):
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64]
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int64]
                        + [ctypes.POINTER(ctypes.c_int64)]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -203,6 +282,20 @@ def check_bwd_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "unit stride")
 
 
+def check_ckpt(r: torch.Tensor, ckpt: torch.Tensor, c: torch.Tensor
+               ) -> None:
+    """The checkpoints of a forward over r: f32, contiguous, on r's
+    device, of :func:`ckpt_shapes`."""
+    want = ckpt_shapes(*r.shape)
+    for name, t, shape in (("ckpt", ckpt, want[0]), ("c", c, want[1])):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or t.device != r.device or not t.is_contiguous():
+            raise ValueError(f"rwkv6_wkv_bwd: {name} is {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device} (contiguous: "
+                             f"{t.is_contiguous()}); want {shape} f32 "
+                             f"contiguous on {r.device}")
+
+
 def _require_cuda(name: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
@@ -210,23 +303,24 @@ def _require_cuda(name: str, t: torch.Tensor) -> None:
                          f"version on the CPU)")
 
 
-def rwkv6_wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """The forward kernel on CUDA tensors -> ``(B, H, S, N)`` in r's
-    dtype, laid out like r. Raises on any other device. Counts the
-    launch in ``rwkv6_wkv.launches``."""
+def _addressable_copy(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` itself if the kernels' row copies can address it, else a
+    dense copy (counted in ``rwkv6_wkv.copies``)."""
+    if addressable(t, n):
+        return t
+    rwkv6_wkv.copies += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch_fwd(r, k, v, w, u, ckpt, cs) -> torch.Tensor:
+    """One forward launch; ``ckpt`` and ``cs`` both None (serving) or
+    the checkpoint buffers the kernel fills."""
     check_inputs(r, k, v, w, u)
     _require_cuda("rwkv6_wkv", r)
     b, h, s, n = r.shape
     u = u.contiguous()
     y = torch.empty_like(r)
-    ins = []
-    for t in (r, k, v, w):
-        if not addressable(t, n):
-            t = t.clone(memory_format=torch.contiguous_format)
-            rwkv6_wkv.copies += 1
-        ins.append(t)
-    r, k, v, w = ins
+    r, k, v, w = (_addressable_copy(t, n) for t in (r, k, v, w))
     strides = (ctypes.c_int64 * 15)(*(
         st for t in (r, k, v, w, y) for st in t.stride()[:3]))
     lib = _lib()
@@ -239,36 +333,74 @@ def rwkv6_wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), y.data_ptr(), strides, b, h, s, n, stream)
+                 u.data_ptr(), y.data_ptr(),
+                 None if ckpt is None else ckpt.data_ptr(),
+                 None if cs is None else cs.data_ptr(), strides, b, h, s, n,
+                 stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_wkv kernel launch failed: cudaError {err}")
     rwkv6_wkv.launches += 1
     return y
 
 
+def rwkv6_wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The forward kernel on CUDA tensors, as serving launches it ->
+    ``(B, H, S, N)`` in r's dtype, laid out like r. Raises on any other
+    device. Counts the launch in ``rwkv6_wkv.launches``."""
+    return _launch_fwd(r, k, v, w, u, None, None)
+
+
+def rwkv6_wkv_fwd_ckpt(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor
+                       ) -> tuple[torch.Tensor, ...]:
+    """The forward kernel with the backward's checkpoints -> (y, ckpt, c):
+    y as :func:`rwkv6_wkv_fwd` (bit-equal), ckpt and c as
+    :func:`rwkv6_wkv_ckpt_plain`. Counts the launch in
+    ``rwkv6_wkv.launches`` and ``rwkv6_wkv.launches_ckpt``."""
+    check_inputs(r, k, v, w, u)
+    _require_cuda("rwkv6_wkv", r)
+    shape_ck, shape_c = ckpt_shapes(*r.shape)
+    ckpt = torch.empty(shape_ck, dtype=torch.float32, device=r.device)
+    c = torch.empty(shape_c, dtype=torch.float32, device=r.device)
+    y = _launch_fwd(r, k, v, w, u, ckpt, c)
+    rwkv6_wkv.launches_ckpt += 1
+    return y, ckpt, c
+
+
 def bwd_scratch_floats(b: int, h: int, s: int, n: int) -> int:
-    """f32 scratch of the backward kernel (``csrc/rwkv6_wkv_bwd.cu``): the
-    state before every 8 steps, the column blocks' partial dr, dk and dw
-    (2 column blocks at N = 64, else 1), and du's per-(b, h) partials."""
-    split = 2 if n == 64 else 1
-    return (b * h * -(-s // 8) * n * n + 3 * split * b * h * s * n
-            + b * h * n)
+    """f32 the backward kernel (``csrc/rwkv6_wkv_bwd.cu``) reads and
+    writes beyond its inputs and outputs: the forward's checkpoints (the
+    state before every 16 steps) and c_t, and du's per-(b, h) partials
+    (the wrapper's scratch)."""
+    shape_ck, shape_c = ckpt_shapes(b, h, s, n)
+    return math.prod(shape_ck) + math.prod(shape_c) + b * h * n
 
 
 def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor
+                  w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                  ckpt: torch.Tensor | None = None,
+                  c: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, ...]:
     """The backward kernel on CUDA tensors -> (dr, dk, dv, dw, du): dr,
     dk, dv in r's dtype and dw in w's, each laid out like its input; du
-    ``(H, N)`` f32. Raises on any other device. Counts the call in
-    ``rwkv6_wkv.launches_bwd``."""
+    ``(H, N)`` f32. ``ckpt`` and ``c`` are the checkpoints of
+    :func:`rwkv6_wkv_fwd_ckpt` over the same inputs (training passes the
+    forward's); without them it first runs that forward itself. Raises on
+    any other device. Counts the call in ``rwkv6_wkv.launches_bwd``."""
     check_bwd_inputs(r, k, v, w, u, dy)
+    if (ckpt is None) != (c is None):
+        raise ValueError("rwkv6_wkv_bwd: give both ckpt and c, or neither")
     _require_cuda("rwkv6_wkv_bwd", r)
+    if ckpt is None:
+        _, ckpt, c = rwkv6_wkv_fwd_ckpt(r, k, v, w, u)
+    check_ckpt(r, ckpt, c)
     b, h, s, n = r.shape
     u = u.contiguous()
     dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
     du = torch.empty((h, n), dtype=torch.float32, device=r.device)
-    n_scratch = bwd_scratch_floats(b, h, s, n)
+    r, k, v, w, dy = (_addressable_copy(t, n) for t in (r, k, v, w, dy))
+    n_scratch = b * h * n
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=r.device)
     strides = (ctypes.c_int64 * 27)(*(
         st for t in (r, k, v, w, dy, dr, dk, dv, dw)
@@ -283,9 +415,10 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), dy.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-                 scratch.data_ptr(), n_scratch, strides, b, h, s, n, stream)
+                 u.data_ptr(), dy.data_ptr(), ckpt.data_ptr(), c.data_ptr(),
+                 dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                 du.data_ptr(), scratch.data_ptr(), n_scratch, strides, b,
+                 h, s, n, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_wkv_bwd kernels launch failed: "
                            f"cudaError {err}")
@@ -294,21 +427,25 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class RwkvWkvFn(torch.autograd.Function):
-    """The WKV recurrence with a kernel on both sides: the forward kernel
-    (saving r, k, v, w and u), the backward kernel for all five
-    gradients. CUDA tensors only (the launchers raise otherwise)."""
+    """The WKV recurrence with a kernel on both sides: the checkpointing
+    forward kernel (saving r, k, v, w, u and its checkpoints), the
+    backward kernel on those checkpoints for all five gradients. CUDA
+    tensors only (the launchers raise otherwise). Under non-reentrant
+    ``torch.utils.checkpoint`` the forward runs twice and the backward
+    reads the second run's checkpoints."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u):
-        ctx.save_for_backward(r, k, v, w, u)
-        return rwkv6_wkv_fwd(r, k, v, w, u)
+        y, ckpt, c = rwkv6_wkv_fwd_ckpt(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u, ckpt, c)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        r, k, v, w, u = ctx.saved_tensors
+        r, k, v, w, u, ckpt, c = ctx.saved_tensors
         if dy.stride(3) != 1:
             dy = dy.contiguous()
-        return rwkv6_wkv_bwd(r, k, v, w, u, dy)
+        return rwkv6_wkv_bwd(r, k, v, w, u, dy, ckpt, c)
 
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -316,8 +453,9 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The kernel on CUDA tensors -> ``(B, H, S, N)`` in r's dtype, laid
     out like r. With grad enabled and an input that requires grad,
     through :class:`RwkvWkvFn` (the output carries the backward kernel's
-    autograd node); otherwise one forward launch. Raises on any other
-    device (the launchers check the inputs)."""
+    autograd node, its forward storing the checkpoints); otherwise one
+    forward launch without them. Raises on any other device (the
+    launchers check the inputs)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u)):
         return RwkvWkvFn.apply(r, k, v, w, u)
@@ -325,5 +463,6 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 rwkv6_wkv.launches = 0
+rwkv6_wkv.launches_ckpt = 0
 rwkv6_wkv.launches_bwd = 0
 rwkv6_wkv.copies = 0

@@ -6,7 +6,11 @@ kernel beside it:
 
 - ``rwkv6_wkv_bwd`` at rwkv6-3b's training slice's shape (B=2, H=40,
   S=1024, N=64) and the serve prefill's (B=4, S=4096), bf16 r, k, v, dy
-  and f32 w on the model's (B, S, H, N) views;
+  and f32 w on the model's (B, S, H, N) views, given the checkpoints of
+  the forward kernel (as training runs it; ``device_ms``), and beside it
+  the forward with those checkpoint stores (``fwd_ckpt_device_ms``), the
+  serving forward (``fwd_device_ms``) and the backward that makes its
+  own checkpoints (``standalone_device_ms``);
 - ``selective_scan_bwd`` at jamba's training shape (B=2, S=1024, D=8192,
   N=16) and the serve prefill's (B=4, S=4096), abar f32 and bx, c, dy
   bf16, c a strided view as the model's.
@@ -20,6 +24,7 @@ the card's name and power limit.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import time
@@ -84,12 +89,24 @@ def main() -> int:
         for label, c in shapes.items():
             args = make(gen, *c.values())
             reps = 20 if label == "train" else 5
-            row = {"device_ms": device_ms(lambda: bwd(*args), reps),
-                   "fwd_device_ms": device_ms(lambda: fwd(*args[:-1]),
-                                              reps),
-                   "by_kernel_us": by_kernel_us(lambda: bwd(*args))}
+            row, ckpts = {}, None
+            if kind == "rwkv6_wkv_bwd":
+                # The backward as training runs it: on the checkpoints of
+                # the forward kernel over the same inputs.
+                ckpts = wkv.rwkv6_wkv_fwd_ckpt(*args[:-1])[1:]
+                run = functools.partial(bwd, *args, *ckpts)
+                row["fwd_ckpt_device_ms"] = device_ms(
+                    lambda: wkv.rwkv6_wkv_fwd_ckpt(*args[:-1]), reps)
+                row["standalone_device_ms"] = device_ms(
+                    lambda: bwd(*args), reps)
+            else:
+                run = functools.partial(bwd, *args)
+            row.update({"device_ms": device_ms(run, reps),
+                        "fwd_device_ms": device_ms(lambda: fwd(*args[:-1]),
+                                                   reps),
+                        "by_kernel_us": by_kernel_us(run)})
             if label == "train":
-                got = bwd(*args)
+                got = run()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 want = plain(*args)
@@ -98,7 +115,7 @@ def main() -> int:
                 row["rel_err_vs_plain"] = rel_err(got, want)
                 del got, want
             out[kind][label] = row
-            del args
+            del args, run, ckpts
             torch.cuda.empty_cache()
     out["card"] = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

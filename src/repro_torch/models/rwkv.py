@@ -19,9 +19,10 @@ cumulative decay passes it (ROADMAP Queue C); at decays like the
 init's the two agree. The ``(B, S, H, N)`` projections go into the
 kernel as transposed views, no copies, and w stays f32 as ``_decay``
 makes it. Under grad (training) the wrapper applies ``RwkvWkvFn``: the
-same forward kernel, and the backward kernel ``csrc/rwkv6_wkv_bwd.cu``
-for dr, dk, dv, dw and du; with remat (``cfg.remat``) each layer's
-forward kernel runs once more in the backward.
+same forward kernel, storing the backward's checkpoints as well, and the
+backward kernel ``csrc/rwkv6_wkv_bwd.cu`` for dr, dk, dv, dw and du;
+with remat (``cfg.remat``) each layer's forward kernel runs once more in
+the backward, and the backward reads that run's checkpoints.
 
 Decode (:func:`rwkv_decode`) carries (S, x_prev) — O(1) per token — and
 updates the cache in place (``copy_``).

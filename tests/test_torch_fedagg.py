@@ -162,6 +162,28 @@ def test_library_path_follows_the_source(tmp_path, monkeypatch):
     assert build.library_path("fedagg").name != before.name
 
 
+def test_cached_build_keeps_its_report(tmp_path, monkeypatch):
+    """A library built once reports the compiler's resource report again
+    when it is found built (``chip_smoke.py`` reads registers and spills
+    from it), with a stand-in compiler that writes the output file."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text("// a kernel\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\nwhile [ \"$1\" != -o ]; do shift; done\n"
+                    "echo built > \"$2\"\n"
+                    "echo 'ptxas info    : Used 40 registers'\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "build_dir", lambda: tmp_path / "out")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    first = build.build(["k"])["k"]
+    again = build.build(["k"])["k"]
+    assert not first["cached"] and again["cached"]
+    assert "Used 40 registers" in first["log"]
+    assert again["log"] == first["log"]
+    assert build.library_path("k").read_text() == "built\n"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,p,offset", [
     (40, 1_605_632, 0), (40, 10, 0), (1, 7, 0), (3, 1001, 0), (8, 4096, 1),

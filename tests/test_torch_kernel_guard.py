@@ -75,7 +75,7 @@ DIFFERENTIABLE = {
 # forward and one backward.
 PLAIN_CALLS = {"flash_attention": (plain_launchers,
                                    [("fwd", True), ("bwd", True, None)]),
-               "rwkv6_wkv": (wkv_plain_launchers, ["fwd", "bwd"]),
+               "rwkv6_wkv": (wkv_plain_launchers, ["fwd_ckpt", "bwd"]),
                "selective_scan": (scan_plain_launchers, ["fwd", "bwd"])}
 
 
