@@ -85,7 +85,7 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     in the model's mixed dtypes, at abar ~ U[0.8, 0.999] and at the
     model's own-fan-in regime, where three planted faults from step 1024
     must break the bf16 tolerance; timed beside the plain version and its
-    bound;
+    bound; no launch stores the backward's checkpoints;
 16. jamba card vs CPU — jamba-v0.1-52b at full width, one period of its
     four (``num_layers=8``: 7 Mamba blocks, 1 attention block, 4 MoE
     FFNs; the whole model's 96 GiB does not fit one card), in f32 at own
@@ -101,8 +101,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     0.99) at both inits;
 18. jamba serve — the period in bf16 at own fan-in: ``prefill`` at B=4,
     S=4096 (the counts zeroed just before, read just after: 7
-    ``selective_scan`` and 1 ``flash_attention`` launches, that one of the
-    tensor-core kernel), the share of
+    ``selective_scan`` launches, none storing checkpoints, and 1
+    ``flash_attention`` launch, of the tensor-core kernel), the share of
     its abar in (0.01, 0.99), ``greedy_generate`` at serve's defaults,
     and the profiles of phase 10;
 19. routed — each routed strategy at full width on the card with its
@@ -198,21 +198,29 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     at the serve shape (B=4, S=4096) against the operations bound, the
     forward with the stores against the serving forward at both; ptxas'
     registers and spills;
-28. scan backward — ``selective_scan_bwd`` likewise: the scan sweep in
-    its three dtype cases, abar = 0 and 1 over 300 steps, jamba's
-    training shape (B=2, S=1024, D=8192, N=16; abar f32, bx/c/dy bf16)
-    at two abar regimes with two planted faults each (the adjoint's decay
-    skipped, d abar from the state after the step), bit-equal calls,
-    timed against the byte bound there and at the serve shape; then one
+28. scan backward — the checkpointing forward
+    (``selective_scan_fwd_ckpt``: y bit-equal to serving's, checkpoints
+    against ``selective_scan_ckpt_plain``'s) and ``selective_scan_bwd``
+    on those checkpoints likewise: the scan sweep in its three dtype
+    cases (bit-equal to the backward making its own checkpoints), abar =
+    0 and 1 over 300 steps, jamba's training shape (B=2, S=1024, D=8192,
+    N=16; abar f32, bx/c/dy bf16) at two abar regimes with three planted
+    faults each (the adjoint's decay skipped, d abar from the state after
+    the step, the checkpoints taken one chunk off), bit-equal calls; the
+    backward on the forward's checkpoints timed against the byte bound
+    there and at the serve shape, the forward with the stores against
+    the serving forward at both; ptxas' registers and spills; then one
     full-width jamba Mamba block (bf16, own fan-in, B=2, S=1024): the
-    gradients of its leaves and input through the kernels (one forward
-    and one backward launch) against the plain scan's on the card;
+    gradients of its leaves and input through the kernels (one
+    checkpointing forward and one backward launch; two forwards under
+    remat) against the plain scan's on the card, and its forward +
+    backward in device time;
 29. train card vs CPU, the other families — rwkv6-3b at full width cut
     to 2 layers, f32: each leaf's gradient card vs CPU within
     ``TRAIN_GRAD_RTOL``, a planted backward fault (the WKV backward given
     w = 1) caught, one ``single_device_round`` on both; then the reduced
     jamba-v0.1-52b at own fan-in, one round on both, the card's 14 scan
-    forward and 14 backward launches counted;
+    forward (all storing checkpoints) and 14 backward launches counted;
 30. rwkv train — the slice of phase 25 for rwkv6-3b at full width (bf16,
     remat, ``TRAIN_SLICE``, the CLI's init): per round one ``fedagg``
     launch and per satellite step 64 ``rwkv6_wkv`` forward (32 + 32
@@ -1622,6 +1630,7 @@ def phase_scan(torch, scan_mod):
     path)."""
     scan, plain = scan_mod.selective_scan, scan_mod.selective_scan_plain
     gen = torch.Generator(device="cuda").manual_seed(6)
+    ckpt_launches = scan.launches_ckpt
     for b, s, d, n in SCAN_SWEEP:
         for case in SCAN_CASES:
             args = _scan_inputs(torch, gen, b, s, d, n, case, (0.2, 0.99))
@@ -1696,6 +1705,13 @@ def phase_scan(torch, scan_mod):
         f"bytes, {flop:.4e} FLOP, bound {bound_ms:.4f} ms ({bound_by}); "
         f"kernel at {nbytes / ms / 1e6:.1f} GB/s")
     del args
+    # Serving (no grad) launches the instantiation without the backward's
+    # checkpoint stores.
+    if scan.launches_ckpt != ckpt_launches:
+        raise AssertionError(f"the serving scan stored checkpoints in "
+                             f"{scan.launches_ckpt - ckpt_launches} "
+                             f"launches")
+    log("scan", "no launch stored the backward's checkpoints")
     return dict(name="selective_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/selective_scan.cu",
                 replaces="src/repro/kernels/selective_scan.py:42",
@@ -3203,14 +3219,16 @@ def phase_jamba_round_card_vs_cpu(torch, Transformer, get_config,
                              fed_cfg(1, 2, 1), train, stack_params,
                              "train-cvc", kernels)
     mamba = sum(k == "mamba" for k in cfg.block_pattern)
-    want = {"selective_scan": 2 * mamba, "selective_scan.bwd": 2 * mamba}
+    want = {"selective_scan": 2 * mamba, "selective_scan.ckpt": 2 * mamba,
+            "selective_scan.bwd": 2 * mamba}
     got = {k: out["counts"][k] for k in want}
     if got != want:
         raise AssertionError(f"reduced jamba round launched {got}; want "
                              f"{want} ({mamba} Mamba layers x 2 "
                              f"satellites)")
     log("train-cvc", f"{cfg.name} at own fan-in: {got['selective_scan']} "
-        f"scan forward and {got['selective_scan.bwd']} backward launches "
+        f"scan forward launches, all {got['selective_scan.ckpt']} storing "
+        f"checkpoints, and {got['selective_scan.bwd']} backward launches "
         f"in the card's round ({mamba} Mamba layers x 2 satellites)")
     return out
 
@@ -3585,8 +3603,17 @@ def _bwd_timing(torch, bwd, args, plain, flop: float, nbytes: int,
                 bound_by=bound_by)
 
 
-def _ptxas_of(ptxas: dict, prefix: str) -> dict:
-    return {k: v for k, v in ptxas.items() if k.startswith(prefix)}
+def _fwd_times(torch, serve, stores, what: str, phase: str) -> dict:
+    """A recurrence's checkpointing forward (``stores``) against its
+    serving forward, device time, in turns (serving, checkpointing,
+    checkpointing, serving); the less of each pair."""
+    ms = [device_ms(torch, f, reps=20) for f in (serve, stores, stores,
+                                                 serve)]
+    serve_ms, ckpt_ms = min(ms[0], ms[3]), min(ms[1], ms[2])
+    log(phase, f"{what}: forward device time {ms[0]:.4f} / {ms[3]:.4f} ms "
+        f"serving, {ms[1]:.4f} / {ms[2]:.4f} ms with the checkpoint stores "
+        f"(+{ckpt_ms - serve_ms:.4f})")
+    return dict(fwd_device_ms=serve_ms, fwd_ckpt_device_ms=ckpt_ms)
 
 
 def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
@@ -3699,23 +3726,14 @@ def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
             + sum(t.numel() * t.element_size() for t in args[:4]) \
             + 4 * h * n
 
-    def fwd_times(args, what):
-        """The checkpointing forward against the serving forward, device
-        time, in turns."""
-        serve_ms = device_ms(torch, lambda: fwd(*args[:5]), reps=20)
-        ckpt_ms = device_ms(torch, lambda: fwd_ckpt(*args[:5]), reps=20)
-        serve_ms2 = device_ms(torch, lambda: fwd(*args[:5]), reps=20)
-        log("wkv-bwd", f"{what}: forward device time {serve_ms:.4f} / "
-            f"{serve_ms2:.4f} ms serving, {ckpt_ms:.4f} ms with the "
-            f"checkpoint stores (+{ckpt_ms - min(serve_ms, serve_ms2):.4f})")
-        return dict(fwd_device_ms=min(serve_ms, serve_ms2),
-                    fwd_ckpt_device_ms=ckpt_ms)
     flop = b * h * s * (14 * n * n + 16 * n)
     entry = _bwd_timing(torch, lambda *a: bwd(*a, *ckpts), args, plain,
                         flop, moved(args),
                         f"training shape B={b} H={h} S={s} N={n}, given "
                         f"the forward's checkpoints", "wkv-bwd")
-    entry.update(fwd_times(args, f"training shape B={b} S={s}"))
+    entry.update(_fwd_times(torch, lambda: fwd(*args[:5]),
+                            lambda: fwd_ckpt(*args[:5]),
+                            f"training shape B={b} S={s}", "wkv-bwd"))
     alone_ms = device_ms(torch, lambda: bwd(*args), reps=10)
     log("wkv-bwd", f"training shape: the backward making its own "
         f"checkpoints {alone_ms:.4f} ms device time")
@@ -3727,7 +3745,9 @@ def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
                         b * h * s * (14 * n * n + 16 * n), moved(args),
                         f"serve shape B={b} H={h} S={s} N={n}, given the "
                         f"forward's checkpoints", "wkv-bwd")
-    serve.update(fwd_times(args, f"serve shape B={b} S={s}"))
+    serve.update(_fwd_times(torch, lambda: fwd(*args[:5]),
+                            lambda: fwd_ckpt(*args[:5]),
+                            f"serve shape B={b} S={s}", "wkv-bwd"))
     del args, ckpts
     torch.cuda.empty_cache()
     report = {k: v for k, v in ptxas.items()
@@ -3778,10 +3798,13 @@ def _scan_bwd_planted(torch, abar, bx, c, dy, fault: str):
 
 
 def phase_scan_bwd(torch, scan_mod, ptxas: dict) -> dict:
-    """Phase 28: selective_scan_bwd against selective_scan_bwd_plain on the
-    card; returns the kernels-line entry (launches filled in from phase
-    29's jamba round)."""
+    """Phase 28: the checkpointing forward (``selective_scan_fwd_ckpt``)
+    and ``selective_scan_bwd`` against their plain versions on the card;
+    returns the kernels-line entry (launches filled in from phase 29's
+    jamba round)."""
     bwd, plain = scan_mod.selective_scan_bwd, scan_mod.selective_scan_bwd_plain
+    fwd = scan_mod.selective_scan_fwd
+    fwd_ckpt = scan_mod.selective_scan_fwd_ckpt
     names = ("dabar", "dbx", "dc")
     gen = torch.Generator(device="cuda").manual_seed(28)
 
@@ -3790,45 +3813,80 @@ def phase_scan_bwd(torch, scan_mod, ptxas: dict) -> dict:
         dy = torch.randn((b, s, d), generator=gen, device="cuda").to(bx.dtype)
         return abar, bx, c, dy
 
+    def check_ckpt_fwd(args, what):
+        """y bit-equal to the serving forward's; the checkpoints within
+        BWD_REL["float32"] of the plain ones' largest value."""
+        y, ckpt = fwd_ckpt(*args[:3])
+        if not torch.equal(y, fwd(*args[:3])):
+            raise AssertionError(f"{what}: the checkpointing forward's y "
+                                 f"differs from the serving forward's")
+        want = scan_mod.selective_scan_ckpt_plain(*args[:3])[1]
+        rel = max_err(torch, ckpt, want) / max(float(want.abs().max()),
+                                               1e-30)
+        if not rel <= BWD_REL["float32"]:
+            raise AssertionError(f"{what}: forward's ckpt vs plain "
+                                 f"{rel:.3e} of its largest value")
+        return ckpt, rel
+
     for b, s, d, n in SCAN_SWEEP:
         for case in SCAN_CASES:
             args = inputs(b, s, d, n, case, (0.2, 0.99))
             what = f"scan bwd {case} B={b} S={s} D={d} N={n}"
-            rel = check_grads(torch, bwd(*args), plain(*args), what, names)
-            log("scan-bwd", f"{what}: max |err| / max |plain| "
+            ckpt, crel = check_ckpt_fwd(args, what)
+            got = bwd(*args, ckpt)
+            rel = check_grads(torch, got, plain(*args), what, names)
+            alone = bwd(*args)
+            if not all(torch.equal(x, y) for x, y in zip(got, alone)):
+                raise AssertionError(f"{what}: the backward on its own "
+                                     f"checkpoints differs from the one "
+                                     f"on the forward's")
+            log("scan-bwd", f"{what}: y bit-equal to serving; ckpt "
+                f"{crel:.2e}; max |err| / max |plain| "
                 + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
     for abar in (0.0, 1.0):
         for case in ("f32", "mixed"):
             args = inputs(2, 300, 130, 16, case, (abar, abar))
             what = f"scan bwd {case} B=2 S=300 D=130 N=16, abar = {abar:g}"
-            rel = check_grads(torch, bwd(*args), plain(*args), what, names)
+            ckpt, _ = check_ckpt_fwd(args, what)
+            rel = check_grads(torch, bwd(*args, ckpt), plain(*args), what,
+                              names)
             log("scan-bwd", f"{what}: " + ", ".join(
                 f"{k} {v:.2e}" for k, v in rel.items()))
 
+    # The training shape in the model's dtypes, on the forward's
+    # checkpoints: within tolerance, bit-equal over two calls, three
+    # planted faults caught, at two abar regimes.
     b, s, d, n = (SCAN_TRAIN[x] for x in ("b", "s", "d", "n"))
     rels, faults = {}, {}
     for abar_from in ((0.8, 0.999), "own fan-in"):
         label = ("abar ~ U[0.8, 0.999]" if isinstance(abar_from, tuple)
                  else "abar at own fan-in")
         args = inputs(b, s, d, n, "mixed", abar_from)
-        first, want = bwd(*args), plain(*args)
+        ckpt, crel = check_ckpt_fwd(args, f"scan forward at the training "
+                                          f"shape, {label}")
+        first, want = bwd(*args, ckpt), plain(*args)
         rel = check_grads(torch, first, want,
                           f"scan bwd at the training shape, {label}", names)
         rels[label] = rel
         worst = max(max_err(torch, x, y) for x, y in zip(first, want))
-        second = bwd(*args)
+        second = bwd(*args, ckpt)
         if not all(torch.equal(x, y) for x, y in zip(first, second)):
             raise AssertionError("scan bwd: two calls on the same inputs "
                                  "differ")
         log("scan-bwd", f"training shape B={b} S={s} D={d} N={n}, abar f32, "
-            f"bx/c/dy bf16, {label}: " + ", ".join(
-                f"{k} {v:.2e}" for k, v in rel.items())
+            f"bx/c/dy bf16, {label}: forward's ckpt {crel:.2e}; "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
             + "; two calls bit-equal")
         del first, second
-        for fault in ("adjoint decay skipped", "d abar from h_t"):
-            frel, caught = breaks(torch, _scan_bwd_planted(torch, *args,
-                                                           fault),
-                                  want, names)
+        shifted = torch.roll(ckpt, -1, dims=1).contiguous()
+        for fault, bad in (
+                ("adjoint decay skipped",
+                 lambda: _scan_bwd_planted(torch, *args,
+                                           "adjoint decay skipped")),
+                ("d abar from h_t",
+                 lambda: _scan_bwd_planted(torch, *args, "d abar from h_t")),
+                ("checkpoint one chunk off", lambda: bwd(*args, shifted))):
+            frel, caught = breaks(torch, bad(), want, names)
             if not caught:
                 raise AssertionError(f"planted scan bwd fault ({fault}, "
                                      f"{label}) passes the tolerance: "
@@ -3837,31 +3895,47 @@ def phase_scan_bwd(torch, scan_mod, ptxas: dict) -> dict:
             log("scan-bwd", f"planted fault ({fault}, {label}): "
                 + ", ".join(f"{k} {v:.2e}" for k, v in frel.items())
                 + f"; caught by {BWD_REL}")
-        del want
+        del want, shifted
         if isinstance(abar_from, tuple):
-            del args
+            del args, ckpt
+
     def moved(args):
         """Bytes read (every input once) and written (d abar, d bx like
         abar, bx; dc (B, S, N) bf16)."""
         return sum(t.numel() * t.element_size() for t in args) \
             + sum(t.numel() * t.element_size() for t in args[:2]) \
             + args[2].shape[0] * args[2].shape[1] * n * 2
-    entry = _bwd_timing(torch, bwd, args, plain, 8 * b * s * d * n,
-                        moved(args),
-                        f"training shape B={b} S={s} D={d} N={n}",
-                        "scan-bwd")
-    del args
+
+    entry = _bwd_timing(torch, lambda *a: bwd(*a, ckpt), args, plain,
+                        8 * b * s * d * n, moved(args),
+                        f"training shape B={b} S={s} D={d} N={n}, given "
+                        f"the forward's checkpoints", "scan-bwd")
+    entry.update(_fwd_times(torch, lambda: fwd(*args[:3]),
+                            lambda: fwd_ckpt(*args[:3]),
+                            f"training shape B={b} S={s}", "scan-bwd"))
+    alone_ms = device_ms(torch, lambda: bwd(*args), reps=10)
+    log("scan-bwd", f"training shape: the backward making its own "
+        f"checkpoints {alone_ms:.4f} ms device time")
+    del args, ckpt
     torch.cuda.empty_cache()
     b, s = SCAN_PREFILL["b"], SCAN_PREFILL["s"]
     args = inputs(b, s, d, n, "mixed", (0.8, 0.999))
-    serve = _bwd_timing(torch, bwd, args, None, 8 * b * s * d * n,
-                        moved(args),
-                        f"serve shape B={b} S={s} D={d} N={n}", "scan-bwd")
-    del args
+    ckpt = fwd_ckpt(*args[:3])[1]
+    serve = _bwd_timing(torch, lambda *a: bwd(*a, ckpt), args, None,
+                        8 * b * s * d * n, moved(args),
+                        f"serve shape B={b} S={s} D={d} N={n}, given the "
+                        f"forward's checkpoints", "scan-bwd")
+    serve.update(_fwd_times(torch, lambda: fwd(*args[:3]),
+                            lambda: fwd_ckpt(*args[:3]),
+                            f"serve shape B={b} S={s}", "scan-bwd"))
+    del args, ckpt
     torch.cuda.empty_cache()
-    report = _ptxas_of(ptxas, "scan_bwd")
-    for label in ("scan_bwd_ckpt<f32, bf16, N=16>",
-                  "scan_bwd_rev<f32, bf16, N=16>", "scan_bwd_dc<bf16>"):
+    report = {k: v for k, v in ptxas.items()
+              if k.startswith("scan_bwd")
+              or k.startswith("scan_fwd<f32, bf16, N=16")}
+    for label in ("scan_bwd_rev<f32, bf16, N=16>", "scan_bwd_dc<bf16>",
+                  "scan_fwd<f32, bf16, N=16, ckpt>",
+                  "scan_fwd<f32, bf16, N=16>"):
         if label in report:
             regs, st, ld = report[label]
             log("scan-bwd", f"ptxas {label}: {regs} registers, {st} bytes "
@@ -3869,10 +3943,16 @@ def phase_scan_bwd(torch, scan_mod, ptxas: dict) -> dict:
     return dict(name="selective_scan_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
                 replaces="src/repro/kernels/selective_scan.py:42",
+                kernels=["scan_bwd_rev", "scan_bwd_dc",
+                         "scan_fwd (with the checkpoint stores, "
+                         "csrc/selective_scan.cu)"],
                 launches=None, max_abs_err=worst, rel_err=rels,
                 faults=faults, ms=entry["ms"], device_ms=entry["device_ms"],
                 plain_ms=entry["plain_ms"], bound_ms=entry["bound_ms"],
                 bound_by=entry["bound_by"], library_ms=None,
+                fwd_device_ms=entry["fwd_device_ms"],
+                fwd_ckpt_device_ms=entry["fwd_ckpt_device_ms"],
+                standalone_device_ms=alone_ms,
                 serve={k: v for k, v in serve.items() if k != "plain_ms"},
                 ptxas=report)
 
@@ -3916,29 +3996,35 @@ def phase_mamba_block_grads(torch, Transformer, get_config, ops,
                                 [*leaves.values(), xx])
         return dict(zip([*leaves, "x"], g))
     scan = scan_mod.selective_scan
+
+    def counts():
+        return (scan.launches, scan.launches_ckpt, scan.launches_bwd)
     torch.cuda.synchronize()
-    scan.launches = scan.launches_bwd = 0
+    scan.launches = scan.launches_ckpt = scan.launches_bwd = 0
     t0 = time.perf_counter()
     got = grads()
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
-    counts = (scan.launches, scan.launches_bwd)
-    if counts != (1, 1):
-        raise AssertionError(f"the Mamba block launched {counts} scan "
-                             f"forward / backward kernels; want (1, 1)")
+    once = counts()
+    if once != (1, 1, 1):
+        raise AssertionError(f"the Mamba block launched {once} scan "
+                             f"forward / checkpointing forward / backward "
+                             f"kernels; want (1, 1, 1)")
     # Under torch.utils.checkpoint the forward runs again in the backward
-    # (the in-place exp_ of abar included): one more forward launch, the
-    # same gradients bit for bit.
-    scan.launches = scan.launches_bwd = 0
+    # (the in-place exp_ of abar included), storing checkpoints again: one
+    # more forward launch, the same gradients bit for bit.
+    scan.launches = scan.launches_ckpt = scan.launches_bwd = 0
     again = grads(remat=True)
     torch.cuda.synchronize()
-    if (scan.launches, scan.launches_bwd) != (2, 1) or not all(
+    if counts() != (2, 2, 1) or not all(
             torch.equal(again[k], got[k]) for k in got):
         raise AssertionError(f"the Mamba block under checkpoint: launches "
-                             f"{(scan.launches, scan.launches_bwd)} (want "
-                             f"(2, 1)), gradients bit-equal: "
+                             f"{counts()} (want (2, 2, 1)), gradients "
+                             f"bit-equal: "
                              f"{all(torch.equal(again[k], got[k]) for k in got)}")
     del again
+    # The block's forward + backward in device time (counts read above).
+    block_ms = device_ms(torch, grads, reps=5, warmup=1)
     real = ops.selective_scan_op
     ops.selective_scan_op = (lambda abar, bx, c, chunk=64, block_d=256:
                              scan_mod.selective_scan_plain(abar, bx, c))
@@ -3959,16 +4045,19 @@ def phase_mamba_block_grads(torch, Transformer, get_config, ops,
                              f"norm (limit {MAMBA_GRAD_RTOL})")
     log("scan-bwd", f"jamba Mamba block at full width ({cfg.d_model} -> "
         f"{cfg.d_inner_mamba} x {cfg.mamba.d_state}, {dt}, own fan-in), B=2 "
-        f"S=1024: one scan forward and one backward launch; the gradients "
+        f"S=1024: one scan forward (storing checkpoints) and one backward "
+        f"launch; the gradients "
         f"of {len(rel)} tensors (the mixer's leaves and x) within "
         f"{rel[worst]:.3e} of the plain scan's (worst {worst}; limit "
         f"{MAMBA_GRAD_RTOL}); forward + backward {t_kernel:.3f} s with the "
-        f"kernels, {t_plain:.3f} s with the plain scan; under "
-        f"torch.utils.checkpoint two forward and one backward launch, the "
-        f"gradients bit-equal")
+        f"kernels ({block_ms:.3f} ms of device time), {t_plain:.3f} s "
+        f"with the plain scan; under "
+        f"torch.utils.checkpoint two forward (both storing checkpoints) "
+        f"and one backward launch, the gradients bit-equal")
     del params, mixer, got, want
     torch.cuda.empty_cache()
-    return dict(launches=counts[1], grad_rel=rel[worst])
+    return dict(launches=once[2], grad_rel=rel[worst],
+                device_ms=block_ms)
 
 
 def main() -> int:

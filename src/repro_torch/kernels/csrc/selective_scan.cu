@@ -48,6 +48,22 @@
 //   as broadcasts.
 // - The ragged edges are clamped, not padded: a lane past D or a prefetch
 //   past S reads the last valid element and stores nothing.
+// - Under grad (the backward's checkpoints): the same kernel with kCkpt
+//   also stores the state before every kChunk = 8 steps, each thread its
+//   four f32 states as one float4 (streaming), into ckpt (B, ceil(S/8),
+//   D, N) f32: the thread layout is the buffer's layout, so a warp's
+//   stores are 512 contiguous bytes. A chunk's first step stores h after
+//   issuing its prefetch loads. The stores cost ~11% of the forward's
+//   time at the training and serve shapes (PERF.md section 6), and about
+//   as much wherever they sit (after the group of kDepth steps, before
+//   the step's loads). Staged in shared memory and written by TMA bulk
+//   copies they cost a little less at the training shape, but the
+//   kernel then needs more than 64 registers a thread, and the serve
+//   shape's 1,024 blocks no longer fit one wave of 8 blocks an SM.
+//   `selective_scan_bwd.cu` rebuilds the states between
+//   checkpoints with the same FMAs, so they are this kernel's bit for
+//   bit. y is computed as without the stores; serving launches the
+//   instantiation without them.
 //
 // Plain C interface for ctypes (no PyTorch headers): every entry point
 // launches on the caller's stream, never synchronises, allocates nothing
@@ -64,6 +80,9 @@ namespace {
 constexpr int kThreads = 128;  // threads per block
 constexpr int kTile = 64;      // steps of c staged in shared memory
 constexpr int kDepth = 4;      // steps of abar and bx loaded ahead
+constexpr int kChunk = 8;      // steps per checkpoint (selective_scan_bwd.cu)
+static_assert(kChunk % kDepth == 0 && kTile % kChunk == 0,
+              "a checkpoint falls on a group's first step");
 
 // The raw bytes of four consecutive elements: one 16-byte load of f32,
 // one 8-byte load of bf16; converted to f32 only when they are used, so
@@ -114,12 +133,14 @@ struct Args {
   const void* bx;
   const void* c;
   void* y;
+  float* ckpt;         // under grad: (B, ceil(S/kChunk), D, N), else null
   int64_t c_sb, c_ss;  // element strides of c over b and s
   int S, D;
 };
 
-// TA: dtype of abar; TX: dtype of bx, c and y.
-template <typename TA, typename TX, int N>
+// TA: dtype of abar; TX: dtype of bx, c and y; kCkpt: also store the
+// state before every kChunk steps (the backward's checkpoints).
+template <typename TA, typename TX, int N, bool kCkpt>
 __global__ void __launch_bounds__(kThreads) scan_fwd(Args a) {
   constexpr int L = N / 4;             // lanes per channel
   constexpr int kChannels = kThreads / L;
@@ -147,6 +168,9 @@ __global__ void __launch_bounds__(kThreads) scan_fwd(Args a) {
     rx[j] = load4(X + t * step);
   }
   float h[4] = {0.f, 0.f, 0.f, 0.f};
+  [[maybe_unused]] float* CK = nullptr;
+  if constexpr (kCkpt)
+    CK = a.ckpt + (b * ((a.S + kChunk - 1) / kChunk) * a.D + d) * N + sub * 4;
 
   for (int t0 = 0; t0 < a.S; t0 += kTile) {
     __syncthreads();  // the last tile's reads of cs are done
@@ -168,6 +192,11 @@ __global__ void __launch_bounds__(kThreads) scan_fwd(Args a) {
           const int64_t tn = min(t + kDepth, a.S - 1);
           ra[j] = load4(A + tn * step);
           rx[j] = load4(X + tn * step);
+          if constexpr (kCkpt) {  // h is the state before step t
+            if (j == 0 && t % kChunk == 0 && active)
+              __stcs(reinterpret_cast<float4*>(CK + int64_t(t / kChunk) * step),
+                     make_float4(h[0], h[1], h[2], h[3]));
+          }
           const float4 cq =
               *reinterpret_cast<const float4*>(&cs[jj + j][sub * 4]);
           h[0] = fmaf(av[0], h[0], xv[0]);
@@ -187,29 +216,33 @@ __global__ void __launch_bounds__(kThreads) scan_fwd(Args a) {
   }
 }
 
+template <typename TA, typename TX, int N, bool kCkpt>
+int launch_n(const Args& a, int B, cudaStream_t stream) {
+  constexpr int kChannels = kThreads / (N / 4);
+  scan_fwd<TA, TX, N, kCkpt>
+      <<<dim3((a.D + kChannels - 1) / kChannels, B), kThreads, 0, stream>>>(
+          a);
+  return int(cudaGetLastError());
+}
+
+template <typename TA, typename TX, bool kCkpt>
+int launch_ck(const Args& a, int B, int N, cudaStream_t stream) {
+  switch (N) {
+    case 4: return launch_n<TA, TX, 4, kCkpt>(a, B, stream);
+    case 8: return launch_n<TA, TX, 8, kCkpt>(a, B, stream);
+    case 16: return launch_n<TA, TX, 16, kCkpt>(a, B, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 template <typename TA, typename TX>
 int launch(const void* abar, const void* bx, const void* c, void* y,
-           int64_t c_sb, int64_t c_ss, int B, int S, int D, int N,
-           cudaStream_t stream) {
+           void* ckpt, int64_t c_sb, int64_t c_ss, int B, int S, int D,
+           int N, cudaStream_t stream) {
   if (B < 1 || B > 65535 || S < 1 || D < 1) return int(cudaErrorInvalidValue);
-  const Args a{abar, bx, c, y, c_sb, c_ss, S, D};
-  switch (N) {
-    case 4:
-      scan_fwd<TA, TX, 4><<<dim3((D + kThreads - 1) / kThreads, B),
-                            kThreads, 0, stream>>>(a);
-      break;
-    case 8:
-      scan_fwd<TA, TX, 8><<<dim3((D + kThreads / 2 - 1) / (kThreads / 2), B),
-                            kThreads, 0, stream>>>(a);
-      break;
-    case 16:
-      scan_fwd<TA, TX, 16><<<dim3((D + kThreads / 4 - 1) / (kThreads / 4), B),
-                             kThreads, 0, stream>>>(a);
-      break;
-    default:
-      return int(cudaErrorInvalidValue);
-  }
-  return int(cudaGetLastError());
+  const Args a{abar, bx, c, y, static_cast<float*>(ckpt), c_sb, c_ss, S, D};
+  return ckpt ? launch_ck<TA, TX, true>(a, B, N, stream)
+              : launch_ck<TA, TX, false>(a, B, N, stream);
 }
 
 }  // namespace
@@ -218,29 +251,32 @@ extern "C" {
 
 // c_sb, c_ss: element strides of c over b and s (its N axis has unit
 // stride). abar, bx: (B, S, D, N) contiguous; y: (B, S, D) contiguous.
+// ckpt: null (serving), or the backward's checkpoints, (B, ceil(S/8), D,
+// N) f32 contiguous, 16-byte aligned.
 
 // abar, bx, c, y f32.
 int selective_scan_f32(const void* abar, const void* bx, const void* c,
-                       void* y, int64_t c_sb, int64_t c_ss, int B, int S,
-                       int D, int N, void* stream) {
-  return launch<float, float>(abar, bx, c, y, c_sb, c_ss, B, S, D, N,
+                       void* y, void* ckpt, int64_t c_sb, int64_t c_ss,
+                       int B, int S, int D, int N, void* stream) {
+  return launch<float, float>(abar, bx, c, y, ckpt, c_sb, c_ss, B, S, D, N,
                               static_cast<cudaStream_t>(stream));
 }
 
 // abar, bx, c, y bf16.
 int selective_scan_bf16(const void* abar, const void* bx, const void* c,
-                        void* y, int64_t c_sb, int64_t c_ss, int B, int S,
-                        int D, int N, void* stream) {
+                        void* y, void* ckpt, int64_t c_sb, int64_t c_ss,
+                        int B, int S, int D, int N, void* stream) {
   return launch<__nv_bfloat16, __nv_bfloat16>(
-      abar, bx, c, y, c_sb, c_ss, B, S, D, N,
+      abar, bx, c, y, ckpt, c_sb, c_ss, B, S, D, N,
       static_cast<cudaStream_t>(stream));
 }
 
 // abar f32; bx, c, y bf16 (the model's path).
 int selective_scan_mixed(const void* abar, const void* bx, const void* c,
-                         void* y, int64_t c_sb, int64_t c_ss, int B, int S,
-                         int D, int N, void* stream) {
-  return launch<float, __nv_bfloat16>(abar, bx, c, y, c_sb, c_ss, B, S, D, N,
+                         void* y, void* ckpt, int64_t c_sb, int64_t c_ss,
+                         int B, int S, int D, int N, void* stream) {
+  return launch<float, __nv_bfloat16>(abar, bx, c, y, ckpt, c_sb, c_ss, B,
+                                      S, D, N,
                                       static_cast<cudaStream_t>(stream));
 }
 

@@ -137,9 +137,10 @@ def selective_scan_op(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     tensors, :func:`~repro_torch.kernels.selective_scan
     .selective_scan_plain` on CPU tensors; the inputs are checked the same
     way on both. On CUDA tensors with grad enabled and an input that
-    requires grad, the wrapper applies ``SelectiveScanFn`` (forward
-    kernel, then the backward kernel ``csrc/selective_scan_bwd.cu``);
-    otherwise it launches the forward alone. On CPU tensors the plain
+    requires grad, the wrapper applies ``SelectiveScanFn`` (the forward
+    kernel storing the backward's checkpoints, then the backward kernel
+    ``csrc/selective_scan_bwd.cu`` on them); otherwise it launches the
+    forward alone, without the checkpoints. On CPU tensors the plain
     version's autograd is the gradient. ``chunk`` and ``block_d`` are the
     JAX wrapper's arguments, kept for its signature: they are the TPU
     kernel's tiling of S and D (there divisors of them) and do not change

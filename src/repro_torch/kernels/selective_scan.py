@@ -16,11 +16,13 @@ JAX model scan's ``out_dtype`` (``repro/models/ssm.py:55``).
 The forward kernel is ``csrc/selective_scan.cu`` (CUDA C++ for sm_90a;
 its header has the bound at the jamba prefill shape and the design); it
 replaces the Pallas TPU kernel ``selective_scan`` of
-``repro/kernels/selective_scan.py:42``. The backward kernel is
-``csrc/selective_scan_bwd.cu`` (the reverse recurrence of the state's
-adjoint, with the state rebuilt from checkpoints; its header has the
-bound at jamba's training shape and the scratch it needs); the JAX
-package has no backward kernel, it differentiates jnp.
+``repro/kernels/selective_scan.py:42``. Under grad the same kernel also
+stores the state before every 8 steps (:func:`selective_scan_fwd_ckpt`),
+and the backward kernel ``csrc/selective_scan_bwd.cu`` reads them: one
+reverse sweep of the state's adjoint, the states rebuilt from the
+checkpoints (its header has the bound at jamba's training shape and the
+scratch it needs). The JAX package has no backward kernel, it
+differentiates jnp.
 
 :func:`selective_scan` checks its inputs and launches the kernels; it
 takes CUDA tensors only. The choice between kernel and plain version is
@@ -28,13 +30,15 @@ made in one place, :func:`repro_torch.kernels.ops.selective_scan_op`: CPU
 tensors go to :func:`selective_scan_plain` — only because they lie on the
 CPU — and a CUDA tensor never reaches the plain version. With grad
 enabled and an input that requires grad, the wrapper applies
-:class:`SelectiveScanFn` (the forward kernel, then
-:func:`selective_scan_bwd` in the backward); otherwise it launches the
-forward alone, as serving does. abar and bx must be contiguous; c may be
-a strided view (the model's split of ``x_proj``'s output) as long as N
-has unit stride, and its gradient comes back ``(B, S, N)`` contiguous.
+:class:`SelectiveScanFn` (the checkpointing forward kernel, then
+:func:`selective_scan_bwd` on its checkpoints in the backward);
+otherwise it launches the forward alone, without the checkpoints, as
+serving does. abar and bx must be contiguous; c may be a strided view
+(the model's split of ``x_proj``'s output) as long as N has unit stride,
+and its gradient comes back ``(B, S, N)`` contiguous.
 ``selective_scan.launches`` counts forward launches,
-``selective_scan.launches_bwd`` backward launches (one call, three
+``selective_scan.launches_ckpt`` those of them that stored checkpoints,
+``selective_scan.launches_bwd`` backward launches (one call, two
 kernels).
 """
 from __future__ import annotations
@@ -51,6 +55,30 @@ STATE_SIZES = (4, 8, 16)
 DTYPE_CASES = ((torch.float32, torch.float32),
                (torch.bfloat16, torch.bfloat16),
                (torch.float32, torch.bfloat16))
+# Steps between the backward's checkpoints (the kernels' kChunk).
+CKPT_STEPS = 8
+
+
+def ckpt_shape(b: int, s: int, d: int, n: int) -> tuple:
+    """Shape of the checkpoints the forward stores under grad (f32): the
+    state before every CKPT_STEPS steps, ``(B, ceil(S/8), D, N)``."""
+    return (b, -(-s // CKPT_STEPS), d, n)
+
+
+def _plain_forward(abar, bx, c, keep: bool):
+    """The plain forward loop; with ``keep`` also the state before every
+    CKPT_STEPS steps."""
+    b, s, d, n = abar.shape
+    h = torch.zeros(b, d, n, dtype=torch.float32, device=abar.device)
+    y = torch.empty(b, s, d, dtype=bx.dtype, device=abar.device)
+    ckpt = (torch.empty(ckpt_shape(b, s, d, n), dtype=torch.float32,
+                        device=abar.device) if keep else None)
+    for t in range(s):
+        if keep and t % CKPT_STEPS == 0:
+            ckpt[:, t // CKPT_STEPS] = h
+        h = abar[:, t].float() * h + bx[:, t].float()
+        y[:, t] = torch.einsum("bdn,bn->bd", h, c[:, t].float())
+    return y, ckpt
 
 
 def selective_scan_plain(abar: torch.Tensor, bx: torch.Tensor,
@@ -61,13 +89,16 @@ def selective_scan_plain(abar: torch.Tensor, bx: torch.Tensor,
     state in f32 from zero, the output cast to bx's dtype. Each step's
     slices are cast to f32 as they are used, so no f32 copy of the whole
     input is made."""
-    b, s, d, n = abar.shape
-    h = torch.zeros(b, d, n, dtype=torch.float32, device=abar.device)
-    y = torch.empty(b, s, d, dtype=bx.dtype, device=abar.device)
-    for t in range(s):
-        h = abar[:, t].float() * h + bx[:, t].float()
-        y[:, t] = torch.einsum("bdn,bn->bd", h, c[:, t].float())
-    return y
+    return _plain_forward(abar, bx, c, keep=False)[0]
+
+
+def selective_scan_ckpt_plain(abar: torch.Tensor, bx: torch.Tensor,
+                              c: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the checkpointing forward kernel -> (y, ckpt): y
+    as :func:`selective_scan_plain` (the same loop), ckpt the f32 state
+    before steps 0, 8, 16, ... ``(B, ceil(S/8), D, N)``."""
+    return _plain_forward(abar, bx, c, keep=True)
 
 
 def selective_scan_bwd_plain(abar: torch.Tensor, bx: torch.Tensor,
@@ -107,13 +138,45 @@ def selective_scan_bwd_plain(abar: torch.Tensor, bx: torch.Tensor,
     return dabar, dbx, dc
 
 
+def selective_scan_bwd_ckpt_plain(abar: torch.Tensor, bx: torch.Tensor,
+                                  c: torch.Tensor, dy: torch.Tensor,
+                                  ckpt: torch.Tensor
+                                  ) -> tuple[torch.Tensor, ...]:
+    """Plain version of the backward kernel's algorithm, on the forward's
+    checkpoints (:func:`selective_scan_ckpt_plain`): interval by interval
+    from the end, the states rebuilt from the interval's checkpoint, then
+    the adjoint walked back through them, dc_t from the rebuilt h_t (at an
+    interval's last step the state after the interval). The gradients of
+    :func:`selective_scan_bwd_plain`, in its dtypes."""
+    check_ckpt(abar, ckpt)
+    b, s, d, n = abar.shape
+    dabar = torch.empty_like(abar)
+    dbx = torch.empty_like(bx)
+    dc = torch.empty((b, s, n), dtype=c.dtype, device=abar.device)
+    g = torch.zeros(b, d, n, dtype=torch.float32, device=abar.device)
+    a_next = torch.zeros_like(g)
+    for ci in reversed(range(ckpt.shape[1])):
+        t0, t1 = ci * CKPT_STEPS, min(s, (ci + 1) * CKPT_STEPS)
+        states = [ckpt[:, ci]]                  # h_{t-1} for t = t0, ...
+        for t in range(t0, t1):
+            states.append(abar[:, t].float() * states[-1] + bx[:, t].float())
+        for t in reversed(range(t0, t1)):
+            dyt = dy[:, t].float()
+            g = a_next * g + c[:, t].float()[:, None, :] * dyt[:, :, None]
+            dbx[:, t] = g
+            dabar[:, t] = g * states[t - t0]
+            dc[:, t] = torch.einsum("bdn,bd->bn", states[t - t0 + 1], dyt)
+            a_next = abar[:, t].float()
+    return dabar, dbx, dc
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (first call)."""
     lib = build.load("selective_scan")
     for fn in (lib.selective_scan_f32, lib.selective_scan_bf16,
                lib.selective_scan_mixed):
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -125,7 +188,7 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = build.load("selective_scan_bwd")
     for fn in (lib.selective_scan_bwd_f32, lib.selective_scan_bwd_bf16,
                lib.selective_scan_bwd_mixed):
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 5
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -177,6 +240,18 @@ def check_bwd_inputs(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
                          "must have unit stride")
 
 
+def check_ckpt(abar: torch.Tensor, ckpt: torch.Tensor) -> None:
+    """The checkpoints of a forward over abar: f32, contiguous, on
+    abar's device, of :func:`ckpt_shape`."""
+    want = ckpt_shape(*abar.shape)
+    if tuple(ckpt.shape) != want or ckpt.dtype != torch.float32 \
+            or ckpt.device != abar.device or not ckpt.is_contiguous():
+        raise ValueError(f"selective_scan_bwd: ckpt is {tuple(ckpt.shape)} "
+                         f"{ckpt.dtype} on {ckpt.device} (contiguous: "
+                         f"{ckpt.is_contiguous()}); want {want} f32 "
+                         f"contiguous on {abar.device}")
+
+
 def _require_cuda(name: str, abar: torch.Tensor, bx: torch.Tensor) -> None:
     if abar.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
@@ -195,11 +270,9 @@ def _pick(lib, prefix: str, abar: torch.Tensor, bx: torch.Tensor):
     return getattr(lib, prefix + "_mixed")
 
 
-def selective_scan_fwd(abar: torch.Tensor, bx: torch.Tensor,
-                       c: torch.Tensor) -> torch.Tensor:
-    """The forward kernel on CUDA tensors -> y ``(B, S, D)`` in bx's
-    dtype, contiguous. Raises on any other device. Counts the launch in
-    ``selective_scan.launches``."""
+def _launch_fwd(abar, bx, c, ckpt) -> torch.Tensor:
+    """One forward launch; ``ckpt`` None (serving) or the checkpoint
+    buffer the kernel fills."""
     check_inputs(abar, bx, c)
     _require_cuda("selective_scan", abar, bx)
     b, s, d, n = abar.shape
@@ -208,7 +281,8 @@ def selective_scan_fwd(abar: torch.Tensor, bx: torch.Tensor,
     stream = torch.cuda.current_stream(abar.device).cuda_stream
     with torch.cuda.device(abar.device):
         err = fn(abar.data_ptr(), bx.data_ptr(), c.data_ptr(), y.data_ptr(),
-                 c.stride(0), c.stride(1), b, s, d, n, stream)
+                 None if ckpt is None else ckpt.data_ptr(), c.stride(0),
+                 c.stride(1), b, s, d, n, stream)
     if err != 0:
         raise RuntimeError(f"selective_scan kernel launch failed: "
                            f"cudaError {err}")
@@ -216,22 +290,53 @@ def selective_scan_fwd(abar: torch.Tensor, bx: torch.Tensor,
     return y
 
 
+def selective_scan_fwd(abar: torch.Tensor, bx: torch.Tensor,
+                       c: torch.Tensor) -> torch.Tensor:
+    """The forward kernel on CUDA tensors, as serving launches it -> y
+    ``(B, S, D)`` in bx's dtype, contiguous. Raises on any other device.
+    Counts the launch in ``selective_scan.launches``."""
+    return _launch_fwd(abar, bx, c, None)
+
+
+def selective_scan_fwd_ckpt(abar: torch.Tensor, bx: torch.Tensor,
+                            c: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel with the backward's checkpoints -> (y, ckpt): y
+    as :func:`selective_scan_fwd` (bit-equal), ckpt as
+    :func:`selective_scan_ckpt_plain`. Counts the launch in
+    ``selective_scan.launches`` and ``selective_scan.launches_ckpt``."""
+    check_inputs(abar, bx, c)
+    _require_cuda("selective_scan", abar, bx)
+    ckpt = torch.empty(ckpt_shape(*abar.shape), dtype=torch.float32,
+                       device=abar.device)
+    y = _launch_fwd(abar, bx, c, ckpt)
+    selective_scan.launches_ckpt += 1
+    return y, ckpt
+
+
 def bwd_scratch_floats(b: int, s: int, d: int, n: int) -> int:
     """f32 scratch of the backward kernel (``csrc/selective_scan_bwd.cu``):
-    the state before every 8 steps, and dc's partial per block of
-    128 / (N / 4) channels."""
+    dc's partial per block of 128 / (N / 4) channels. (It also reads the
+    forward's checkpoints, :func:`ckpt_shape`.)"""
     blocks = -(-d // (128 // (n // 4)))
-    return b * -(-s // 8) * d * n + b * blocks * s * n
+    return b * blocks * s * n
 
 
 def selective_scan_bwd(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
-                       dy: torch.Tensor) -> tuple[torch.Tensor, ...]:
+                       dy: torch.Tensor, ckpt: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, ...]:
     """The backward kernel on CUDA tensors -> (d abar, d bx, dc): d abar
     and d bx contiguous in abar's and bx's dtypes, dc ``(B, S, N)``
-    contiguous in c's. Raises on any other device. Counts the call in
+    contiguous in c's. ``ckpt`` holds the checkpoints of
+    :func:`selective_scan_fwd_ckpt` over the same inputs (training passes
+    the forward's); without them it first runs that forward itself.
+    Raises on any other device. Counts the call in
     ``selective_scan.launches_bwd``."""
     check_bwd_inputs(abar, bx, c, dy)
     _require_cuda("selective_scan_bwd", abar, bx)
+    if ckpt is None:
+        ckpt = selective_scan_fwd_ckpt(abar, bx, c)[1]
+    check_ckpt(abar, ckpt)
     b, s, d, n = abar.shape
     dabar, dbx = torch.empty_like(abar), torch.empty_like(bx)
     dc = torch.empty((b, s, n), dtype=c.dtype, device=abar.device)
@@ -241,9 +346,9 @@ def selective_scan_bwd(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     stream = torch.cuda.current_stream(abar.device).cuda_stream
     with torch.cuda.device(abar.device):
         err = fn(abar.data_ptr(), bx.data_ptr(), c.data_ptr(), dy.data_ptr(),
-                 dabar.data_ptr(), dbx.data_ptr(), dc.data_ptr(),
-                 scratch.data_ptr(), n_scratch, c.stride(0), c.stride(1),
-                 dy.stride(0), dy.stride(1), b, s, d, n, stream)
+                 ckpt.data_ptr(), dabar.data_ptr(), dbx.data_ptr(),
+                 dc.data_ptr(), scratch.data_ptr(), n_scratch, c.stride(0),
+                 c.stride(1), dy.stride(0), dy.stride(1), b, s, d, n, stream)
     if err != 0:
         raise RuntimeError(f"selective_scan_bwd kernels launch failed: "
                            f"cudaError {err}")
@@ -252,21 +357,25 @@ def selective_scan_bwd(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
 
 
 class SelectiveScanFn(torch.autograd.Function):
-    """The scan with a kernel on both sides: the forward kernel (saving
-    abar, bx and c), the backward kernel for all three gradients. CUDA
-    tensors only (the launchers raise otherwise)."""
+    """The scan with a kernel on both sides: the checkpointing forward
+    kernel (saving abar, bx, c and its checkpoints), the backward kernel
+    on those checkpoints for all three gradients. CUDA tensors only (the
+    launchers raise otherwise). Under non-reentrant
+    ``torch.utils.checkpoint`` the forward runs twice and the backward
+    reads the second run's checkpoints."""
 
     @staticmethod
     def forward(ctx, abar, bx, c):
-        ctx.save_for_backward(abar, bx, c)
-        return selective_scan_fwd(abar, bx, c)
+        y, ckpt = selective_scan_fwd_ckpt(abar, bx, c)
+        ctx.save_for_backward(abar, bx, c, ckpt)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        abar, bx, c = ctx.saved_tensors
+        abar, bx, c, ckpt = ctx.saved_tensors
         if dy.stride(2) != 1:
             dy = dy.contiguous()
-        return selective_scan_bwd(abar, bx, c, dy)
+        return selective_scan_bwd(abar, bx, c, dy, ckpt)
 
 
 def selective_scan(abar: torch.Tensor, bx: torch.Tensor,
@@ -274,8 +383,9 @@ def selective_scan(abar: torch.Tensor, bx: torch.Tensor,
     """The kernel on CUDA tensors -> y ``(B, S, D)`` in bx's dtype,
     contiguous. With grad enabled and an input that requires grad,
     through :class:`SelectiveScanFn` (the output carries the backward
-    kernel's autograd node); otherwise one forward launch. Raises on any
-    other device (the launchers check the inputs)."""
+    kernel's autograd node, its forward storing the checkpoints);
+    otherwise one forward launch without them. Raises on any other device
+    (the launchers check the inputs)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (abar, bx, c)):
         return SelectiveScanFn.apply(abar, bx, c)
@@ -283,4 +393,5 @@ def selective_scan(abar: torch.Tensor, bx: torch.Tensor,
 
 
 selective_scan.launches = 0
+selective_scan.launches_ckpt = 0
 selective_scan.launches_bwd = 0

@@ -13,7 +13,9 @@ kernel beside it:
   own checkpoints (``standalone_device_ms``);
 - ``selective_scan_bwd`` at jamba's training shape (B=2, S=1024, D=8192,
   N=16) and the serve prefill's (B=4, S=4096), abar f32 and bx, c, dy
-  bf16, c a strided view as the model's.
+  bf16, c a strided view as the model's, with the same split: given the
+  forward kernel's checkpoints, the checkpointing and the serving
+  forward, and the backward making its own checkpoints.
 
 At the training shapes it also holds each kernel to its plain version
 (the largest difference over the gradients, relative to the largest
@@ -81,30 +83,28 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out: dict = {"rwkv6_wkv_bwd": {}, "selective_scan_bwd": {}}
-    for kind, shapes, make, bwd, fwd, plain in (
+    for kind, shapes, make, bwd, fwd, fwd_ckpt, plain in (
             ("rwkv6_wkv_bwd", WKV, wkv_inputs, wkv.rwkv6_wkv_bwd,
-             wkv.rwkv6_wkv_fwd, wkv.rwkv6_wkv_bwd_plain),
+             wkv.rwkv6_wkv_fwd, wkv.rwkv6_wkv_fwd_ckpt,
+             wkv.rwkv6_wkv_bwd_plain),
             ("selective_scan_bwd", SCAN, scan_inputs, scan.selective_scan_bwd,
-             scan.selective_scan_fwd, scan.selective_scan_bwd_plain)):
+             scan.selective_scan_fwd, scan.selective_scan_fwd_ckpt,
+             scan.selective_scan_bwd_plain)):
         for label, c in shapes.items():
             args = make(gen, *c.values())
             reps = 20 if label == "train" else 5
-            row, ckpts = {}, None
-            if kind == "rwkv6_wkv_bwd":
-                # The backward as training runs it: on the checkpoints of
-                # the forward kernel over the same inputs.
-                ckpts = wkv.rwkv6_wkv_fwd_ckpt(*args[:-1])[1:]
-                run = functools.partial(bwd, *args, *ckpts)
-                row["fwd_ckpt_device_ms"] = device_ms(
-                    lambda: wkv.rwkv6_wkv_fwd_ckpt(*args[:-1]), reps)
-                row["standalone_device_ms"] = device_ms(
-                    lambda: bwd(*args), reps)
-            else:
-                run = functools.partial(bwd, *args)
-            row.update({"device_ms": device_ms(run, reps),
-                        "fwd_device_ms": device_ms(lambda: fwd(*args[:-1]),
-                                                   reps),
-                        "by_kernel_us": by_kernel_us(run)})
+            # The backward as training runs it: on the checkpoints of the
+            # forward kernel over the same inputs.
+            ckpts = fwd_ckpt(*args[:-1])[1:]
+            run = functools.partial(bwd, *args, *ckpts)
+            row = {"device_ms": device_ms(run, reps),
+                   "fwd_ckpt_device_ms": device_ms(
+                       lambda: fwd_ckpt(*args[:-1]), reps),
+                   "fwd_device_ms": device_ms(lambda: fwd(*args[:-1]),
+                                              reps),
+                   "standalone_device_ms": device_ms(lambda: bwd(*args),
+                                                     reps),
+                   "by_kernel_us": by_kernel_us(run)}
             if label == "train":
                 got = run()
                 torch.cuda.synchronize()

@@ -16,9 +16,10 @@ that stays valid: the product's own backward saves dt and A, not the
 product, and ``exp_``'s backward saves its output, which is the abar
 that ``SelectiveScanFn`` saves too; nothing writes abar afterwards.
 Under grad (training) the scan's wrapper applies ``SelectiveScanFn``:
-the same forward kernel, and the backward kernel
-``csrc/selective_scan_bwd.cu`` for d abar, d bx and dc (dc in c's shape;
-c is a view of ``x_proj``'s output).
+the same forward kernel, storing the state every 8 steps, and the
+backward kernel ``csrc/selective_scan_bwd.cu`` on those checkpoints for
+d abar, d bx and dc (dc in c's shape; c is a view of ``x_proj``'s
+output).
 
 Decode (:func:`mamba_decode`) is the O(1) recurrence with plain
 einsums, as the JAX package's (``repro/models/ssm.py:129-151``),

@@ -52,21 +52,37 @@ class _Calls(list):
 
 
 def scan_plain_launchers(monkeypatch) -> list:
-    """Replace ``selective_scan_fwd`` and ``selective_scan_bwd`` by plain
-    versions with their signatures; returns the list of calls, recorded
-    as "fwd" and "bwd"."""
-    calls = []
+    """Replace ``selective_scan_fwd``, ``selective_scan_fwd_ckpt`` and
+    ``selective_scan_bwd`` by plain versions with their signatures (each
+    checks its inputs as the launcher does; the backward takes the
+    checkpoints or, given none, makes them as the launcher does); returns
+    the list of calls, recorded as "fwd", "fwd_ckpt" and "bwd".
+    ``calls.ckpts`` holds the checkpoints the checkpointing forward
+    returned and ``calls.bwd_ckpts`` those the backward received, in
+    order."""
+    calls = _Calls()
 
     def fwd(abar, bx, c):
         calls.append("fwd")
         scan_mod.check_inputs(abar, bx, c)
         return scan_mod.selective_scan_plain(abar, bx, c)
 
-    def bwd(abar, bx, c, dy):
+    def fwd_ckpt(abar, bx, c):
+        calls.append("fwd_ckpt")
+        scan_mod.check_inputs(abar, bx, c)
+        y, ckpt = scan_mod.selective_scan_ckpt_plain(abar, bx, c)
+        calls.ckpts.append(ckpt)
+        return y, ckpt
+
+    def bwd(abar, bx, c, dy, ckpt=None):
         calls.append("bwd")
         scan_mod.check_bwd_inputs(abar, bx, c, dy)
-        return scan_mod.selective_scan_bwd_plain(abar, bx, c, dy)
+        if ckpt is None:
+            ckpt = scan_mod.selective_scan_ckpt_plain(abar, bx, c)[1]
+        calls.bwd_ckpts.append(ckpt)
+        return scan_mod.selective_scan_bwd_ckpt_plain(abar, bx, c, dy, ckpt)
 
     monkeypatch.setattr(scan_mod, "selective_scan_fwd", fwd)
+    monkeypatch.setattr(scan_mod, "selective_scan_fwd_ckpt", fwd_ckpt)
     monkeypatch.setattr(scan_mod, "selective_scan_bwd", bwd)
     return calls

@@ -76,7 +76,7 @@ DIFFERENTIABLE = {
 PLAIN_CALLS = {"flash_attention": (plain_launchers,
                                    [("fwd", True), ("bwd", True, None)]),
                "rwkv6_wkv": (wkv_plain_launchers, ["fwd_ckpt", "bwd"]),
-               "selective_scan": (scan_plain_launchers, ["fwd", "bwd"])}
+               "selective_scan": (scan_plain_launchers, ["fwd_ckpt", "bwd"])}
 
 
 def _requiring_grad(args: list, which: int) -> list:

@@ -14,6 +14,13 @@ model's scan does too); in the mixed case (abar f32, bx and c bf16) the
 oracle's cotangent is the port's bf16 dy widened to f32, the same
 values.
 
+The backward reads checkpoints that the forward kernel stores under grad
+(the state before every 8 steps); their plain versions
+(``selective_scan_ckpt_plain``, and ``selective_scan_bwd_ckpt_plain``,
+which rebuilds each interval's states from its checkpoint and computes
+dc in the reverse loop) are held to the oracle at lengths around the
+interval.
+
 Tolerances. f32 (``F32``): both sides are f32 sums of the same terms in
 other orders (measured here: at most 4.8e-6 absolute on gradients up to
 ~25). bf16 outputs: both sides compute in f32 and round once, so they
@@ -159,10 +166,12 @@ def test_decay_edges_match_jax_vjp(abar, dname):
 
 def test_scan_fn_wiring(monkeypatch):
     """With grad, the wrapper builds a ``SelectiveScanFn`` node: one
-    forward and one backward launch, gradients of abar, bx and the
-    strided c equal to the plain version's autograd, dc in c's shape; a
-    dy whose D axis is not unit-stride is made contiguous before the
-    backward launcher sees it. Without grad, one forward and no node."""
+    checkpointing forward and one backward launch, the backward given the
+    forward's checkpoints, gradients of abar, bx and the strided c equal
+    to the plain version's autograd, dc in c's shape; a dy whose D axis
+    is not unit-stride is made contiguous before the backward launcher
+    sees it. Without grad, one forward without checkpoints and no
+    node."""
     calls = scan_plain_launchers(monkeypatch)
     *ins, _ = _torch_args(_inputs(2, 20, 12, 8, seed=3), np.float32,
                           np.float32)
@@ -174,7 +183,8 @@ def test_scan_fn_wiring(monkeypatch):
     assert type(out.grad_fn).__name__.startswith("SelectiveScanFn")
     # the loss reads y transposed: its cotangent has D stride S
     got = torch.autograd.grad((out.transpose(1, 2) * weight).sum(), got_in)
-    assert calls == ["fwd", "bwd"]
+    assert calls == ["fwd_ckpt", "bwd"]
+    _assert_same_ckpt(calls.bwd_ckpts[0], calls.ckpts[0])
     want_in = [a.detach().clone().requires_grad_() for a in ins]
     want = torch.autograd.grad(
         (scan_mod.selective_scan_plain(*want_in).transpose(1, 2)
@@ -184,7 +194,35 @@ def test_scan_fn_wiring(monkeypatch):
         torch.testing.assert_close(g, ww, atol=1e-5, rtol=1e-5)
     with torch.no_grad():
         y = scan_mod.selective_scan(*got_in)
-    assert y.grad_fn is None and calls == ["fwd", "bwd", "fwd"]
+    assert y.grad_fn is None and calls == ["fwd_ckpt", "bwd", "fwd"]
+
+
+def _assert_same_ckpt(got, want):
+    """The backward received the very array a forward stored."""
+    assert got.data_ptr() == want.data_ptr() and torch.equal(got, want)
+
+
+def test_scan_fn_wiring_under_remat(monkeypatch):
+    """Under non-reentrant ``torch.utils.checkpoint`` (the model's remat)
+    the forward runs twice, both times storing checkpoints, and the
+    backward reads the recomputed forward's; the gradients are the plain
+    version's."""
+    calls = scan_plain_launchers(monkeypatch)
+    *ins, dy = _torch_args(_inputs(1, 37, 12, 16, seed=8), np.float32,
+                           np.float32)
+    got_in = [a.detach().clone().requires_grad_() for a in ins]
+    out = torch.utils.checkpoint.checkpoint(
+        lambda *a: scan_mod.selective_scan(*a) * 2.0, *got_in,
+        use_reentrant=False)
+    assert calls == ["fwd_ckpt"]
+    got = torch.autograd.grad(out, got_in, dy)
+    assert calls == ["fwd_ckpt", "fwd_ckpt", "bwd"]
+    _assert_same_ckpt(calls.bwd_ckpts[0], calls.ckpts[1])
+    want_in = [a.detach().clone().requires_grad_() for a in ins]
+    want = torch.autograd.grad(scan_mod.selective_scan_plain(*want_in) * 2.0,
+                               want_in, dy)
+    for g, ww in zip(got, want):
+        torch.testing.assert_close(g, ww, atol=1e-5, rtol=1e-5)
 
 
 def test_bwd_input_checks():
@@ -207,14 +245,120 @@ def test_bwd_input_checks():
 
 def test_bwd_scratch_matches_the_kernel_header():
     """The wrapper's scratch size, at the sizes the kernel's header
-    states: checkpoints and dc's block partials."""
-    assert scan_mod.bwd_scratch_floats(2, 1024, 8192, 16) == \
-        33_554_432 + 8_388_608
-    assert scan_mod.bwd_scratch_floats(4, 4096, 8192, 16) == \
-        268_435_456 + 67_108_864
-    # N = 4: 128 channels a block; a ragged last chunk has its checkpoint
-    assert scan_mod.bwd_scratch_floats(1, 9, 130, 4) == \
-        2 * 130 * 4 + 2 * 9 * 4
+    states: dc's block partials (the checkpoints are the forward's)."""
+    assert scan_mod.bwd_scratch_floats(2, 1024, 8192, 16) == 8_388_608
+    assert scan_mod.bwd_scratch_floats(4, 4096, 8192, 16) == 67_108_864
+    # N = 4: 128 channels a block, so 130 channels take two
+    assert scan_mod.bwd_scratch_floats(1, 9, 130, 4) == 2 * 9 * 4
+    # the forward's checkpoints; a ragged last interval has its own
+    assert scan_mod.ckpt_shape(2, 1024, 8192, 16) == (2, 128, 8192, 16)
+    assert scan_mod.ckpt_shape(1, 9, 130, 4) == (1, 2, 130, 4)
+    assert scan_mod.CKPT_STEPS == 8
+
+
+# ------------------------------------------- checkpoints (plain versions)
+# Lengths around the checkpoint interval: one step, one short of it, one
+# interval, one past it, and a ragged fifth interval.
+CKPT_LENGTHS = [1, 7, 8, 9, 37]
+ABARS = {"uniform": (0.2, 0.99), "abar=0": 0.0, "abar=1": 1.0}
+
+
+def _np_states(a, bx):
+    """The state before every CKPT_STEPS steps, by a numpy f32 loop:
+    h = abar ⊙ h + bx."""
+    b, s, d, n = a.shape
+    h = np.zeros((b, d, n), np.float32)
+    out = []
+    for t in range(s):
+        if t % scan_mod.CKPT_STEPS == 0:
+            out.append(h.copy())
+        h = a[:, t] * h + bx[:, t]
+    return np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("s", CKPT_LENGTHS)
+def test_ckpt_forward_plain(s, dname):
+    """The plain checkpointing forward: y bit-equal to the plain forward's
+    and within tolerance of the JAX oracle's, the checkpoints those of a
+    numpy state loop."""
+    a_dtype, x_dtype = DTYPES[dname]
+    arrays = _cast(_inputs(2, s, 12, 8, seed=10), a_dtype, x_dtype)
+    abar, bx, c, _ = _torch_args(arrays, a_dtype, x_dtype)
+    y, ckpt = scan_mod.selective_scan_ckpt_plain(abar, bx, c)
+    assert torch.equal(y, scan_mod.selective_scan_plain(abar, bx, c))
+    assert ckpt.shape == (2, -(-s // 8), 12, 8)
+    assert ckpt.dtype == torch.float32 and ckpt.is_contiguous()
+    a, x, cc, _ = arrays
+    np.testing.assert_allclose(ckpt.numpy(), _np_states(a, x), rtol=1e-6,
+                               atol=1e-6)
+    with jax.default_device(jax.devices("cpu")[0]):
+        want = ref.selective_scan_ref(jnp.asarray(a, a_dtype),
+                                      jnp.asarray(x, x_dtype),
+                                      jnp.asarray(cc, x_dtype))
+        want = np.asarray(want.astype(jnp.float32))
+    tol = F32 if x_dtype == np.float32 else BF16
+    np.testing.assert_allclose(y.float().numpy(), want, **tol)
+
+
+@pytest.mark.parametrize("abar", list(ABARS))
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("s", CKPT_LENGTHS)
+def test_bwd_from_ckpt_plain_matches_jax_vjp(s, dname, abar):
+    """The kernel's algorithm in plain PyTorch (the states rebuilt
+    interval by interval from the forward's checkpoints, dc_t from the
+    rebuilt h_t, at an interval's last step the state after it) against
+    ``jax.vjp`` of the oracle, at abar in [0.2, 0.99], 0 and 1, and
+    against the plain backward's own state loop."""
+    a_dtype, x_dtype = DTYPES[dname]
+    arrays = _cast(_inputs(2, s, 12, 8, seed=11, abar=ABARS[abar]), a_dtype,
+                   x_dtype)
+    args = _torch_args(arrays, a_dtype, x_dtype)
+    _, ckpt = scan_mod.selective_scan_ckpt_plain(*args[:3])
+    got = scan_mod.selective_scan_bwd_ckpt_plain(*args, ckpt)
+    for g, a in zip(got, args[:3]):
+        assert g.dtype == a.dtype
+    assert got[2].shape == args[2].shape
+    _assert_grads(got, _jax_grads(arrays, a_dtype, x_dtype), a_dtype,
+                  x_dtype)
+    _assert_grads(got, [g.float().numpy() for g in
+                        scan_mod.selective_scan_bwd_plain(*args)], a_dtype,
+                  x_dtype)
+
+
+def test_bwd_from_shifted_ckpt_breaks():
+    """Checkpoints taken one interval off (each interval rebuilt from the
+    next one's state) move the gradients far past the f32 tolerance: the
+    backward really reads the checkpoints it is given."""
+    args = _torch_args(_inputs(1, 37, 12, 8, seed=12), np.float32,
+                       np.float32)
+    _, ckpt = scan_mod.selective_scan_ckpt_plain(*args[:3])
+    want = scan_mod.selective_scan_bwd_ckpt_plain(*args, ckpt)
+    bad = scan_mod.selective_scan_bwd_ckpt_plain(
+        *args, torch.roll(ckpt, -1, dims=1).contiguous())
+    worst = max(float(((b - g).abs() / (g.abs().max() + 1e-30)).max())
+                for b, g in zip(bad, want))
+    assert worst > 1e3 * F32["rtol"], worst
+
+
+def test_ckpt_checks():
+    """The backward refuses checkpoints of another shape, dtype, layout
+    or device."""
+    abar, bx, c, dy = _torch_args(_inputs(1, 20, 8, 4), np.float32,
+                                  np.float32)
+    _, ckpt = scan_mod.selective_scan_ckpt_plain(abar, bx, c)
+    scan_mod.check_ckpt(abar, ckpt)
+    for bad in (ckpt[:, :1], ckpt.double(),
+                ckpt.transpose(2, 3).contiguous().transpose(2, 3),
+                ckpt.to("meta")):
+        with pytest.raises(ValueError, match="ckpt is"):
+            scan_mod.check_ckpt(abar, bad)
+    with pytest.raises(ValueError, match="ckpt is"):
+        scan_mod.selective_scan_bwd_ckpt_plain(abar, bx, c, dy, ckpt[:, :1])
+    with pytest.raises(ValueError, match="CUDA"):
+        scan_mod.selective_scan_bwd(abar, bx, c, dy, ckpt)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan_mod.selective_scan_fwd_ckpt(abar, bx, c)
 
 
 # ------------------------------------------------------------- the card
@@ -229,13 +373,19 @@ def card():
 @pytest.mark.parametrize("dname", list(DTYPES))
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_bwd_kernel_matches_plain_on_card(card, case, dname):
+    """The backward on the forward kernel's checkpoints, and making its
+    own: bit-equal to each other, within tolerance of the plain one."""
     a_dtype, x_dtype = DTYPES[dname]
     args = [a.cuda() for a in _torch_args(
         _cast(_inputs(*case, seed=5), a_dtype, x_dtype), a_dtype, x_dtype)]
-    n = scan_mod.selective_scan.launches_bwd
-    got = scan_mod.selective_scan_bwd(*args)
+    fn = scan_mod.selective_scan
+    n = (fn.launches_bwd, fn.launches_ckpt)
+    _, ckpt = scan_mod.selective_scan_fwd_ckpt(*args[:3])
+    got = scan_mod.selective_scan_bwd(*args, ckpt)
+    alone = scan_mod.selective_scan_bwd(*args)
     torch.cuda.synchronize()
-    assert scan_mod.selective_scan.launches_bwd == n + 1
+    assert (fn.launches_bwd, fn.launches_ckpt) == (n[0] + 2, n[1] + 2)
+    assert all(torch.equal(x, y) for x, y in zip(got, alone))
     want = scan_mod.selective_scan_bwd_plain(*args)
     for g, a in zip(got, args[:3]):
         assert g.dtype == a.dtype and g.shape == a.shape
@@ -250,11 +400,13 @@ def test_bwd_kernel_decay_edges_on_card(card, abar):
     args = [a.cuda() for a in _torch_args(
         _inputs(2, 300, 130, 16, seed=6, abar=abar), np.float32,
         np.float32)]
-    got = scan_mod.selective_scan_bwd(*args)
+    _, ckpt = scan_mod.selective_scan_fwd_ckpt(*args[:3])
     want = scan_mod.selective_scan_bwd_plain(*args)
-    for g, ww in zip(got, want):
-        scale = float(ww.abs().max())
-        assert float((g - ww).abs().max()) <= 1e-5 * scale + 1e-5
+    for got in (scan_mod.selective_scan_bwd(*args, ckpt),
+                scan_mod.selective_scan_bwd(*args)):
+        for g, ww in zip(got, want):
+            scale = float(ww.abs().max())
+            assert float((g - ww).abs().max()) <= 1e-5 * scale + 1e-5
 
 
 @pytest.mark.cuda
@@ -262,7 +414,45 @@ def test_bwd_kernel_is_deterministic_on_card(card):
     args = [a.cuda() for a in _torch_args(
         _cast(_inputs(2, 100, 300, 16, seed=7), np.float32, jnp.bfloat16),
         np.float32, jnp.bfloat16)]
-    first = scan_mod.selective_scan_bwd(*args)
-    second = scan_mod.selective_scan_bwd(*args)
+    _, ckpt = scan_mod.selective_scan_fwd_ckpt(*args[:3])
+    first = scan_mod.selective_scan_bwd(*args, ckpt)
+    second = scan_mod.selective_scan_bwd(*args, ckpt)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_ckpt_forward_y_is_the_serving_y_on_card(card, case, dname):
+    """The forward with checkpoint stores gives the serving forward's y
+    bit for bit, and counts one launch of each kind."""
+    a_dtype, x_dtype = DTYPES[dname]
+    args = [a.cuda() for a in _torch_args(
+        _cast(_inputs(*case, seed=13), a_dtype, x_dtype), a_dtype,
+        x_dtype)][:3]
+    fn = scan_mod.selective_scan
+    n = (fn.launches, fn.launches_ckpt)
+    y, _ = scan_mod.selective_scan_fwd_ckpt(*args)
+    y_serve = scan_mod.selective_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_ckpt) == (n[0] + 2, n[1] + 1)
+    assert torch.equal(y, y_serve)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_ckpt_forward_checkpoints_on_card(card, case, dname):
+    """The kernel's checkpoints against the plain checkpointing forward's:
+    both are f32 recurrences of the same terms (the kernel with FMAs),
+    within 1e-5 of the largest value."""
+    a_dtype, x_dtype = DTYPES[dname]
+    args = [a.cuda() for a in _torch_args(
+        _cast(_inputs(*case, seed=14), a_dtype, x_dtype), a_dtype,
+        x_dtype)][:3]
+    _, ckpt = scan_mod.selective_scan_fwd_ckpt(*args)
+    _, want = scan_mod.selective_scan_ckpt_plain(*args)
+    assert ckpt.shape == want.shape and ckpt.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((ckpt - want).abs().max()) <= 1e-5 * scale + 1e-6
