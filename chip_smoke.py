@@ -24,7 +24,9 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    has no backward), and that the ``flash_attention``, ``rwkv6_wkv`` and
    ``selective_scan`` wrappers under grad build their autograd nodes, one
    forward and one backward launch each, with every input's gradient
-   equal to the plain backward's;
+   equal to the plain backward's, and that flash with MLA's (96, 64)
+   head dims under grad raises (no backward variant) and launches
+   nothing;
 4. card vs CPU — one round of the default config at full width (except
    ``local_steps=2``) through ``FusedExecutor.run_block`` on the card
    and on the CPU from the same init: params must agree;
@@ -45,7 +47,12 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    planted long-row faults must break the bf16 tolerance; timed at both
    shapes in bf16 beside the f32 SIMT kernel, the plain version, its
    bound and ``scaled_dot_product_attention`` (``library_ms``, timed
-   here only);
+   here only); then MLA's head dims (q and k 96, v 64) in f32 and bf16,
+   causal, windowed and bidirectional, S = 1 .. 300, each launch counted
+   as its own variant, the causal mask off at Sq != Sk (whisper's 4096
+   queries against 1500 frames among them), and minicpm3-4b's prefill
+   shape (B=4, H=40, S=4096) in bf16 against the plain version, timed
+   beside its bound and SDPA;
 8. LM card vs CPU — full-width qwen3-0.6b in f32 from one CPU-drawn
    init: ``forward`` over B=1, S=256 on the card (kernel) and on the CPU
    (plain version); the logits must agree;
@@ -118,8 +125,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     ``local_steps=2`` on the card and on the CPU from the same init and
     tensors: params, cycle bases and buffer must agree;
 21. ticks — the tick baselines at full width on the card with the JAX
-    tests' scenarios, default local steps and batch: fedsat/gs_np for 16
-    orbit-events and fedspace/gs for 4 flushes; the counts zeroed just
+    tests' scenarios, default local steps and batch: fedsat/gs_np for 8
+    orbit-events and fedspace/gs for 2 flushes; the counts zeroed just
     before each run and read just after must show one ``fedagg`` launch
     per orbit-event (S=8) and one per flush (S = the rows buffered);
     accuracies finite and above chance; s/event, peak memory and the
@@ -227,14 +234,39 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     recomputed, all storing checkpoints) and 32 backward launches,
     finite losses, rows bit-equal after each fold, s/round, trained
     tokens/s, peak memory, the card's draw and a profile of one round by
-    category, with ``wkv_bwd`` and ``wkv_fwd`` by kernel.
+    category, with ``wkv_bwd`` and ``wkv_fwd`` by kernel;
+31. zoo — minicpm3-4b (MLA) and whisper-small (encoder-decoder) at full
+    width cut to 4 layers, f32 at own fan-in: ``forward`` card vs CPU
+    (B=1, S=256, whisper with 1500 frames), then decode against forward
+    on the card (B=2, S=64; whisper's cross caches primed from frames),
+    where a planted fault must break the tolerance (MLA's latents one
+    slot off, whisper's cross caches from other frames) and whisper's
+    logits must move when its frames are zeroed;
+32. zoo serve — granite-moe-1b-a400m, minicpm3-4b and whisper-small at
+    full depth, mistral-nemo-12b, pixtral-12b, deepseek-coder-33b and
+    qwen3-moe-30b-a3b cut in depth (``ZOO_SERVE``), full width, bf16:
+    each drawn at the reference's init and one prefill read there
+    (attention, router and next-token softmaxes' top-1 weight, max
+    |logit|), rescaled to own fan-in where ``ZOO_SERVE`` says so (the
+    reading must agree: saturated there, and only there); then
+    ``prefill`` at B=4, S=4096 (whisper with 1500 frames,
+    pixtral with 1024 patches ahead of the text), the counts zeroed just
+    before and read just after (one tensor-core flash launch per
+    attention layer: 24 for granite, 62 of the (96, 64) variant for
+    minicpm3-4b, 12 + 12 + 12 for whisper's encoder, self- and
+    cross-attention; none SIMT), one ``greedy_generate`` at serve's
+    defaults, and one prefill under torch.profiler.
+
+Each phase prints its seconds (``[time] phase N in ... s``).
 
 Prints a ``{"kernels": [...]}`` JSON line (``fedagg``'s entry with the
 phase 19, 21 and 26 launch counts by strategy, ``launches_routed``,
 ``launches_ticks`` and ``launches_sanitized``, phase 25's
 ``launches_train``, phase 30's ``launches_train_rwkv`` and the LM fold's
 times ``fold_lm``; ``flash_attention``'s with phase 25's
-``launches_train``; ``rwkv6_wkv``'s with phase 30's; the backward's
+``launches_train``, phase 32's ``launches_zoo`` by architecture and the
+(96, 64) variant's own entry under ``split``, its launches those of
+phase 32's minicpm3-4b prefill; ``rwkv6_wkv``'s with phase 30's; the backward's
 entry, ``flash_attention_bwd``, with its variant, timed at the training
 shape with the serve shape's numbers under ``serve`` and ptxas' report
 under ``ptxas``; and the recurrences' backward entries,
@@ -376,12 +408,16 @@ def ptxas_report(log_text: str) -> dict:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            short = re.search(r"\d+(flash_\w+?)I(f|13__nv_bfloat16)?Li(\d+)E",
-                              name)
+            short = re.search(r"\d+(flash_\w+?)I(f|13__nv_bfloat16)?Li(\d+)E"
+                              r"(?:Li(\d+)E)?", name)
             if short:
                 dtype = {"f": "f32, ", "13__nv_bfloat16": "bf16, "}.get(
                     short.group(2), "")
-                out[f"{short.group(1)}<{dtype}D={short.group(3)}>"] = (
+                # The forward's kernels take (D, Dv); name the pair only
+                # where the two differ.
+                dv = short.group(4)
+                dv = f", Dv={dv}" if dv and dv != short.group(3) else ""
+                out[f"{short.group(1)}<{dtype}D={short.group(3)}{dv}>"] = (
                     int(m.group(1)), *spills)
             # The recurrences' kernels: <types..., N=n> (the WKV forward's
             # ", ckpt" where it stores the backward's checkpoints), the
@@ -655,7 +691,9 @@ def phase_guard(torch, kernels: dict, fa_mod, wkv_mod, scan_mod) -> None:
     nothing; the ``flash_attention``, ``rwkv6_wkv`` and ``selective_scan``
     wrappers go through their backward kernels, one forward and one
     backward launch per call, and each input's gradient must agree with
-    the plain backward (f32 tolerance)."""
+    the plain backward (f32 tolerance); flash with MLA's head dims (96,
+    64), which the backward kernels lack, raises NotImplementedError
+    naming its ROADMAP item and launches nothing."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(9)
 
@@ -717,6 +755,24 @@ def phase_guard(torch, kernels: dict, fa_mod, wkv_mod, scan_mod) -> None:
             f"one backward launch per call, the gradients of all "
             f"{len(args)} inputs within {TOL['float32']} of its plain "
             f"backward (max |err| {worst:.3e})")
+
+    # MLA's (96, 64) pair: the backward kernels have no D != Dv variant,
+    # so under grad the wrapper raises before it launches anything.
+    fn = kernels["flash_attention"]
+    before = (fn.launches, fn.launches_bwd)
+    try:
+        fn(t(1, 2, 8, 96).requires_grad_(), t(1, 2, 8, 96), t(1, 2, 8, 64))
+    except NotImplementedError as err:
+        if "ROADMAP" not in str(err):
+            raise
+        msg = str(err)
+    else:
+        raise AssertionError("flash_attention with D=96, Dv=64 took a CUDA "
+                             "input that requires grad")
+    if (fn.launches, fn.launches_bwd) != before:
+        raise AssertionError("flash_attention (96, 64) launched under grad")
+    log("guard", f"flash_attention (96, 64) under grad on the card raises "
+        f"NotImplementedError, no launch: {msg}")
 
 
 def phase_card_vs_cpu(torch, eng, sim):
@@ -931,6 +987,42 @@ def check_planted_faults(torch, q, k, v, want, row0: int = 1024,
         del bad
 
 
+def check_ragged_faults(torch, q, k, v, want, tile: int = 128):
+    """Faults a kernel could make on the ragged last K/V tile of a
+    bidirectional Sq != Sk call, each computed densely from the same
+    inputs, must break PREFILL_BF16_TOL against the sound output
+    ``want``: the last partial tile (Sk mod ``tile`` keys) dropped, and
+    the slots past Sk in that tile read as the stale rows of the tile
+    two before (the K/V ring's other use of that stage) instead of being
+    masked. Returns each fault's max |err|."""
+    sk = k.shape[2]
+    last, pad = sk - sk % tile, tile - sk % tile
+    if sk % tile == 0:
+        raise ValueError(f"Sk={sk} has no ragged tile of {tile}")
+    kpos = torch.arange(sk + pad, device=q.device).expand(q.shape[2], -1)
+    stale = slice(last - tile - pad, last - tile)
+    faults = {
+        f"last partial K/V tile ({sk - last} keys) dropped":
+            lambda: _dense_attention(torch, q, k, v, kpos[:, :sk] < last),
+        f"the {pad} slots past Sk read as stale rows, unmasked":
+            lambda: _dense_attention(
+                torch, q, torch.cat([k, k[:, :, stale]], 2),
+                torch.cat([v, v[:, :, stale]], 2), kpos >= 0),
+    }
+    out = {}
+    for name, fn in faults.items():
+        bad = fn()
+        out[name] = err = max_err(torch, bad, want)
+        if torch.allclose(bad.float(), want.float(), **PREFILL_BF16_TOL):
+            raise AssertionError(f"planted fault passes the prefill-shape "
+                                 f"tolerance ({name}: max |err| {err:.3e})")
+        log("flash", f"planted fault at Sq={q.shape[2]} Sk={sk}, causal "
+            f"off ({name}): max |err| {err:.3e}, caught by "
+            f"{PREFILL_BF16_TOL}")
+        del bad
+    return out
+
+
 def phase_flash(torch, fa_mod):
     """flash_attention on the card against flash_attention_plain; returns
     the kernels-line entry (launches filled in later from the main
@@ -1016,6 +1108,133 @@ def phase_flash(torch, fa_mod):
                 replaces="src/repro/kernels/flash_attention.py:87",
                 launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+# Phase 7's sweep of MLA's head dims (q and k 96, v 64: minicpm3-4b) as
+# (B, H, Hkv, Sq, Sk, causal, window): ragged lengths around the
+# tensor-core kernel's 64-row groups and 128-key tiles, causal, windowed
+# and bidirectional, GQA groups 1, 4 and 8, Sq != Sk both ways.
+FLASH_SPLIT_SWEEP = (
+    [(2, 4, 4, s, s, causal, window) for s in (1, 63, 65, 127, 129, 300)
+     for causal, window in ((True, None), (True, 63), (False, None))]
+    + [(1, 8, 2, 300, 300, True, None), (1, 8, 1, 200, 200, True, 1),
+       (1, 4, 4, 7, 300, False, None), (1, 4, 2, 300, 1, False, None)])
+# Cross-attention's and the encoder's shapes, the causal mask off, as (B,
+# H, Hkv, Sq, Sk, D): whisper-small's decoder prefill against its 1500
+# frames and its encoder (ragged Sk on every tile row), then Sq != Sk at
+# other head dims.
+FLASH_CROSS_SWEEP = ((1, 12, 12, 4096, 1500, 64), (1, 12, 12, 1500, 1500, 64),
+                     (2, 12, 12, 129, 1500, 64), (1, 4, 2, 65, 130, 128),
+                     (1, 4, 4, 300, 129, 16), (1, 4, 1, 7, 300, 8))
+# whisper-small's cross-attention (Sq, Sk), at which the ragged last K/V
+# tile's planted faults are checked.
+WHISPER_CROSS = (4096, 1500)
+# The sweeps' tolerances: the prefill's in bf16, whose outputs over rows
+# of 1500 keys average ~0.03, below the kernel sweep's atol (TOL); the
+# tensor-core kernel's rounding on these shapes is emulated on the CPU and
+# held to it by tests/test_torch_flash_dims.py.
+SPLIT_TOL = {"float32": TOL["float32"], "bfloat16": PREFILL_BF16_TOL}
+# minicpm3-4b's prefill: 40 heads, q and k 96 wide, v 64, causal.
+MLA_PREFILL = dict(b=4, h=40, s=4096, d=96, dv=64)
+
+
+def _split_views(torch, gen, b, h, hkv, sq, sk, d, dv, dtype):
+    """q, k, v as the model passes them, with v's head dim ``dv``."""
+    return [torch.randn((b, s, n, e), generator=gen, device="cuda")
+            .to(dtype).transpose(1, 2)
+            for s, n, e in ((sq, h, d), (sk, hkv, d), (sk, hkv, dv))]
+
+
+def phase_flash_split(torch, fa_mod) -> dict:
+    """Phase 7, the head-dim pair (96, 64) and the bidirectional Sq != Sk
+    shapes: each case in f32 (SIMT) and bf16 (tensor cores) against the
+    plain version at ``SPLIT_TOL``, its variant and split launches
+    counted, and at whisper's cross-attention shape in bf16 the planted
+    faults of the ragged last K/V tile caught; then the pair
+    at minicpm3-4b's prefill shape in bf16 against the plain version and
+    timed beside its bound and SDPA's time (timed here only). Returns the
+    variant's kernels-line entry (launches filled in by phase 32)."""
+    fa, plain = fa_mod.flash_attention, fa_mod.flash_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = ([(b, h, hkv, sq, sk, 96, 64, c, w)
+              for b, h, hkv, sq, sk, c, w in FLASH_SPLIT_SWEEP]
+             + [(b, h, hkv, sq, sk, d, d, False, None)
+                for b, h, hkv, sq, sk, d in FLASH_CROSS_SWEEP])
+    worst = {}
+    for b, h, hkv, sq, sk, d, dv, causal, window in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            tol = SPLIT_TOL[dname]
+            q, k, v = _split_views(torch, gen, b, h, hkv, sq, sk, d, dv,
+                                   dtype)
+            variant = fa_mod.kernel_variant(dtype, d)
+            before = (fa.launches_tc, fa.launches_simt, fa.launches_split)
+            what = (f"flash {dname} B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} "
+                    f"D={d} Dv={dv} causal={causal} window={window}")
+            got = fa(q, k, v, causal, window)
+            if got.shape != (b, h, sq, dv) or not got.transpose(
+                    1, 2).is_contiguous():
+                raise AssertionError(f"{what}: output {tuple(got.shape)} "
+                                     f"not laid out like q")
+            want = plain(q, k, v, causal, window)
+            err = check_close(torch, got, want, dname, what, tol)
+            if (dname, sq, sk) == ("bfloat16",) + WHISPER_CROSS:
+                check_ragged_faults(torch, q, k, v, want)
+            del got, want
+            ran = (fa.launches_tc - before[0], fa.launches_simt - before[1],
+                   fa.launches_split - before[2])
+            want = ((1, 0) if variant == "tc" else (0, 1)) + (int(d != dv),)
+            if ran != want:
+                raise AssertionError(f"{what}: launches (tc, simt, split) "
+                                     f"{ran}; want {want}")
+            key = (dname, d != dv)
+            worst[key] = max(worst.get(key, 0.0), err)
+    for (dname, split), err in sorted(worst.items()):
+        what = ("(96, 64) sweep" if split
+                else "bidirectional Sq != Sk and encoder")
+        n = len(FLASH_SPLIT_SWEEP if split else FLASH_CROSS_SWEEP)
+        log("flash", f"{what} {dname}: {n} cases, max |err| {err:.3e} "
+            f"({SPLIT_TOL[dname]}), each on its kernel's variant")
+
+    b, h, sq, d, dv = (MLA_PREFILL[x] for x in ("b", "h", "s", "d", "dv"))
+    what = f"B={b} H={h} S={sq} D={d} Dv={dv}"
+    q, k, v = _split_views(torch, gen, b, h, h, sq, sq, d, dv,
+                           torch.bfloat16)
+    n_split = fa.launches_split
+    got = fa(q, k, v)
+    want = plain(q, k, v)
+    err = check_close(torch, got, want, "bfloat16",
+                      f"flash at minicpm3-4b's prefill shape {what}",
+                      PREFILL_BF16_TOL)
+    if fa.launches_split != n_split + 1:
+        raise AssertionError("the (96, 64) prefill did not run its variant")
+    log("flash", f"minicpm3-4b prefill shape {what} bf16: max |err| "
+        f"{err:.3e} ({PREFILL_BF16_TOL}); mean |out| "
+        f"{float(want.float().abs().mean()):.4f}")
+    del got, want
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_ms(torch, lambda: fa(q, k, v), reps=10)
+    dev_ms = device_ms(torch, lambda: fa(q, k, v), reps=20)
+    plain_ms = time_ms(torch, lambda: plain(q, k, v), reps=2, warmup=1)
+    lib_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True), reps=10)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, v))
+    flop = b * h * sq * (sq + 1) * (d + dv)      # causal pairs, 2 per MAC
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log("flash", f"minicpm3-4b prefill shape {what} bf16 causal: (96, 64) "
+        f"tensor-core kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms "
+        f"device, at {flop / dev_ms / 1e9:.2f} TFLOP/s; plain "
+        f"{plain_ms:.4f} ms; sdpa {lib_ms:.4f} ms; {nbytes} bytes, "
+        f"{flop:.4e} FLOP, bound {bound_ms:.4f} ms ({bound_by}); kernel at "
+        f"{bound_ms / dev_ms:.3f} of its bound, {ms / lib_ms:.3f}x sdpa")
+    del q, k, v
+    return dict(name="flash_attention<D=96, Dv=64>", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:87",
+                launches=None, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
 
 
 # Phase 11's sweep: the CPU tests' shapes (tests/test_torch_rwkv6_wkv.py)
@@ -1225,11 +1444,13 @@ def own_fan_in_factors(model) -> dict:
     d_out) matrix and of a (L, E, d_in, d_out) expert stack alike; a
     stacked vector (L, d) keeps the rule of its unstacked (d,), fan-in d.
     rwkv6-3b's checks run at the reference's init and phase 13 reports
-    own fan-in beside them; jamba's phases 17-18 run at own fan-in."""
+    own fan-in beside them; jamba's phases 17-18 run at own fan-in, and
+    so do phases 31-32 (an encoder-decoder stack's encoder leaves,
+    stacked under ``encoder/layers/``, included)."""
     out = {}
     for key, d in model.defs().items():
-        if (key.startswith("layers/") and d.init == "normal"
-                and d.scale is None):
+        if (key.startswith(("layers/", "encoder/layers/"))
+                and d.init == "normal" and d.scale is None):
             own = d.shape[-2] if len(d.shape) >= 3 else d.shape[-1]
             out[key] = math.sqrt(d.shape[0] / own)
     return out
@@ -1391,7 +1612,8 @@ def phase_decode_vs_prefill(torch, model, params, faults: dict,
 def launch_counters(kernels: dict) -> dict:
     """Every count of the wrappers in ``kernels``: ``name`` -> (wrapper,
     "launches"), ``name.tc`` / ``name.simt`` -> the per-variant launch
-    counts, ``name.ckpt`` -> the forward launches that stored the
+    counts, ``name.split`` -> flash's launches with D != Dv (MLA's),
+    ``name.ckpt`` -> the forward launches that stored the
     backward's checkpoints (WKV), ``name.bwd`` -> the backward launches and
     ``name.bwd_tc`` / ``name.bwd_simt`` those of each variant, and
     ``name.copies`` -> the inputs a wrapper copied before its launch,
@@ -1399,16 +1621,17 @@ def launch_counters(kernels: dict) -> dict:
     out = {}
     for name, fn in kernels.items():
         out[name] = (fn, "launches")
-        for attr in ("launches_tc", "launches_simt", "launches_ckpt",
-                     "launches_bwd", "launches_bwd_tc", "launches_bwd_simt",
-                     "copies"):
+        for attr in ("launches_tc", "launches_simt", "launches_split",
+                     "launches_ckpt", "launches_bwd", "launches_bwd_tc",
+                     "launches_bwd_simt", "copies"):
             if hasattr(fn, attr):
                 out[f"{name}.{attr.removeprefix('launches_')}"] = (fn, attr)
     return out
 
 
 def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
-                phase: str):
+                phase: str, aux_in: dict | None = None,
+                frames=None, gen_calls: int = 2):
     """The serve slice on the card: prefill B=4, S=4096 (counted), then
     greedy_generate at serve's defaults. ``kernels`` maps each kernel's
     name to its wrapper (with the ``launches`` count, and for flash the
@@ -1417,20 +1640,23 @@ def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
     ``copies`` of views its kernel could not address, ``rwkv6_wkv.copies``);
     the prefill must launch each kernel and variant as often as
     ``expected`` says (one not named there: never) and copy nothing.
-    Returns the prefill's launch counts."""
+    ``aux_in`` goes into each prefill (whisper's frames, pixtral's
+    patches), ``frames`` into ``greedy_generate`` (whisper), which is
+    timed over ``gen_calls`` calls. Returns the prefill's launch
+    counts."""
     from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
 
     b, s = PREFILL["b"], PREFILL["s"]
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
         0, model.cfg.vocab_size, (b, s))).cuda()
-    serve.prefill(model, params, tokens)                     # warm-up
+    serve.prefill(model, params, tokens, aux_in)             # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = launch_counters(kernels)
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     t0 = time.perf_counter()
-    last = serve.prefill(model, params, tokens)
+    last = serve.prefill(model, params, tokens, aux_in)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: getattr(fn, attr)
@@ -1446,13 +1672,16 @@ def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
     walls = [wall]
     for _ in range(2):
         t0 = time.perf_counter()
-        serve.prefill(model, params, tokens)
+        serve.prefill(model, params, tokens, aux_in)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    log(phase, f"{model.cfg.name} prefill B={b} S={s} bf16: {wall:.4f} s "
-        f"(then {walls[1]:.4f}, {walls[2]:.4f} s) = {b * s / wall:.1f} "
-        f"prefill tokens/s; launches {expected}; peak device memory "
-        f"{peak:.2f} GiB")
+    extra = "".join(f", {k} {tuple(v.shape)}" for k, v in
+                    (aux_in or {}).items())
+    log(phase, f"{model.cfg.name} prefill B={b} S={s}{extra} bf16: "
+        f"{wall:.4f} s (then {walls[1]:.4f}, {walls[2]:.4f} s) = "
+        f"{b * s / wall:.1f} prefill tokens/s; launches {expected}; peak "
+        f"device memory {peak:.2f} GiB; logits finite, max |logit| "
+        f"{float(last.float().abs().max()):.3f}")
 
     batch, plen, gen = 4, 16, 32
     tok_cfg = TokenTaskConfig(vocab_size=model.cfg.vocab_size, seed=3)
@@ -1460,17 +1689,19 @@ def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
                         for i in range(batch)])
     torch.cuda.reset_peak_memory_stats()
     rates = []
-    for _ in range(2):
+    for _ in range(gen_calls):
         t0 = time.perf_counter()
-        out = serve.greedy_generate(model, params, prompts, gen)
+        out = serve.greedy_generate(model, params, prompts, gen,
+                                    frames=frames)
         dt = time.perf_counter() - t0
         rates.append(batch * (plen + gen) / dt)
     if out.shape != (batch, plen + gen) or not (
             (out >= 0) & (out < model.cfg.vocab_size)).all():
         raise AssertionError(f"greedy_generate gave {out.shape}")
     log(phase, f"greedy_generate batch {batch} prompt {plen} gen {gen}: "
-        f"{rates[0]:.1f} tok/s (first call), {rates[1]:.1f} tok/s "
-        f"(second); peak device memory "
+        + ", ".join(f"{r:.1f} tok/s ({n} call)" for r, n in
+                    zip(rates, ("first", "second")))
+        + f"; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card now "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
     for i in range(2):
@@ -1501,6 +1732,7 @@ def phase_serve_profile(torch, model, params, serve, tokens, needle: str):
 def lm_slice(torch, Transformer, get_config, serve, arch: str,
              kernels: dict, kernel: str, needle: str, faults: dict,
              decode_tols: dict, phases: tuple, own_fan_in: bool,
+             clock: "Clock", numbers: tuple,
              variant: str | None = None) -> int:
     """One LM slice on the card, full width: ``forward`` card vs CPU in
     f32; decode vs prefill in f32, then bf16 (the same init, cast), with
@@ -1510,10 +1742,12 @@ def lm_slice(torch, Transformer, get_config, serve, arch: str,
     and its profile.
     With ``own_fan_in``, decode vs prefill with the stacked matrices at
     their own fan-in is reported first (``own_fan_in_factors``).
-    Returns the launches of ``kernel`` in that prefill."""
+    Each of the three phases' seconds goes to ``clock`` under its number
+    in ``numbers``. Returns the launches of ``kernel`` in that prefill."""
     card_phase, decode_phase, serve_phase = phases
     model32, params_cpu = phase_lm_card_vs_cpu(torch, Transformer,
                                                get_config, arch, card_phase)
+    clock.lap(f"{numbers[0]} ({card_phase})")
     model = Transformer(get_config(arch))
     factors = own_fan_in_factors(model) if own_fan_in else {}
     for m in (model32, model) if factors else ():
@@ -1531,6 +1765,7 @@ def lm_slice(torch, Transformer, get_config, serve, arch: str,
     del params_cpu
     phase_decode_vs_prefill(torch, model, params, faults,
                             decode_tols["bfloat16"], decode_phase)
+    clock.lap(f"{numbers[1]} ({decode_phase})")
     layers = model.cfg.num_layers
     expected = {kernel: layers}
     if variant:
@@ -1538,6 +1773,7 @@ def lm_slice(torch, Transformer, get_config, serve, arch: str,
     counts, tokens, _ = phase_serve(torch, model, params, serve, kernels,
                                     expected, serve_phase)
     phase_serve_profile(torch, model, params, serve, tokens, needle)
+    clock.lap(f"{numbers[2]} ({serve_phase})")
     return counts[kernel]
 
 
@@ -1762,10 +1998,12 @@ def log_shares(shares) -> tuple[float, str]:
             ", ".join(f"{100 * x:.2f}%" for x in shares))
 
 
-def jamba_defs(model, own: bool) -> dict:
+def fan_in_defs(model, own: bool) -> dict:
     """The model's ParamDefs, with the stacked matrices' scales at their
     own fan-in (``own_fan_in_factors``) when ``own``. Both draw the same
-    numbers from one seed: only the scale differs."""
+    numbers from one seed: only the scale differs. (jamba's phases and
+    phase 31 draw at own fan-in; phase 32 rescales the reference's draws
+    to it, by the same factors.)"""
     import dataclasses
     defs = model.defs()
     if not own:
@@ -1789,7 +2027,7 @@ def phase_jamba_blocks(torch, Transformer, cfg, phase: str):
     cfg = dataclasses.replace(cfg, param_dtype="float32",
                               act_dtype="float32")
     model = Transformer(cfg)
-    defs = jamba_defs(model, own=True)
+    defs = fan_in_defs(model, own=True)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (1, 256, cfg.d_model)).astype(np.float32))
     for j in (0, 1, 4):
@@ -2019,7 +2257,7 @@ def phase_jamba_decode(torch, Transformer, cfg, ops, phase: str):
         del params
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        params = init_params(jamba_defs(model, own),
+        params = init_params(fan_in_defs(model, own),
                              torch.Generator(device="cuda").manual_seed(0),
                              "cuda", getattr(torch, dname))
         torch.cuda.synchronize()
@@ -2274,8 +2512,10 @@ def phase_cycle_card_vs_cpu(torch, sim) -> None:
 
 # Phase 21: the tick baselines with the station scenarios of the JAX
 # package's tests (tests/test_sim_fused.py); max_rounds counts fedsat's
-# orbit-events and fedspace's flushes.
-TICK_RUNS = (("fedsat", "gs_np", 16), ("fedspace", "gs", 4))
+# orbit-events and fedspace's flushes, cut from 16 and 4 to keep the
+# script within its time on a slow host (fedspace's flushes take 3-7 s
+# each).
+TICK_RUNS = (("fedsat", "gs_np", 8), ("fedspace", "gs", 2))
 
 
 @contextlib.contextmanager
@@ -2295,7 +2535,7 @@ def recorded_folds(ex_mod, rows: list):
 
 
 def phase_ticks(torch, sim, fedagg_mod) -> dict:
-    """fedsat (gs_np, 16 orbit-events) and fedspace (gs, 4 flushes) at
+    """fedsat (gs_np, 8 orbit-events) and fedspace (gs, 2 flushes) at
     full width on the card with default local steps and batch: the
     fedagg counts zeroed just before each run and read just after must
     show one launch per fedsat orbit-event, folding the orbit's 8
@@ -3211,7 +3451,7 @@ def phase_jamba_round_card_vs_cpu(torch, Transformer, get_config,
     cfg = get_config("jamba-v0.1-52b").reduced()
     model = Transformer(cfg)
     from repro_torch.models.params import init_params
-    params = init_params(jamba_defs(model, own=True),
+    params = init_params(fan_in_defs(model, own=True),
                          torch.Generator().manual_seed(29), "cpu")
     batches = {d: train.make_batches(cfg, 2, 2, 64, 0, cfg.vocab_size,
                                      device=d) for d in ("cuda", "cpu")}
@@ -3971,7 +4211,7 @@ def phase_mamba_block_grads(torch, Transformer, get_config, ops,
     cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=8)
     model = Transformer(cfg)
     prefix = "layers/b1/mixer/"
-    defs = {k: v for k, v in jamba_defs(model, own=True).items()
+    defs = {k: v for k, v in fan_in_defs(model, own=True).items()
             if k.startswith(prefix)}
     dt = getattr(torch, cfg.param_dtype)
     params = init_params(defs, torch.Generator(device="cuda").manual_seed(28),
@@ -4060,8 +4300,360 @@ def phase_mamba_block_grads(torch, Transformer, get_config, ops,
                 device_ms=block_ms)
 
 
+# Phase 31: MLA (minicpm3-4b) and the encoder-decoder stack
+# (whisper-small) at full width cut to this many layers (whisper's encoder
+# too), f32 at own fan-in: at the reference's init (every stacked matrix at
+# std 1/sqrt(4) here) their softmaxes saturate and the logits are chaotic
+# in the order of the sums (tests/_torch_zoo.py).
+ZOO_F32_LAYERS = 4
+# Phase 32: the seven architectures the port took last, served at full
+# width in bf16, as (arch, layers run, own): layers None runs all; own
+# serves at the stacked matrices' own fan-in, where the reference's init
+# saturates the prefill (``init_reading``; the phase reads it for every
+# arch and fails where the reading and ``own`` disagree). deepseek-coder
+# -33b (62 GiB in bf16) and qwen3-moe-30b-a3b (57 GiB) fit the card, but
+# not beside the f32 draw of their largest stacked leaf (34 and 39 GB):
+# cut, as jamba runs one period. mistral-nemo-12b and pixtral-12b run at
+# full depth in 16-17 s each, deepseek-coder-33b at 32 layers in 13 s,
+# qwen3-moe-30b-a3b at 24 in 25 s (two decode calls each; H100 80GB
+# HBM3): those four run at half that depth or less, and decode once, to
+# keep the script within its time on a slow host. The reference's init
+# draws a stacked matrix at std 1/sqrt(layers), so a cut arch reads it at
+# the layers it runs.
+ZOO_SERVE = (("granite-moe-1b-a400m", None, True),
+             ("minicpm3-4b", None, True),
+             ("whisper-small", None, True),
+             ("mistral-nemo-12b", 20, True),
+             ("pixtral-12b", 20, True),
+             ("deepseek-coder-33b", 16, True),
+             ("qwen3-moe-30b-a3b", 12, False))
+# A prefill is saturated where one of its softmaxes (the attention rows,
+# the MoE routers, the next-token distribution) puts on average more than
+# this share of its weight on one entry.
+SATURATED_TOP1 = 0.5
+# The rows each reading takes: the last query rows of every attention
+# call, and the last positions' logits.
+READ_ROWS = 64
+
+
+def init_reading(torch, model, params, tokens, aux_in) -> dict:
+    """One prefill of ``tokens`` (B=1) and ``aux_in``, read: the mean
+    top-1 weight of the last READ_ROWS query rows of each attention call
+    (dense, from the call's q and k and its mask), averaged and largest
+    over the calls; for MoE the routers' mean top-1 probability and the
+    share of top-k assignments past an expert's capacity; the last
+    READ_ROWS positions' logits, their max |.| and mean top-1
+    probability. ``saturated``: a logit not finite, or a mean top-1 of
+    the attention, the routers or the logits above SATURATED_TOP1."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_lib
+
+    attn, router, dropped = [], [], []
+
+    def spy_attention(real):
+        def call(q, k, v, causal=True, window=None):
+            sq, sk = q.shape[2], k.shape[2]
+            rows = min(READ_ROWS, sq)
+            group = q.shape[1] // k.shape[1]
+            sc = torch.einsum("hqd,hkd->hqk", q[0, :, -rows:].float(),
+                              k[0].repeat_interleave(group, 0).float())
+            qpos = torch.arange(sq - rows, sq, device=q.device)[:, None]
+            kpos = torch.arange(sk, device=q.device)[None, :]
+            ok = torch.ones(rows, sk, dtype=torch.bool, device=q.device)
+            if causal:
+                ok &= qpos >= kpos
+            if window is not None:
+                ok &= qpos - kpos < window
+            sc = sc.mul_(1.0 / math.sqrt(q.shape[-1])).masked_fill_(
+                ~ok, -math.inf)
+            attn.append(float(torch.softmax(sc, -1).amax(-1).mean()))
+            return real(q, k, v, causal=causal, window=window)
+        return call
+
+    def spy_route(real):
+        def call(cfg, p, xt):
+            probs, gate_vals, gate_idx = real(cfg, p, xt)
+            router.append(float(probs.amax(-1).mean()))
+            counts = torch.bincount(gate_idx.reshape(-1),
+                                    minlength=cfg.moe.num_experts)
+            cap = moe_lib.capacity(cfg.moe, xt.shape[0])
+            dropped.append(float((counts - cap).clamp(min=0).sum())
+                           / gate_idx.numel())
+            return probs, gate_vals, gate_idx
+        return call
+
+    with torch.no_grad(), patched(ops, "flash_attention_op",
+                                  spy_attention), \
+            patched(moe_lib, "route", spy_route):
+        x, _ = model.hidden_states(params, tokens, aux_in)
+        logits = model.logits(params, x[:, -READ_ROWS:]).float()
+    out = dict(attn_top1=float(np.mean(attn)), attn_top1_max=max(attn),
+               logit_max=float(logits.abs().max()),
+               finite=bool(torch.isfinite(logits).all()),
+               logit_top1=float(torch.softmax(logits, -1).amax(-1).mean()))
+    if router:
+        out.update(router_top1=float(np.mean(router)),
+                   dropped=float(np.mean(dropped)))
+    out["saturated"] = not out["finite"] or max(
+        out["attn_top1"], out["logit_top1"],
+        out.get("router_top1", 0.0)) > SATURATED_TOP1
+    return out
+
+
+def _reading_text(r: dict) -> str:
+    return (f"attention top-1 {r['attn_top1']:.4f} (max over layers "
+            f"{r['attn_top1_max']:.4f})" + (
+                f", router top-1 {r['router_top1']:.4f}, "
+                f"{r['dropped']:.4f} of assignments past capacity"
+                if "router_top1" in r else "")
+            + f", logits max |.| {r['logit_max']:.3f}, finite "
+            f"{r['finite']}, top-1 {r['logit_top1']:.4f}: "
+            f"{'saturated' if r['saturated'] else 'not saturated'}")
+
+
+def _zoo_model(Transformer, get_config, arch: str, layers, dtype: str):
+    """``arch`` at full width in ``dtype``, cut to ``layers`` (and as many
+    encoder layers) where given."""
+    import dataclasses
+    cfg = get_config(arch)
+    cut = {}
+    if layers is not None:
+        cut["num_layers"] = layers
+        if cfg.is_encdec:
+            cut["encoder_layers"] = layers
+    return Transformer(dataclasses.replace(cfg, param_dtype=dtype,
+                                           act_dtype=dtype, **cut))
+
+
+def _zoo_frames(torch, cfg, b: int, seed: int, device: str):
+    """Unit-normal stub frame embeddings (B, encoder_seq, d_model) from a
+    numpy seed, in the activation dtype."""
+    x = np.random.default_rng(seed).standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(x).to(device, getattr(torch, cfg.act_dtype))
+
+
+def _zoo_stepped(torch, model, params, tokens, frames=None, fault=None):
+    """Logits (B, S, V) of stepping ``tokens`` through ``decode_step``,
+    the cross caches primed from ``frames`` where given; ``fault(cache,
+    t)`` is applied after step t."""
+    b, s = tokens.shape
+    cache = model.init_cache(b, s, device=tokens.device)
+    if frames is not None:
+        cache = model.prime_encdec(params, cache, frames)
+    steps = []
+    for t in range(s):
+        logits, cache = model.decode_step(params, cache, tokens[:, t])
+        if fault:
+            fault(cache, t)
+        steps.append(logits)
+    return torch.stack(steps, dim=1)
+
+
+def fault_latent_one_slot_off(cache, t):
+    """MLA: from step 32 on, each step's latent and rope'd key land one
+    slot late (the slot they belong in keeps the step before's)."""
+    if 32 <= t < 63:
+        for key, leaf in cache.items():
+            if key.endswith(("/c_kv", "/k_rope")):
+                leaf[:, :, t + 1] = leaf[:, :, t]
+                leaf[:, :, t] = leaf[:, :, t - 1]
+
+
+def phase_zoo_card_vs_cpu(torch, Transformer, get_config) -> None:
+    """minicpm3-4b and whisper-small at full width, ``ZOO_F32_LAYERS``
+    layers, f32 at own fan-in, drawn on the CPU: ``forward`` over B=1,
+    S=256 (whisper with 1500 frames) on the card (kernels) against the
+    CPU (plain versions); then decode against forward on the card, B=2,
+    S=64, where a planted fault must break the tolerance (MLA's latents
+    one slot off; whisper's cross caches primed from other frames), and
+    whisper's decoded logits must move when its frames are zeroed."""
+    from repro_torch.models.params import init_params
+
+    failed = []
+    for arch in ("minicpm3-4b", "whisper-small"):
+        model = _zoo_model(Transformer, get_config, arch, ZOO_F32_LAYERS,
+                           "float32")
+        cfg = model.cfg
+        t0 = time.perf_counter()
+        params = init_params(fan_in_defs(model, own=True),
+                             torch.Generator().manual_seed(0), "cpu")
+        enc = (f", {cfg.encoder_layers} encoder layers" if cfg.is_encdec
+               else "")
+        log("zoo", f"{cfg.name} ({cfg.num_layers} layers{enc}): "
+            f"{model.count_params()} params drawn on the CPU at own fan-in "
+            f"in {time.perf_counter() - t0:.2f} s")
+        tokens = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (1, 256)))
+        frames = _zoo_frames(torch, cfg, 1, 5, "cpu") if cfg.is_encdec \
+            else None
+        outs = {}
+        with torch.no_grad():
+            for device in ("cuda", "cpu"):
+                p = {k: v.to(device) for k, v in params.items()}
+                aux = None if frames is None else {"frames":
+                                                   frames.to(device)}
+                t0 = time.perf_counter()
+                outs[device] = model.forward(p, tokens.to(device),
+                                             aux)[0].cpu()
+                log("zoo", f"{arch} {device}: forward B=1 S=256 f32 in "
+                    f"{time.perf_counter() - t0:.3f} s")
+        got, want = outs["cuda"], outs["cpu"]
+        err = max_err(torch, got, want)
+        if not (torch.isfinite(got).all()
+                and torch.allclose(got, want, **LM_F32_TOL)):
+            failed.append(f"{arch} card vs CPU, max |err| {err:.3e}")
+        log("zoo", f"{arch} logits {tuple(got.shape)}: max |card - cpu| "
+            f"{err:.3e} ({LM_F32_TOL}); max |logit| "
+            f"{float(want.abs().max()):.3f}")
+        del outs, got, want
+
+        p = {k: v.cuda() for k, v in params.items()}
+        del params
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, 64))).cuda()
+        frames = _zoo_frames(torch, cfg, 2, 6, "cuda") if cfg.is_encdec \
+            else None
+        with torch.no_grad():
+            fwd = model.forward(p, toks, None if frames is None
+                                else {"frames": frames})[0]
+            dec = _zoo_stepped(torch, model, p, toks, frames)
+            if cfg.is_encdec:
+                bad = _zoo_stepped(torch, model, p, toks,
+                                   _zoo_frames(torch, cfg, 2, 7, "cuda"))
+                fault = "cross caches primed from other frames"
+                zero = _zoo_stepped(torch, model, p, toks,
+                                    torch.zeros_like(frames))
+                moved = max_err(torch, zero, dec)
+                if not moved > 1e-3:
+                    failed.append(f"{arch}: zeroed frames moved the "
+                                  f"logits by {moved:.3e}")
+                log("zoo", f"{arch}: zeroed frames move the decoded logits "
+                    f"by {moved:.4e} (> 1e-3 required)")
+            else:
+                bad = _zoo_stepped(torch, model, p, toks,
+                                   fault=fault_latent_one_slot_off)
+                fault = "latents one slot off from step 32"
+        err, berr = max_err(torch, dec, fwd), max_err(torch, bad, fwd)
+        if not torch.allclose(dec, fwd, **LM_F32_TOL):
+            failed.append(f"{arch} decode vs forward, max |err| {err:.3e}")
+        caught = not torch.allclose(bad, fwd, **LM_F32_TOL)
+        if not caught:
+            failed.append(f"{arch} planted fault ({fault}) passes, max "
+                          f"|err| {berr:.3e}")
+        log("zoo", f"{arch} f32 B=2 S=64: decode vs forward logits max "
+            f"|err| {err:.4e} ({LM_F32_TOL}); planted fault ({fault}): "
+            f"{berr:.4e}, {'caught' if caught else 'NOT caught'}")
+        del p, fwd, dec, bad
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 31: " + "; ".join(failed))
+
+
+def phase_zoo_serve(torch, Transformer, get_config, serve,
+                    kernels: dict) -> dict:
+    """Each of ``ZOO_SERVE`` at full width in bf16, drawn on the card at
+    the reference's init and read there (``init_reading``, B=1, S=4096);
+    where the table says ``own``, rescaled to own fan-in in place (the
+    same draws, as ``fan_in_defs`` makes them) and read again. Then
+    ``phase_serve`` (prefill B=4, S=4096, with 1500 frames for
+    whisper and 1024 patches ahead of the text for pixtral, the counts
+    zeroed just before and read just after: one tensor-core flash launch
+    per attention layer, whisper's encoder, self- and cross-attention
+    each, minicpm3-4b's on its (96, 64) variant; then ``greedy_generate``),
+    then one prefill under torch.profiler. Fails, after serving all
+    seven, where a reading disagrees with ``own``. Returns the flash
+    launches of each prefill."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.params import init_params
+
+    out, disagree = {}, []
+    b = PREFILL["b"]
+    for arch, layers, own in ZOO_SERVE:
+        t_arch = time.perf_counter()
+        model = _zoo_model(Transformer, get_config, arch, layers, "bfloat16")
+        cfg = model.cfg
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = init_params(fan_in_defs(model, own=False), gen, "cuda",
+                             torch.bfloat16)
+        torch.cuda.synchronize()
+        cut = ("full depth" if layers is None else
+               f"cut to {layers} of {get_config(arch).num_layers} layers")
+        log("zoo-serve", f"{arch}: {model.count_params()} params ({cut}) "
+            f"drawn on the card at the reference's init in "
+            f"{time.perf_counter() - t0:.2f} s; vocab {cfg.vocab_size}, "
+            f"d_model {cfg.d_model} against H·D "
+            f"{cfg.num_heads * cfg.head_dim}" + (
+                f", MoE {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+                f" with {moe_lib.capacity(cfg.moe, b * PREFILL['s'])} "
+                f"slots each at B={b} S={PREFILL['s']}" if cfg.moe else ""))
+        aux_in = frames = None
+        if cfg.is_encdec:
+            aux_in = {"frames": _zoo_frames(torch, cfg, b, 8, "cuda")}
+            frames = _zoo_frames(torch, cfg, 4, 9, "cuda")  # generate's
+        if cfg.vision_patches:
+            aux_in = {"patches": (0.1 * torch.randn(
+                (b, cfg.vision_patches, cfg.d_model), generator=gen,
+                device="cuda")).to(torch.bfloat16)}
+        one = torch.from_numpy(np.random.default_rng(4).integers(
+            0, cfg.vocab_size, (1, PREFILL["s"]))).cuda()
+        one_aux = aux_in and {k: x[:1] for k, x in aux_in.items()}
+        reading = init_reading(torch, model, params, one, one_aux)
+        log("zoo-serve", f"{arch} at the reference's init, one prefill B=1 "
+            f"S={PREFILL['s']}: {_reading_text(reading)}")
+        if reading["saturated"] != own:
+            disagree.append(f"{arch}: saturated {reading['saturated']}, "
+                            f"own {own}")
+        if own:
+            for k, f in own_fan_in_factors(model).items():
+                params[k].mul_(f)
+            again = init_reading(torch, model, params, one, one_aux)
+            log("zoo-serve", f"{arch} rescaled to own fan-in, the same "
+                f"prefill: {_reading_text(again)}")
+        del one, one_aux
+        n = cfg.num_layers + (cfg.encoder_layers + cfg.num_layers
+                              if cfg.is_encdec else 0)
+        expected = {"flash_attention": n, "flash_attention.tc": n}
+        if cfg.attention_kind == "mla":
+            expected["flash_attention.split"] = n
+        counts, tokens, _ = phase_serve(torch, model, params, serve, kernels,
+                                        expected, "zoo-serve", aux_in,
+                                        frames, gen_calls=1)
+        out[arch] = counts["flash_attention"]
+        log_profile("zoo-serve", f"{arch} one prefill B={b} "
+                    f"S={PREFILL['s']}", profile_device(
+                        torch, lambda: serve.prefill(model, params, tokens,
+                                                     aux_in)),
+                    "flash_fwd", top=6)
+        del params, aux_in, frames, tokens
+        torch.cuda.empty_cache()
+        log("zoo-serve", f"{arch} ({cut}, "
+            f"{'own fan-in' if own else 'the reference init'}) in "
+            f"{time.perf_counter() - t_arch:.1f} s")
+    if disagree:
+        raise AssertionError(f"the reading at the reference's init "
+                             f"disagrees with ZOO_SERVE's own: {disagree}")
+    return out
+
+
+class Clock:
+    """Each phase's seconds: ``lap(label)`` logs the time since the last
+    lap (or since the clock was made) as that phase's."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, label: str) -> float:
+        now = time.perf_counter()
+        dt, self.t = now - self.t, now
+        log("time", f"phase {label} in {dt:.1f} s")
+        return dt
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    clock = Clock()
     import torch
 
     if not torch.cuda.is_available():
@@ -4081,6 +4673,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log("device", f"{card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind} x {torch.cuda.device_count()}")
+    clock.lap("1 (device)")
 
     # 2. build
     from repro_torch.kernels import build
@@ -4102,6 +4695,7 @@ def main() -> int:
             log("build", f"ptxas {label}: {regs} registers, {stores} bytes "
                 f"spill stores, {loads} bytes spill loads")
     log("build", f"all kernels built in {time.perf_counter() - t0:.2f} s")
+    clock.lap("2 (build)")
 
     # 3. kernels
     from repro_torch import sim
@@ -4122,9 +4716,11 @@ def main() -> int:
                "rwkv6_wkv": wkv_mod.rwkv6_wkv,
                "selective_scan": scan_mod.selective_scan}
     phase_guard(torch, kernels, fa_mod, wkv_mod, scan_mod)
+    clock.lap("3 (kernels, guard)")
 
     # 4. card vs CPU
     phase_card_vs_cpu(torch, eng, sim)
+    clock.lap("4 (card vs CPU)")
 
     # 5. the slice, on the card; counts zeroed just before, read after.
     torch.cuda.reset_peak_memory_stats()
@@ -4161,10 +4757,12 @@ def main() -> int:
                              f"{accs}")
     log("slice", f"fedagg launches on the main path: {launches} "
         f"(1 per round, each folding all {n_leaves} leaves)")
+    clock.lap("5 (slice)")
 
     # 6. where a round's device time goes (after the counts were read)
     phase_profile(torch, eng)
     del eng
+    clock.lap("6 (profile)")
 
     # 7. the flash kernel against its plain version
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4173,6 +4771,8 @@ def main() -> int:
     from repro_torch.launch import serve
     from repro_torch.models import Transformer
     flash_entry = phase_flash(torch, fa_mod)
+    split_entry = phase_flash_split(torch, fa_mod)
+    clock.lap("7 (flash)")
 
     # 8-10. qwen3-0.6b: card vs CPU, decode vs prefill, serve
     flash_entry["launches"] = lm_slice(
@@ -4182,10 +4782,12 @@ def main() -> int:
          "lost slot": (fault_lost_slot, True)},
         {"float32": LM_F32_TOL, "bfloat16": dict(atol=DECODE_BF16_ATOL,
                                                  rtol=0)},
-        ("lm", "decode", "serve"), own_fan_in=False, variant="tc")
+        ("lm", "decode", "serve"), own_fan_in=False, clock=clock,
+        numbers=(8, 9, 10), variant="tc")
 
     # 11. the WKV kernel against its plain version
     wkv_entry = phase_wkv(torch, wkv_mod)
+    clock.lap("11 (wkv)")
 
     # 12-14. rwkv6-3b: card vs CPU, decode vs prefill, serve
     wkv_entry["launches"] = lm_slice(
@@ -4194,10 +4796,11 @@ def main() -> int:
         {"decay skipped": (fault_decay_skipped, False),
          "stale token shift": (fault_stale_token_shift, True)},
         RWKV_DECODE_TOL, ("rwkv", "rwkv-decode", "rwkv-serve"),
-        own_fan_in=True)
+        own_fan_in=True, clock=clock, numbers=(12, 13, 14))
 
     # 15. the selective-scan kernel against its plain version
     scan_entry = phase_scan(torch, scan_mod)
+    clock.lap("15 (scan)")
 
     # 16-18. jamba-v0.1-52b at full width, one period of its four (8 of 32
     # layers: 13,295,235,072 params, 24.76 GiB in bf16; the whole model's
@@ -4207,8 +4810,10 @@ def main() -> int:
     import dataclasses
     jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=8)
     phase_jamba_blocks(torch, Transformer, jamba, "jamba")
+    clock.lap("16 (jamba)")
     params = phase_jamba_decode(torch, Transformer, jamba, ops,
                                 "jamba-decode")
+    clock.lap("17 (jamba-decode)")
     model = Transformer(jamba)
     counts, tokens, _ = phase_serve(
         torch, model, params, serve, kernels,
@@ -4220,13 +4825,16 @@ def main() -> int:
     phase_serve_profile(torch, model, params, serve, tokens, "scan_fwd")
     del params, model
     torch.cuda.empty_cache()
+    clock.lap("18 (jamba-serve)")
 
     # 19. the routed strategies on the card; counts zeroed per run.
     routed = phase_routed(torch, sim, fedagg_mod)
     entry["launches_routed"] = {k: v["launches"] for k, v in routed.items()}
+    clock.lap("19 (routed)")
 
     # 20. one cycle block, card against CPU
     phase_cycle_card_vs_cpu(torch, sim)
+    clock.lap("20 (cycle card vs CPU)")
 
     # 21. the tick baselines on the card; counts zeroed per run. Then the
     # fold at the first flush's S.
@@ -4234,17 +4842,21 @@ def main() -> int:
     entry["launches_ticks"] = {k: v["launches"] for k, v in ticks.items()}
     entry["fold_flush"] = phase_fold_flush(torch, fedagg_mod, leaf_shapes,
                                            ticks["fedspace"]["rows"][0])
+    clock.lap("21 (ticks)")
 
     # 22. checkpoint and resume on the card; a card checkpoint on the CPU
     phase_resume(torch, sim)
+    clock.lap("22 (resume)")
 
     # 23. the flash backward kernel against its plain version
     bwd_entry = phase_flash_bwd(torch, fa_mod, flash_entry["ms"], ptxas)
+    clock.lap("23 (flash-bwd)")
 
     # 24. one training round, card vs CPU (4 layers, f32)
     phase_train_card_vs_cpu(
         torch, Transformer, get_config, "qwen3-0.6b", 4, 24,
         ("Δ not subtracted", fa_mod, "flash_attention_bwd", no_delta))
+    clock.lap("24 (train card vs CPU)")
 
     # 25. the training slice at full width; counts zeroed per round.
     trained = phase_train(torch, Transformer, get_config, kernels,
@@ -4253,6 +4865,7 @@ def main() -> int:
     flash_entry["launches_train"] = trained["launches"]["flash_attention"]
     entry["launches_train"] = trained["launches"]["fedagg"]
     entry["fold_lm"] = trained["fold"]
+    clock.lap("25 (train)")
 
     # 26. the sanitizer: all 8 strategies' fused loops at full width,
     # each against a plain run; three planted faults. Counts zeroed per
@@ -4260,22 +4873,20 @@ def main() -> int:
     sanitize = phase_sanitize(torch, sim, fedagg_mod)
     entry["launches_sanitized"] = {k: v["launches"]
                                    for k, v in sanitize.items()}
+    clock.lap("26 (sanitize)")
     # 27. the WKV backward kernel against its plain version
-    t_new = time.perf_counter()
     wkv_bwd_entry = phase_wkv_bwd(torch, wkv_mod, ptxas)
-    log("wkv-bwd", f"phase 27 in {time.perf_counter() - t_new:.1f} s")
+    clock.lap("27 (wkv-bwd)")
 
     # 28. the scan backward kernel; a full-width jamba Mamba block's
     # gradients, kernels vs plain
-    t0 = time.perf_counter()
     scan_bwd_entry = phase_scan_bwd(torch, scan_mod, ptxas)
     scan_bwd_entry["block"] = phase_mamba_block_grads(
         torch, Transformer, get_config, ops, scan_mod)
-    log("scan-bwd", f"phase 28 in {time.perf_counter() - t0:.1f} s")
+    clock.lap("28 (scan-bwd)")
 
     # 29. training card vs CPU: rwkv6-3b (2 layers, f32), then one round
     # of the reduced jamba, whose scan launches are the backward's count
-    t0 = time.perf_counter()
     phase_train_card_vs_cpu(
         torch, Transformer, get_config, "rwkv6-3b", 2, 29,
         ("decay skipped in the WKV backward", wkv_mod, "rwkv6_wkv_bwd",
@@ -4283,11 +4894,10 @@ def main() -> int:
     jamba_round = phase_jamba_round_card_vs_cpu(torch, Transformer,
                                                 get_config, kernels)
     scan_bwd_entry["launches"] = jamba_round["counts"]["selective_scan.bwd"]
-    log("train-cvc", f"phase 29 in {time.perf_counter() - t0:.1f} s")
+    clock.lap("29 (train card vs CPU, the other families)")
 
     # 30. the slice: rwkv6-3b federated training at full width; counts
     # zeroed per round.
-    t0 = time.perf_counter()
     rwkv_train = phase_train(torch, Transformer, get_config, kernels,
                              fedagg_mod, ops, arch="rwkv6-3b",
                              phase="rwkv-train", needle="wkv_bwd")
@@ -4296,9 +4906,23 @@ def main() -> int:
                                     if k != "launches"}
     wkv_entry["launches_train"] = rwkv_train["launches"]["rwkv6_wkv"]
     entry["launches_train_rwkv"] = rwkv_train["launches"]["fedagg"]
-    log("rwkv-train", f"phase 30 in {time.perf_counter() - t0:.1f} s; "
-        f"phases 27-30 in {time.perf_counter() - t_new:.1f} s")
-    log("done", f"phases 1-30 in {time.perf_counter() - t_start:.1f} s")
+    clock.lap("30 (rwkv-train)")
+    torch.cuda.empty_cache()
+
+    # 31. MLA and the encoder-decoder stack: card vs CPU, decode vs
+    # forward with planted faults
+    phase_zoo_card_vs_cpu(torch, Transformer, get_config)
+    t31 = clock.lap("31 (zoo)")
+
+    # 32. the seven architectures served at full width; counts zeroed per
+    # prefill
+    zoo = phase_zoo_serve(torch, Transformer, get_config, serve, kernels)
+    split_entry["launches"] = zoo["minicpm3-4b"]
+    flash_entry["launches_zoo"] = zoo
+    flash_entry["split"] = split_entry
+    log("time", f"phases 31-32 in {t31 + clock.lap('32 (zoo-serve)'):.1f} "
+        f"s")
+    log("done", f"phases 1-32 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
                                   scan_entry, bwd_entry, wkv_bwd_entry,

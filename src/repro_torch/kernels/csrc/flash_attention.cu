@@ -1,8 +1,11 @@
 // flash_attention: causal / sliding-window GQA attention forward, sm_90a.
 //
-//   O[b,h] = softmax(Q[b,h] K[b,h/G]^T / sqrt(D) + mask) V[b,h/G]
+//   O[b,h] = softmax(Q[b,h] K[b,h/G]^T / sqrt(Dqk) + mask) V[b,h/G]
 //
-//   q: (B, H, Sq, D), k/v: (B, Hkv, Sk, D), o: (B, H, Sq, D); G = H / Hkv.
+//   q: (B, H, Sq, Dqk), k: (B, Hkv, Sk, Dqk), v: (B, Hkv, Sk, Dv),
+//   o: (B, H, Sq, Dv); G = H / Hkv. The head dims (Dqk, Dv) are a pair of
+//   the kernels' table: (D, D) for D in {8, 16, 32, 64, 128}, and (96, 64),
+//   MLA's (minicpm3-4b: 64 nope + 32 rope dims of q and k, 64 of v).
 //   f32 or bf16 in and out; scores, running max and sums in f32.
 //   mask: k_pos < Sk; causal q_pos >= k_pos; window q_pos - k_pos < W.
 //
@@ -12,12 +15,14 @@
 // (src/repro/kernels/ref.py:18).
 //
 // Two hand-written kernels, chosen in one place (variant_for, by dtype and
-// D):
-// - flash_fwd_tc: bf16 with D in {16, 32, 64, 128}, on the tensor cores
-//   (wgmma). The serving path (bf16, D = 128) runs it.
+// Dqk):
+// - flash_fwd_tc: bf16 with Dqk in {16, 32, 64, 96, 128}, on the tensor
+//   cores (wgmma). The serving path (bf16, D = 128) runs it.
 // - flash_fwd: f32 (whose tensor-core path would be TF32, which the port
 //   does not use) and D = 8 (below wgmma's k16 depth), f32 FMAs on the
 //   CUDA cores.
+// Both are templated on the pair (Dqk, Dv); the wrapper counts the
+// launches with Dqk != Dv apart.
 //
 // Bound: operations. At the serving path's prefill shape (B=4, H=16,
 // Hkv=8, S=4096, D=128, bf16, causal) one call does 2*B*H*S*(S+1)*D =
@@ -34,28 +39,31 @@
 //   so the long causal rows start early.
 // - TMA loads the Q tile once and 128-key K and V tiles into a ring of two
 //   stages, through 4-D tensor maps over (D, heads, S, B) with the views'
-//   strides, in the 128-byte swizzle the wgmma descriptors read. Rows past
-//   S and columns past D (D < 64 is padded to 64 in shared memory) arrive
-//   as zeros. mbarriers per stage: K loaded, V loaded, K free (after both
-//   groups' Q·Kᵀ), V free (after their P·V), so the next K tile streams in
-//   while the last P·V still reads V. Shared memory at D = 128: Q 32 KB +
-//   2 x (K 32 KB + V 32 KB) = 160 KB, one block per SM.
+//   strides, in the 128-byte swizzle the wgmma descriptors read. Q and K
+//   sit in DPqk = Dqk rounded up to 64 columns, V in DPv; rows past S and
+//   columns past D arrive as zeros (Dqk = 96 loads as two 64-column
+//   chunks, the second half zero; Q·Kᵀ reads only the first 96).
+//   mbarriers per stage: K loaded, V loaded, K free (after both groups'
+//   Q·Kᵀ), V free (after their P·V), so the next K tile streams in while
+//   the last P·V still reads V. Shared memory at D = 128: Q 32 KB + 2 x
+//   (K 32 KB + V 32 KB) = 160 KB, at (96, 64) 32 + 2 x (32 + 16) = 128 KB;
+//   one block per SM.
 // - S = Q·Kᵀ: wgmma m64n128k16, A = Q and B = K from shared memory (K-major),
-//   D/16 steps, f32 sums of exact bf16 products.
+//   Dqk/16 steps, f32 sums of exact bf16 products.
 // - Online softmax on the accumulator fragment: a row lives in the 4 lanes
 //   of a quad (two xor shuffles for its max); masks at -1e30 and m from
 //   -1e30, as in the TPU kernel, applied only on tiles that cross the
 //   causal or window edge or Sk. Loop bounds skip unreachable K tiles.
 //   l sums the f32 probabilities (each lane its share, one quad sum at the
 //   end) and is clamped at 1e-30.
-// - O += P·V: wgmma m64n{64,128}k16 with P in registers as bf16 A fragments
-//   (the S accumulator's layout is the A fragment's) and B = V from shared
-//   memory, MN-major (transpose bit). P's bf16 rounding is the one rounding
-//   the f32 plain version does not make. On a long row it averages out; a
-//   row that holds few keys would carry it whole into its output, and such
-//   rows only arise on tiles that cross a mask edge: there the remainder
-//   P - bf16(P) goes through a second bf16 product, so those rows see P to
-//   ~2^-17.
+// - O += P·V: wgmma m64n{64,128}k16 (n = DPv) with P in registers as bf16
+//   A fragments (the S accumulator's layout is the A fragment's) and B = V
+//   from shared memory, MN-major (transpose bit). P's bf16 rounding is the
+//   one rounding the f32 plain version does not make. On a long row it
+//   averages out; a row that holds few keys would carry it whole into its
+//   output, and such rows only arise on tiles that cross a mask edge:
+//   there the remainder P - bf16(P) goes through a second bf16 product, so
+//   those rows see P to ~2^-17.
 // - Pipelining in a consumer group: its tiles are a masked prefix (a
 //   window's first tiles), an unmasked run, and a masked suffix (the
 //   causal diagonal, the ragged Sk edge). In the run, tile t's Q·Kᵀ is
@@ -65,7 +73,7 @@
 //   is unrolled for each D (one instantiation per head dim): either would
 //   make ptxas serialise the wgmmas.
 // - Epilogue: divide by max(l, 1e-30), round to bf16 once, store bf16
-//   pairs into the strided output.
+//   pairs into the strided output, Dv columns.
 // TMA wants 16-byte aligned bases and strides: the wrapper copies a view
 // that misses that to a contiguous tensor before the launch. The helpers
 // this kernel shares with the backward's tensor-core kernels (mbarriers,
@@ -92,16 +100,18 @@
 //   row's diagonal tile arrives. With -inf that row would be NaN. The
 //   tensor-core kernel relies on the same.
 // - P goes through shared memory (transposed) into P·V in f32; V reuses
-//   the K buffer, so shared memory is (2*D + 64) * 68 floats: 87,040 bytes
-//   at D=128, two blocks per SM. Its ceiling is the 67 TFLOP/s f32 rate.
+//   the K buffer, so shared memory is (Dqk + max(Dqk, Dv) + 64) * 68
+//   floats: 87,040 bytes at D=128, two blocks per SM. Its ceiling is the
+//   67 TFLOP/s f32 rate.
 // - Strides (b, h, s) in elements for each of q, k, v, o, unit stride on
 //   D: the model's (B, S, H, D) projections go in as views, no copies.
 //
 // Plain C interface for ctypes (no PyTorch headers): every entry point
 // launches on the caller's stream, never synchronises, allocates nothing
 // and returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for a D outside {8,16,32,64,128}, H % Hkv != 0,
-// a size out of range, or a tensor the tensor maps cannot address).
+// cudaErrorInvalidValue for a (Dqk, Dv) pair outside the table,
+// H % Hkv != 0, a size out of range, or a tensor the tensor maps cannot
+// address).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -172,13 +182,14 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
   extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);   // [D][kPitch]
-  float* kv = qT + D * kPitch;                   // K^T [D][kPitch] | V [64][D]
-  float* pT = kv + D * kPitch;                   // P^T [64][kPitch]
-  using C = Cols<D>;
+  constexpr int DKV = DQK > DV ? DQK : DV;
+  float* qT = reinterpret_cast<float*>(smem4);   // [DQK][kPitch]
+  float* kv = qT + DQK * kPitch;   // K^T [DQK][kPitch] | V [64][DV]
+  float* pT = kv + DKV * kPitch;                 // P^T [64][kPitch]
+  using C = Cols<DV>;
   constexpr int NC = C::kN;
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -191,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
   const T* V = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
   T* O = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
 
-  load_tile<T, D, true>(qT, Q, a.q_ss, q0, a.Sq);
+  load_tile<T, DQK, true>(qT, Q, a.q_ss, q0, a.Sq);
 
   // Reachable K tiles (loop bounds in place of the TPU kernel's
   // block-level @pl.when).
@@ -214,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // the last tile's reads of V and P^T are done
-    load_tile<T, D, true>(kv, K, a.k_ss, k0, a.Sk);
+    load_tile<T, DQK, true>(kv, K, a.k_ss, k0, a.Sk);
     __syncthreads();
 
     // S = Q K^T on this thread's rows 4*ty + i, columns 4*tx + j.
@@ -224,7 +235,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       const float4 qa = *reinterpret_cast<const float4*>(qT + d * kPitch + 4 * ty);
       const float4 kb = *reinterpret_cast<const float4*>(kv + d * kPitch + 4 * tx);
       const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
@@ -280,7 +291,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
       *reinterpret_cast<float4*>(pT + (4 * tx + j) * kPitch + 4 * ty) =
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     __syncthreads();  // K^T reads done, P^T written
-    load_tile<T, D, false>(kv, V, a.v_ss, k0, a.Sk);
+    load_tile<T, DV, false>(kv, V, a.v_ss, k0, a.Sk);
     __syncthreads();
 
     // acc += P V on this thread's rows and columns.
@@ -288,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
     for (int c = 0; c < kBlockK; ++c) {
       const float4 pa = *reinterpret_cast<const float4*>(pT + c * kPitch + 4 * ty);
       const float p[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float* vrow = kv + c * D;
+      const float* vrow = kv + c * DV;
       if constexpr (C::kVec) {
 #pragma unroll
         for (int g = 0; g < NC / 4; ++g) {
@@ -304,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
 #pragma unroll
         for (int j = 0; j < NC; ++j) {
           const int col = C::col(tx, j);
-          const float vv = col < D ? vrow[col] : 0.f;
+          const float vv = col < DV ? vrow[col] : 0.f;
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
         }
@@ -324,27 +335,28 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int col = C::col(tx, j);
-      if (col < D) store(orow + col, acc[i][j] / denom);
+      if (col < DV) store(orow + col, acc[i][j] / denom);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch_d(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = size_t(2 * D + kBlockK) * kPitch * sizeof(float);
+  const size_t smem = size_t(DQK + (DQK > DV ? DQK : DV) + kBlockK) *
+                      kPitch * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.H, B);
-  flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd<T, DQK, DV><<<grid, kThreads, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int64_t* strides, int B, int H, int Hkv, int Sq, int Sk,
-           int D, int causal, int window, cudaStream_t stream) {
+           int D, int Dv, int causal, int window, cudaStream_t stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv != 0 ||
       Sq < 1 || Sk < 1)
     return int(cudaErrorInvalidValue);
@@ -354,12 +366,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
          strides[6], strides[7], strides[8],
          strides[9], strides[10], strides[11],
          H, Hkv, Sq, Sk, causal, window, 1.0f / sqrtf(float(D))};
+  if (D == 96 && Dv == 64) return launch_d<T, 96, 64>(a, B, stream);
+  if (D != Dv) return int(cudaErrorInvalidValue);
   switch (D) {
-    case 8: return launch_d<T, 8>(a, B, stream);
-    case 16: return launch_d<T, 16>(a, B, stream);
-    case 32: return launch_d<T, 32>(a, B, stream);
-    case 64: return launch_d<T, 64>(a, B, stream);
-    case 128: return launch_d<T, 128>(a, B, stream);
+    case 8: return launch_d<T, 8, 8>(a, B, stream);
+    case 16: return launch_d<T, 16, 16>(a, B, stream);
+    case 32: return launch_d<T, 32, 32>(a, B, stream);
+    case 64: return launch_d<T, 64, 64>(a, B, stream);
+    case 128: return launch_d<T, 128, 128>(a, B, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -367,7 +381,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant: bf16, D in {16, 32, 64, 128}.
+// The tensor-core variant: bf16, (Dqk, Dv) in {(16, 16), (32, 32), (64, 64),
+// (96, 64), (128, 128)}.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -378,19 +393,28 @@ constexpr int kThreads = 384;            // producer + 2 consumer warpgroups
 constexpr int kConsumers = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The head dims padded to whole 64-column chunks (at least one).
+__host__ __device__ constexpr int padded(int d) {
+  return d < 64 ? 64 : (d + 63) / 64 * 64;
+}
+
+constexpr int kQChunk = kBM * 128;       // bytes of a Q chunk
+constexpr int kKVChunk = kBN * 128;      // bytes of a K or V chunk
+
 // Shared memory of one block, in bytes from a 1024-aligned base. A tile
 // of R rows is DP/64 chunks of [R rows][64 bf16] at 128 bytes a row, each
-// chunk in TMA's 128-byte swizzle (the layout the wgmma descriptors read).
-template <int DP>
+// chunk in TMA's 128-byte swizzle (the layout the wgmma descriptors read);
+// Q and K have DPQK columns, V DPV.
+template <int DPQK, int DPV>
 struct Smem {
-  static constexpr int kChunks = DP / 64;
-  static constexpr int kQChunk = kBM * 128;
-  static constexpr int kKVChunk = kBN * 128;
-  static constexpr int kKV = kChunks * kKVChunk;       // one K or V tile
+  static constexpr int kQKChunks = DPQK / 64;
+  static constexpr int kVChunks = DPV / 64;
+  static constexpr int kKTile = kQKChunks * kKVChunk;  // one K tile
+  static constexpr int kVTile = kVChunks * kKVChunk;   // one V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kChunks * kQChunk;    // kStages K tiles
-  static constexpr int kV = kK + kStages * kKV;        // kStages V tiles
-  static constexpr int kBar = kV + kStages * kKV;      // mbarriers
+  static constexpr int kK = kQ + kQKChunks * kQChunk;  // kStages K tiles
+  static constexpr int kV = kK + kStages * kKTile;     // kStages V tiles
+  static constexpr int kBar = kV + kStages * kVTile;   // mbarriers
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
 };
 
@@ -436,18 +460,17 @@ __device__ __forceinline__ void pv_sync(float (&o)[DP / 2],
 }
 
 // S = Q·Kᵀ over one 128-key tile, issued and committed (not waited for):
-// f32 sums of exact bf16 products, D/16 steps of k16, A = this group's 64
-// Q rows and B = the K tile, both K-major in shared memory.
-template <int DP, int D>
+// f32 sums of exact bf16 products, DQK/16 steps of k16, A = this group's
+// 64 Q rows and B = the K tile, both K-major in shared memory.
+template <int DQK>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q,
                                          uint32_t k) {
-  using L = Smem<DP>;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DQK / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;         // k16 step in a chunk
-    wgmma_ss_n128(sc, desc(q + (kk / 4) * L::kQChunk + off, 16, 1024),
-                  desc(k + (kk / 4) * L::kKVChunk + off, 16, 1024), kk > 0);
+    wgmma_ss_n128(sc, desc(q + (kk / 4) * kQChunk + off, 16, 1024),
+                  desc(k + (kk / 4) * kKVChunk + off, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
@@ -515,13 +538,13 @@ __device__ __forceinline__ void pack_remainder(uint32_t (&pa)[32],
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, Args a) {
-  constexpr int DP = D < 64 ? 64 : D;   // D < 64 is zero-padded to 64
-  using L = Smem<DP>;
+  constexpr int DP = padded(DV);        // O's columns: DV zero-padded
+  using L = Smem<padded(DQK), DP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // mbarriers: Q loaded; per stage K loaded, V loaded, K free, V free.
@@ -562,22 +585,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     // their P·V has.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, L::kChunks * L::kQChunk);
-      for (int c = 0; c < L::kChunks; ++c)
-        tma_load(base + L::kQ + c * L::kQChunk, &tq, bar_q, 64 * c, h, q0, b);
+      mbar_expect_tx(bar_q, L::kQKChunks * kQChunk);
+      for (int c = 0; c < L::kQKChunks; ++c)
+        tma_load(base + L::kQ + c * kQChunk, &tq, bar_q, 64 * c, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const uint32_t reuse = ((i / kStages) & 1) ^ 1;
         const int k0 = (kt_begin + i) * kBN;
         if (i >= kStages) mbar_wait(free_k + 8 * s, reuse);
-        mbar_expect_tx(full_k + 8 * s, L::kKV);
-        for (int c = 0; c < L::kChunks; ++c)
-          tma_load(base + L::kK + s * L::kKV + c * L::kKVChunk, &tk,
+        mbar_expect_tx(full_k + 8 * s, L::kKTile);
+        for (int c = 0; c < L::kQKChunks; ++c)
+          tma_load(base + L::kK + s * L::kKTile + c * kKVChunk, &tk,
                    full_k + 8 * s, 64 * c, hk, k0, b);
         if (i >= kStages) mbar_wait(free_v + 8 * s, reuse);
-        mbar_expect_tx(full_v + 8 * s, L::kKV);
-        for (int c = 0; c < L::kChunks; ++c)
-          tma_load(base + L::kV + s * L::kKV + c * L::kKVChunk, &tv,
+        mbar_expect_tx(full_v + 8 * s, L::kVTile);
+        for (int c = 0; c < L::kVChunks; ++c)
+          tma_load(base + L::kV + s * L::kVTile + c * kKVChunk, &tv,
                    full_v + 8 * s, 64 * c, hk, k0, b);
       }
     }
@@ -641,14 +664,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto masked_tile = [&](int t) {
     const int s = slot(t);
     mbar_wait(full_k + 8 * s, parity(t));
-    issue_qk<DP, D>(sc, q_smem, base + L::kK + s * L::kKV);
+    issue_qk<DQK>(sc, q_smem, base + L::kK + s * L::kKTile);
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(free_k + 8 * s);
     softmax_tile(sc, m, l, alpha, true, t * kBN, row0, col0, a);
     rescale();
     pack_p(pa, sc);
-    const uint32_t v = base + L::kV + s * L::kKV;
+    const uint32_t v = base + L::kV + s * L::kVTile;
     mbar_wait(full_v + 8 * s, parity(t));
     pv_sync<DP>(o, pa, v);
     pack_remainder(pa, sc);
@@ -661,7 +684,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (run_begin < run_end) {
     int t = run_begin;
     mbar_wait(full_k + 8 * slot(t), parity(t));
-    issue_qk<DP, D>(sc, q_smem, base + L::kK + slot(t) * L::kKV);
+    issue_qk<DQK>(sc, q_smem, base + L::kK + slot(t) * L::kKTile);
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(free_k + 8 * slot(t));
@@ -672,8 +695,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int s = slot(t), sp = slot(t - 1);
       mbar_wait(full_v + 8 * sp, parity(t - 1));    // (loaded before K_t)
       mbar_wait(full_k + 8 * s, parity(t));
-      issue_qk<DP, D>(sc, q_smem, base + L::kK + s * L::kKV);
-      issue_pv<DP>(o, pa, base + L::kV + sp * L::kKV);
+      issue_qk<DQK>(sc, q_smem, base + L::kK + s * L::kKTile);
+      issue_pv<DP>(o, pa, base + L::kV + sp * L::kVTile);
       wgmma_commit();
       wgmma_wait<1>();                  // Q·Kᵀ done, P·V may run on
       fence_regs(sc);
@@ -687,12 +710,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const int sp = slot(run_end - 1);
     mbar_wait(full_v + 8 * sp, parity(run_end - 1));
-    pv_sync<DP>(o, pa, base + L::kV + sp * L::kKV);
+    pv_sync<DP>(o, pa, base + L::kV + sp * L::kVTile);
     mbar_arrive(free_v + 8 * sp);
   }
   for (int t = run_end; t < kt_end; ++t) masked_tile(t);
 
-  // Normalise once and write this thread's two rows (columns < D).
+  // Normalise once and write this thread's two rows (columns < DV).
   __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb +
                      h * a.o_sh;
   float denom[2];
@@ -714,7 +737,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
-    if (8 * j >= D) continue;
+    if (8 * j >= DV) continue;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
@@ -733,26 +756,27 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 namespace tc {
 
-template <int D>
+template <int DQK, int DV>
 int launch_d(const CUtensorMap& mq, const CUtensorMap& mk,
              const CUtensorMap& mv, const Args& a, int B,
              cudaStream_t stream) {
-  const int smem = Smem<D < 64 ? 64 : D>::kBytes;
+  const int smem = Smem<padded(DQK), padded(DV)>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_tc<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((a.Sq + kBM - 1) / kBM, a.H, B);
-  flash_fwd_tc<D><<<grid, kThreads, smem, stream>>>(mq, mk, mv, a);
+  flash_fwd_tc<DQK, DV><<<grid, kThreads, smem, stream>>>(mq, mk, mv, a);
   return int(cudaGetLastError());
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int64_t* st, int B, int H, int Hkv, int Sq, int Sk, int D,
-           int causal, int window, cudaStream_t stream) {
+           int Dv, int causal, int window, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, st[0], st[1], st[2], D, H, Sq, B, kBM) ||
       !make_map(&mk, k, st[3], st[4], st[5], D, Hkv, Sk, B, kBN) ||
-      !make_map(&mv, v, st[6], st[7], st[8], D, Hkv, Sk, B, kBN))
+      !make_map(&mv, v, st[6], st[7], st[8], Dv, Hkv, Sk, B, kBN))
     return int(cudaErrorInvalidValue);
   // The epilogue stores bf16 pairs: o and its strides must be even.
   if (reinterpret_cast<uintptr_t>(o) % 4 != 0 || st[9] % 2 != 0 ||
@@ -760,11 +784,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     return int(cudaErrorInvalidValue);
   const Args a{o, lse, st[9], st[10], st[11], H, Hkv, Sq, Sk, causal, window,
                1.0f / sqrtf(float(D))};
+  if (D == 96 && Dv == 64) return launch_d<96, 64>(mq, mk, mv, a, B, stream);
+  if (D != Dv) return int(cudaErrorInvalidValue);
   switch (D) {
-    case 16: return launch_d<16>(mq, mk, mv, a, B, stream);
-    case 32: return launch_d<32>(mq, mk, mv, a, B, stream);
-    case 64: return launch_d<64>(mq, mk, mv, a, B, stream);
-    case 128: return launch_d<128>(mq, mk, mv, a, B, stream);
+    case 16: return launch_d<16, 16>(mq, mk, mv, a, B, stream);
+    case 32: return launch_d<32, 32>(mq, mk, mv, a, B, stream);
+    case 64: return launch_d<64, 64>(mq, mk, mv, a, B, stream);
+    case 128: return launch_d<128, 128>(mq, mk, mv, a, B, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -776,9 +802,9 @@ namespace {
 constexpr int kVariantSimt = 0;
 constexpr int kVariantTc = 1;
 
-// The one place the variant is chosen: bf16 at D >= 16 goes to the tensor
-// cores (wgmma's k16 depth); f32 (whose tensor-core path would be TF32)
-// and D = 8 go to the SIMT kernel. Mirrored by kernel_variant() in
+// The one place the variant is chosen: bf16 at Dqk >= 16 goes to the
+// tensor cores (wgmma's k16 depth); f32 (whose tensor-core path would be
+// TF32) and D = 8 go to the SIMT kernel. Mirrored by kernel_variant() in
 // flash_attention.py.
 int variant_for(int bf16, int D) {
   return bf16 && D >= 16 ? kVariantTc : kVariantSimt;
@@ -786,8 +812,8 @@ int variant_for(int bf16, int D) {
 
 int dispatch(int bf16, const void* q, const void* k, const void* v, void* o,
              float* lse, const int64_t* strides, int B, int H, int Hkv,
-             int Sq, int Sk, int D, int causal, int window, int* variant,
-             void* stream) {
+             int Sq, int Sk, int D, int Dv, int causal, int window,
+             int* variant, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv != 0 ||
       Sq < 1 || Sk < 1)
@@ -795,12 +821,12 @@ int dispatch(int bf16, const void* q, const void* k, const void* v, void* o,
   const int var = variant_for(bf16, D);
   *variant = var;
   if (var == kVariantTc)
-    return tc::launch(q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, causal,
-                      window, st);
+    return tc::launch(q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, Dv,
+                      causal, window, st);
   if (bf16)
     return launch<__nv_bfloat16>(q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D,
-                                 causal, window, st);
-  return launch<float>(q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D,
+                                 Dv, causal, window, st);
+  return launch<float>(q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, Dv,
                        causal, window, st);
 }
 
@@ -809,25 +835,26 @@ int dispatch(int bf16, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // strides: 12 element strides, (b, h, s) of q, k, v, o in that order;
-// the D axis of each must have unit stride. lse: null (the serving path),
-// or a contiguous f32 (B, H, Sq) buffer that receives each row's
-// log-sum-exp of its scaled, masked scores, m + log(max(l, 1e-30)), for
-// the backward (flash_attention_bwd.cu). *variant is set to the variant
-// launched: 1 tensor cores, 0 SIMT.
+// the D axis of each must have unit stride. D is the head dim of q and k,
+// Dv that of v and o. lse: null (the serving path), or a contiguous f32
+// (B, H, Sq) buffer that receives each row's log-sum-exp of its scaled,
+// masked scores, m + log(max(l, 1e-30)), for the backward
+// (flash_attention_bwd.cu). *variant is set to the variant launched: 1
+// tensor cores, 0 SIMT.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         float* lse, const int64_t* strides, int B, int H,
-                        int Hkv, int Sq, int Sk, int D, int causal,
+                        int Hkv, int Sq, int Sk, int D, int Dv, int causal,
                         int window, int* variant, void* stream) {
-  return dispatch(0, q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, causal,
-                  window, variant, stream);
+  return dispatch(0, q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, Dv,
+                  causal, window, variant, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, float* lse, const int64_t* strides, int B,
-                         int H, int Hkv, int Sq, int Sk, int D, int causal,
-                         int window, int* variant, void* stream) {
-  return dispatch(1, q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, causal,
-                  window, variant, stream);
+                         int H, int Hkv, int Sq, int Sk, int D, int Dv,
+                         int causal, int window, int* variant, void* stream) {
+  return dispatch(1, q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, Dv,
+                  causal, window, variant, stream);
 }
 
 }  // extern "C"

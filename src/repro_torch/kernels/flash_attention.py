@@ -2,11 +2,15 @@
 its backward.
 
 ``O = softmax(Q·Kᵀ/√D + mask)·V`` per (batch, query head), with q of
-shape ``(B, H, Sq, D)``, k and v ``(B, Hkv, Sk, D)`` and the output
-``(B, H, Sq, D)`` in q's dtype (f32 or bf16; scores, running max and
-sums in f32). Query head ``h`` reads KV head ``h // (H/Hkv)``. Masks:
-``k_pos < Sk``, causal ``q_pos >= k_pos``, optional window
-``q_pos - k_pos < W``; masked scores are -1e30, as in the TPU kernel.
+shape ``(B, H, Sq, D)``, k ``(B, Hkv, Sk, D)``, v ``(B, Hkv, Sk, Dv)``
+and the output ``(B, H, Sq, Dv)`` in q's dtype (f32 or bf16; scores,
+running max and sums in f32). Query head ``h`` reads KV head
+``h // (H/Hkv)``. Masks: ``k_pos < Sk``, causal ``q_pos >= k_pos``,
+optional window ``q_pos - k_pos < W``; masked scores are -1e30, as in
+the TPU kernel. The kernels take the head-dim pairs ``(D, Dv)`` of
+:data:`KERNEL_DIMS`: ``D == Dv`` in :data:`HEAD_DIMS`, and (96, 64),
+MLA's (minicpm3-4b), whose launches the wrapper also counts in
+``flash_attention.launches_split``. The plain version takes any pair.
 
 The forward kernels are in ``csrc/flash_attention.cu`` (CUDA C++ for
 sm_90a; its header has the bound at the prefill shape and the designs);
@@ -16,10 +20,11 @@ kernels, and the C launcher dispatches between them by dtype and D
 (:func:`kernel_variant` is its Python mirror; the wrapper raises if the
 two disagree):
 
-- ``"tc"``, bf16 with D in {16, 32, 64, 128}: TMA loads and ``wgmma`` on
-  the tensor cores, the serving path's kernel. Its one rounding beyond
-  the plain version's is P in bf16 before P·V, made exact to ~2^-17 on
-  the tiles that cross a mask edge (where a row may hold few keys).
+- ``"tc"``, bf16 with D in {16, 32, 64, 96, 128}: TMA loads and
+  ``wgmma`` on the tensor cores, the serving path's kernel. Its one
+  rounding beyond the plain version's is P in bf16 before P·V, made
+  exact to ~2^-17 on the tiles that cross a mask edge (where a row may
+  hold few keys).
 - ``"simt"``, f32 (on the tensor cores it would be TF32) and D = 8
   (below wgmma's k16 depth): f32 FMAs on the CUDA cores.
 
@@ -30,7 +35,9 @@ wrapper copies a q, k or v view that misses that to a contiguous tensor
 first, so such a call still runs on the tensor cores.
 
 The backward is ``csrc/flash_attention_bwd.cu``
-(:func:`flash_attention_bwd`, f32 and bf16, every D of the forward): from
+(:func:`flash_attention_bwd`, f32 and bf16, every D of the forward with
+``D == Dv``; a pair with ``D != Dv`` raises ``NotImplementedError``
+there and in :class:`FlashAttentionFn`, before anything launches): from
 q, k, v, the output o, the forward's per-row log-sum-exp ``lse``
 (``(B, H, Sq)`` f32, which the forward kernels store only when asked) and
 the output's gradient dO it computes dQ, dK and dV, dK and dV summed over
@@ -64,7 +71,8 @@ model's ``(B, S, H, D)`` projections go in as transposed views; the
 output and the gradients are laid out like their inputs.
 ``flash_attention.launches`` counts forward launches,
 ``flash_attention.launches_tc`` and ``.launches_simt`` those of each
-variant, ``flash_attention.launches_bwd`` backward calls (each enqueues
+variant, ``.launches_split`` those with ``D != Dv`` (also counted in
+their kernel's), ``flash_attention.launches_bwd`` backward calls (each enqueues
 the backward's three kernels: a pre-pass for Δ, dK/dV, dQ) and
 ``.launches_bwd_tc`` / ``.launches_bwd_simt`` those of each variant.
 """
@@ -80,6 +88,10 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)
+# (D of q and k, Dv of v) pairs the kernels are built for.
+KERNEL_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64),)
+SPLIT_BWD = ("the backward kernels have no D != Dv variant yet (ROADMAP "
+             "Queue B item 3: B2' for MLA's (96, 64))")
 _DTYPES = (torch.float32, torch.bfloat16)
 TMA_ALIGN = 16          # bytes: TMA's base and stride granule
 BWD_ROW_PAD = 128       # the tc backward's scratch rows: Sq rounded up
@@ -87,9 +99,9 @@ BWD_ROW_PAD = 128       # the tc backward's scratch rows: Sq rounded up
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
     """Which kernels a CUDA call runs, forward and backward alike: ``"tc"``
-    (tensor cores) for bf16 at D >= 16, ``"simt"`` for f32 and D = 8.
-    Mirrors ``variant_for`` in ``csrc/flash_attention.cu`` and
-    ``csrc/flash_attention_bwd.cu``, which make the choice."""
+    (tensor cores) for bf16 at D >= 16, ``"simt"`` for f32 and D = 8 (D
+    of q and k). Mirrors ``variant_for`` in ``csrc/flash_attention.cu``
+    and ``csrc/flash_attention_bwd.cu``, which make the choice."""
     return "tc" if dtype == torch.bfloat16 and d >= 16 else "simt"
 
 
@@ -179,7 +191,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``; dK and dV summed over each
     KV head's query heads. Returns (dq, dk, dv) in the inputs' dtype."""
     b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, d_v = k.shape[1], k.shape[2], v.shape[3]
     group = h // hkv
     scale = 1.0 / math.sqrt(d)
     kq = k.repeat_interleave(group, dim=1).float()
@@ -197,7 +209,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kq) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     dk = dk.view(b, hkv, group, sk, d).sum(2)
-    dv = dv.view(b, hkv, group, sk, d).sum(2)
+    dv = dv.view(b, hkv, group, sk, d_v).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -208,7 +220,7 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.flash_attention_f32, lib.flash_attention_bf16):
         fn.argtypes = ([ctypes.c_void_p] * 5
                        + [ctypes.POINTER(ctypes.c_int64)]
-                       + [ctypes.c_int] * 8
+                       + [ctypes.c_int] * 9
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -230,10 +242,13 @@ def _lib_bwd() -> ctypes.CDLL:
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: int | None) -> None:
+    """q (B,H,Sq,D), k (B,Hkv,Sk,D) and v (B,Hkv,Sk,Dv), one dtype and
+    device, unit stride on the head dims; on a CUDA device ``(D, Dv)``
+    must be a pair of :data:`KERNEL_DIMS` (the plain version takes any)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"flash_attention wants q (B,H,Sq,D), k/v "
-                         f"(B,Hkv,Sk,D); got ranks {q.dim()}, {k.dim()}, "
-                         f"{v.dim()}")
+        raise ValueError(f"flash_attention wants q (B,H,Sq,D), k "
+                         f"(B,Hkv,Sk,D), v (B,Hkv,Sk,Dv); got ranks "
+                         f"{q.dim()}, {k.dim()}, {v.dim()}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype}; want one of {_DTYPES} for all three")
@@ -241,16 +256,17 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}")
     b, h, sq, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b
+            or k.shape[3] != d):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    hkv, sk = k.shape[1], k.shape[2]
-    if min(b, h, hkv, sq, sk) < 1 or h % hkv != 0:
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if min(b, h, hkv, sq, sk, d, dv) < 1 or h % hkv != 0:
         raise ValueError(f"flash_attention: H={h} must be a multiple of "
                          f"Hkv={hkv}, and no size may be 0")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+    if q.device.type == "cuda" and (d, dv) not in KERNEL_DIMS:
+        raise ValueError(f"flash_attention: head dims (D, Dv) = "
+                         f"{(d, dv)} not in the kernels' {KERNEL_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dim of q, k and v "
                          "must have unit stride")
@@ -266,20 +282,32 @@ def _require_cuda(name: str, t: torch.Tensor) -> None:
                          f"plain version on the CPU)")
 
 
+def _out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An empty ``(B, H, Sq, Dv)`` tensor in q's dtype whose (b, h, s)
+    axes are laid out in q's stride order, D innermost: for the model's
+    transposed ``(B, S, H, D)`` views, a ``(B, S, H, Dv)`` storage."""
+    if dv == q.shape[3]:
+        return torch.empty_like(q)
+    order = sorted(range(3), key=lambda i: -q.stride(i)) + [3]
+    shape = (*q.shape[:3], dv)
+    buf = q.new_empty([shape[i] for i in order])
+    return buf.permute([order.index(i) for i in range(4)])
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int | None = None,
                         with_lse: bool = False
                         ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One launch of the forward kernel on CUDA tensors -> ``(out,
-    lse)``: out ``(B, H, Sq, D)`` in q's dtype, laid out like q; ``lse``
+    lse)``: out ``(B, H, Sq, Dv)`` in q's dtype, laid out like q; ``lse``
     the ``(B, H, Sq)`` f32 log-sum-exp of each row when ``with_lse``,
     else None (the kernel is passed null). Raises on any other device.
     Counts the launch."""
     check_inputs(q, k, v, window)
     _require_cuda("flash_attention", q)
     b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = _out_like(q, dv)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     variant = kernel_variant(q.dtype, d)
@@ -299,7 +327,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 strides, b, h, hkv, sq, sk, d, int(causal),
+                 strides, b, h, hkv, sq, sk, d, dv, int(causal),
                  0 if window is None else int(window),
                  ctypes.byref(launched), stream)
     if err != 0:
@@ -307,6 +335,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"failed: cudaError {err}")
     _check_variant("flash_attention", launched.value, variant)
     flash_attention.launches += 1
+    flash_attention.launches_split += d != dv
     if variant == "tc":
         flash_attention.launches_tc += 1
     else:
@@ -317,10 +346,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                      window: int | None) -> None:
-    """The backward's inputs: q, k, v as the forward takes them; o and do
-    shaped and typed like q with unit stride on D; lse a contiguous f32
-    ``(B, H, Sq)`` on q's device."""
+    """The backward's inputs: q, k, v as the forward takes them, with
+    ``D == Dv`` (else ``NotImplementedError``); o and do shaped and typed
+    like q with unit stride on D; lse a contiguous f32 ``(B, H, Sq)`` on
+    q's device."""
     check_inputs(q, k, v, window)
+    _require_equal_dims(q, v)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} is "
@@ -386,13 +417,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _require_equal_dims(q: torch.Tensor, v: torch.Tensor) -> None:
+    if q.shape[-1] != v.shape[-1]:
+        raise NotImplementedError(
+            f"flash_attention under grad with D={q.shape[-1]} != "
+            f"Dv={v.shape[-1]}: {SPLIT_BWD}")
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with a kernel on both sides: the forward kernel with
     ``lse`` (saving q, k, v, o and lse), the backward kernel for dq, dk
-    and dv. CUDA tensors only (the launchers raise otherwise)."""
+    and dv. CUDA tensors only (the launchers raise otherwise), with
+    ``D == Dv``: a pair with ``D != Dv`` raises ``NotImplementedError``
+    before any launch (``SPLIT_BWD``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
+        _require_equal_dims(q, v)
         out, lse = flash_attention_fwd(q, k, v, causal, window,
                                        with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -425,6 +466,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_simt = 0
+flash_attention.launches_split = 0
 flash_attention.launches_bwd = 0
 flash_attention.launches_bwd_tc = 0
 flash_attention.launches_bwd_simt = 0

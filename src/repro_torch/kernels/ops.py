@@ -110,11 +110,12 @@ def fold_stacked_tree(params_stacked: Mapping[str, torch.Tensor],
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True,
                        window: int | None = None) -> torch.Tensor:
-    """Causal / windowed GQA attention, q ``(B,H,Sq,D)``, k/v
-    ``(B,Hkv,Sk,D)`` -> ``(B,H,Sq,D)``: the ``flash_attention`` kernel on
-    CUDA tensors, :func:`~repro_torch.kernels.flash_attention
-    .flash_attention_plain` on CPU tensors; the inputs are checked the
-    same way on both. On CUDA tensors with grad enabled and an input that
+    """Causal / windowed GQA attention, q ``(B,H,Sq,D)``, k
+    ``(B,Hkv,Sk,D)``, v ``(B,Hkv,Sk,Dv)`` -> ``(B,H,Sq,Dv)``: the
+    ``flash_attention`` kernel on CUDA tensors, :func:`~repro_torch
+    .kernels.flash_attention.flash_attention_plain` on CPU tensors; the
+    inputs are checked the same way on both, but for the kernels' table
+    of ``(D, Dv)`` pairs, which binds only CUDA tensors. On CUDA tensors with grad enabled and an input that
     requires grad, the wrapper applies ``FlashAttentionFn`` (forward
     kernel with the log-sum-exp saved, backward kernel); otherwise it
     launches the forward with no log-sum-exp, so the serving path is the

@@ -1,27 +1,35 @@
 """Attention of the LM zoo (port of ``repro.models.attention``): GQA with
-qk-norm, RoPE and an optional sliding window.
+qk-norm, RoPE and an optional sliding window, cross-attention over an
+encoder's states, and MLA (multi-head latent attention).
 
-Train / prefill (:func:`attention_forward`) runs the ``flash_attention``
-kernel (``repro_torch.kernels``) on the projected, rope'd q/k/v — the
-function the JAX package computes with its blockwise ``_sdpa`` loop
-(``repro/models/attention.py:113-133``), which ``tests/test_kernels.py``
-holds equal to the Pallas flash kernel. The ``(B, S, H, D)`` layout is
-kept: the kernel takes q, k and v as transposed views, no copies. Query
-head ``h = hkv·G + g``, as ``reshape(b, s, hkv, g, dh)`` orders it,
-which is the kernel's ``h // G`` map.
+Train / prefill (:func:`attention_forward`, :func:`mla_forward`) runs
+the ``flash_attention`` kernel (``repro_torch.kernels``) on the
+projected, rope'd q/k/v — the function the JAX package computes with its
+blockwise ``_sdpa`` loop (``repro/models/attention.py:113-133``), which
+``tests/test_kernels.py`` holds equal to the Pallas flash kernel. The
+``(B, S, H, D)`` layout is kept: the kernel takes q, k and v as
+transposed views, no copies. Query head ``h = hkv·G + g``, as
+``reshape(b, s, hkv, g, dh)`` orders it, which is the kernel's ``h // G``
+map. Cross-attention (``kv_x``, the decoder of an encoder-decoder stack)
+takes no RoPE and runs the kernel with the causal mask off over Sq
+queries and Sk encoder states. MLA attends with q and k of head dim
+``qk_nope + qk_rope`` (96 for minicpm3-4b) and v of ``v_head_dim`` (64):
+the kernel's D_qk ≠ D_v variant, at the scale ``1/√D_qk``.
 
-Decode (:func:`attention_decode`) attends one query token against a KV
-cache with plain einsums and a softmax, as the JAX package does:
+Decode attends one query token against a cache with plain einsums and a
+softmax, as the JAX package does:
 
-- full cache: k/v ``(B, S_max, H_kv, D)``;
-- sliding window: a rolling cache ``(B, W, H_kv, D)`` plus the absolute
-  position of each slot.
+- GQA full cache: k/v ``(B, S_max, H_kv, D)``;
+- GQA sliding window: a rolling cache ``(B, W, H_kv, D)`` plus the
+  absolute position of each slot;
+- cross-attention: the encoder's k/v, computed once
+  (:func:`cross_attention_cache`);
+- MLA: the compressed latent cache ``c_kv`` ``(B, S, kv_lora)`` and
+  ``k_rope`` ``(B, S, rope)``, with the absorbed-matrix decode
+  (:func:`mla_decode`, DeepSeek-V2's trick).
 
-Unlike the JAX package, the cache is updated in place (``index_copy_``):
-no copy of the cache per step.
-
-MLA, cross-attention and ``kv_x`` are not ported yet (ROADMAP Queue A
-item 13) and raise ``NotImplementedError``.
+Unlike the JAX package, the caches are updated in place
+(``index_copy_``): no copy of a cache per step.
 """
 from __future__ import annotations
 
@@ -36,13 +44,10 @@ from repro_torch.models.layers import apply_rope, rms_norm_headwise
 from repro_torch.models.params import ParamDef
 
 NEG_INF = -1e30
-_NOT_PORTED = "not ported yet (ROADMAP Queue A item 13)"
 
 
 # ================================================================= GQA
 def gqa_defs(cfg: ArchConfig, cross: bool = False) -> dict:
-    if cross:
-        raise NotImplementedError(f"cross-attention is {_NOT_PORTED}")
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "wq": ParamDef((d, h * dh)),
@@ -50,7 +55,7 @@ def gqa_defs(cfg: ArchConfig, cross: bool = False) -> dict:
         "wv": ParamDef((d, hkv * dh)),
         "wo": ParamDef((h * dh, d)),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = ParamDef((dh,), "ones")
         p["k_norm"] = ParamDef((dh,), "ones")
     return p
@@ -58,18 +63,32 @@ def gqa_defs(cfg: ArchConfig, cross: bool = False) -> dict:
 
 def _project_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor,
                  kv_x: Optional[torch.Tensor] = None):
-    """-> q (B,Sq,Hkv,G,D), k,v (B,Sk,Hkv,D)."""
-    if kv_x is not None:
-        raise NotImplementedError(f"attention over kv_x is {_NOT_PORTED}")
-    b, s, _ = x.shape
+    """-> q (B,Sq,Hkv,G,D), k,v (B,Sk,Hkv,D); k and v from ``kv_x`` where
+    it is given (cross-attention), else from ``x``."""
+    b, sq, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, hkv, h // hkv, dh)
-    k = (x @ p["wk"]).reshape(b, s, hkv, dh)
-    v = (x @ p["wv"]).reshape(b, s, hkv, dh)
+    src = x if kv_x is None else kv_x
+    sk = src.shape[1]
+    q = (x @ p["wq"]).reshape(b, sq, hkv, h // hkv, dh)
+    k = (src @ p["wk"]).reshape(b, sk, hkv, dh)
+    v = (src @ p["wv"]).reshape(b, sk, hkv, dh)
     if "q_norm" in p:
         q = rms_norm_headwise(q, p["q_norm"])
         k = rms_norm_headwise(k, p["k_norm"])
     return q, k, v
+
+
+def _check_positions(name: str, positions: torch.Tensor, s: int) -> None:
+    """``positions`` must be ``arange(s)``: the kernel takes query and key
+    positions from their indices. The values are asserted on the device
+    (``torch._assert_async``): a check that read them back would stall
+    the host once per layer."""
+    if tuple(positions.shape) != (s,):
+        raise ValueError(f"{name}: positions of shape "
+                         f"{tuple(positions.shape)} for S={s}")
+    torch._assert_async(
+        torch.all(positions == torch.arange(s, device=positions.device)),
+        f"{name}: positions must be arange(S)")
 
 
 def attention_forward(
@@ -85,24 +104,20 @@ def attention_forward(
     """Full-sequence attention (train / prefill) through the
     ``flash_attention`` kernel.
 
-    x: (B, S, d_model); positions: (S,), which must be ``arange(S)``: the
-    kernel takes query and key positions from their indices. The values
-    are asserted on the device (``torch._assert_async``): a check that
-    read them back would stall the host once per layer.
+    x: (B, S, d_model); positions: (S,), which must be ``arange(S)``.
+    kv_x: (B, Sk, d_model) encoder states for cross-attention (then no
+    RoPE, and the caller passes ``causal=False``); kv_positions, where
+    given, must be ``arange(Sk)``.
     """
-    if kv_x is not None or kv_positions is not None:
-        raise NotImplementedError(f"cross-attention is {_NOT_PORTED}")
     b, s, _ = x.shape
-    if tuple(positions.shape) != (s,):
-        raise ValueError(f"attention_forward: positions of shape "
-                         f"{tuple(positions.shape)} for S={s}")
-    torch._assert_async(
-        torch.all(positions == torch.arange(s, device=positions.device)),
-        "attention_forward: positions must be arange(S)")
+    _check_positions("attention_forward", positions, s)
+    if kv_positions is not None:
+        _check_positions("attention_forward (kv)", kv_positions,
+                         s if kv_x is None else kv_x.shape[1])
     h, dh = cfg.num_heads, cfg.head_dim
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, kv_x)
     q = q.reshape(b, s, h, dh)
-    if cfg.use_rope:
+    if cfg.use_rope and kv_x is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
@@ -163,3 +178,134 @@ def attention_decode(
     w = torch.softmax(scores + bias, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v).reshape(b, 1, h * dh)
     return out @ p["wo"], cache
+
+
+def cross_attention_cache(cfg: ArchConfig, p: dict,
+                          enc: torch.Tensor) -> dict:
+    """The encoder's k/v for the decoder's cross-attention, computed once:
+    ``k``, ``v`` of shape (B, Sk, H_kv, D)."""
+    b, sk, _ = enc.shape
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    return {"k": (enc @ p["wk"]).reshape(b, sk, hkv, dh),
+            "v": (enc @ p["wv"]).reshape(b, sk, hkv, dh)}
+
+
+def cross_attention_decode(cfg: ArchConfig, p: dict, x_t: torch.Tensor,
+                           xcache: dict) -> torch.Tensor:
+    """One decode step of cross-attention against the encoder's k/v (no
+    RoPE, no mask)."""
+    b = x_t.shape[0]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x_t @ p["wq"]).reshape(b, 1, hkv, h // hkv, dh)
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(),
+                          xcache["k"].float()) * scale
+    w = torch.softmax(scores, dim=-1).to(xcache["v"].dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w,
+                       xcache["v"]).reshape(b, 1, h * dh)
+    return out @ p["wo"]
+
+
+# ================================================================= MLA
+def mla_defs(cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": ParamDef((d, m.q_lora_rank)),
+        "q_norm": ParamDef((m.q_lora_rank,), "ones"),
+        "w_uq": ParamDef((m.q_lora_rank, h * qd)),
+        "w_dkv": ParamDef((d, m.kv_lora_rank)),
+        "kv_norm": ParamDef((m.kv_lora_rank,), "ones"),
+        "w_uk": ParamDef((m.kv_lora_rank, h * m.qk_nope_head_dim)),
+        "w_uv": ParamDef((m.kv_lora_rank, h * m.v_head_dim)),
+        "w_kr": ParamDef((d, m.qk_rope_head_dim)),
+        "wo": ParamDef((h * m.v_head_dim, d)),
+    }
+
+
+def _mla_q(cfg: ArchConfig, p: dict, x: torch.Tensor):
+    """-> (q_nope, q_rope), (B, S, H, qk_nope) and (B, S, H, qk_rope)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    cq = rms_norm_headwise(x @ p["w_dq"], p["q_norm"])
+    q = (cq @ p["w_uq"]).reshape(b, s, cfg.num_heads, qd)
+    return torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+
+
+def mla_forward(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Train / prefill MLA with expanded K/V through the
+    ``flash_attention`` kernel: q and k of head dim ``qk_nope +
+    qk_rope``, v of ``v_head_dim``, causal, scale ``1/√(qk_nope +
+    qk_rope)``. x: (B, S, d_model); positions ``arange(S)``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    _check_positions("mla_forward", positions, s)
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_q(cfg, p, x)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = rms_norm_headwise(x @ p["w_dkv"], p["kv_norm"])  # (B, S, dc)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                        cfg.rope_theta)                  # (B, S, 1, rope)
+    k_rope = k_rope.expand(b, s, h, m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope], -1)
+    out = ops.flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True)
+    return out.transpose(1, 2).reshape(b, s, h * m.v_head_dim) @ p["wo"]
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, length: int,
+                   dtype: torch.dtype, device: torch.device | str) -> dict:
+    """MLA's compressed cache: the latent ``c_kv`` (B, S, kv_lora), the
+    rope'd key part ``k_rope`` (B, S, rope) and each slot's position
+    (-1: empty)."""
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, length, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, length, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "pos": torch.full((length,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(cfg: ArchConfig, p: dict, x_t: torch.Tensor, cache: dict,
+               idx: int) -> tuple[torch.Tensor, dict]:
+    """Absorbed-matrix MLA decode over the latent cache: ``W_uk`` folded
+    into the query, ``W_uv`` applied after the softmax, so no K or V is
+    expanded. Writes the new latents and position into ``cache`` in
+    place and returns it."""
+    m = cfg.mla
+    b = x_t.shape[0]
+    h = cfg.num_heads
+    dev = x_t.device
+    pos1 = torch.full((1,), idx, dtype=torch.int32, device=dev)
+    q_nope, q_rope = _mla_q(cfg, p, x_t)                 # (B, 1, H, *)
+    q_rope = apply_rope(q_rope, pos1, cfg.rope_theta)
+    c_new = rms_norm_headwise(x_t @ p["w_dkv"], p["kv_norm"])  # (B, 1, dc)
+    kr_new = apply_rope((x_t @ p["w_kr"])[:, :, None, :], pos1,
+                        cfg.rope_theta)[:, :, 0, :]       # (B, 1, rope)
+    slot = torch.full((1,), idx, dtype=torch.int64, device=dev)
+    c_kv = cache["c_kv"].index_copy_(1, slot, c_new)
+    k_rope = cache["k_rope"].index_copy_(1, slot, kr_new)
+    pos = cache["pos"].index_fill_(0, slot, idx)
+    # Absorb W_uk into the query: q_eff[b,h,c] = sum_n q_nope w_uk[c,h,n].
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_eff = torch.einsum("bhn,chn->bhc", q_nope[:, 0], w_uk)
+    scores = (
+        torch.einsum("bhc,bsc->bhs", q_eff.float(), c_kv.float())
+        + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(), k_rope.float())
+    ) / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    ok = (pos >= 0) & (pos <= idx)
+    scores = torch.where(ok[None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhs,bsc->bhc", w, c_kv.float())
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bhc,chv->bhv", ctx, w_uv.float())
+    y = out.reshape(b, 1, h * m.v_head_dim).to(x_t.dtype) @ p["wo"]
+    return y, cache

@@ -1,6 +1,8 @@
 """Transformer assembly of the LM zoo (port of
-``repro.models.transformer``): dense attention stacks, RWKV-6 stacks and
-jamba's hybrid period of Mamba and attention blocks with MoE FFNs.
+``repro.models.transformer``): dense and MoE attention stacks (GQA or
+MLA), RWKV-6 stacks, jamba's hybrid period of Mamba and attention blocks
+with MoE FFNs, whisper's encoder-decoder stack and pixtral's vision
+patches.
 
 Params are the port's flat ``dict[str, Tensor]``. The layers of one
 period are stacked along a leading axis under ``layers/b{j}/...`` keys,
@@ -15,17 +17,31 @@ in the backward; with grad disabled (serving) it changes nothing. The
 JAX package's ``unroll`` (a cost-analysis knob for its scans) has no
 counterpart.
 
+An encoder-decoder stack (``cfg.is_encdec``, whisper) has, as in the
+JAX package, no period level: its decoder blocks, each with
+cross-attention (``xattn``, ``norm_x``), are stacked under ``layers/``
+(``layers/mixer/wq`` of shape ``(num_layers, d_model, H·D)``), its
+bidirectional encoder blocks under ``encoder/layers/`` with the
+encoder's ``encoder/final_norm/``. The encoder reads ``aux_in["frames"]``
+``(B, encoder_seq, d_model)``, the stub frontend's frame embeddings. A
+vision stack (``cfg.vision_patches``, pixtral) prepends
+``aux_in["patches"]`` ``(B, P, d_model)`` to the token embeddings, and
+the causal pass runs over all ``P + S`` positions.
+
 Decode keeps per-layer caches stacked the same way over the periods
 (an attention block's ``layers/b4/k`` of shape ``(num_periods, B, S_max,
-H_kv, D)``; an RWKV block's ``layers/b0/s`` of ``(num_periods, B, H, N,
+H_kv, D)``; an MLA block's latents ``layers/b0/c_kv`` of ``(num_periods,
+B, S_max, kv_lora)`` and ``k_rope`` of ``(num_periods, B, S_max,
+rope)``; an RWKV block's ``layers/b0/s`` of ``(num_periods, B, H, N,
 N)`` f32 and ``x_prev_tm``, ``x_prev_cm`` of ``(num_periods, B,
 d_model)``; a Mamba block's ``h`` of ``(num_periods, B, d_inner, N)``
-f32 and ``conv`` of ``(num_periods, B, d_conv, d_inner)``) and updates
-them in place.
+f32 and ``conv`` of ``(num_periods, B, d_conv, d_inner)``; an
+encoder-decoder stack's self-attention cache ``self/{k,v,pos}`` and the
+encoder's k/v ``cross/{k,v}`` of ``(num_layers, B, S_enc, H_kv, D)``,
+which :meth:`Transformer.prime_encdec` fills) and updates them in place.
 
-Not ported yet, each raising ``NotImplementedError``: MLA,
-encoder-decoder stacks and vision patches (ROADMAP Queue A item 13), and
-MoE's shard-local dispatch ``moe_dispatch_local`` (item 12).
+Not ported yet: MoE's shard-local dispatch ``moe_dispatch_local``
+(ROADMAP Queue A item 12), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,29 +72,21 @@ from repro_torch.models.params import (
     param_count,
 )
 
-_ITEM = "ROADMAP Queue A item 13"
-
 
 def _check_supported(cfg: ArchConfig) -> None:
-    missing = []
-    if cfg.attention_kind != "gqa":
-        missing.append(f"{cfg.attention_kind} attention")
-    if cfg.is_encdec:
-        missing.append("encoder-decoder stacks")
-    if cfg.vision_patches:
-        missing.append("vision patches")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet ({_ITEM})")
     if cfg.moe is not None and cfg.moe_dispatch_local:
         raise NotImplementedError(f"{cfg.name}: {moe_lib.LOCAL_DISPATCH}")
 
 
 # ====================================================== block definitions
-def _block_defs(cfg: ArchConfig, kind: str, is_moe: bool) -> dict:
-    """ParamDef tree for one block: an attention or Mamba mixer with an
-    MLP or MoE FFN, or an RWKV block (which carries its own FFN, the
-    channel mix)."""
+def _block_defs(cfg: ArchConfig, kind: str, is_moe: bool,
+                cross: bool = False) -> dict:
+    """ParamDef tree for one block: an attention (GQA or MLA) or Mamba
+    mixer with an MLP or MoE FFN, or an RWKV block (which carries its own
+    FFN, the channel mix). ``cross`` adds a decoder block's
+    cross-attention (``norm_x``, ``xattn``). An encoder block's params
+    are those of any attention block (the JAX package's ``bidir`` flag
+    changes nothing there: the mask is the caller's)."""
     d = {"norm1": norm_def(cfg.d_model, cfg.norm_kind),
          "norm2": norm_def(cfg.d_model, cfg.norm_kind)}
     if kind == "rwkv":
@@ -86,11 +94,15 @@ def _block_defs(cfg: ArchConfig, kind: str, is_moe: bool) -> dict:
         d["cm"] = rwkv_lib.channel_mix_defs(cfg)
         return d
     if kind == "attn":
-        d["mixer"] = attn.gqa_defs(cfg)
+        d["mixer"] = (attn.mla_defs(cfg) if cfg.attention_kind == "mla"
+                      else attn.gqa_defs(cfg))
     elif kind == "mamba":
         d["mixer"] = ssm_lib.mamba_defs(cfg)
     else:
         raise ValueError(kind)
+    if cross:
+        d["norm_x"] = norm_def(cfg.d_model, cfg.norm_kind)
+        d["xattn"] = attn.gqa_defs(cfg, cross=True)
     if is_moe:
         d["moe"] = moe_lib.moe_defs(cfg)
     else:
@@ -108,10 +120,13 @@ def _ffn(cfg: ArchConfig, is_moe: bool, p: dict,
 
 def _apply_block(cfg: ArchConfig, kind: str, is_moe: bool, p: dict,
                  x: torch.Tensor, positions: torch.Tensor, *,
-                 causal: bool = True, window: Optional[int] = None
+                 causal: bool = True, window: Optional[int] = None,
+                 enc: Optional[torch.Tensor] = None
                  ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One block forward. Returns (x, the MoE aux loss, or None for a
-    block without MoE, whose aux the JAX package counts as 0)."""
+    """One block forward; with ``enc`` (the encoder's states), a decoder
+    block's cross-attention after its self-attention. Returns (x, the MoE
+    aux loss, or None for a block without MoE, whose aux the JAX package
+    counts as 0)."""
     if kind == "rwkv":
         x = x + rwkv_lib.rwkv_time_mix(
             cfg, p["mixer"], apply_norm(p["norm1"], x, cfg.norm_kind))
@@ -120,9 +135,15 @@ def _apply_block(cfg: ArchConfig, kind: str, is_moe: bool, p: dict,
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
     if kind == "mamba":
         x = x + ssm_lib.mamba_forward(cfg, p["mixer"], h)
+    elif cfg.attention_kind == "mla":
+        x = x + attn.mla_forward(cfg, p["mixer"], h, positions)
     else:
         x = x + attn.attention_forward(cfg, p["mixer"], h, positions,
                                        causal=causal, window=window)
+    if enc is not None:
+        hx = apply_norm(p["norm_x"], x, cfg.norm_kind)
+        x = x + attn.attention_forward(cfg, p["xattn"], hx, positions,
+                                       causal=False, kv_x=enc)
     y, aux = _ffn(cfg, is_moe, p, apply_norm(p["norm2"], x, cfg.norm_kind))
     return x + y, aux
 
@@ -162,15 +183,25 @@ class Transformer:
         """Flat ParamDefs, keys ``/``-joined and in the JAX package's leaf
         order (sorted paths)."""
         cfg = self.cfg
-        period = {f"b{j}": _block_defs(cfg, kind, cfg.layer_is_moe(j))
-                  for j, kind in enumerate(self.pattern)}
+        if cfg.is_encdec:
+            # Decoder blocks gain cross-attention; no period level.
+            layers = _block_defs(cfg, "attn", False, cross=True)
+        else:
+            layers = {f"b{j}": _block_defs(cfg, kind, cfg.layer_is_moe(j))
+                      for j, kind in enumerate(self.pattern)}
         d: dict[str, Any] = {
             "embed": embed_def(cfg.vocab_size, cfg.d_model),
             "final_norm": norm_def(cfg.d_model, cfg.norm_kind),
-            "layers": add_leading_axis(period, self.num_periods),
+            "layers": add_leading_axis(layers, self.num_periods),
         }
         if not cfg.tie_embeddings:
             d["head"] = ParamDef((cfg.d_model, cfg.vocab_size), scale=0.02)
+        if cfg.is_encdec:
+            d["encoder"] = {
+                "layers": add_leading_axis(_block_defs(cfg, "attn", False),
+                                           cfg.encoder_layers),
+                "final_norm": norm_def(cfg.d_model, cfg.norm_kind),
+            }
         return dict(sorted(flatten_defs(d).items()))
 
     def init(self, gen: torch.Generator, device: torch.device | str = "cuda",
@@ -195,19 +226,34 @@ class Transformer:
         return total
 
     # --------------------------------------------------------- forward
-    def hidden_states(self, params: dict, tokens: torch.Tensor
+    def hidden_states(self, params: dict, tokens: torch.Tensor,
+                      aux_in: Optional[dict] = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """The final-normed hidden states (B, S, d_model) of ``forward``,
         before the unembedding, and the summed MoE aux loss (f32 scalar,
-        0 without MoE)."""
+        0 without MoE). ``aux_in`` as for :meth:`forward`."""
         cfg = self.cfg
+        act_dtype = getattr(torch, cfg.act_dtype)
         x = apply_embed({"table": params["embed/table"]},
-                        tokens.long()).to(getattr(torch, cfg.act_dtype))
+                        tokens.long()).to(act_dtype)
+        if cfg.vision_patches and aux_in and "patches" in aux_in:
+            x = torch.cat([aux_in["patches"].to(act_dtype), x], dim=1)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        enc = None
+        if cfg.is_encdec:
+            if not aux_in or "frames" not in aux_in:
+                raise ValueError(f"{cfg.name}: an encoder-decoder stack "
+                                 f"reads aux_in['frames']")
+            enc = self._encode(params, aux_in["frames"])
 
         def period(x: torch.Tensor, aux: torch.Tensor, i: int):
+            if cfg.is_encdec:
+                x, _ = _apply_block(cfg, "attn", False,
+                                    _layer(params, "layers/", i), x,
+                                    positions, enc=enc)
+                return x, aux
             for j, kind in enumerate(self.pattern):
                 x, a = _apply_block(cfg, kind, cfg.layer_is_moe(j),
                                     _layer(params, f"layers/b{j}/", i), x,
@@ -228,6 +274,21 @@ class Transformer:
         return apply_norm(_layer(params, "final_norm/"), x,
                           cfg.norm_kind), aux
 
+    def _encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over the stub frontend's frame embeddings
+        (bidirectional: the flash kernel with the causal mask off),
+        final-normed."""
+        cfg = self.cfg
+        x = frames.to(getattr(torch, cfg.act_dtype))
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        for i in range(cfg.encoder_layers):
+            x, _ = _apply_block(cfg, "attn", False,
+                                _layer(params, "encoder/layers/", i), x,
+                                positions, causal=False)
+        return apply_norm(_layer(params, "encoder/final_norm/"), x,
+                          cfg.norm_kind)
+
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """Unembed hidden states: the tied table or the head."""
         if self.cfg.tie_embeddings:
@@ -238,15 +299,13 @@ class Transformer:
                 aux_in: Optional[dict] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B, S, V), aux_loss: the MoE blocks' summed
-        load-balance loss, an f32 scalar, 0 without MoE). ``aux_in`` is the
-        reference's frames / patches stub inputs, for encoder-decoder and
-        vision stacks, which are not ported yet (raises)."""
-        if aux_in:
-            raise NotImplementedError(
-                f"{self.cfg.name}: aux inputs {sorted(aux_in)} (frames / "
-                f"patches) are for encoder-decoder and vision stacks, not "
-                f"ported yet ({_ITEM})")
-        x, aux = self.hidden_states(params, tokens)
+        load-balance loss, an f32 scalar, 0 without MoE). ``aux_in`` holds
+        the stub frontends' inputs, as the JAX package's ``aux_inputs``:
+        ``"frames"`` (B, S_enc, d_model), which an encoder-decoder stack
+        requires, and ``"patches"`` (B, P, d_model), which a vision stack
+        prepends (its logits then cover ``P + S`` positions); a stack
+        without the feature ignores them."""
+        x, aux = self.hidden_states(params, tokens, aux_in)
         return self.logits(params, x), aux
 
     # ----------------------------------------------------------- decode
@@ -254,25 +313,56 @@ class Transformer:
                    device: torch.device | str = "cuda") -> dict:
         """Decode cache in the activation dtype: ``idx`` (a Python int,
         the next position) and per block ``layers/b{j}/{k,v,pos}`` (an
-        attention block), ``layers/b{j}/{s,x_prev_tm,x_prev_cm}`` (an
-        RWKV block) or ``layers/b{j}/{h,conv}`` (a Mamba block; the
-        recurrent states are the same size for any ``max_len``), stacked
-        over the periods."""
+        attention block), ``layers/b{j}/{c_kv,k_rope,pos}`` (an MLA
+        block), ``layers/b{j}/{s,x_prev_tm,x_prev_cm}`` (an RWKV block)
+        or ``layers/b{j}/{h,conv}`` (a Mamba block; the recurrent states
+        are the same size for any ``max_len``), stacked over the periods;
+        for an encoder-decoder stack ``self/{k,v,pos}`` and zeroed
+        ``cross/{k,v}`` (filled by :meth:`prime_encdec`), stacked over the
+        decoder's layers."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.act_dtype)
         window = cfg.sliding_window if use_window else None
         cache: dict[str, Any] = {"idx": 0}
+
+        def stack(prefix: str, one: dict) -> None:
+            for name, leaf in one.items():
+                cache[f"{prefix}{name}"] = leaf.expand(
+                    self.num_periods, *leaf.shape).contiguous()
+        if cfg.is_encdec:
+            stack("self/", attn.init_kv_cache(cfg, batch, max_len, window,
+                                              dtype, device))
+            shape = (cfg.num_layers, batch, cfg.encoder_seq,
+                     cfg.num_kv_heads, cfg.head_dim)
+            for name in ("k", "v"):
+                cache[f"cross/{name}"] = torch.zeros(shape, dtype=dtype,
+                                                     device=device)
+            return cache
         for j, kind in enumerate(self.pattern):
             if kind == "rwkv":
                 one = rwkv_lib.init_rwkv_cache(cfg, batch, dtype, device)
             elif kind == "mamba":
                 one = ssm_lib.init_mamba_cache(cfg, batch, dtype, device)
+            elif cfg.attention_kind == "mla":
+                one = attn.init_mla_cache(cfg, batch, max_len, dtype, device)
             else:
                 one = attn.init_kv_cache(cfg, batch, max_len, window, dtype,
                                          device)
-            for name, leaf in one.items():
-                cache[f"layers/b{j}/{name}"] = leaf.expand(
-                    self.num_periods, *leaf.shape).contiguous()
+            stack(f"layers/b{j}/", one)
+        return cache
+
+    def prime_encdec(self, params: dict, cache: dict,
+                     frames: torch.Tensor) -> dict:
+        """Run the encoder over ``frames`` (B, S_enc, d_model) and fill the
+        cross-attention caches (``cross/k``, ``cross/v``, replaced by the
+        encoder's k/v of every decoder layer). Returns ``cache``."""
+        cfg = self.cfg
+        enc = self._encode(params, frames)
+        xcs = [attn.cross_attention_cache(
+            cfg, _layer(params, "layers/", i)["xattn"], enc)
+            for i in range(cfg.num_layers)]
+        for name in ("k", "v"):
+            cache[f"cross/{name}"] = torch.stack([xc[name] for xc in xcs])
         return cache
 
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
@@ -284,6 +374,21 @@ class Transformer:
         x = apply_embed({"table": params["embed/table"]},
                         token.long()[:, None]).to(getattr(torch, cfg.act_dtype))
         window = cfg.sliding_window if use_window else None
+        if cfg.is_encdec:
+            for i in range(cfg.num_layers):
+                p = _layer(params, "layers/", i)
+                hin = apply_norm(p["norm1"], x, cfg.norm_kind)
+                y, _ = attn.attention_decode(
+                    cfg, p["mixer"], hin, _layer(cache, "self/", i), idx,
+                    window)
+                x = x + y
+                hx = apply_norm(p["norm_x"], x, cfg.norm_kind)
+                x = x + attn.cross_attention_decode(
+                    cfg, p["xattn"], hx, _layer(cache, "cross/", i))
+                x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x,
+                                                       cfg.norm_kind),
+                                  cfg.act)
+            return self._decoded(params, cache, x)
         for i in range(self.num_periods):
             for j, kind in enumerate(self.pattern):
                 p = _layer(params, f"layers/b{j}/", i)
@@ -299,6 +404,8 @@ class Transformer:
                     continue
                 if kind == "mamba":
                     y, _ = ssm_lib.mamba_decode(cfg, p["mixer"], hin, c)
+                elif cfg.attention_kind == "mla":
+                    y, _ = attn.mla_decode(cfg, p["mixer"], hin, c, idx)
                 else:
                     y, _ = attn.attention_decode(cfg, p["mixer"], hin, c,
                                                  idx, window)
@@ -306,8 +413,13 @@ class Transformer:
                 y, _ = _ffn(cfg, cfg.layer_is_moe(j), p,
                             apply_norm(p["norm2"], x, cfg.norm_kind))
                 x = x + y
-        cache["idx"] = idx + 1
-        x = apply_norm(_layer(params, "final_norm/"), x, cfg.norm_kind)
+        return self._decoded(params, cache, x)
+
+    def _decoded(self, params: dict, cache: dict,
+                 x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """The step's end: advance ``idx``, final norm, logits (B, V)."""
+        cache["idx"] += 1
+        x = apply_norm(_layer(params, "final_norm/"), x, self.cfg.norm_kind)
         return self.logits(params, x)[:, 0], cache
 
 

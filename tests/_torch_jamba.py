@@ -9,8 +9,6 @@ JAX-made params to each matrix's own fan-in with
 """
 import dataclasses
 import functools
-import importlib.util
-import pathlib
 
 import jax
 import numpy as np
@@ -20,18 +18,9 @@ from repro.models import Transformer as JaxTransformer
 from repro_torch.configs import get_config
 from repro_torch.models import Transformer, params_from_numpy
 
+from _torch_flash import chip_smoke  # noqa: F401 (re-exported)
+
 JAMBA = "jamba-v0.1-52b"
-
-
-@functools.cache
-def chip_smoke():
-    """chip_smoke.py at the repository's root, loaded as a module (its
-    ``main`` is not run)."""
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @functools.cache

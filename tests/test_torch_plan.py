@@ -26,6 +26,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 COPIED = [
     "configs/paper_cnn.py", "configs/paper_mlp.py",
     "configs/base.py", "configs/qwen3_0_6b.py",
+    "configs/granite_moe_1b_a400m.py", "configs/mistral_nemo_12b.py",
+    "configs/deepseek_coder_33b.py", "configs/qwen3_moe_30b_a3b.py",
+    "configs/minicpm3_4b.py", "configs/whisper_small.py",
+    "configs/pixtral_12b.py",
     "data/digits.py", "data/partition.py", "data/loader.py",
     "data/tokens.py",
     "core/weights.py",

@@ -173,13 +173,6 @@ def test_mesh_paths_raise_naming_their_item():
         fed_step.build_fed_train_step(None, FedTrainConfig(), None)
 
 
-def test_forward_rejects_aux_inputs(pair):
-    model = pair[0]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model.forward({}, torch.zeros(1, 4, dtype=torch.long),
-                      {"patches": torch.zeros(1)})
-
-
 # --------------------------------------------------------------- round
 def _run_both(pair, rounds: int, vis_seed: int = 0):
     """``rounds`` rounds of the port and of the JAX package from the same
