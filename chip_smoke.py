@@ -255,15 +255,35 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     attention layer: 24 for granite, 62 of the (96, 64) variant for
     minicpm3-4b, 12 + 12 + 12 for whisper's encoder, self- and
     cross-attention; none SIMT), one ``greedy_generate`` at serve's
-    defaults, and one prefill under torch.profiler.
+    defaults, and one prefill under torch.profiler;
+33. mesh — a 1-rank NCCL process group (from a ``file://`` store in a
+    ``tempfile`` directory; the bootstrap on the loopback) and its
+    ``("data",)`` mesh (``launch.mesh.make_sim_mesh(1)``): the default
+    FedHAP run of phase 5 with ``SimConfig(mesh=...)``, its satellite
+    axis sharded over that mesh (``FusedExecutor``'s sharded path: the
+    fold through ``core.mesh_round.sharded_fold``, the kernel and then
+    one all-reduce in place on its output), the ``fedagg`` count zeroed
+    just before and read just after: one launch and one all-reduce per
+    round, the history equal to phase 5's and each block's params bit
+    for bit equal to phase 5's unsharded ``run_block``; the all-reduce's
+    device time at the fold's size; one sharded block of 8 rounds under
+    ``sanitized_run`` (sync-debug mode "error"), its history equal to
+    the first 8 of phase 5's; then ``launch.train.main`` with ``--full
+    --sats 1 --orbits 1 --rounds 2`` on the group (the mesh path,
+    ``build_fed_train_step``), for ``fedhap`` and ``fedhap_fused`` (one
+    ``fedagg`` launch per round), each against ``--single-device``
+    (``single_device_round`` at S=1, run once: it folds the same way
+    whatever the round kind): the max |difference| of every leaf and of
+    the losses, expected 0.
 
 Each phase prints its seconds (``[time] phase N in ... s``).
 
 Prints a ``{"kernels": [...]}`` JSON line (``fedagg``'s entry with the
 phase 19, 21 and 26 launch counts by strategy, ``launches_routed``,
 ``launches_ticks`` and ``launches_sanitized``, phase 25's
-``launches_train``, phase 30's ``launches_train_rwkv`` and the LM fold's
-times ``fold_lm``; ``flash_attention``'s with phase 25's
+``launches_train``, phase 30's ``launches_train_rwkv``, the LM fold's
+times ``fold_lm`` and phase 33's ``launches_mesh`` (the sharded run's
+count and the fused LM rounds' under ``train``); ``flash_attention``'s with phase 25's
 ``launches_train``, phase 32's ``launches_zoo`` by architecture and the
 (96, 64) variant's own entry under ``split``, its launches those of
 phase 32's minicpm3-4b prefill; ``rwkv6_wkv``'s with phase 30's; the backward's
@@ -4637,6 +4657,189 @@ def phase_zoo_serve(torch, Transformer, get_config, serve,
     return out
 
 
+MESH_LM = ["--full", "--sats", "1", "--orbits", "1", "--rounds", "2"]
+
+
+def record_blocks(ex, blocks: list) -> None:
+    """Wrap ``ex.run_block`` so that each call appends a copy of the
+    params it returns (the unsharded blocks phase 33 is held against)."""
+    inner = ex.run_block
+
+    def recorded(*args, **kw):
+        params, accs = inner(*args, **kw)
+        blocks.append({k: v.clone() for k, v in params.items()})
+        return params, accs
+    ex.run_block = recorded
+
+
+def phase_mesh(torch, sim, fedagg_mod, ref_history, ref_blocks,
+               load_dataset) -> dict:
+    """Phase 33 (see the module docstring): the mesh path on a 1-rank
+    NCCL group. ``ref_history`` and ``ref_blocks`` are phase 5's
+    unsharded run's; ``load_dataset`` is the memoized loader phase 3's
+    engine used, so this phase's engines reuse its digits. Returns the
+    readings."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.core import mesh_round
+    from repro_torch.debug import sanitized_run
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.sim import engine as engine_mod
+
+    # One rank needs no network: NCCL's bootstrap listens on the loopback.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    out = {}
+    with tempfile.TemporaryDirectory() as d, \
+            patched(engine_mod, "load_dataset", lambda _: load_dataset):
+        t0 = time.perf_counter()
+        try:
+            dist.init_process_group(
+                "nccl", init_method=f"file://{d}/store", rank=0,
+                world_size=1, timeout=datetime.timedelta(seconds=60))
+            mesh = mesh_lib.make_sim_mesh(1)
+            probe = torch.ones(1, device="cuda")
+            mesh_round.psum_(probe, mesh, ("data",))
+            torch.cuda.synchronize()
+        except Exception as e:
+            raise AssertionError(
+                f"the 1-rank NCCL group did not start from a file:// store "
+                f"(NCCL_SOCKET_IFNAME={os.environ.get('NCCL_SOCKET_IFNAME')}"
+                f"): {type(e).__name__}: {e}") from e
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        log("mesh", f"1-rank NCCL group and mesh {shape} up in "
+            f"{time.perf_counter() - t0:.2f} s (torch {torch.__version__}, "
+            f"NCCL {torch.cuda.nccl.version()}); all-reduce of ones -> "
+            f"{float(probe.cpu()[0])}")
+        try:
+            out = _mesh_runs(torch, sim, fedagg_mod, mesh, ref_history,
+                             ref_blocks, mesh_round, sanitized_run, train)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def _mesh_runs(torch, sim, fedagg_mod, mesh, ref_history, ref_blocks,
+               mesh_round, sanitized_run, train) -> dict:
+    """The body of :func:`phase_mesh`, inside the group."""
+    out = {}
+    # The default FedHAP run, sharded over the 1-rank mesh; counts zeroed
+    # just before, read just after.
+    eng = sim.RoundEngine(sim.SimConfig(max_rounds=16, mesh=mesh))
+    blocks, reduces = [], [0]
+    record_blocks(eng.executor, blocks)
+
+    def counted(real):
+        def psum_(*args, **kw):
+            reduces[0] += 1
+            return real(*args, **kw)
+        return psum_
+
+    with patched(mesh_round, "psum_", counted):
+        fedagg_mod.fedagg.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fedagg_mod.fedagg.launches
+    log("mesh", f"sharded run: {res.rounds} rounds in {wall:.3f} s "
+        f"({wall / max(res.rounds, 1):.4f} s/round, the first block "
+        f"included); fedagg launches {launches}, all-reduces {reduces[0]}; "
+        f"executor shards {eng.executor.n_shards}")
+    if res.history != ref_history:
+        raise AssertionError(f"the sharded history {res.history} differs "
+                             f"from phase 5's {ref_history}")
+    if launches != res.rounds or reduces[0] != res.rounds:
+        raise AssertionError(f"{launches} fedagg launches and {reduces[0]} "
+                             f"all-reduces in {res.rounds} rounds; expected "
+                             f"one each per round")
+    if len(blocks) != len(ref_blocks) or len(blocks) < 2:
+        raise AssertionError(f"{len(blocks)} sharded blocks against "
+                             f"{len(ref_blocks)} unsharded (want >= 2)")
+    diff = max(float((a[k] - b[k]).abs().max())
+               for a, b in zip(blocks, ref_blocks) for k in a)
+    equal = all(torch.equal(a[k], b[k])
+                for a, b in zip(blocks, ref_blocks) for k in a)
+    log("mesh", f"{len(blocks)} blocks' params against phase 5's "
+        f"unsharded run_block: bit-equal {equal} (max |diff| {diff:.3e})")
+    if not equal:
+        raise AssertionError(f"the 1-rank sharded blocks differ from the "
+                             f"unsharded ones (max |diff| {diff:.3e})")
+    _, n = fedagg_mod.out_offsets([x.numel() for x in blocks[-1].values()],
+                                  4)
+    flat = torch.zeros(n, device="cuda")
+    ms = device_ms(torch, lambda: mesh_round.psum_(flat, mesh, ("data",)))
+    log("mesh", f"all-reduce of the fold's {flat.numel():,} f32 over the "
+        f"1-rank NCCL group: {ms:.4f} ms device time per round (one per "
+        f"round)")
+    out.update(rounds=res.rounds, launches=launches, all_reduces=reduces[0],
+               s_per_round=wall / max(res.rounds, 1), all_reduce_ms=ms,
+               bitwise=equal)
+
+    # One sharded block under the sanitizer (sync-debug mode "error").
+    fedagg_mod.fedagg.launches = 0
+    san, _ = sanitized_run(dict(mesh=mesh, max_rounds=8))
+    log("mesh", f"sanitized sharded block: {san.rounds} rounds, fedagg "
+        f"launches {fedagg_mod.fedagg.launches}, history equal to phase "
+        f"5's first {san.rounds}: {san.history == ref_history[:san.rounds]}")
+    if san.history != ref_history[:len(san.history)] or san.rounds != 8 \
+            or fedagg_mod.fedagg.launches != 8:
+        raise AssertionError(f"sanitized sharded block: {san.history} "
+                             f"against {ref_history[:8]}, "
+                             f"{fedagg_mod.fedagg.launches} launches")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("sync-debug mode left on after the run")
+    del eng
+    torch.cuda.empty_cache()
+
+    # launch.train on the group: the mesh path, for the faithful and the
+    # fused round, against the single-device round at S=1 (which runs
+    # the same fold whatever --round-kind says, so once).
+    want = train.main(MESH_LM + ["--single-device"])
+    torch.cuda.synchronize()
+    out["train"] = {}
+    for kind in ("fedhap", "fedhap_fused"):
+        args = MESH_LM + ["--round-kind", kind]
+        fedagg_mod.fedagg.launches = 0
+        t0 = time.perf_counter()
+        got = train.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fedagg_mod.fedagg.launches
+        leaf = max(float((got["params_S"][k].float()
+                          - want["params_S"][k].float()).abs().max())
+                   for k in want["params_S"])
+        loss = max(abs(a - b) for a, b in zip(got["losses"],
+                                              want["losses"]))
+        log("mesh", f"launch.train {' '.join(args)}: path {got['path']} "
+            f"(against {want['path']}), {wall:.2f} s with the model's "
+            f"init, losses {got['losses']}, fedagg launches {launches}; "
+            f"max |diff| against single_device_round: leaves {leaf:.3e}, "
+            f"losses {loss:.3e}")
+        expect = 2 if kind == "fedhap_fused" else 0
+        if got["path"] != "mesh" or want["path"] != "single_device" \
+                or launches != expect \
+                or not all(math.isfinite(x) for x in got["losses"]):
+            raise AssertionError(f"launch.train {kind}: path {got['path']}"
+                                 f", {launches} fedagg launches (want "
+                                 f"{expect}), losses {got['losses']}")
+        if leaf != 0.0 or loss != 0.0:
+            raise AssertionError(f"launch.train {kind}: the mesh path "
+                                 f"differs from single_device_round at "
+                                 f"S=1 (leaves {leaf:.3e}, losses "
+                                 f"{loss:.3e})")
+        out["train"][kind] = dict(launches=launches, max_abs_diff=leaf,
+                                  seconds=wall)
+        del got
+        torch.cuda.empty_cache()
+    return out
+
+
 class Clock:
     """Each phase's seconds: ``lap(label)`` logs the time since the last
     lap (or since the clock was made) as that phase's."""
@@ -4700,8 +4903,12 @@ def main() -> int:
     # 3. kernels
     from repro_torch import sim
     from repro_torch.kernels import fedagg as fedagg_mod, ops
+    from repro_torch.sim import engine as engine_mod
     eng_t0 = time.perf_counter()
-    eng = sim.RoundEngine(sim.SimConfig(max_rounds=16))
+    # The digits are memoized for phase 33's engines.
+    load_dataset = functools.cache(engine_mod.load_dataset)
+    with patched(engine_mod, "load_dataset", lambda _: load_dataset):
+        eng = sim.RoundEngine(sim.SimConfig(max_rounds=16))
     log("slice", f"engine built in {time.perf_counter() - eng_t0:.2f} s: "
         f"{eng.n_sats} satellites, {eng.trainer.model.count_params()} "
         f"params, {len(eng.fd.labels)} train / {len(eng.eval_labels)} eval "
@@ -4723,6 +4930,9 @@ def main() -> int:
     clock.lap("4 (card vs CPU)")
 
     # 5. the slice, on the card; counts zeroed just before, read after.
+    # Each block's params are kept for phase 33.
+    ref_blocks = []
+    record_blocks(eng.executor, ref_blocks)
     torch.cuda.reset_peak_memory_stats()
     fedagg_mod.fedagg.launches = 0
     torch.cuda.synchronize()
@@ -4731,6 +4941,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fedagg_mod.fedagg.launches
+    del eng.executor.run_block
+    ref_history = list(res.history)
     entry["launches"] = launches
     for t_h, rnd, acc in res.history:
         log("slice", f"round {rnd:3d}  t={t_h:.4f} h  acc={acc:.4f}")
@@ -4922,7 +5134,18 @@ def main() -> int:
     flash_entry["split"] = split_entry
     log("time", f"phases 31-32 in {t31 + clock.lap('32 (zoo-serve)'):.1f} "
         f"s")
-    log("done", f"phases 1-32 in {time.perf_counter() - t_start:.1f} s")
+
+    # 33. the mesh path on a 1-rank NCCL group: the sharded FedHAP run
+    # held bit for bit against phase 5's, a sanitized sharded block, and
+    # launch.train's mesh path against its single-device round
+    mesh = phase_mesh(torch, sim, fedagg_mod, ref_history, ref_blocks,
+                      load_dataset)
+    entry["launches_mesh"] = {"fedhap": mesh["launches"],
+                              "train": mesh["train"]["fedhap_fused"][
+                                  "launches"]}
+    del ref_blocks
+    clock.lap("33 (mesh)")
+    log("done", f"phases 1-33 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
                                   scan_entry, bwd_entry, wkv_bwd_entry,

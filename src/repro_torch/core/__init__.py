@@ -11,12 +11,14 @@ arithmetic of the execute phase.
 - `strategies`: the paper's Table II setups over `repro_torch.sim`.
 - `dissemination`: `ConstellationMeshMap` (orbit-major satellite layout,
   ring permutations) and the HAP chains.
-- `mesh_round`: `FedRoundConfig`; the mesh rounds (`build_round`,
-  `sharded_fold`) raise until the multi-device port (ROADMAP Queue A
-  item 12).
-- `fed_step`: `FedTrainConfig`, `satellite_loss`, `stack_params` /
-  `unstack_params`; the mesh train step waits on item 12, and
-  `repro_torch.launch.train.single_device_round` is the one-device step.
+- `mesh_round`: `FedRoundConfig` and the mesh rounds over
+  `torch.distributed` (`build_round`: fedhap, fedhap_fused, fedavg;
+  `sharded_fold`, shared with the simulator's sharded executor; the
+  torch twin of the ring walk, `chain_stats_torch`).
+- `fed_step`: `FedTrainConfig`, `satellite_loss`, `local_sgd`,
+  `stack_params` / `unstack_params`, and `build_fed_train_step`, one
+  rank per satellite; `repro_torch.launch.train.single_device_round` is
+  the one-device step.
 
 `fed_step` imports the model stack, so it is imported by path, not
 from this package (the kernels import `core.treeops`).

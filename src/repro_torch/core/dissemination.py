@@ -4,9 +4,10 @@
 The worker tier lays a point-to-point ring on each orbit (paper §III-A);
 the server tier orders HAPs source -> ... -> sink (§III-B1). Directions
 are pre-designated (paper: "either clockwise or counter-clockwise").
-The port's single-device trainer (``repro_torch.launch.train``) uses
-the map's layout (orbit-major satellites, ``sats_per_orbit``); the
-permutations wait on the mesh rounds (ROADMAP Queue A item 12).
+The mesh rounds (``repro_torch.core.mesh_round``) send along the ring
+and chain permutations; the single-device trainer
+(``repro_torch.launch.train``) uses the map's layout (orbit-major
+satellites, ``sats_per_orbit``).
 """
 from __future__ import annotations
 

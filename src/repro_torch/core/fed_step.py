@@ -3,10 +3,12 @@
 
 Satellites (a leading ``S`` axis on every param leaf) each run I local
 mini-batch SGD steps on their own shard of the batch; then one FedHAP
-round synchronises the replicas. The reference's
-``build_fed_train_step`` runs that round as mesh collectives, which wait
-on ROADMAP Queue A item 12; on one device
-``repro_torch.launch.train.single_device_round`` is the step.
+round synchronises the replicas. :func:`build_fed_train_step` runs that
+round as collectives over ``torch.distributed``, one rank per satellite
+(:func:`repro_torch.core.mesh_round.build_round`);
+``repro_torch.launch.train.single_device_round`` is the step of one
+device that time-multiplexes the satellites. Both run the same
+:func:`local_sgd`.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Any, Mapping
 
 import torch
 
-from repro_torch.core.mesh_round import FedRoundConfig
+from repro_torch.core.mesh_round import FedRoundConfig, build_round, psum
 from repro_torch.models.transformer import Transformer, cross_entropy_loss
 
 
@@ -42,14 +44,73 @@ def satellite_loss(model: Transformer, params: Mapping[str, torch.Tensor],
     return cross_entropy_loss(logits, labels) + aux
 
 
+def local_sgd(model: Transformer, params_S: dict,
+              batch: Mapping[str, torch.Tensor], learning_rate: float,
+              local_steps: int) -> torch.Tensor:
+    """``local_steps`` SGD steps of every satellite of ``params_S``
+    (leaves ``(S, ...)``, updated in place) on its own rows of ``batch``
+    (leaves ``(S, batch, seq)``). For each step and each satellite s: a
+    forward and backward of :func:`satellite_loss` on detached leaves
+    ``params_S[k][s]``, then the reference's update ``p - lr *
+    g.astype(p.dtype)`` with its two roundings (the product, then the
+    difference), written into row s. A Python loop over satellites stands
+    in for ``jax.vmap``: the attention kernels are ctypes launches with no
+    batching rule. Returns the last step's mean loss over the S rows, a
+    device scalar (nothing is read back)."""
+    keys = list(params_S)
+    n_sats = params_S[keys[0]].shape[0]
+    loss = None
+    for _ in range(local_steps):
+        losses = []
+        for s in range(n_sats):
+            p = {k: params_S[k][s].detach().requires_grad_() for k in keys}
+            sat_loss = satellite_loss(model, p,
+                                      {k: v[s] for k, v in batch.items()})
+            grads = torch.autograd.grad(sat_loss, [p[k] for k in keys])
+            with torch.no_grad():
+                for k, g in zip(keys, grads):
+                    leaf = params_S[k][s]
+                    leaf.copy_(leaf - learning_rate * g.to(leaf.dtype))
+            losses.append(sat_loss.detach())
+        loss = torch.stack(losses).mean()
+    return loss
+
+
 def build_fed_train_step(model: Transformer, fed_cfg: FedTrainConfig,
                          mesh: Any, model_specs: Any = None):
-    """Raises: the step's round is a mesh collective (ROADMAP Queue A
-    item 12)."""
-    raise NotImplementedError(
-        "build_fed_train_step: the mesh rounds are not ported yet (ROADMAP "
-        "Queue A item 12); on one device use "
-        "repro_torch.launch.train.single_device_round")
+    """Returns ``step(params_local, batch_local, sizes_local,
+    visible_local) -> (params_local, metrics)``, run by every rank of
+    ``mesh`` (a ``DeviceMesh`` holding one rank per satellite on its
+    ``data`` (and ``pod``) axes; a ``model`` axis replicates).
+
+    ``params_local`` leaves are ``(1, ...)``: this rank's satellite
+    replica, trained in place by :func:`local_sgd` (the paper's plain
+    SGD) on ``batch_local`` (leaves ``(1, batch, seq)``); the step returns
+    the round's new leaves (``fed_cfg.round_kind``, ``build_round``),
+    which the next step trains in place in turn. ``sizes_local``
+    and ``visible_local`` are the satellite's ``(1,)`` entries on the
+    params' device. ``metrics`` are the reference's: ``local_loss`` (the
+    last local step's mean over all satellites, one all-reduce) and the
+    round's ``gate``, ``covered`` and ``upload_mass``, all 0-d device
+    tensors. ``model_specs`` other than None (tensor parallelism over
+    ``model``) raises: ROADMAP Queue A item 19."""
+    round_fn = build_round(mesh, fed_cfg.round_cfg, model.defs(),
+                           model_specs=model_specs,
+                           kind=fed_cfg.round_kind)
+    axes = (("pod", "data") if "pod" in mesh.mesh_dim_names
+            else ("data",))
+    n_sats = fed_cfg.round_cfg.cmap.total_sats
+
+    def step(params_local: dict, batch_local: Mapping[str, torch.Tensor],
+             sizes_local: torch.Tensor, visible_local: torch.Tensor):
+        loss = local_sgd(model, params_local, batch_local,
+                         fed_cfg.learning_rate, fed_cfg.local_steps)
+        new, stats = round_fn(params_local, sizes_local, visible_local)
+        with torch.no_grad():
+            mean = psum(loss.to(torch.float32), mesh, axes) / n_sats
+        return new, {"local_loss": mean, **stats}
+
+    return step
 
 
 def stack_params(params: Mapping[str, torch.Tensor],

@@ -30,7 +30,7 @@ RWKV, ``selective_scan`` for Mamba), returning the last position's
 logits; the stub frontends' inputs go in as ``aux_in`` (whisper's
 frames, which its encoder reads, and pixtral's patches, prepended to
 the prompt in the one causal pass). The mesh and sharding
-half of ``specs`` waits for ROADMAP Queue A item 12.
+half of ``specs`` waits for ROADMAP Queue A item 19.
 """
 from __future__ import annotations
 

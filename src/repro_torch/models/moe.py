@@ -21,9 +21,9 @@ assignment at position ``starts[e] + j`` of the sorted order if
 on the device.
 
 Only the global dispatch buffer is ported; ``moe_dispatch_local`` (the
-mesh's shard-local dispatch) raises ``NotImplementedError`` until ROADMAP
-Queue A item 12, and ``moe_ep_constraint`` (a sharding hint) has no
-effect on one device.
+mesh's shard-local dispatch, with experts sharded over ``model``)
+raises ``NotImplementedError`` until ROADMAP Queue A item 19, and
+``moe_ep_constraint`` (a sharding hint) has no effect on one device.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.params import ParamDef
 
 LOCAL_DISPATCH = ("moe_dispatch_local (the mesh's shard-local dispatch) is "
-                  "not ported yet (ROADMAP Queue A item 12)")
+                  "not ported yet (ROADMAP Queue A item 19)")
 
 
 def moe_defs(cfg: ArchConfig) -> dict:

@@ -26,7 +26,7 @@ einsums, as the JAX package's (``repro/models/ssm.py:129-151``),
 including its cast of the f32 state to the activation dtype before the
 output einsum. Unlike the JAX package, it updates the cache (``h`` and
 the conv window) in place. ``mamba_cache_specs`` (the mesh layout) waits
-for ROADMAP Queue A item 12.
+for ROADMAP Queue A item 19.
 """
 from __future__ import annotations
 

@@ -41,7 +41,7 @@ encoder's k/v ``cross/{k,v}`` of ``(num_layers, B, S_enc, H_kv, D)``,
 which :meth:`Transformer.prime_encdec` fills) and updates them in place.
 
 Not ported yet: MoE's shard-local dispatch ``moe_dispatch_local``
-(ROADMAP Queue A item 12), which raises ``NotImplementedError``.
+(ROADMAP Queue A item 19), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 

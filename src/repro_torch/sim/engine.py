@@ -20,9 +20,12 @@ Strategies: fedhap | fedisl | fedisl_ideal | fedsat | fedspace |
 fedsink | fedhap_async | fedhap_buffered, resolved through the registry
 in ``repro_torch.sim.strategies``. ``run(checkpoint_dir=, resume=)``
 snapshots and resumes a run in the JAX package's checkpoint format
-(:mod:`repro_torch.checkpoint`). Not ported (raises
-``NotImplementedError`` naming its ROADMAP item): the
-satellite-sharded mesh (``data_shards > 1`` / ``mesh``).
+(:mod:`repro_torch.checkpoint`). ``SimConfig.data_shards > 1`` (or a
+``DeviceMesh`` in ``SimConfig.mesh``) shards the satellite axis of the
+fused blocks over the ranks of an initialised process group, one engine
+per rank, every rank planning the same run
+(:class:`repro_torch.sim.executor.FusedExecutor`); each rank's history
+is the same.
 
 ``SimConfig.clients`` and ``SimConfig.faults`` take the reference's
 grammars (``static | sampled:FRAC[xCLIENTS] | geo:REGIONSxCLIENTS[@FRAC]``
@@ -97,7 +100,10 @@ class SimConfig:
     plan_block: int = 8
     # where the execute phase runs: "cuda" (the card) or "cpu"
     device: str = "cuda"
-    # multi-device execution (not ported yet: ROADMAP Queue A item 12)
+    # multi-rank execution: shard the satellite axis of the fused blocks
+    # over `data_shards` ranks of the process group
+    # (`repro_torch.launch.mesh.make_sim_mesh`), or over the `data` axis
+    # of the given DeviceMesh
     data_shards: int = 0
     mesh: Any = None
     # constellation (paper §IV-A)
@@ -243,6 +249,11 @@ def _resolve_device(name: str) -> torch.device:
         raise RuntimeError(
             f"SimConfig.device={name!r} but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run on the CPU")
+    if (device.type == "cuda" and device.index is None
+            and torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        # each rank's own card (launch.mesh.init_ranks sets it)
+        device = torch.device("cuda", torch.cuda.current_device())
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}")
     return device
@@ -252,12 +263,12 @@ class RoundEngine:
     """Holds the physical world + dataset and drives one strategy."""
 
     def __init__(self, cfg: SimConfig):
-        if cfg.data_shards > 1 or cfg.mesh is not None:
-            raise NotImplementedError(
-                "data_shards > 1 / mesh: the satellite-sharded executor is "
-                "not ported yet (ROADMAP Queue A item 12)")
         self.cfg = cfg
         self.device = _resolve_device(cfg.device)
+        self.mesh = cfg.mesh
+        if self.mesh is None and cfg.data_shards > 1:
+            from repro_torch.launch.mesh import make_sim_mesh
+            self.mesh = make_sim_mesh(cfg.data_shards)
         if cfg.shells:
             self.constellation = MultiShellConstellation(cfg.shells)
         else:
@@ -402,7 +413,8 @@ class RoundEngine:
         if self._executor is None:
             from repro_torch.sim.executor import FusedExecutor
             self._executor = FusedExecutor(
-                self.trainer, self.fd, self.eval_images, self.eval_labels)
+                self.trainer, self.fd, self.eval_images, self.eval_labels,
+                mesh=self.mesh)
         return self._executor
 
     def tidx(self, t_s) -> np.ndarray:

@@ -48,8 +48,23 @@ carry rho = 0 and zero weights, and (1 - 0)·g + 0·o = g for finite o,
 so dropping them does not change the result (the tests hold the port
 against the padded reference).
 
-Not ported yet: the satellite-sharded mesh path (ROADMAP Queue A item
-12).
+**Over several ranks** (``mesh=``, a ``DeviceMesh`` with a ``data``
+axis: :func:`repro_torch.launch.mesh.make_sim_mesh` /
+``make_debug_mesh``), ``run_block`` and ``cycle_block`` shard the
+satellite (cycle-member) axis: every rank plans the same block in
+numpy, uploads only its own ``S/D`` rows of the index and weight
+tensors, trains them, folds them with the kernel, and the partial folds
+meet in ONE all-reduce (:func:`repro_torch.core.mesh_round
+.sharded_fold`, the mesh round's own tail: launch/ and sim/ share it).
+The global model, the bases, the buffer and the eval set stay
+replicated, so eval runs on every rank on the all-reduced global and the
+block keeps its one transfer to the host. Satellite counts that do not
+divide the rank count are padded with dead satellites (index rows 0,
+weight 0.0), which add exactly zero. A 1-rank mesh is bit-equal to the
+unsharded program; over D ranks the sum order of the all-reduce differs
+from one fold by a few f32 ulps. The tick baselines (``fedsat_event``,
+``fedspace_train``, ``fedspace_flush``) keep the single-device path on
+every rank, as in the reference.
 """
 from __future__ import annotations
 
@@ -58,6 +73,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.mesh_round import sharded_fold
 from repro_torch.core.treeops import tree_broadcast, tree_row
 from repro_torch.debug.sanitize import to_device, to_host
 from repro_torch.kernels.ops import fold_stacked_tree
@@ -92,9 +108,20 @@ class FusedExecutor:
     """
 
     def __init__(self, trainer: Any, fd: Any, eval_images: np.ndarray,
-                 eval_labels: np.ndarray, *, eval_chunk: int = 1024):
+                 eval_labels: np.ndarray, *, eval_chunk: int = 1024,
+                 mesh: Any = None):
         self.trainer = trainer
         self.device = trainer.device
+        self.mesh = mesh
+        self.n_shards, self.shard = 1, 0
+        if mesh is not None:
+            names = tuple(mesh.mesh_dim_names or ())
+            if "data" not in names:
+                raise ValueError(
+                    f"executor mesh needs a 'data' axis to shard the "
+                    f"satellite dim over; got axes {names}")
+            self.n_shards = int(mesh.shape[names.index("data")])
+            self.shard = mesh.get_local_rank("data")
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,8 +198,13 @@ class FusedExecutor:
         (K, S) planned global weights; ``do_eval``/``valid``: (K,) host
         flags. Returns ``(params, accs)`` — the device-resident global
         after the last valid round and a (K,) host array of accuracies
-        (NaN where not evaluated): ONE transfer per block.
+        (NaN where not evaluated): ONE transfer per block. With a mesh,
+        this rank trains and folds only its own rows of ``idx`` / ``mu``
+        (:meth:`_my_rows`), and the fold is :meth:`_fold`'s all-reduce.
         """
+        if self.mesh is not None:
+            shard = self._my_rows({"idx": idx, "mu": mu}, ("idx", "mu"))
+            idx, mu = shard["idx"], shard["mu"]
         K, S, _ = idx.shape
         idx_d = self._h2d(idx, np.int64)
         mu_d = self._h2d(mu, np.float32)
@@ -182,10 +214,46 @@ class FusedExecutor:
         for k in range(K):
             if valid[k]:
                 trained = self._train(tree_broadcast(params, S), idx_d[k])
-                params = fold_stacked_tree(trained, mu_d[k])
+                params = self._fold(trained, mu_d[k])
             accs.append(self._device_acc(params)
                         if do_eval[k] and valid[k] else nan)
         return params, self._d2h(torch.stack(accs))
+
+    def _fold(self, stacked: dict, weights: torch.Tensor) -> dict:
+        """The fold of a block: :func:`fold_stacked_tree` alone, or with a
+        mesh this rank's rows through :func:`sharded_fold` (the kernel,
+        then one all-reduce over ``data``)."""
+        if self.mesh is None:
+            return fold_stacked_tree(stacked, weights)
+        return sharded_fold(stacked, weights, self.mesh, ("data",))
+
+    @staticmethod
+    def _pad_sat_axis(arrs: dict, names: Any, axis: int,
+                      multiple: int) -> dict:
+        """Pad each named array's satellite ``axis`` up to a multiple of
+        the shard count with dead satellites: index arrays get row-0
+        indices (finite training input), weight arrays 0.0 (their fold
+        adds exactly zero: ``kernels.ops.pad_stacked_rows`` states the
+        same contract on the device)."""
+        out = dict(arrs)
+        for name in names:
+            a = np.asarray(out[name])
+            pad = (-a.shape[axis]) % multiple
+            if pad:
+                width = [(0, 0)] * a.ndim
+                width[axis] = (0, pad)
+                a = np.pad(a, width)        # zero rows / zero weights
+            out[name] = a
+        return out
+
+    def _my_rows(self, arrs: dict, names: Any) -> dict:
+        """``arrs`` with each named array cut to this rank's contiguous
+        shard of its axis 1 (padded first, see :meth:`_pad_sat_axis`)."""
+        out = self._pad_sat_axis(arrs, names, 1, self.n_shards)
+        for name in names:
+            n = out[name].shape[1] // self.n_shards
+            out[name] = out[name][:, self.shard * n:(self.shard + 1) * n]
+        return out
 
     def fold_block(self, stacked: dict, weight_rows: np.ndarray) -> dict:
         """K planned folds of a fixed stacked tree (see
@@ -207,7 +275,8 @@ class FusedExecutor:
         return {k: keep * x + torch.einsum("s,s...->...", rhos, buf[k])
                 for k, x in g.items()}
 
-    def cycle_block(self, params: dict, bases: dict, buf: dict, ev: dict):
+    def cycle_block(self, params: dict, bases: dict, buf: dict, ev: dict,
+                    sat_axes: tuple = ("idx", "lam")):
         """Execute K planned cycle events.
 
         Carries ``(global, per-orbit cycle bases, staleness buffer)``:
@@ -223,7 +292,14 @@ class FusedExecutor:
         updated in place (the reference donates them). Returns
         ``(params, bases, buf, accs)`` with the (K,) accuracies (NaN
         where not evaluated) in ONE transfer.
+
+        With a mesh, ``sat_axes`` names the event tensors whose axis 1 is
+        the member dim: each rank trains and folds its shard of the
+        members (:meth:`_fold`), and the buffer writes and flushes run
+        replicated on the all-reduced orbit model.
         """
+        if self.mesh is not None:
+            ev = self._my_rows(ev, sat_axes)
         K, k, _ = ev["idx"].shape
         idx = self._h2d(ev["idx"], np.int64)
         lam = self._h2d(ev["lam"], np.float32)
@@ -237,7 +313,7 @@ class FusedExecutor:
                 l = int(ev["l"][i])
                 trained = self._train(tree_broadcast(tree_row(bases, l), k),
                                       idx[i])
-                g = self._absorb(g, buf, fold_stacked_tree(trained, lam[i]),
+                g = self._absorb(g, buf, self._fold(trained, lam[i]),
                                  int(ev["slot"][i]), bool(ev["flush"][i]),
                                  float(keep[i]), rhos[i])
                 for name, x in bases.items():

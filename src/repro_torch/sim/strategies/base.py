@@ -233,8 +233,15 @@ class CycleStrategy(Strategy):
     :meth:`FusedExecutor.cycle_block` call: per-orbit cycle bases and
     the staleness buffer stay resident on the device, with no per-event
     host tree-stacking, and each event's member fold is one ``fedagg``
-    launch on the card.
+    launch on the card. On a mesh-backed executor the block tensors
+    named by :attr:`sat_axis_tensors` shard their member axis (axis 1)
+    over the ``data`` ranks; everything else stays replicated.
     """
+
+    # Block tensors whose axis 1 is the satellite (cycle-member) dim: the
+    # axes a mesh-backed executor shards over "data". Subclasses adding
+    # per-member event tensors must list them here.
+    sat_axis_tensors: tuple = ("idx", "lam")
 
     def schedule_cycle(self, eng: Any, l: int,
                        t_s: float) -> Optional[Tuple[float, np.ndarray]]:
@@ -465,7 +472,7 @@ class CycleStrategy(Strategy):
                     folds += 1
             tensors = self.event_tensors(eng, events, K)
             s.params, bases, buf, accs = ex.cycle_block(
-                s.params, bases, buf, tensors)
+                s.params, bases, buf, tensors, self.sat_axis_tensors)
             for i, e in enumerate(events):
                 s.t = e["t"]
                 if e["folds"]:

@@ -56,6 +56,7 @@ MODULES = [
     "repro_torch.data.eo",
     "repro_torch.launch.sim_time",
     "repro_torch.launch.recurrent_bwd_time",
+    "repro_torch.launch.mesh",
 ]
 
 

@@ -192,5 +192,5 @@ def test_local_dispatch_raises_naming_its_roadmap_item():
     cfg, _ = _cfgs()
     _, tp = _params()
     cfg = dataclasses.replace(cfg, moe_dispatch_local=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+    with pytest.raises(NotImplementedError, match="Queue A item 19"):
         moe.apply_moe(cfg, tp, torch.ones(1, 16, cfg.d_model))

@@ -135,5 +135,8 @@ def test_cuda_device_raises_without_a_card():
 
 @pytest.mark.parametrize("kw", [dict(data_shards=2)], ids=["data_shards"])
 def test_features_outside_the_slice_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``data_shards=2`` shards over a process group of 2 ranks
+    (``tests/test_torch_sim_sharded.py``); without one it raises, naming
+    the world size it needs."""
+    with pytest.raises(ValueError, match="world size 2"):
         RoundEngine(SimConfig(device="cpu", **dict(CFG, **kw)))

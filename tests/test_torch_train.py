@@ -164,13 +164,40 @@ def test_satellite_loss_matches_reference(pair):
     np.testing.assert_allclose(float(got), float(want), **LOSS_TOL)
 
 
-def test_mesh_paths_raise_naming_their_item():
+def test_mesh_paths_raise_naming_their_item(tmp_path, pair):
+    """Outside a process group the mesh entry points raise ValueError; on
+    a 1-rank gloo group ``build_round`` and the train step run (the
+    many-rank cases: ``tests/test_torch_mesh_round.py``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from _torch_dist import one_rank_group
     from repro_torch.core import fed_step, mesh_round
-    for fn in (mesh_round.build_round, mesh_round.sharded_fold):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fed_step.build_fed_train_step(None, FedTrainConfig(), None)
+    one = FedRoundConfig(cmap=ConstellationMeshMap(1, 1, 1))
+    with pytest.raises(ValueError, match="not initialised"):
+        mesh_round.build_round(None, one, None)
+    with pytest.raises(ValueError, match="not initialised"):
+        mesh_round.sharded_fold({"w": torch.ones(1, 2)}, [1.0], None)
+    with pytest.raises(ValueError, match="not initialised"):
+        fed_step.build_fed_train_step(pair[0], FedTrainConfig(), None)
+    model, _, jp = pair
+    with one_rank_group(tmp_path):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        p = {"w": torch.randn(1, 3), "b": torch.randn(1, 2)}
+        new, stats = mesh_round.build_round(mesh, one, None)(
+            p, torch.ones(1), torch.ones(1, dtype=torch.bool))
+        assert all(torch.equal(new[k], p[k]) for k in p)
+        assert float(stats["gate"]) == 1.0
+        step = fed_step.build_fed_train_step(
+            model, FedTrainConfig(round_cfg=one, learning_rate=0.1), mesh)
+        batch = train.make_batches(model.cfg, 1, BATCH, SEQ, 0,
+                                   model.cfg.vocab_size)
+        params, metrics = step(stack_params(_port_params(jp), 1), batch,
+                               torch.ones(1), torch.ones(1, dtype=torch.bool))
+        assert set(metrics) == {"local_loss", "gate", "covered",
+                                "upload_mass"}
+        assert np.isfinite(float(metrics["local_loss"]))
+        assert all(torch.isfinite(x).all() for x in params.values())
 
 
 # --------------------------------------------------------------- round
