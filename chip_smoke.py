@@ -141,8 +141,9 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     of fedspace with cuDNN's default algorithms (the flag cleared for
     those two runs), reported only;
 23. flash backward — ``flash_attention_bwd`` (three kernels: a
-    pre-pass, dK/dV, dQ; bf16 at D >= 16 runs the tensor-core ones,
-    f32 and D=8 the SIMT ones, and each call's variant is counted)
+    pre-pass, dK/dV, dQ; bf16 with D a multiple of 16 runs the
+    tensor-core ones, f32 and D in {8, 24} the SIMT ones, and each call's
+    variant is counted)
     against ``flash_attention_bwd_plain`` and the forward's lse against
     ``flash_attention_lse_plain`` on the card: a sweep in f32 and bf16
     over every head dim, GQA groups 1/2/4, causal and not, windows,
@@ -156,7 +157,15 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     bounds (the function's 2.5x the forward's FLOP, 3.5x with S and dP
     recomputed, the design's 5x) and SDPA's backward, and the forward
     with and without lse (the serving path passes none); ptxas' registers
-    and spills of each new backward kernel;
+    and spills of each new backward kernel. Then the split pairs
+    (``FLASH_BWD_SPLIT_SWEEP``: MLA's (96, 64) and the reduced MLA's (24,
+    16), f32 on SIMT, bf16 (96, 64) on the tensor cores and (24, 16) on
+    SIMT, each call's variant and ``launches_bwd_split`` counted, two
+    calls and autograd bit-equal, the planted faults of
+    ``dense_bwd`` caught), and (96, 64) at MLA's training shape
+    (B=2, H=40, S=1024) and prefill shape (B=4, S=4096) in bf16, timed
+    beside the plain version, the function's bound (6D + 4Dv FLOP a
+    pair), the design's (12D + 8Dv) and SDPA's backward;
 24. train card vs CPU — qwen3-0.6b at full width cut to 4 layers, f32,
     from one CPU-drawn init: each leaf's gradient of one satellite's
     loss (batch 1 x seq 256) on the card and on the CPU, within a
@@ -229,7 +238,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     jamba-v0.1-52b at own fan-in, one round on both, the card's 14 scan
     forward (all storing checkpoints) and 14 backward launches counted;
 30. rwkv train — the slice of phase 25 for rwkv6-3b at full width (bf16,
-    remat, ``TRAIN_SLICE``, the CLI's init): per round one ``fedagg``
+    remat, ``TRAIN_SLICE`` for ``RWKV_TRAIN_ROUNDS`` rounds, the CLI's
+    init): per round one ``fedagg``
     launch and per satellite step 64 ``rwkv6_wkv`` forward (32 + 32
     recomputed, all storing checkpoints) and 32 backward launches,
     finite losses, rows bit-equal after each fold, s/round, trained
@@ -274,7 +284,21 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     ``fedagg`` launch per round), each against ``--single-device``
     (``single_device_round`` at S=1, run once: it folds the same way
     whatever the round kind): the max |difference| of every leaf and of
-    the losses, expected 0.
+    the losses, expected 0;
+34. mla train — minicpm3-4b (MLA: q and k 96 wide, v 64) trains on the
+    card: at full width cut to 4 layers, f32 at own fan-in, each leaf's
+    gradient card vs CPU within ``TRAIN_GRAD_RTOL`` and a planted
+    backward fault (Δ not subtracted) caught; one ``single_device_round``
+    of the reduced config (q·k 24, v 16: the (24, 16) pair, SIMT) card
+    vs CPU, its launches counted; the slice of phase 25 at full width
+    (bf16, remat, ``TRAIN_SLICE``, the CLI's init): per round one
+    ``fedagg`` launch and per satellite step 124 flash forward (62 + 62
+    recomputed) and 62 backward launches, all the (96, 64) pair's on the
+    tensor cores, finite losses, rows bit-equal after each fold,
+    s/round, trained tokens/s, peak memory, the card's draw and a profile
+    of one round by category; then ``python -m repro_torch.launch.train
+    --arch minicpm3-4b`` with its defaults for 2 rounds, its launches
+    counted.
 
 Each phase prints its seconds (``[time] phase N in ... s``).
 
@@ -293,8 +317,13 @@ under ``ptxas``; and the recurrences' backward entries,
 ``rwkv6_wkv_bwd`` (launches from phase 30, the slice's readings under
 ``train_slice``) and ``selective_scan_bwd`` (launches from phase 29's
 jamba round, the Mamba block's under ``block``), shaped the same way),
-the card line, and last ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX or ``repro``.
+the (96, 64) backward's entry, ``flash_attention_bwd<D=96, Dv=64>``
+(launches and ``launches_train_mla`` from phase 34's slice, the serve
+shape's readings under ``serve``, the split sweep's errors, ptxas'
+report, phase 34's readings under ``train_slice``; phase 34's forward
+launches are the (96, 64) entry's ``launches_train_mla`` and its folds
+``fedagg``'s), the card line, and last ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -711,9 +740,9 @@ def phase_guard(torch, kernels: dict, fa_mod, wkv_mod, scan_mod) -> None:
     nothing; the ``flash_attention``, ``rwkv6_wkv`` and ``selective_scan``
     wrappers go through their backward kernels, one forward and one
     backward launch per call, and each input's gradient must agree with
-    the plain backward (f32 tolerance); flash with MLA's head dims (96,
-    64), which the backward kernels lack, raises NotImplementedError
-    naming its ROADMAP item and launches nothing."""
+    the plain backward (f32 tolerance); flash at MLA's head dims (96, 64)
+    and the reduced MLA's (24, 16) too, each backward counted as a split
+    launch."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(9)
 
@@ -735,16 +764,24 @@ def phase_guard(torch, kernels: dict, fa_mod, wkv_mod, scan_mod) -> None:
         "RuntimeError (the fold has no backward), no launch")
 
     qkv = (t(1, 2, 8, 16), t(1, 1, 8, 16), t(1, 1, 8, 16))
+    mla = (t(1, 2, 8, 96), t(1, 2, 8, 96), t(1, 2, 8, 64))
+    mla_reduced = (t(1, 2, 8, 24), t(1, 1, 8, 24), t(1, 1, 8, 16))
+
+    def flash_plain(args):
+        return lambda do: fa_mod.flash_attention_bwd_plain(
+            *args, fa_mod.flash_attention_plain(*args),
+            fa_mod.flash_attention_lse_plain(args[0], args[1]), do)
     wkv_in = (t(1, 2, 6, 8), t(1, 2, 6, 8), t(1, 2, 6, 8), t(1, 2, 6, 8),
               t(2, 8))
     scan_in = (t(1, 6, 4, 4), t(1, 6, 4, 4), t(1, 6, 4))
     cases = {
         "flash_attention": (qkv, t(1, 2, 8, 16), "FlashAttentionFn",
-                            lambda do: fa_mod.flash_attention_bwd_plain(
-                                *qkv, fa_mod.flash_attention_plain(*qkv),
-                                fa_mod.flash_attention_lse_plain(qkv[0],
-                                                                 qkv[1]),
-                                do)),
+                            flash_plain(qkv)),
+        "flash_attention (96, 64)": (mla, t(1, 2, 8, 64), "FlashAttentionFn",
+                                     flash_plain(mla)),
+        "flash_attention (24, 16)": (mla_reduced, t(1, 2, 8, 16),
+                                     "FlashAttentionFn",
+                                     flash_plain(mla_reduced)),
         "rwkv6_wkv": (wkv_in, t(1, 2, 6, 8), "RwkvWkvFn",
                       lambda dy: wkv_mod.rwkv6_wkv_bwd_plain(*wkv_in, dy)),
         "selective_scan": (scan_in, t(1, 6, 4), "SelectiveScanFn",
@@ -752,7 +789,9 @@ def phase_guard(torch, kernels: dict, fa_mod, wkv_mod, scan_mod) -> None:
                                *scan_in, dy)),
     }
     for name, (args, dout, node, plain_bwd) in cases.items():
-        fn = kernels[name]
+        fn = kernels[name.split(" ")[0]]
+        split = args[0].shape[-1] != args[2].shape[-1]
+        n_split = getattr(fn, "launches_bwd_split", 0)
         want = plain_bwd(dout)
         worst = 0.0
         for which in range(len(args)):
@@ -768,6 +807,9 @@ def phase_guard(torch, kernels: dict, fa_mod, wkv_mod, scan_mod) -> None:
                                                   before[1] + 1):
                 raise AssertionError(f"{name} under grad did not run one "
                                      f"forward and one backward launch")
+            if split and fn.launches_bwd_split != n_split + which + 1:
+                raise AssertionError(f"{name}: the backward launch was not "
+                                     f"counted as a split one")
             worst = max(worst, check_close(
                 torch, got, want[which], "float32",
                 f"{name} gradient of input {which}"))
@@ -775,24 +817,6 @@ def phase_guard(torch, kernels: dict, fa_mod, wkv_mod, scan_mod) -> None:
             f"one backward launch per call, the gradients of all "
             f"{len(args)} inputs within {TOL['float32']} of its plain "
             f"backward (max |err| {worst:.3e})")
-
-    # MLA's (96, 64) pair: the backward kernels have no D != Dv variant,
-    # so under grad the wrapper raises before it launches anything.
-    fn = kernels["flash_attention"]
-    before = (fn.launches, fn.launches_bwd)
-    try:
-        fn(t(1, 2, 8, 96).requires_grad_(), t(1, 2, 8, 96), t(1, 2, 8, 64))
-    except NotImplementedError as err:
-        if "ROADMAP" not in str(err):
-            raise
-        msg = str(err)
-    else:
-        raise AssertionError("flash_attention with D=96, Dv=64 took a CUDA "
-                             "input that requires grad")
-    if (fn.launches, fn.launches_bwd) != before:
-        raise AssertionError("flash_attention (96, 64) launched under grad")
-    log("guard", f"flash_attention (96, 64) under grad on the card raises "
-        f"NotImplementedError, no launch: {msg}")
 
 
 def phase_card_vs_cpu(torch, eng, sim):
@@ -842,30 +866,34 @@ def phase_card_vs_cpu(torch, eng, sim):
 
 
 def profile_device(torch, fn):
-    """Run ``fn`` once under torch.profiler (CPU and CUDA activities).
+    """Run ``fn`` once under torch.profiler, recording CUDA activity alone
+    (the host's ops would only slow the profiled run).
     Returns ``(by_name, union_us, window_us, wall_us)``: device time and
     count by kernel name, the union of the kernels' intervals (kernels
     that overlap count once), the window from the first kernel's start
     to the last one's end, and the host wall time; ``by_name`` is empty
-    if the profiler recorded no device activity."""
+    if the profiler recorded no device activity. The profiler's raw
+    events are read, not ``prof.events()``, whose call tree took 37-63 s
+    to build for phases 25 and 30's rounds (74k and 102k kernels, on the
+    host of an H100 80GB HBM3)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name: dict[str, list] = {}
     spans = []
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            row = by_name.setdefault(ev.name, [0.0, 0])
-            row[0] += ev.time_range.elapsed_us()
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            start, dur = ev.start_ns() / 1e3, ev.duration_ns() / 1e3
+            row = by_name.setdefault(ev.name(), [0.0, 0])
+            row[0] += dur
             row[1] += 1
-            spans.append((ev.time_range.start, ev.time_range.end))
+            spans.append((start, start + dur))
     if not spans:
         return by_name, 0.0, 0.0, wall_us
     spans.sort()
@@ -1139,6 +1167,12 @@ FLASH_SPLIT_SWEEP = (
      for causal, window in ((True, None), (True, 63), (False, None))]
     + [(1, 8, 2, 300, 300, True, None), (1, 8, 1, 200, 200, True, 1),
        (1, 4, 4, 7, 300, False, None), (1, 4, 2, 300, 1, False, None)])
+# The reduced MLA's (24, 16) pair (SIMT in both dtypes) as (B, H, Hkv,
+# Sq, Sk, causal, window): ragged lengths, a window, Sq != Sk both ways.
+FLASH_REDUCED_MLA_SWEEP = ((2, 4, 4, 65, 65, True, None),
+                           (1, 4, 2, 300, 300, True, 63),
+                           (1, 4, 4, 100, 70, False, None),
+                           (1, 2, 1, 70, 129, False, 17))
 # Cross-attention's and the encoder's shapes, the causal mask off, as (B,
 # H, Hkv, Sq, Sk, D): whisper-small's decoder prefill against its 1500
 # frames and its encoder (ragged Sk on every tile row), then Sq != Sk at
@@ -1166,8 +1200,9 @@ def _split_views(torch, gen, b, h, hkv, sq, sk, d, dv, dtype):
 
 
 def phase_flash_split(torch, fa_mod) -> dict:
-    """Phase 7, the head-dim pair (96, 64) and the bidirectional Sq != Sk
-    shapes: each case in f32 (SIMT) and bf16 (tensor cores) against the
+    """Phase 7, the head-dim pairs (96, 64) and (24, 16) and the
+    bidirectional Sq != Sk shapes: each case in f32 (SIMT) and bf16
+    (tensor cores; (24, 16) SIMT) against the
     plain version at ``SPLIT_TOL``, its variant and split launches
     counted, and at whisper's cross-attention shape in bf16 the planted
     faults of the ragged last K/V tile caught; then the pair
@@ -1178,6 +1213,8 @@ def phase_flash_split(torch, fa_mod) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(31)
     cases = ([(b, h, hkv, sq, sk, 96, 64, c, w)
               for b, h, hkv, sq, sk, c, w in FLASH_SPLIT_SWEEP]
+             + [(b, h, hkv, sq, sk, 24, 16, c, w)
+                for b, h, hkv, sq, sk, c, w in FLASH_REDUCED_MLA_SWEEP]
              + [(b, h, hkv, sq, sk, d, d, False, None)
                 for b, h, hkv, sq, sk, d in FLASH_CROSS_SWEEP])
     worst = {}
@@ -1207,12 +1244,13 @@ def phase_flash_split(torch, fa_mod) -> dict:
             if ran != want:
                 raise AssertionError(f"{what}: launches (tc, simt, split) "
                                      f"{ran}; want {want}")
-            key = (dname, d != dv)
+            key = (dname, (d, dv) if d != dv else None)
             worst[key] = max(worst.get(key, 0.0), err)
-    for (dname, split), err in sorted(worst.items()):
-        what = ("(96, 64) sweep" if split
+    for (dname, pair), err in sorted(worst.items(), key=str):
+        what = (f"{pair} sweep" if pair
                 else "bidirectional Sq != Sk and encoder")
-        n = len(FLASH_SPLIT_SWEEP if split else FLASH_CROSS_SWEEP)
+        n = len({(96, 64): FLASH_SPLIT_SWEEP, (24, 16):
+                 FLASH_REDUCED_MLA_SWEEP}.get(pair, FLASH_CROSS_SWEEP))
         log("flash", f"{what} {dname}: {n} cases, max |err| {err:.3e} "
             f"({SPLIT_TOL[dname]}), each on its kernel's variant")
 
@@ -1634,8 +1672,9 @@ def launch_counters(kernels: dict) -> dict:
     "launches"), ``name.tc`` / ``name.simt`` -> the per-variant launch
     counts, ``name.split`` -> flash's launches with D != Dv (MLA's),
     ``name.ckpt`` -> the forward launches that stored the
-    backward's checkpoints (WKV), ``name.bwd`` -> the backward launches and
-    ``name.bwd_tc`` / ``name.bwd_simt`` those of each variant, and
+    backward's checkpoints (WKV), ``name.bwd`` -> the backward launches,
+    ``name.bwd_tc`` / ``name.bwd_simt`` those of each variant and
+    ``name.bwd_split`` those with D != Dv, and
     ``name.copies`` -> the inputs a wrapper copied before its launch,
     where a wrapper has them."""
     out = {}
@@ -1643,7 +1682,7 @@ def launch_counters(kernels: dict) -> dict:
         out[name] = (fn, "launches")
         for attr in ("launches_tc", "launches_simt", "launches_split",
                      "launches_ckpt", "launches_bwd", "launches_bwd_tc",
-                     "launches_bwd_simt", "copies"):
+                     "launches_bwd_simt", "launches_bwd_split", "copies"):
             if hasattr(fn, attr):
                 out[f"{name}.{attr.removeprefix('launches_')}"] = (fn, attr)
     return out
@@ -3057,35 +3096,89 @@ def _flash_views(torch, gen, b, h, hkv, sq, sk, d, dtype):
             for n, s in ((h, sq), (hkv, sk), (hkv, sk), (h, sq))]
 
 
-def dense_bwd(torch, q, k, v, o, lse, do, fault: str | None = None):
-    """Causal flash backward in dense f32 with one planted ``fault``:
-    ``"gqa"`` dK and dV from only the first query head of each group (the
-    group sum dropped), ``"delta"`` dS = P ⊙ dP (Δ not subtracted),
-    ``"causal"`` one future key (k = q + 1) let through the mask."""
+# Phase 23's sweep of the split pairs as (B, H, Hkv, Sq, Sk, D, Dv,
+# causal, window): MLA's (96, 64) and the reduced MLA's (24, 16), GQA
+# groups 1 and 2, causal and not, windows, ragged lengths around the
+# 64-row and 128-key tiles, Sq != Sk both ways; the model's transposed
+# views.
+FLASH_BWD_SPLIT_SWEEP = (
+    (2, 4, 4, 65, 65, 96, 64, True, None),
+    (1, 4, 2, 129, 129, 96, 64, True, 63),
+    (1, 2, 2, 100, 70, 96, 64, False, None),
+    (1, 4, 4, 70, 130, 96, 64, False, 17),
+    (1, 8, 8, 300, 300, 96, 64, True, None),
+    (2, 4, 4, 33, 33, 24, 16, True, None),
+    (1, 4, 2, 100, 100, 24, 16, True, 7),
+    (1, 2, 1, 37, 70, 24, 16, False, None),
+    (1, 4, 4, 130, 65, 24, 16, False, 70))
+# MLA's training shape (phase 34: batch 2 per satellite, seq 1024,
+# minicpm3-4b's 40 heads) and its prefill shape.
+MLA_TRAIN_ATTN = dict(b=2, h=40, hkv=40, s=1024, d=96, dv=64)
+SPLIT_BWD_FAULTS = ("last column group dropped", "delta over D")
+
+
+def _read_past(torch, x, width: int):
+    """x (..., Dv) read ``width`` elements a row from each row's start,
+    as a kernel that took o's and dO's rows D wide would: the extra
+    elements are the memory that follows the row in x's storage (zeros
+    past its end)."""
+    flat = torch.empty(0, dtype=x.dtype, device=x.device).set_(
+        x.untyped_storage())
+    flat = torch.cat([flat, flat.new_zeros(width)])
+    return flat.as_strided((*x.shape[:-1], width), x.stride(),
+                           x.storage_offset())
+
+
+def dense_bwd(torch, q, k, v, o, lse, do, fault: str | None = None,
+              causal: bool = True, window: int | None = None):
+    """The flash backward in dense f32 (the plain backward's formulas,
+    in place where they can be, for the serve shape's memory) with one
+    planted ``fault``: ``"gqa"`` dK and dV from only the first query head
+    of each group (the group sum dropped), ``"delta"`` dS = P ⊙ dP (Δ not
+    subtracted), ``"causal"`` one future key (k = q + 1) let through the
+    mask; and the split pairs' ``"last column group dropped"`` (dQ's and
+    dK's last group of 16 columns left at 0: columns 16-23 at D = 24, the
+    SIMT kernels' partial group of tx < 8; 80-95 at D = 96) and ``"delta
+    over D"`` (Δ summed over D columns of o's and dO's rows instead of
+    their Dv, the extra D - Dv read from the memory after each row). With
+    no fault it is the plain backward."""
     b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
     scale = 1.0 / math.sqrt(d)
     kq = k.repeat_interleave(g, 1).float()
     vq = v.repeat_interleave(g, 1).float()
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
-    ok = qpos + (1 if fault == "causal" else 0) >= kpos
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qpos + (1 if fault == "causal" else 0) >= kpos
+    if window is not None:
+        ok &= qpos - kpos < window
     p = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq).mul_(scale)
     p = p.sub_(lse[..., None]).exp_().masked_fill_(~ok, 0.0)
     dof = do.float()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    grad_v = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     ds = torch.einsum("bhqd,bhkd->bhqk", dof, vq)
-    if fault != "delta":
+    if fault == "delta over D":
+        ds.sub_((_read_past(torch, do, d).float()
+                 * _read_past(torch, o, d).float()).sum(-1, keepdim=True))
+    elif fault != "delta":
         ds.sub_((dof * o.float()).sum(-1, keepdim=True))
     ds.mul_(p)
     del p
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kq).mul_(scale)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).mul_(scale)
+    grad_q = torch.einsum("bhqk,bhkd->bhqd", ds, kq).mul_(scale)
+    grad_k = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).mul_(scale)
     del ds
-    dk, dv = (x.view(b, hkv, g, sk, d) for x in (dk, dv))
-    dk, dv = ((x[:, :, 0] if fault == "gqa" else x.sum(2)) for x in (dk, dv))
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if fault == "last column group dropped":
+        c0 = 16 * ((d - 1) // 16)
+        grad_q[..., c0:] = 0.0
+        grad_k[..., c0:] = 0.0
+    grad_k = grad_k.view(b, hkv, g, sk, d)
+    grad_v = grad_v.view(b, hkv, g, sk, dv)
+    grad_k, grad_v = ((x[:, :, 0] if fault == "gqa" else x.sum(2))
+                      for x in (grad_k, grad_v))
+    return grad_q.to(q.dtype), grad_k.to(k.dtype), grad_v.to(v.dtype)
 
 
 def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float,
@@ -3290,6 +3383,304 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float,
                        for k, (r, st, ld) in report.items()})
 
 
+def _split_bwd_case(torch, fa_mod, gen, shape: dict, causal=True,
+                    window=None, dtype=None):
+    """q, k, v, dO in the model's layout at ``shape`` (b, h, hkv, sq, sk,
+    d, dv) and the forward kernel's (o, lse)."""
+    q, k, v = _split_views(torch, gen, shape["b"], shape["h"], shape["hkv"],
+                           shape["sq"], shape["sk"], shape["d"], shape["dv"],
+                           dtype)
+    do = torch.randn((shape["b"], shape["sq"], shape["h"], shape["dv"]),
+                     generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, causal, window,
+                                          with_lse=True)
+    return q, k, v, out, lse, do
+
+
+def _split_bwd_faults(torch, fa_mod, args, want, what: str, tol: dict,
+                      causal=True, window=None) -> None:
+    """Each of ``SPLIT_BWD_FAULTS`` planted in the plain backward must
+    break ``tol`` against the plain backward ``want``."""
+    for fault in SPLIT_BWD_FAULTS:
+        bad = dense_bwd(torch, *args, fault, causal=causal, window=window)
+        errs = [max_err(torch, x, w) for x, w in zip(bad, want)]
+        if all(torch.allclose(x.float(), w.float(), **tol)
+               for x, w in zip(bad, want)):
+            raise AssertionError(f"planted split backward fault {fault!r} "
+                                 f"passes {tol} at {what}")
+        log("flash-bwd", f"{what}: planted fault {fault!r}: dq, dk, dv max "
+            f"|err| {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}, caught by "
+            f"{tol}")
+        del bad
+
+
+# The reduced MLA's attention at `launch.train`'s default shape (batch
+# 2, seq 256, 4 heads; q·k 24, v 16).
+MLA_REDUCED_ATTN = dict(b=2, h=4, hkv=4, sq=256, sk=256, d=24, dv=16)
+
+
+def _reduced_mla_times(torch, fa_mod, gen) -> dict:
+    """The (24, 16) pair's forward and backward (SIMT in f32 and bf16) at
+    ``MLA_REDUCED_ATTN``: each checked against its plain version, timed
+    back to back and as device time beside the plain version, SDPA's
+    forward and backward and its bound (the bytes, or the operations at
+    the inputs' type's rate: f32 on the CUDA cores, bf16 on the tensor
+    cores)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd, bwd = fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd
+    sh = MLA_REDUCED_ATTN
+    b, h, s, d, dv = (sh[x] for x in ("b", "h", "sq", "d", "dv"))
+    pairs = b * h * s * (s + 1) / 2
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = TOL["float32"] if dname == "float32" else BWD_BF16_TOL
+        args = _split_bwd_case(torch, fa_mod, gen, sh, dtype=dtype)
+        q, k, v, o, lse, do = args
+        check_close(torch, o, fa_mod.flash_attention_plain(q, k, v), dname,
+                    f"(24, 16) forward {dname}")
+        for g, w in zip(bwd(*args), fa_mod.flash_attention_bwd_plain(*args)):
+            check_close(torch, g, w, dname, f"(24, 16) backward {dname}",
+                        tol)
+        rate = F32_FLOP_PER_S if dname == "float32" else BF16_FLOP_PER_S
+        size = q.element_size()
+        row = {}
+        for what, flop, nbytes, kern, plain, lib in (
+                ("fwd", pairs * 2 * (d + dv),
+                 size * (q.numel() + k.numel() + 2 * v.numel()),
+                 lambda: fwd(q, k, v),
+                 lambda: fa_mod.flash_attention_plain(q, k, v),
+                 lambda: sdpa(q, k, v, is_causal=True)),
+                ("bwd", pairs * (6 * d + 4 * dv),
+                 size * 2 * (q.numel() + k.numel() + v.numel() + do.numel())
+                 + 4 * lse.numel(), lambda: bwd(*args),
+                 lambda: fa_mod.flash_attention_bwd_plain(*args), None)):
+            if lib is None:
+                grads = [x.detach().requires_grad_() for x in (q, k, v)]
+                ref = sdpa(*grads, is_causal=True)
+                lib = lambda ref=ref, grads=grads: torch.autograd.grad(  # noqa: E731
+                    ref, grads, do, retain_graph=True)
+            t_ops, t_bytes = flop / rate, nbytes / HBM_BYTES_PER_S
+            row[what] = dict(
+                ms=time_ms(torch, kern), device_ms=device_ms(torch, kern),
+                plain_ms=time_ms(torch, plain, reps=5),
+                library_ms=time_ms(torch, lib, reps=10),
+                library_device_ms=device_ms(torch, lib, reps=20),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            r = row[what]
+            log("flash-bwd", f"(24, 16) {what} {dname} at B={b} H={h} S={s} "
+                f"(SIMT): {r['ms']:.4f} ms back to back, "
+                f"{r['device_ms']:.4f} ms device; plain {r['plain_ms']:.4f} "
+                f"ms; sdpa {r['library_ms']:.4f} ms back to back, "
+                f"{r['library_device_ms']:.4f} device; bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        out[dname] = row
+        del args, q, k, v, o, lse, do
+    return out
+
+
+def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
+    """Phase 23, the split pairs (MLA's (96, 64), the reduced MLA's (24,
+    16)): ``FLASH_BWD_SPLIT_SWEEP`` in f32 (SIMT) and bf16 ((96, 64) on
+    the tensor cores, (24, 16) on SIMT) against the plain backward (f32 at
+    ``TOL``, bf16 at ``BWD_BF16_TOL``), each call's variant and split
+    count checked, autograd bit-equal to the direct call, the planted
+    faults caught on the first case of each pair; then (96, 64) at MLA's
+    training and prefill shapes in bf16, checked, its faults caught, and
+    timed beside the plain version, the function's and the design's
+    bounds and SDPA's backward; ptxas' report of each split
+    instantiation. Returns the kernels-line entry (launches filled in by
+    phase 34)."""
+    fa = fa_mod.flash_attention
+    bwd, plain = fa_mod.flash_attention_bwd, fa_mod.flash_attention_bwd_plain
+    gen = torch.Generator(device="cuda").manual_seed(230)
+    counts = ("launches_bwd", "launches_bwd_tc", "launches_bwd_simt",
+              "launches_bwd_split")
+    faulted = set()
+    worst: dict = {}
+    for b, h, hkv, sq, sk, d, dv, causal, window in FLASH_BWD_SPLIT_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            tol = TOL["float32"] if dname == "float32" else BWD_BF16_TOL
+            what = (f"{dname} B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} D={d} "
+                    f"Dv={dv} causal={causal} window={window}")
+            args = _split_bwd_case(torch, fa_mod, gen, dict(
+                b=b, h=h, hkv=hkv, sq=sq, sk=sk, d=d, dv=dv), causal,
+                window, dtype)
+            q, k, v, out, lse, do = args
+            before = [getattr(fa, c) for c in counts]
+            got = bwd(*args, causal, window)
+            variant = fa_mod.kernel_variant(dtype, d)
+            tc = variant == "tc"
+            if tc != (dname == "bfloat16" and d == 96):
+                raise AssertionError(f"split bwd {what}: variant {variant}")
+            if [getattr(fa, c) for c in counts] != [
+                    before[0] + 1, before[1] + tc, before[2] + (not tc),
+                    before[3] + 1]:
+                raise AssertionError(f"split bwd {what}: did not count one "
+                                     f"{variant} split launch")
+            want = plain(*args, causal, window)
+            errs = []
+            for name, g, w, x in zip(("dq", "dk", "dv"), got, want,
+                                     (q, k, v)):
+                if g.stride() != x.stride() or g.dtype != x.dtype:
+                    raise AssertionError(f"split bwd {what}: {name} is not "
+                                         f"laid out like its input")
+                errs.append(check_close(torch, g, w, dname,
+                                        f"split bwd {name} {what}", tol))
+            grads = [x.detach().requires_grad_() for x in (q, k, v)]
+            auto = torch.autograd.grad(fa(*grads, causal, window), grads, do)
+            if not all(torch.equal(a, g) for a, g in zip(auto, got)):
+                raise AssertionError(f"split bwd {what}: autograd through "
+                                     f"FlashAttentionFn differs from the "
+                                     f"kernel called directly")
+            again = bwd(*args, causal, window)
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise AssertionError(f"split bwd {what}: two calls differ")
+            log("flash-bwd", f"split {what}: variant {variant}; dq, dk, dv "
+                f"max |err| {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e} "
+                f"({tol}); autograd and a second call bit-equal")
+            key = (d, dv, dname)
+            worst[key] = max(worst.get(key, 0.0), *errs)
+            if key not in faulted:
+                _split_bwd_faults(torch, fa_mod, args, want, what, tol,
+                                  causal, window)
+                faulted.add(key)
+            del args, got, want, auto, again, grads
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = {"train": dict(MLA_TRAIN_ATTN),
+              "serve": dict(b=MLA_PREFILL["b"], h=MLA_PREFILL["h"],
+                            hkv=MLA_PREFILL["h"], s=MLA_PREFILL["s"],
+                            d=MLA_PREFILL["d"], dv=MLA_PREFILL["dv"])}
+    out_entry = {}
+    for label, shape in shapes.items():
+        b, h, s, d, dv = (shape[x] for x in ("b", "h", "s", "d", "dv"))
+        shape = dict(shape, sq=s, sk=s)
+        what = f"MLA {label} shape B={b} H={h} S={s} D={d} Dv={dv}"
+        big = label == "serve"
+        if not big:
+            args = _split_bwd_case(torch, fa_mod, gen, shape,
+                                   dtype=torch.float32)
+            before = fa.launches_bwd_simt
+            err32 = max(check_close(torch, g, w, "float32",
+                                    f"split bwd f32 {what}")
+                        for g, w in zip(bwd(*args), plain(*args)))
+            if fa.launches_bwd_simt != before + 1:
+                raise AssertionError(f"split bwd f32 {what}: not on SIMT")
+            ms32 = time_ms(torch, lambda: bwd(*args), reps=3, warmup=1)
+            log("flash-bwd", f"{what} f32 (SIMT): max |err| {err32:.3e} "
+                f"({TOL['float32']}); kernels {ms32:.4f} ms")
+            del args
+        args = _split_bwd_case(torch, fa_mod, gen, shape,
+                               dtype=torch.bfloat16)
+        q, k, v, out, lse, do = args
+        before = (fa.launches_bwd_tc, fa.launches_bwd_split)
+        got = bwd(*args)
+        if (fa.launches_bwd_tc, fa.launches_bwd_split) != (before[0] + 1,
+                                                           before[1] + 1):
+            raise AssertionError(f"split bwd bf16 {what}: not on the "
+                                 f"tensor cores")
+        want = plain(*args)
+        worst_bf16 = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = check_close(torch, g, w, "bfloat16",
+                              f"split bwd {name} bf16 {what}", BWD_BF16_TOL)
+            worst_bf16 = max(worst_bf16, err)
+            log("flash-bwd", f"{what} bf16 {name}: max |err| {err:.3e} "
+                f"({BWD_BF16_TOL}); max |{name}| "
+                f"{float(w.float().abs().max()):.4f}")
+        del got
+        if not big:
+            _split_bwd_faults(torch, fa_mod, args, want, f"{what} bf16",
+                              BWD_BF16_TOL)
+        del want
+        ms = time_ms(torch, lambda: bwd(*args), reps=3 if big else 20,
+                     warmup=1)
+        dev_ms = device_ms(torch, lambda: bwd(*args), reps=3 if big else 20,
+                           warmup=1)
+        plain_ms = time_ms(torch, lambda: plain(*args), reps=2 if big else 5,
+                           warmup=1)
+        fwd_lse_ms = time_ms(torch, lambda: fa_mod.flash_attention_fwd(
+            q, k, v, with_lse=True), reps=10)
+        lib_ms = lib_dev = lib_err = None
+        try:
+            grads = [x.detach().requires_grad_() for x in (q, k, v)]
+            ref_out = sdpa(*grads, is_causal=True)
+            sdpa_bwd = lambda: torch.autograd.grad(              # noqa: E731
+                ref_out, grads, do, retain_graph=True)
+            lib_ms = time_ms(torch, sdpa_bwd, reps=10)
+            lib_dev = device_ms(torch, sdpa_bwd, reps=20)
+            del ref_out, grads, sdpa_bwd
+        except RuntimeError as e:                 # the pair refused
+            lib_err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        pairs = b * h * s * (s + 1) / 2           # causal (q, k) pairs
+        flop = pairs * (6 * d + 4 * dv)
+        flop_design = pairs * (12 * d + 8 * dv)
+        flop_issued = flop_design + pairs * 8 * (128 - d)
+        nbytes = (sum(x.numel() * x.element_size()
+                      for x in (q, k, v, out, do, q, k, v))
+                  + lse.numel() * 4)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_design = 1e3 * max(t_bytes, flop_design / BF16_FLOP_PER_S)
+        bound_issued = 1e3 * max(t_bytes, flop_issued / BF16_FLOP_PER_S)
+        lib_text = (f"sdpa backward {lib_ms:.4f} ms back to back, "
+                    f"{lib_dev:.4f} ms device ({dev_ms / lib_dev:.2f}x)"
+                    if lib_err is None else f"sdpa backward refused: "
+                    f"{lib_err}")
+        log("flash-bwd", f"{what} bf16 causal: backward kernels (tc) "
+            f"{ms:.4f} ms back to back, {dev_ms:.4f} ms device "
+            f"({flop / dev_ms / 1e9:.2f} TFLOP/s of the function's FLOP); "
+            f"plain {plain_ms:.4f} ms; {lib_text}; forward with lse "
+            f"{fwd_lse_ms:.4f} ms; {nbytes} bytes, {flop:.4e} FLOP, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); the design's {flop_design:.4e} "
+            f"FLOP (hi + lo, dQ recomputing S and dP) {bound_design:.4f} "
+            f"ms, issued with n128 over the zero half {flop_issued:.4e} "
+            f"FLOP {bound_issued:.4f} ms; kernels at "
+            f"{bound_ms / dev_ms:.4f} of the bound and "
+            f"{bound_design / dev_ms:.4f} of the design's in device time")
+        out_entry[label] = dict(
+            max_abs_err=worst_bf16, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms_design=bound_design, bound_ms_issued=bound_issued,
+            library_ms=lib_ms, library_device_ms=lib_dev,
+            library_error=lib_err, fwd_lse_ms=fwd_lse_ms)
+        del args, q, k, v, out, lse, do
+        torch.cuda.empty_cache()
+    for (d, dv, dname), err in sorted(worst.items()):
+        log("flash-bwd", f"split sweep ({d}, {dv}) {dname}: max |err| "
+            f"{err:.3e}")
+    reduced = _reduced_mla_times(torch, fa_mod, gen)
+    report = {k: v for k, v in ptxas.items() if k.startswith("flash_bwd")
+              and ("Dv=" in k or "D=64>" in k and "prep" in k)}
+    for label, (regs, stores, loads) in report.items():
+        log("flash-bwd", f"ptxas {label}: {regs} registers, {stores} bytes "
+            f"spill stores, {loads} bytes spill loads")
+    train = out_entry["train"]
+    return dict(name="flash_attention_bwd<D=96, Dv=64>", route="cuda",
+                variant="tc",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention.py:87",
+                launches=None, max_abs_err=max(
+                    e["max_abs_err"] for e in out_entry.values()),
+                ms=train["ms"], device_ms=train["device_ms"],
+                plain_ms=train["plain_ms"], bound_ms=train["bound_ms"],
+                bound_by=train["bound_by"],
+                bound_ms_design=train["bound_ms_design"],
+                bound_ms_issued=train["bound_ms_issued"],
+                library_ms=train["library_ms"],
+                library_device_ms=train["library_device_ms"],
+                library_error=train["library_error"],
+                serve=out_entry["serve"], reduced=reduced,
+                sweep_max_abs_err={f"({d}, {dv}) {n}": e
+                                   for (d, dv, n), e in worst.items()},
+                ptxas={k: dict(registers=r, spill_stores=st, spill_loads=ld)
+                       for k, (r, st, ld) in report.items()})
+
+
 # Phase 24: card (kernels) vs CPU (plain), f32, TF32 off. The round's
 # update lr·Σ_s μ_s·g_s (lr 0.01) is far below PARAM_TOL on the params,
 # and writing p - lr·g rounds it to the params' f32 spacing, so the
@@ -3344,7 +3735,9 @@ def _grad_rel(torch, got: dict, want: dict) -> tuple[float, str]:
 
 def phase_train_card_vs_cpu(torch, Transformer, get_config, arch: str,
                             layers: int, seed: int, fault: tuple,
-                            phase: str = "train-cvc") -> dict:
+                            phase: str = "train-cvc",
+                            own_fan_in: bool = False,
+                            with_round: bool = True) -> dict:
     """Phases 24 and 29: ``arch`` at full width cut to ``layers`` layers,
     f32, from one CPU-drawn init. Each leaf's gradient of satellite 0's
     loss on the card (the kernels forward and backward) against the CPU
@@ -3353,14 +3746,19 @@ def phase_train_card_vs_cpu(torch, Transformer, get_config, arch: str,
     kernel launcher ``module.name`` replaced by ``wrap(launcher)`` for
     one gradient. Then one round of ``single_device_round`` (2
     satellites of one orbit, both visible, batch 1 x seq 256, 1 local
-    step) on both: losses and every leaf after the fold agree."""
+    step) on both, unless not ``with_round``: losses and every leaf after
+    the fold agree. ``own_fan_in`` draws the stacked matrices at their own
+    fan-in (``fan_in_defs``)."""
     import dataclasses
+
+    from repro_torch.models.params import init_params
 
     train, fed_cfg, stack_params = _train_parts()
     cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                               param_dtype="float32", act_dtype="float32")
     model = Transformer(cfg)
-    params = model.init(torch.Generator().manual_seed(seed), "cpu")
+    params = init_params(fan_in_defs(model, own=own_fan_in),
+                         torch.Generator().manual_seed(seed), "cpu")
     batches = {d: train.make_batches(cfg, 2, 1, 256, 0, cfg.vocab_size,
                                      device=d) for d in ("cuda", "cpu")}
 
@@ -3392,6 +3790,8 @@ def phase_train_card_vs_cpu(torch, Transformer, get_config, arch: str,
         f"norm (worst {sound_key}; limit {TRAIN_GRAD_RTOL}); planted fault "
         f"{label}: {bad:.3e} (worst {bad_key}), caught")
     del params_card
+    if not with_round:
+        return dict(grad_rel=sound, grad_rel_fault=bad)
     out = _round_card_vs_cpu(torch, model, params, batches, fed_cfg(1, 2, 1),
                              train, stack_params, phase)
     return dict(grad_rel=sound, grad_rel_fault=bad, **out)
@@ -3497,6 +3897,9 @@ def phase_jamba_round_card_vs_cpu(torch, Transformer, get_config,
 # runs it with these flags.
 TRAIN_SLICE = dict(sats=4, orbits=2, seq=1024, batch_per_sat=2,
                    local_steps=2, rounds=3, visibility=0.5, seed=0)
+# Phase 30 runs two of the slice's rounds, for the script's time
+# (phases 1-34 took 1136.1 s with three on a slow host).
+RWKV_TRAIN_ROUNDS = 2
 # The LM fold (bf16 rows, f32 weights) vs fedagg_plain: both accumulate
 # Σ_s w_s·x_s in f32 (the kernel by FMAs, the plain version by rounded
 # products and a sum) and round once to bf16, so they differ by at most
@@ -3574,12 +3977,21 @@ TRAIN_LAUNCHES = {
                              "flash_attention.bwd_tc": n},
     "rwkv6-3b": lambda n: {"rwkv6_wkv": 2 * n, "rwkv6_wkv.ckpt": 2 * n,
                            "rwkv6_wkv.bwd": n},
+    # MLA: every launch the (96, 64) pair's, forward and backward on the
+    # tensor cores.
+    "minicpm3-4b": lambda n: {"flash_attention": 2 * n,
+                              "flash_attention.tc": 2 * n,
+                              "flash_attention.split": 2 * n,
+                              "flash_attention.bwd": n,
+                              "flash_attention.bwd_tc": n,
+                              "flash_attention.bwd_split": n},
 }
 
 
 def phase_train(torch, Transformer, get_config, kernels: dict,
                 fedagg_mod, ops, arch: str = "qwen3-0.6b",
-                phase: str = "train", needle: str = "flash_bwd") -> dict:
+                phase: str = "train", needle: str = "flash_bwd",
+                rounds: int | None = None) -> dict:
     """Phases 25 and 30: full-width ``arch``, bf16, remat on, federated
     training on the card: each round's counts zeroed just before and read
     just after (one ``fedagg`` launch; per satellite step the forward
@@ -3594,7 +4006,7 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
     from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 
     train, fed_cfg, stack_params = _train_parts()
-    c = TRAIN_SLICE
+    c = dict(TRAIN_SLICE, rounds=rounds or TRAIN_SLICE["rounds"])
     cfg = get_config(arch)
     model = Transformer(cfg)
     n_sats, steps = c["sats"], c["local_steps"]
@@ -3658,7 +4070,10 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
         f"peak device memory {peak:.2f} GiB; card now {draw}")
 
     # Where one round's device time goes (after the counts were read).
+    t_prof = time.perf_counter()
     prof = profile_device(torch, lambda: step(params, batch, sizes, visible))
+    log(phase, f"profiled round and the profiler's parse: "
+        f"{time.perf_counter() - t_prof:.2f} s")
     log_profile(phase, "one round", prof, needle, top=10,
                 also=("wkv_fwd",) if needle == "wkv_bwd" else ())
     by_cat: dict[str, float] = {}
@@ -3745,6 +4160,106 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
                           ms=fold_ms, bound_ms=bound_ms, plain_ms=plain_ms,
                           library_ms=lib_ms, library_device_ms=lib_dev,
                           **check))
+
+
+# Phase 34: MLA's training. minicpm3-4b at full width cut to this many
+# layers, f32 at own fan-in (at the reference's init its softmaxes
+# saturate and the gradients are chaotic in the order of the sums, as
+# phase 31 found for its logits), for the card-vs-CPU gradients.
+MLA_TRAIN_LAYERS = 4
+# `python -m repro_torch.launch.train --arch minicpm3-4b` with its
+# defaults (reduced, f32, 4 satellites, seq 256, on the card) for this
+# many rounds.
+MLA_CLI = ["--arch", "minicpm3-4b", "--rounds", "2"]
+
+
+def phase_mla_train(torch, Transformer, get_config, kernels: dict,
+                    fedagg_mod, ops, fa_mod) -> dict:
+    """Phase 34: minicpm3-4b trains on the card. (1) Full width cut to
+    ``MLA_TRAIN_LAYERS``, f32 at own fan-in: each leaf's gradient card vs
+    CPU within ``TRAIN_GRAD_RTOL`` (the flash (96, 64) pair forward and
+    backward on the SIMT kernels), a planted backward fault (Δ not
+    subtracted) caught. (2) One ``single_device_round`` of the reduced
+    config (q·k 24, v 16: the (24, 16) pair on SIMT) card vs CPU, its
+    launches counted. (3) The full-width slice of phase 25's settings
+    (bf16, remat; ``TRAIN_LAUNCHES``: every flash launch the (96, 64)
+    pair's on the tensor cores). (4) ``launch.train`` with its defaults
+    (``MLA_CLI``), its launches counted. Counts zeroed just before each
+    run and read just after."""
+    from repro_torch.launch import train as train_cli
+
+    arch = "minicpm3-4b"
+    t0 = time.perf_counter()
+    cvc = phase_train_card_vs_cpu(
+        torch, Transformer, get_config, arch, MLA_TRAIN_LAYERS, 34,
+        ("Δ not subtracted", fa_mod, "flash_attention_bwd", no_delta),
+        phase="mla-train-cvc", own_fan_in=True, with_round=False)
+    log("mla-train-cvc", f"{MLA_TRAIN_LAYERS} layers card vs CPU in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+
+    from repro_torch.models.params import init_params
+
+    train, fed_cfg, stack_params = _train_parts()
+    cfg = get_config(arch).reduced()
+    model = Transformer(cfg)
+    params = init_params(fan_in_defs(model, own=True),
+                         torch.Generator().manual_seed(34), "cpu")
+    batches = {d: train.make_batches(cfg, 2, 2, 64, 0, cfg.vocab_size,
+                                     device=d) for d in ("cuda", "cpu")}
+    reduced = _round_card_vs_cpu(torch, model, params, batches,
+                                 fed_cfg(1, 2, 1), train, stack_params,
+                                 "mla-train-cvc", kernels)
+    n = cfg.num_layers * 2                      # layers x satellites
+    want = {"flash_attention": n, "flash_attention.simt": n,
+            "flash_attention.split": n, "flash_attention.bwd": n,
+            "flash_attention.bwd_simt": n, "flash_attention.bwd_split": n,
+            "flash_attention.tc": 0, "flash_attention.bwd_tc": 0}
+    got = {k: reduced["counts"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"reduced {arch} round launched {got}; want "
+                             f"{want}")
+    log("mla-train-cvc", f"{cfg.name}: the (24, 16) pair's {n} forward and "
+        f"{n} backward launches, all SIMT, in the card's round; "
+        f"{time.perf_counter() - t0:.2f} s")
+    del params, batches
+
+    t0 = time.perf_counter()
+    slice_ = phase_train(torch, Transformer, get_config, kernels,
+                         fedagg_mod, ops, arch=arch, phase="mla-train",
+                         needle="flash_bwd")
+    log("mla-train", f"the slice in {time.perf_counter() - t0:.2f} s")
+
+    counters = launch_counters(kernels)
+    torch.cuda.synchronize()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    res = train_cli.main(list(MLA_CLI))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    red = get_config(arch).reduced()
+    rounds = int(MLA_CLI[MLA_CLI.index("--rounds") + 1])
+    n = red.num_layers * 4 * rounds              # 4 satellites, 1 step
+    want = {"flash_attention": n, "flash_attention.split": n,
+            "flash_attention.simt": n, "flash_attention.bwd": n,
+            "flash_attention.bwd_split": n, "flash_attention.bwd_simt": n,
+            "fedagg": rounds}
+    got = {k: counts[k] for k in want}
+    if got != want or res["path"] != "single_device" or not all(
+            math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"launch.train {' '.join(MLA_CLI)}: launches "
+                             f"{got} (want {want}), path {res['path']}, "
+                             f"losses {res['losses']}")
+    log("mla-train", f"launch.train {' '.join(MLA_CLI)} (its defaults: "
+        f"reduced, f32, on the card): losses {res['losses']} in "
+        f"{wall:.2f} s; launches {got}")
+    del res
+    torch.cuda.empty_cache()
+    return dict(card_vs_cpu=cvc, reduced_round=dict(
+        loss=reduced["loss"], leaf_err=reduced["leaf_err"],
+        counts=reduced["counts"]), cli=got, **slice_)
 
 
 # Phases 27-28: the recurrences' backward kernels against their plain
@@ -4905,7 +5420,7 @@ def main() -> int:
     from repro_torch.kernels import fedagg as fedagg_mod, ops
     from repro_torch.sim import engine as engine_mod
     eng_t0 = time.perf_counter()
-    # The digits are memoized for phase 33's engines.
+    # The digits are memoized for the engines of phases 19-22 and 33.
     load_dataset = functools.cache(engine_mod.load_dataset)
     with patched(engine_mod, "load_dataset", lambda _: load_dataset):
         eng = sim.RoundEngine(sim.SimConfig(max_rounds=16))
@@ -5039,29 +5554,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.lap("18 (jamba-serve)")
 
-    # 19. the routed strategies on the card; counts zeroed per run.
-    routed = phase_routed(torch, sim, fedagg_mod)
-    entry["launches_routed"] = {k: v["launches"] for k, v in routed.items()}
-    clock.lap("19 (routed)")
+    # Phases 19-22's engines take the memoized digits too.
+    with patched(engine_mod, "load_dataset", lambda _: load_dataset):
+        # 19. the routed strategies on the card; counts zeroed per run.
+        routed = phase_routed(torch, sim, fedagg_mod)
+        entry["launches_routed"] = {k: v["launches"]
+                                    for k, v in routed.items()}
+        clock.lap("19 (routed)")
 
-    # 20. one cycle block, card against CPU
-    phase_cycle_card_vs_cpu(torch, sim)
-    clock.lap("20 (cycle card vs CPU)")
+        # 20. one cycle block, card against CPU
+        phase_cycle_card_vs_cpu(torch, sim)
+        clock.lap("20 (cycle card vs CPU)")
 
-    # 21. the tick baselines on the card; counts zeroed per run. Then the
-    # fold at the first flush's S.
-    ticks = phase_ticks(torch, sim, fedagg_mod)
-    entry["launches_ticks"] = {k: v["launches"] for k, v in ticks.items()}
-    entry["fold_flush"] = phase_fold_flush(torch, fedagg_mod, leaf_shapes,
-                                           ticks["fedspace"]["rows"][0])
-    clock.lap("21 (ticks)")
+        # 21. the tick baselines on the card; counts zeroed per run. Then
+        # the fold at the first flush's S.
+        ticks = phase_ticks(torch, sim, fedagg_mod)
+        entry["launches_ticks"] = {k: v["launches"]
+                                   for k, v in ticks.items()}
+        entry["fold_flush"] = phase_fold_flush(
+            torch, fedagg_mod, leaf_shapes, ticks["fedspace"]["rows"][0])
+        clock.lap("21 (ticks)")
 
-    # 22. checkpoint and resume on the card; a card checkpoint on the CPU
-    phase_resume(torch, sim)
-    clock.lap("22 (resume)")
+        # 22. checkpoint and resume on the card; a card checkpoint on the
+        # CPU
+        phase_resume(torch, sim)
+        clock.lap("22 (resume)")
 
-    # 23. the flash backward kernel against its plain version
+    # 23. the flash backward kernel against its plain version, then the
+    # split pairs (96, 64) and (24, 16)
     bwd_entry = phase_flash_bwd(torch, fa_mod, flash_entry["ms"], ptxas)
+    split_bwd_entry = phase_flash_bwd_split(torch, fa_mod, ptxas)
     clock.lap("23 (flash-bwd)")
 
     # 24. one training round, card vs CPU (4 layers, f32)
@@ -5112,7 +5634,8 @@ def main() -> int:
     # zeroed per round.
     rwkv_train = phase_train(torch, Transformer, get_config, kernels,
                              fedagg_mod, ops, arch="rwkv6-3b",
-                             phase="rwkv-train", needle="wkv_bwd")
+                             phase="rwkv-train", needle="wkv_bwd",
+                             rounds=RWKV_TRAIN_ROUNDS)
     wkv_bwd_entry["launches"] = rwkv_train["launches"]["rwkv6_wkv.bwd"]
     wkv_bwd_entry["train_slice"] = {k: v for k, v in rwkv_train.items()
                                     if k != "launches"}
@@ -5145,11 +5668,25 @@ def main() -> int:
                                   "launches"]}
     del ref_blocks
     clock.lap("33 (mesh)")
-    log("done", f"phases 1-33 in {time.perf_counter() - t_start:.1f} s")
+
+    # 34. MLA trains: minicpm3-4b's gradients card vs CPU, the reduced
+    # round (the (24, 16) pair), the full-width slice and launch.train's
+    # defaults; counts zeroed per run.
+    mla = phase_mla_train(torch, Transformer, get_config, kernels,
+                          fedagg_mod, ops, fa_mod)
+    split_bwd_entry["launches"] = mla["launches"]["flash_attention.bwd_split"]
+    split_bwd_entry["launches_train_mla"] = split_bwd_entry["launches"]
+    split_bwd_entry["train_slice"] = {k: v for k, v in mla.items()
+                                      if k != "launches"}
+    split_entry["launches_train_mla"] = mla["launches"][
+        "flash_attention.split"]
+    entry["launches_train_mla"] = mla["launches"]["fedagg"]
+    clock.lap("34 (mla-train)")
+    log("done", f"phases 1-34 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
-                                  scan_entry, bwd_entry, wkv_bwd_entry,
-                                  scan_bwd_entry]}))
+                                  scan_entry, bwd_entry, split_bwd_entry,
+                                  wkv_bwd_entry, scan_bwd_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

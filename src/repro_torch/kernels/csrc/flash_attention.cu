@@ -4,8 +4,9 @@
 //
 //   q: (B, H, Sq, Dqk), k: (B, Hkv, Sk, Dqk), v: (B, Hkv, Sk, Dv),
 //   o: (B, H, Sq, Dv); G = H / Hkv. The head dims (Dqk, Dv) are a pair of
-//   the kernels' table: (D, D) for D in {8, 16, 32, 64, 128}, and (96, 64),
-//   MLA's (minicpm3-4b: 64 nope + 32 rope dims of q and k, 64 of v).
+//   the kernels' table: (D, D) for D in {8, 16, 32, 64, 128}, (96, 64),
+//   MLA's (minicpm3-4b: 64 nope + 32 rope dims of q and k, 64 of v), and
+//   (24, 16), the reduced MLA's (16 + 8 and 16).
 //   f32 or bf16 in and out; scores, running max and sums in f32.
 //   mask: k_pos < Sk; causal q_pos >= k_pos; window q_pos - k_pos < W.
 //
@@ -19,8 +20,8 @@
 // - flash_fwd_tc: bf16 with Dqk in {16, 32, 64, 96, 128}, on the tensor
 //   cores (wgmma). The serving path (bf16, D = 128) runs it.
 // - flash_fwd: f32 (whose tensor-core path would be TF32, which the port
-//   does not use) and D = 8 (below wgmma's k16 depth), f32 FMAs on the
-//   CUDA cores.
+//   does not use) and Dqk in {8, 24} (not a multiple of wgmma's k16
+//   depth), f32 FMAs on the CUDA cores.
 // Both are templated on the pair (Dqk, Dv); the wrapper counts the
 // launches with Dqk != Dv apart.
 //
@@ -367,6 +368,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
          strides[9], strides[10], strides[11],
          H, Hkv, Sq, Sk, causal, window, 1.0f / sqrtf(float(D))};
   if (D == 96 && Dv == 64) return launch_d<T, 96, 64>(a, B, stream);
+  if (D == 24 && Dv == 16) return launch_d<T, 24, 16>(a, B, stream);
   if (D != Dv) return int(cudaErrorInvalidValue);
   switch (D) {
     case 8: return launch_d<T, 8, 8>(a, B, stream);
@@ -802,12 +804,12 @@ namespace {
 constexpr int kVariantSimt = 0;
 constexpr int kVariantTc = 1;
 
-// The one place the variant is chosen: bf16 at Dqk >= 16 goes to the
-// tensor cores (wgmma's k16 depth); f32 (whose tensor-core path would be
-// TF32) and D = 8 go to the SIMT kernel. Mirrored by kernel_variant() in
-// flash_attention.py.
+// The one place the variant is chosen: bf16 with Dqk a multiple of
+// wgmma's k16 depth goes to the tensor cores; f32 (whose tensor-core path
+// would be TF32) and Dqk in {8, 24} go to the SIMT kernel. Mirrored by
+// kernel_variant() in flash_attention.py.
 int variant_for(int bf16, int D) {
-  return bf16 && D >= 16 ? kVariantTc : kVariantSimt;
+  return bf16 && D % 16 == 0 ? kVariantTc : kVariantSimt;
 }
 
 int dispatch(int bf16, const void* q, const void* k, const void* v, void* o,

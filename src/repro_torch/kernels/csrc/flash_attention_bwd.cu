@@ -1,8 +1,11 @@
 // flash_attention_bwd: the backward of causal / sliding-window GQA
 // attention, sm_90a.
 //
-//   q, dq: (B, H, Sq, D); k, v, dk, dv: (B, Hkv, Sk, D); o, do: (B, H, Sq, D);
-//   lse: (B, H, Sq) f32 from the forward (flash_attention.cu); G = H / Hkv.
+//   q, dq: (B, H, Sq, D); k, dk: (B, Hkv, Sk, D); v, dv: (B, Hkv, Sk, Dv);
+//   o, do: (B, H, Sq, Dv); lse: (B, H, Sq) f32 from the forward
+//   (flash_attention.cu); G = H / Hkv. (D, Dv) is a pair of the forward's
+//   table: (D, D) for D in {8, 16, 32, 64, 128}, MLA's (96, 64) and the
+//   reduced MLA's (24, 16). The scale is 1/sqrt(D), q·k's width.
 //   f32 or bf16 in and out; scores, probabilities and sums in f32.
 //   mask: k_pos < Sk; causal q_pos >= k_pos; window q_pos - k_pos < W.
 //
@@ -23,12 +26,15 @@
 // under a window, with Sq > Sk + W) get zero gradients; the model never
 // makes them (every causal row sees its own position).
 //
-// Bound: operations. The function does 2.5x the forward's FLOP (QKᵀ
-// again, dP, dV, dK, dQ against QKᵀ and PV): 2.1496e10 FLOP at the
-// training shape (B=2, H=16, Hkv=8, S=1024, D=128, causal), 0.0217 ms at
-// the card's 989 TFLOP/s bf16 rate, and 6.874e11 FLOP at the serving
-// prefill shape (B=4, S=4096), 0.695 ms; the bytes (q, k, v, o, dO in,
-// dq, dk, dv out) take a tenth of that. Measured (chip_smoke.py phase 23
+// Bound: operations. Per visible (q, k) pair the function does 6D + 4Dv
+// FLOP (QKᵀ again, dP, dV, dK, dQ against the forward's 2(D + Dv)): at
+// D = Dv 2.5x the forward's, 2.1496e10 FLOP at the training shape (B=2,
+// H=16, Hkv=8, S=1024, D=128, causal), 0.0217 ms at the card's 989
+// TFLOP/s bf16 rate, and 6.874e11 FLOP at the serving prefill shape
+// (B=4, S=4096), 0.695 ms; the bytes (q, k, v, o, dO in, dq, dk, dv out)
+// take a tenth of that. MLA's (96, 64), 832 FLOP a pair: 3.4931e10 FLOP
+// at its training shape (B=2, H=Hkv=40, S=1024), 0.0353 ms, and
+// 1.1170e12 at its prefill shape (B=4, S=4096), 1.1294 ms. Measured (chip_smoke.py phase 23
 // and launch/flash_bwd_time.py, NVIDIA H100 80GB HBM3, power limit
 // 700 W, device time): the tc variant 0.106 ms at the training shape and
 // 2.12-2.14 ms at serve, SDPA's backward 0.12 and 1.51 ms; the SIMT
@@ -38,12 +44,22 @@
 // forward's rule; kernel_variant() in flash_attention.py mirrors it), each
 // one C call that enqueues three kernels on the caller's stream:
 //
-// tc: bf16 with D in {16, 32, 64, 128}, on the tensor cores (wgmma, TMA).
-// The training path (bf16, D = 128) runs it.
+// tc: bf16 with D in {16, 32, 64, 96, 128} (D a multiple of wgmma's k16),
+// on the tensor cores (wgmma, TMA). The training path (bf16, D = 128;
+// MLA's (96, 64)) runs it. Each kernel is templated on (D, Dv): Q and K
+// tiles are D wide and V, O and dO tiles Dv wide, each rounded up to
+// whole 64-column TMA chunks whose columns past the width arrive as
+// zeros. At (96, 64) Q and K take two chunks (the second half zero, never
+// read by Sᵀ = K·Qᵀ's 6 k16 steps), V and dO one (dPᵀ = V·dOᵀ, 4 steps);
+// dV += Pᵀ·dO is n64. dK += dSᵀ·Q and dQ += dS·K run n128 over Q's and
+// K's zero half: wgmma's MN-major B in the 128-byte swizzle comes in
+// whole 64-column atoms, so n96 does not lay out. That multiplies 32
+// zero columns (12D + 8Dv + 256 = 1920 FLOP a pair issued against the
+// design's 1664), and the epilogues store columns below D only.
 // - flash_bwd_prep: one warp per row writes lse·log2(e) and
-//   Δ = rowsum(dO ⊙ O) into an f32 scratch of (B, H, Sq) rows padded to
-//   128 (zeros past Sq), so that a tile's 64 rows are one 256-byte bulk
-//   copy from an aligned address.
+//   Δ = rowsum(dO ⊙ O) over Dv into an f32 scratch of (B, H, Sq) rows
+//   padded to 128 (zeros past Sq), so that a tile's 64 rows are one
+//   256-byte bulk copy from an aligned address.
 // - flash_bwd_dkdv_tc: one block of 384 threads per (64-key tile, KV
 //   head g, batch): a producer warpgroup (24 registers, setmaxnreg) whose
 //   one thread issues the TMA loads, and two consumer warpgroups (240).
@@ -66,7 +82,7 @@
 //   dK and dV stay in registers (each element has one writer: no
 //   atomics); dK is scaled at the store, bf16 pairs into the strided
 //   outputs. Shared memory: 163 KB at D = 128 (D <= 64 pads to 64: 83
-//   KB), one block per SM. Key tiles vary slowest in the launch order, so
+//   KB; (96, 64): 123 KB), one block per SM. Key tiles vary slowest in the launch order, so
 //   the longest causal blocks (the first keys) start first: at the
 //   training shape (B=2, Hkv=8, S=1024) the 256 blocks are two waves, and
 //   with 128-key blocks (both groups on one tile) the first key tile's
@@ -77,7 +93,8 @@
 //   the long causal rows start early: the same three warpgroups, Q and dO
 //   resident, 128-key K and V
 //   tiles through a ring of two stages, lse and Δ of the thread's two
-//   rows in registers (193 KB of shared memory at D = 128). Per key tile:
+//   rows in registers (193 KB of shared memory at D = 128, 145 KB at
+//   (96, 64)). Per key tile:
 //   S = Q·Kᵀ and dP = dO·Vᵀ (SS, n128), P and dS in registers,
 //   dQ += dS·K (RS, K MN-major). It recomputes S and dP rather than
 //   accumulate dQ by atomics in the dK/dV kernel: 3.5x the forward's FLOP
@@ -103,7 +120,8 @@
 // flight across a branch, and each D has its own instantiation (ptxas
 // would serialise the wgmmas otherwise).
 // Registers: a dK/dV consumer thread holds dK and dV (128 f32 at
-// D = 128) and Pᵀ and dSᵀ (64), at the 240 that setmaxnreg gives it, so
+// D = 128, 96 at (96, 64)) and Pᵀ and dSᵀ (64), at the 240 that
+// setmaxnreg gives it, so
 // its loop carries one counter, and dK's products are issued with dV's
 // (issued while dV's ran, ptxas serialised them). ptxas reports 0 spills
 // for every tc kernel.
@@ -112,10 +130,12 @@
 // view that misses that to a contiguous tensor first.
 //
 // simt: f32 (whose tensor-core path would be TF32, which the port does not
-// use) and D = 8 (below wgmma's k16 depth), f32 FMAs on the CUDA cores,
-// the backward's first design:
-// - flash_bwd_delta: Δ = rowsum(dO ⊙ O) into the f32 scratch as (B, H,
-//   Sq); one warp per row.
+// use) at every pair, and bf16 at D in {8, 24} (not a multiple of wgmma's
+// k16 depth: (8, 8) and the reduced MLA's (24, 16)), f32 FMAs on the CUDA
+// cores, the backward's first design, templated on (D, Dv): the Q and K
+// tiles, dQ and dK are D wide, the V and dO tiles, dV and Δ Dv wide.
+// - flash_bwd_delta: Δ = rowsum(dO ⊙ O) over Dv into the f32 scratch as
+//   (B, H, Sq); one warp per row.
 // - flash_bwd_dkdv: one block of 256 threads per (64-key tile, KV head g,
 //   batch). K and V tiles stay in shared memory; the block loops over the
 //   group's G query heads and, for each, over the 64-row query tiles that
@@ -126,21 +146,25 @@
 //   lse and Δ stay in shared memory, the block loops over the reachable
 //   key tiles and accumulates dQ in registers.
 // Tiles sit row-major in shared memory as f32 (converted once at load)
-// with a pitch of D + 4 floats, so float4 reads of 8 neighbouring rows hit
-// distinct banks. Each thread computes the 16 scores S[ty + 16i][tx + 16j]
-// (i, j < 4) and the same 16 of dP from float4 reads; P and dS go through
-// shared memory to the products that contract over rows (dV, dK) or keys
-// (dQ), where a thread owns 4 rows and D/16 columns. Shared memory at
+// with a pitch of width + 4 floats, so float4 reads of 8 neighbouring rows
+// hit distinct banks. Each thread computes the 16 scores S[ty + 16i][tx +
+// 16j] (i, j < 4) and the same 16 of dP from float4 reads; P and dS go
+// through shared memory to the products that contract over rows (dV, dK)
+// or keys (dQ), where a thread owns 4 rows and a column group of each
+// output (Cols<W>: float4 groups for W a multiple of 64, else columns
+// tx + 16j, the last group partial for W = 24: tx < 8). Shared memory at
 // D = 128: 4 tiles of 64 x 132 floats + two 64 x 68 tiles = 166.5 KB, one
-// block per SM. Its ceiling is the 67 TFLOP/s f32 rate.
+// block per SM (121 KB at (96, 64)). Its ceiling is the 67 TFLOP/s f32
+// rate.
 //
 // Plain C interface for ctypes (no PyTorch headers): the entry points
 // launch on the caller's stream, never synchronise, allocate nothing (the
 // wrapper passes the f32 scratch, bwd_scratch_floats() floats in
 // flash_attention.py) and return the first cudaError_t of the three
-// launches (0 on success; cudaErrorInvalidValue for a D outside {8, 16,
-// 32, 64, 128}, H % Hkv != 0, a size out of range, a scratch too small,
-// or a tensor the tensor maps cannot address).
+// launches (0 on success; cudaErrorInvalidValue for a (D, Dv) pair
+// outside the table, H % Hkv != 0, a size out of range, a scratch too
+// small, or a tensor the tensor maps cannot address). No pair falls back
+// to another variant.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -194,8 +218,8 @@ __device__ __forceinline__ const T* slice(const Args& a, int t, const void* p,
 }
 
 // Columns of a 64 x D accumulator a thread owns (rows are ty + 16 i):
-// D >= 64 as float4 groups at 4*tx + 64*g; D < 64 as single columns
-// tx + 16*j (tx < D for D = 8).
+// D a multiple of 64 as float4 groups at 4*tx + 64*g; else single
+// columns tx + 16*j, below D (the last group partial for D in {8, 24}).
 template <int D>
 struct Cols {
   static constexpr bool kVec = D % 64 == 0;
@@ -329,7 +353,7 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DV>
 __global__ void flash_bwd_delta(Args a) {
   const int64_t row =
       int64_t(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
@@ -341,7 +365,7 @@ __global__ void flash_bwd_delta(Args a) {
   const T* O = slice<T>(a, kO, a.o, b, h) + int64_t(s) * a.st[kO][2];
   const T* dO = slice<T>(a, kDO, a.dout, b, h) + int64_t(s) * a.st[kDO][2];
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
+  for (int d = lane; d < DV; d += 32)      // o and dO are Dv wide
     acc = fmaf(to_f32(dO[d]), to_f32(O[d]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -349,23 +373,44 @@ __global__ void flash_bwd_delta(Args a) {
   if (lane == 0) a.delta[row] = acc;
 }
 
-template <int D>
+// Q and K tiles have pitch D + 4, dO and V tiles Dv + 4.
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  return (size_t(4) * kBlock * (D + 4) + 2 * kBlock * kPPitch + 2 * kBlock) *
+  return (size_t(2) * kBlock * (D + 4) + size_t(2) * kBlock * (DV + 4) +
+          2 * kBlock * kPPitch + 2 * kBlock) *
          sizeof(float);
 }
 
-template <typename T, int D>
+// Stores the 64 x W accumulator `acc` (scaled by `scale`) into rows
+// [r0, r0 + 64) of a strided (S, W) slice: this thread's rows ty + 16 i,
+// its columns Cols<W>::col(tx, j) below W, rows below S.
+template <typename T, int W>
+__device__ __forceinline__ void store_tile(T* dst, int64_t s_stride,
+                                           const float (&acc)[4][Cols<W>::kN],
+                                           float scale, int r0, int S,
+                                           int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= S) continue;
+    T* row = dst + int64_t(r) * s_stride;
+#pragma unroll
+    for (int j = 0; j < Cols<W>::kN; ++j) {
+      const int c = Cols<W>::col(tx, j);
+      if (c < W) store(row + c, scale * acc[i][j]);
+    }
+  }
+}
+
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv(Args a) {
-  constexpr int P = D + 4;
-  using C = Cols<D>;
-  constexpr int NC = C::kN;
+  constexpr int P = D + 4, PV = DV + 4;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);   // [64][P]
-  float* Vs = Ks + kBlock * P;
-  float* Qs = Vs + kBlock * P;
-  float* dOs = Qs + kBlock * P;
-  float* Ps = dOs + kBlock * P;                  // [64 rows][kPPitch]
+  float* Vs = Ks + kBlock * P;                   // [64][PV]
+  float* Qs = Vs + kBlock * PV;                  // [64][P]
+  float* dOs = Qs + kBlock * P;                  // [64][PV]
+  float* Ps = dOs + kBlock * PV;                 // [64 rows][kPPitch]
   float* dSs = Ps + kBlock * kPPitch;
   float* lse_s = dSs + kBlock * kPPitch;
   float* delta_s = lse_s + kBlock;
@@ -375,7 +420,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv(Args a) {
   const int g = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.Hkv;
   load_rows<T, D>(Ks, slice<T>(a, kK, a.k, b, g), a.st[kK][2], k0, a.Sk);
-  load_rows<T, D>(Vs, slice<T>(a, kV, a.v, b, g), a.st[kV][2], k0, a.Sk);
+  load_rows<T, DV>(Vs, slice<T>(a, kV, a.v, b, g), a.st[kV][2], k0, a.Sk);
 
   // Query tiles that can see a key of this tile.
   const int nq = (a.Sq + kBlock - 1) / kBlock;
@@ -384,11 +429,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv(Args a) {
   if (a.window > 0)
     qt_end = min(nq, (k0 + kBlock - 2 + a.window) / kBlock + 1);
 
-  float dk[4][NC], dv[4][NC];
+  // dK is D wide, dV Dv wide: each has its own columns.
+  float dk[4][Cols<D>::kN], dv[4][Cols<DV>::kN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < NC; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int j = 0; j < Cols<D>::kN; ++j) dk[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < Cols<DV>::kN; ++j) dv[i][j] = 0.f;
+  }
 
   for (int r = 0; r < G; ++r) {
     const int h = g * G + r;
@@ -398,51 +447,39 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv(Args a) {
       const int q0 = qt * kBlock;
       __syncthreads();  // the last tile's reads of Qs, dOs, Ps, dSs done
       load_rows<T, D>(Qs, Q, a.st[kQ][2], q0, a.Sq);
-      load_rows<T, D>(dOs, dO, a.st[kDO][2], q0, a.Sq);
+      load_rows<T, DV>(dOs, dO, a.st[kDO][2], q0, a.Sq);
       load_row_stats(lse_s, delta_s, a, b, h, q0);
       __syncthreads();
       float s[4][4], dp[4][4];
       tile_dot<D>(s, Qs, Ks, tx, ty);
-      tile_dot<D>(dp, dOs, Vs, tx, ty);
+      tile_dot<DV>(dp, dOs, Vs, tx, ty);
       p_and_ds(s, dp, lse_s, delta_s, Ps, dSs, q0, k0, tx, ty, a);
       __syncthreads();
       // dV[key] += Σ_row P[row][key]·dO[row];
       // dK[key] += Σ_row dS[row][key]·Q[row] (scaled at the store).
-      tile_accumulate<D, false>(dv, Ps, dOs, tx, ty);
+      tile_accumulate<DV, false>(dv, Ps, dOs, tx, ty);
       tile_accumulate<D, false>(dk, dSs, Qs, tx, ty);
     }
   }
 
-  T* dK = static_cast<T*>(a.dk) + b * a.st[kDK][0] + g * a.st[kDK][1];
-  T* dV = static_cast<T*>(a.dv) + b * a.st[kDV][0] + g * a.st[kDV][1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty + 16 * i;
-    if (kp >= a.Sk) continue;
-    T* dkrow = dK + int64_t(kp) * a.st[kDK][2];
-    T* dvrow = dV + int64_t(kp) * a.st[kDV][2];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = C::col(tx, j);
-      if (c < D) {
-        store(dkrow + c, a.scale * dk[i][j]);
-        store(dvrow + c, dv[i][j]);
-      }
-    }
-  }
+  store_tile<T, D>(static_cast<T*>(a.dk) + b * a.st[kDK][0] +
+                       g * a.st[kDK][1],
+                   a.st[kDK][2], dk, a.scale, k0, a.Sk, tx, ty);
+  store_tile<T, DV>(static_cast<T*>(a.dv) + b * a.st[kDV][0] +
+                        g * a.st[kDV][1],
+                    a.st[kDV][2], dv, 1.f, k0, a.Sk, tx, ty);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(Args a) {
-  constexpr int P = D + 4;
-  using C = Cols<D>;
-  constexpr int NC = C::kN;
+  constexpr int P = D + 4, PV = DV + 4;
+  constexpr int NC = Cols<D>::kN;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [64][P]
-  float* dOs = Qs + kBlock * P;
-  float* Ks = dOs + kBlock * P;
-  float* Vs = Ks + kBlock * P;
-  float* dSs = Vs + kBlock * P;                  // [64 rows][kPPitch]
+  float* dOs = Qs + kBlock * P;                  // [64][PV]
+  float* Ks = dOs + kBlock * PV;                 // [64][P]
+  float* Vs = Ks + kBlock * P;                   // [64][PV]
+  float* dSs = Vs + kBlock * PV;                 // [64 rows][kPPitch]
   float* lse_s = dSs + kBlock * kPPitch;
   float* delta_s = lse_s + kBlock;
 
@@ -452,8 +489,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(Args a) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int g = h / (a.H / a.Hkv);
   load_rows<T, D>(Qs, slice<T>(a, kQ, a.q, b, h), a.st[kQ][2], q0, a.Sq);
-  load_rows<T, D>(dOs, slice<T>(a, kDO, a.dout, b, h), a.st[kDO][2], q0,
-                  a.Sq);
+  load_rows<T, DV>(dOs, slice<T>(a, kDO, a.dout, b, h), a.st[kDO][2], q0,
+                   a.Sq);
   load_row_stats(lse_s, delta_s, a, b, h, q0);
   const T* K = slice<T>(a, kK, a.k, b, g);
   const T* V = slice<T>(a, kV, a.v, b, g);
@@ -476,56 +513,47 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(Args a) {
     const int k0 = kt * kBlock;
     __syncthreads();  // the last tile's reads of Ks, Vs, dSs done
     load_rows<T, D>(Ks, K, a.st[kK][2], k0, a.Sk);
-    load_rows<T, D>(Vs, V, a.st[kV][2], k0, a.Sk);
+    load_rows<T, DV>(Vs, V, a.st[kV][2], k0, a.Sk);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_dot<D>(s, Qs, Ks, tx, ty);
-    tile_dot<D>(dp, dOs, Vs, tx, ty);
+    tile_dot<DV>(dp, dOs, Vs, tx, ty);
     p_and_ds(s, dp, lse_s, delta_s, nullptr, dSs, q0, k0, tx, ty, a);
     __syncthreads();
     // dQ[row] += Σ_key dS[row][key] K[key]
     tile_accumulate<D, true>(dq, dSs, Ks, tx, ty);
   }
 
-  T* dQ = static_cast<T*>(a.dq) + b * a.st[kDQ][0] + h * a.st[kDQ][1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= a.Sq) continue;
-    T* row = dQ + int64_t(qp) * a.st[kDQ][2];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = C::col(tx, j);
-      if (c < D) store(row + c, a.scale * dq[i][j]);
-    }
-  }
+  store_tile<T, D>(static_cast<T*>(a.dq) + b * a.st[kDQ][0] +
+                       h * a.st[kDQ][1],
+                   a.st[kDQ][2], dq, a.scale, q0, a.Sq, tx, ty);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch_d(const Args& a, cudaStream_t stream) {
   const int64_t rows = int64_t(a.B) * a.H * a.Sq;
   const int64_t delta_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (delta_blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
-  flash_bwd_delta<T, D><<<unsigned(delta_blocks), kThreads, 0, stream>>>(a);
+  flash_bwd_delta<T, DV><<<unsigned(delta_blocks), kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  const int smem = int(smem_bytes<D>());
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
+  const int smem = int(smem_bytes<D, DV>());
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid_kv((a.Sk + kBlock - 1) / kBlock, a.Hkv, a.B);
-  flash_bwd_dkdv<T, D><<<grid_kv, kThreads, smem, stream>>>(a);
+  flash_bwd_dkdv<T, D, DV><<<grid_kv, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq<T, D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid_q((a.Sq + kBlock - 1) / kBlock, a.H, a.B);
-  flash_bwd_dq<T, D><<<grid_q, kThreads, smem, stream>>>(a);
+  flash_bwd_dq<T, D, DV><<<grid_q, kThreads, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -533,7 +561,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, const int64_t* strides, int B, int H, int Hkv,
-           int Sq, int Sk, int D, int causal, int window, void* stream) {
+           int Sq, int Sk, int D, int Dv, int causal, int window,
+           void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv != 0 ||
       Sq < 1 || Sk < 1)
     return int(cudaErrorInvalidValue);
@@ -559,23 +588,30 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   a.window = window;
   a.scale = 1.0f / sqrtf(float(D));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // bf16 reaches the SIMT kernels at D = 8 alone (variant_for).
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
-    return D == 8 ? launch_d<T, 8>(a, st) : int(cudaErrorInvalidValue);
-  switch (D) {
-    case 8: return launch_d<T, 8>(a, st);
-    case 16: return launch_d<T, 16>(a, st);
-    case 32: return launch_d<T, 32>(a, st);
-    case 64: return launch_d<T, 64>(a, st);
-    case 128: return launch_d<T, 128>(a, st);
-    default: return int(cudaErrorInvalidValue);
+  // bf16 reaches the SIMT kernels at (8, 8) and (24, 16) alone
+  // (variant_for: D not a multiple of wgmma's k16), f32 at every pair.
+  if (D == 8 && Dv == 8) return launch_d<T, 8, 8>(a, st);
+  if (D == 24 && Dv == 16) return launch_d<T, 24, 16>(a, st);
+  if constexpr (std::is_same_v<T, float>) {
+    if (D == 96 && Dv == 64) return launch_d<T, 96, 64>(a, st);
+    if (D == Dv) {
+      switch (D) {
+        case 16: return launch_d<T, 16, 16>(a, st);
+        case 32: return launch_d<T, 32, 32>(a, st);
+        case 64: return launch_d<T, 64, 64>(a, st);
+        case 128: return launch_d<T, 128, 128>(a, st);
+        default: break;
+      }
+    }
   }
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant: bf16, D in {16, 32, 64, 128}.
+// The tensor-core variant: bf16, (D, Dv) in {(16, 16), (32, 32), (64, 64),
+// (96, 64), (128, 128)}.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -591,40 +627,54 @@ constexpr int kKeyStages = 2;            // dQ block: K/V ring depth
 constexpr int kRowPad = 128;             // scratch rows: Sq rounded up
 constexpr float kLog2e = 1.4426950408889634f;
 
+// A head dim padded to whole 64-column chunks (at least one).
+__host__ __device__ constexpr int padded(int d) {
+  return d < 64 ? 64 : (d + 63) / 64 * 64;
+}
+
 // Shared memory of the dK/dV block, in bytes from a 1024-aligned base. A
 // tile of R rows is DP/64 chunks of [R rows][64 bf16] at 128 bytes a row,
 // each chunk in TMA's 128-byte swizzle (the layout the wgmma descriptors
-// read).
-template <int DP>
+// read). K and Q have DPQK columns, V and dO DPV (MLA: 128 and 64).
+template <int DPQK, int DPV>
 struct SmemKV {
-  static constexpr int kChunks = DP / 64;
+  static constexpr int kQKChunks = DPQK / 64;
+  static constexpr int kVChunks = DPV / 64;
   static constexpr int kKVChunk = kKeys * 128;
   static constexpr int kRowChunk = kRows * 128;
-  static constexpr int kKV = kChunks * kKVChunk;        // the K or V tile
-  static constexpr int kTile = kChunks * kRowChunk;     // one Q or dO tile
+  static constexpr int kKT = kQKChunks * kKVChunk;      // the K tile
+  static constexpr int kVT = kVChunks * kKVChunk;       // the V tile
+  static constexpr int kQT = kQKChunks * kRowChunk;     // one Q tile
+  static constexpr int kDOT = kVChunks * kRowChunk;     // one dO tile
   static constexpr int kStat = 2 * kRows * 4;           // lse·log2e, Δ
   static constexpr int kK = 0;
-  static constexpr int kV = kK + kKV;
-  static constexpr int kQ = kV + kKV;                   // kRowStages each
-  static constexpr int kDO = kQ + kRowStages * kTile;
-  static constexpr int kStats = kDO + kRowStages * kTile;
+  static constexpr int kV = kK + kKT;
+  static constexpr int kQ = kV + kVT;                   // kRowStages each
+  static constexpr int kDO = kQ + kRowStages * kQT;
+  static constexpr int kStats = kDO + kRowStages * kDOT;
   static constexpr int kBar = kStats + kRowStages * kStat;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kRowStages) + 1024;
+  // Group 1's dK and dV pass to group 0 through the Q stages.
+  static_assert((DPQK + DPV) / 2 * 4 * kGroup <= kRowStages * kQT,
+                "the dK/dV reduction does not fit the Q stages");
 };
 
 // Shared memory of the dQ block.
-template <int DP>
+template <int DPQK, int DPV>
 struct SmemQ {
-  static constexpr int kChunks = DP / 64;
+  static constexpr int kQKChunks = DPQK / 64;
+  static constexpr int kVChunks = DPV / 64;
   static constexpr int kRowChunk = kQRows * 128;
   static constexpr int kKeyChunk = kQKeys * 128;
-  static constexpr int kTile = kChunks * kRowChunk;     // the Q or dO tile
-  static constexpr int kKV = kChunks * kKeyChunk;       // one K or V tile
+  static constexpr int kQT = kQKChunks * kRowChunk;     // the Q tile
+  static constexpr int kDOT = kVChunks * kRowChunk;     // the dO tile
+  static constexpr int kKT = kQKChunks * kKeyChunk;     // one K tile
+  static constexpr int kVT = kVChunks * kKeyChunk;      // one V tile
   static constexpr int kQ = 0;
-  static constexpr int kDO = kQ + kTile;
-  static constexpr int kK = kDO + kTile;                // kKeyStages each
-  static constexpr int kV = kK + kKeyStages * kKV;
-  static constexpr int kBar = kV + kKeyStages * kKV;
+  static constexpr int kDO = kQ + kQT;
+  static constexpr int kK = kDO + kDOT;                 // kKeyStages each
+  static constexpr int kV = kK + kKeyStages * kKT;
+  static constexpr int kBar = kV + kKeyStages * kVT;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kKeyStages) + 1024;
 };
 
@@ -768,10 +818,11 @@ __device__ __forceinline__ void split_bf16(uint32_t (&hi)[N / 2],
   }
 }
 
-// lse·log2(e) and Δ = rowsum(dO ⊙ O) of every padded row; zeros past Sq.
-// One warp per row, 8-byte loads (4 columns a lane): the rows of o and dO
-// are 16-byte aligned (the wrapper copies a view whose are not).
-template <int D>
+// lse·log2(e) and Δ = rowsum(dO ⊙ O) over o's DV columns of every padded
+// row; zeros past Sq. One warp per row, 8-byte loads (4 columns a lane):
+// the rows of o and dO are 16-byte aligned (the wrapper copies a view
+// whose are not).
+template <int DV>
 __global__ void flash_bwd_prep(PrepArgs p) {
   const int64_t row = int64_t(blockIdx.x) * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -785,7 +836,7 @@ __global__ void flash_bwd_prep(PrepArgs p) {
         p.o + b * p.o_sb + h * p.o_sh + s * p.o_ss);
     const uint2* dO = reinterpret_cast<const uint2*>(
         p.dout + b * p.do_sb + h * p.do_sh + s * p.do_ss);
-    for (int c = lane; c < D / 4; c += 32) {
+    for (int c = lane; c < DV / 4; c += 32) {
       const uint2 x = O[c], y = dO[c];
       const float2 x0 = unpack_bf16(x.x), x1 = unpack_bf16(x.y);
       const float2 y0 = unpack_bf16(y.x), y1 = unpack_bf16(y.y);
@@ -805,14 +856,17 @@ __global__ void flash_bwd_prep(PrepArgs p) {
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, Args a) {
-  constexpr int DP = D < 64 ? 64 : D;   // D < 64 is zero-padded to 64
-  using L = SmemKV<DP>;
+  // Widths zero-padded to 64-column chunks: dK's (the n of dSᵀ·Q) is
+  // DPQK, 128 for D = 96 (n96 has no 128-byte-swizzled MN-major layout:
+  // the zero half is multiplied, never stored), dV's DPV.
+  constexpr int DPQK = padded(D), DPV = padded(DV);
+  using L = SmemKV<DPQK, DPV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // mbarriers: K and V loaded; per stage Q, dO, lse, Δ loaded and free.
@@ -847,13 +901,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     // stage is refilled once the group that took its tile is done.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_kv, 2 * L::kKV);
-      for (int c = 0; c < L::kChunks; ++c) {
+      mbar_expect_tx(bar_kv, L::kKT + L::kVT);
+      for (int c = 0; c < L::kQKChunks; ++c)
         tma_load(base + L::kK + c * L::kKVChunk, &tk, bar_kv, 64 * c, g, k0,
                  b);
+      for (int c = 0; c < L::kVChunks; ++c)
         tma_load(base + L::kV + c * L::kKVChunk, &tv, bar_kv, 64 * c, g, k0,
                  b);
-      }
       // Tile i = (head g·G + r, query tile qt) goes to stage s; its
       // refill waits for the phase `parity` of the stage's free barrier.
       int s = 0;
@@ -866,13 +920,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int q0 = qt * kRows;
           if (i >= kRowStages) mbar_wait(empty + 8 * s, parity);
           const uint32_t bar = full + 8 * s;
-          mbar_expect_tx(bar, 2 * L::kTile + L::kStat);
-          for (int c = 0; c < L::kChunks; ++c) {
-            tma_load(base + L::kQ + s * L::kTile + c * L::kRowChunk, &tq,
+          mbar_expect_tx(bar, L::kQT + L::kDOT + L::kStat);
+          for (int c = 0; c < L::kQKChunks; ++c)
+            tma_load(base + L::kQ + s * L::kQT + c * L::kRowChunk, &tq,
                      bar, 64 * c, h, q0, b);
-            tma_load(base + L::kDO + s * L::kTile + c * L::kRowChunk, &tdo,
+          for (int c = 0; c < L::kVChunks; ++c)
+            tma_load(base + L::kDO + s * L::kDOT + c * L::kRowChunk, &tdo,
                      bar, 64 * c, h, q0, b);
-          }
           const uint32_t stats = base + L::kStats + s * L::kStat;
           bulk_load(stats, lse2 + q0, kRows * 4, bar);
           bulk_load(stats + kRows * 4, dlt + q0, kRows * 4, bar);
@@ -897,9 +951,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t v_smem = base + L::kV;
   const float sl2 = a.scale * kLog2e;
 
-  float dk[DP / 2], dv[DP / 2];
+  float dk[DPQK / 2], dv[DPV / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DPQK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DPV / 2; ++i) dv[i] = 0.f;
   float st[kRows / 2], dpt[kRows / 2];   // Sᵀ, dPᵀ: 64 keys x 64 rows
   uint32_t ph[kRows / 4], pl[kRows / 4], sh[kRows / 4], sl[kRows / 4];
 
@@ -909,7 +965,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   uint32_t lse2, uint32_t dlt) {
     constexpr bool kMasked = decltype(masked)::value;
     issue_ss<D, kRows>(st, k_smem, L::kKVChunk, q_s, L::kRowChunk);
-    issue_ss<D, kRows>(dpt, v_smem, L::kKVChunk, do_s, L::kRowChunk);
+    issue_ss<DV, kRows>(dpt, v_smem, L::kKVChunk, do_s, L::kRowChunk);
     if constexpr (kMasked)
       wgmma_wait<0>();
     else
@@ -944,8 +1000,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             (dpt[4 * j + e] - ld_shared(dlt + 4 * (8 * j + col0 + (e & 1))));
     split_bf16(ph, pl, st);
     split_bf16(sh, sl, dpt);
-    issue_rs<DP, kRows / 16>(dv, ph, pl, do_s, L::kRowChunk);
-    issue_rs<DP, kRows / 16>(dk, sh, sl, q_s, L::kRowChunk);
+    issue_rs<DPV, kRows / 16>(dv, ph, pl, do_s, L::kRowChunk);
+    issue_rs<DPQK, kRows / 16>(dk, sh, sl, q_s, L::kRowChunk);
     wgmma_wait<0>();
     fence_regs(dv);
     fence_regs(dk);
@@ -960,8 +1016,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = wg; i < n_tiles; i += 2) {
     const int s = i % kRowStages;
     const int q0 = (qt_begin + i % per_head) * kRows;
-    const uint32_t q_s = base + L::kQ + s * L::kTile;
-    const uint32_t do_s = base + L::kDO + s * L::kTile;
+    const uint32_t q_s = base + L::kQ + s * L::kQT;
+    const uint32_t do_s = base + L::kDO + s * L::kDOT;
     const uint32_t lse2 = base + L::kStats + s * L::kStat;
     const bool edge = k0 + kKeys > a.Sk || q0 + kRows > a.Sq ||
                       (a.causal && q0 < k0 + kKeys - 1) ||
@@ -981,48 +1037,54 @@ __global__ void __launch_bounds__(kThreads, 1)
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
   if (wg == 1) {
 #pragma unroll
-    for (int r = 0; r < DP / 2; ++r) {
+    for (int r = 0; r < DPQK / 2; ++r)
       st_shared(red + r * 4 * kGroup, dk[r]);
-      st_shared(red + (DP / 2 + r) * 4 * kGroup, dv[r]);
-    }
+#pragma unroll
+    for (int r = 0; r < DPV / 2; ++r)
+      st_shared(red + (DPQK / 2 + r) * 4 * kGroup, dv[r]);
   }
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
   if (wg == 1) return;
 #pragma unroll
-  for (int r = 0; r < DP / 2; ++r) {
-    dk[r] += ld_shared(red + r * 4 * kGroup);
-    dv[r] += ld_shared(red + (DP / 2 + r) * 4 * kGroup);
-  }
+  for (int r = 0; r < DPQK / 2; ++r) dk[r] += ld_shared(red + r * 4 * kGroup);
+#pragma unroll
+  for (int r = 0; r < DPV / 2; ++r)
+    dv[r] += ld_shared(red + (DPQK / 2 + r) * 4 * kGroup);
 
-  // This thread's two keys (columns < D), bf16 pairs.
+  // This thread's two keys, bf16 pairs: dK's columns < D, dV's < DV.
   __nv_bfloat16* dK =
       static_cast<__nv_bfloat16*>(a.dk) + b * a.dk_sb + g * a.dk_sh;
   __nv_bfloat16* dV =
       static_cast<__nv_bfloat16*>(a.dv) + b * a.dv_sb + g * a.dv_sh;
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    if (8 * j >= D) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= a.Sk) continue;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (key >= a.Sk) continue;
+    for (int j = 0; j < DPQK / 8; ++j) {
+      if (8 * j >= D) continue;
       *reinterpret_cast<__nv_bfloat162*>(dK + key * a.dk_ss + 8 * j + col0) =
           __floats2bfloat162_rn(a.scale * dk[4 * j + 2 * r],
                                 a.scale * dk[4 * j + 2 * r + 1]);
+    }
+#pragma unroll
+    for (int j = 0; j < DPV / 8; ++j) {
+      if (8 * j >= DV) continue;
       *reinterpret_cast<__nv_bfloat162*>(dV + key * a.dv_ss + 8 * j + col0) =
           __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Args a) {
-  constexpr int DP = D < 64 ? 64 : D;
-  using L = SmemQ<DP>;
+  // dQ's n (of dS·K) is DPQK: 128 for D = 96, as dK's.
+  constexpr int DPQK = padded(D), DPV = padded(DV);
+  using L = SmemQ<DPQK, DPV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // mbarriers: Q and dO loaded; per stage K and V loaded and free.
@@ -1057,26 +1119,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, 2 * L::kTile);
-      for (int c = 0; c < L::kChunks; ++c) {
+      mbar_expect_tx(bar_q, L::kQT + L::kDOT);
+      for (int c = 0; c < L::kQKChunks; ++c)
         tma_load(base + L::kQ + c * L::kRowChunk, &tq, bar_q, 64 * c, h, q0,
                  b);
+      for (int c = 0; c < L::kVChunks; ++c)
         tma_load(base + L::kDO + c * L::kRowChunk, &tdo, bar_q, 64 * c, h,
                  q0, b);
-      }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kKeyStages;
         const int k0 = (kt_begin + i) * kQKeys;
         if (i >= kKeyStages)
           mbar_wait(empty + 8 * s, ((i / kKeyStages) & 1) ^ 1);
         const uint32_t bar = full + 8 * s;
-        mbar_expect_tx(bar, 2 * L::kKV);
-        for (int c = 0; c < L::kChunks; ++c) {
-          tma_load(base + L::kK + s * L::kKV + c * L::kKeyChunk, &tk, bar,
+        mbar_expect_tx(bar, L::kKT + L::kVT);
+        for (int c = 0; c < L::kQKChunks; ++c)
+          tma_load(base + L::kK + s * L::kKT + c * L::kKeyChunk, &tk, bar,
                    64 * c, hk, k0, b);
-          tma_load(base + L::kV + s * L::kKV + c * L::kKeyChunk, &tv, bar,
+        for (int c = 0; c < L::kVChunks; ++c)
+          tma_load(base + L::kV + s * L::kVT + c * L::kKeyChunk, &tv, bar,
                    64 * c, hk, k0, b);
-        }
       }
     }
     return;
@@ -1102,9 +1164,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     dlt[r] = a.delta[row];
   }
 
-  float dq[DP / 2];
+  float dq[DPQK / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DPQK / 2; ++i) dq[i] = 0.f;
   float sc[kQKeys / 2], dp[kQKeys / 2];  // S, dP: 64 rows x 128 keys
   uint32_t hi[kQKeys / 4], lo[kQKeys / 4];
 
@@ -1117,11 +1179,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto tile = [&](auto masked_c, int t) {
     constexpr bool kMasked = decltype(masked_c)::value;
     const int i = t - kt_begin, s = i % kKeyStages, k0 = t * kQKeys;
-    const uint32_t k_s = base + L::kK + s * L::kKV;
-    const uint32_t v_s = base + L::kV + s * L::kKV;
+    const uint32_t k_s = base + L::kK + s * L::kKT;
+    const uint32_t v_s = base + L::kV + s * L::kVT;
     mbar_wait(full + 8 * s, (i / kKeyStages) & 1);
     issue_ss<D, kQKeys>(sc, q_smem, L::kRowChunk, k_s, L::kKeyChunk);
-    issue_ss<D, kQKeys>(dp, do_smem, L::kRowChunk, v_s, L::kKeyChunk);
+    issue_ss<DV, kQKeys>(dp, do_smem, L::kRowChunk, v_s, L::kKeyChunk);
     if constexpr (kMasked)
       wgmma_wait<0>();
     else
@@ -1151,7 +1213,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e)
         dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dlt[e >> 1]);
     split_bf16(hi, lo, dp);
-    issue_rs<DP, kQKeys / 16>(dq, hi, lo, k_s, L::kKeyChunk);
+    issue_rs<DPQK, kQKeys / 16>(dq, hi, lo, k_s, L::kKeyChunk);
     wgmma_wait<0>();
     fence_regs(dq);
     mbar_arrive(empty + 8 * s);
@@ -1169,7 +1231,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __nv_bfloat16* dQ =
       static_cast<__nv_bfloat16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
+  for (int j = 0; j < DPQK / 8; ++j) {
     if (8 * j >= D) continue;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1183,28 +1245,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
-int launch_d(const CUtensorMap (&m)[8], const Args& a, int B,
-             cudaStream_t stream) {
-  constexpr int DP = D < 64 ? 64 : D;
-  int smem = SmemKV<DP>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+template <int D, int DV>
+int launch_d(const CUtensorMap (&m)[8], const PrepArgs& p, const Args& a,
+             int B, cudaStream_t stream) {
+  const int64_t prep_blocks = (p.rows + 7) / 8;
+  if (prep_blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
+  flash_bwd_prep<DV><<<unsigned(prep_blocks), 256, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  int smem = SmemKV<padded(D), padded(DV)>::kBytes;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<D, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid_kv(a.Hkv, B, (a.Sk + kKeys - 1) / kKeys);
-  flash_bwd_dkdv_tc<D><<<grid_kv, kThreads, smem, stream>>>(m[0], m[1],
-                                                            m[6], m[7], a);
+  flash_bwd_dkdv_tc<D, DV><<<grid_kv, kThreads, smem, stream>>>(
+      m[0], m[1], m[6], m[7], a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  smem = SmemQ<DP>::kBytes;
-  err = cudaFuncSetAttribute(flash_bwd_dq_tc<D>,
+  smem = SmemQ<padded(D), padded(DV)>::kBytes;
+  err = cudaFuncSetAttribute(flash_bwd_dq_tc<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid_q(a.H, B, (a.Sq + kQRows - 1) / kQRows);
-  flash_bwd_dq_tc<D><<<grid_q, kThreads, smem, stream>>>(m[2], m[3], m[4],
-                                                         m[5], a);
+  flash_bwd_dq_tc<D, DV><<<grid_q, kThreads, smem, stream>>>(
+      m[2], m[3], m[4], m[5], a);
   return int(cudaGetLastError());
 }
 
@@ -1218,7 +1284,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* scratch,
            int64_t scratch_len, void* dq, void* dk, void* dv,
            const int64_t* st, int B, int H, int Hkv, int Sq, int Sk, int D,
-           int causal, int window, cudaStream_t stream) {
+           int Dv, int causal, int window, cudaStream_t stream) {
   const int SqPad = (Sq + kRowPad - 1) / kRowPad * kRowPad;
   const int64_t rows = int64_t(B) * H * SqPad;
   if ((Sk + kKeys - 1) / kKeys > 65535 || (Sq + kQRows - 1) / kQRows > 65535)
@@ -1227,18 +1293,19 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return int(cudaErrorInvalidValue);
   // Q and dO in 64-row tiles (dK/dV) and 128-row tiles (dQ); K and V in
-  // 128-key tiles (dQ) and 64-key tiles (dK/dV).
+  // 128-key tiles (dQ) and 64-key tiles (dK/dV). q and k are D wide; v, o
+  // and dO Dv wide.
   CUtensorMap m[8];
   CUtensorMap mo;                        // checks o as TMA would (prep)
-  if (!make_map(&mo, o, st[9], st[10], st[11], D, H, Sq, B, kRows) ||
+  if (!make_map(&mo, o, st[9], st[10], st[11], Dv, H, Sq, B, kRows) ||
       !make_map(&m[0], q, st[0], st[1], st[2], D, H, Sq, B, kRows) ||
-      !make_map(&m[1], dout, st[12], st[13], st[14], D, H, Sq, B, kRows) ||
+      !make_map(&m[1], dout, st[12], st[13], st[14], Dv, H, Sq, B, kRows) ||
       !make_map(&m[2], q, st[0], st[1], st[2], D, H, Sq, B, kQRows) ||
-      !make_map(&m[3], dout, st[12], st[13], st[14], D, H, Sq, B, kQRows) ||
+      !make_map(&m[3], dout, st[12], st[13], st[14], Dv, H, Sq, B, kQRows) ||
       !make_map(&m[4], k, st[3], st[4], st[5], D, Hkv, Sk, B, kQKeys) ||
-      !make_map(&m[5], v, st[6], st[7], st[8], D, Hkv, Sk, B, kQKeys) ||
+      !make_map(&m[5], v, st[6], st[7], st[8], Dv, Hkv, Sk, B, kQKeys) ||
       !make_map(&m[6], k, st[3], st[4], st[5], D, Hkv, Sk, B, kKeys) ||
-      !make_map(&m[7], v, st[6], st[7], st[8], D, Hkv, Sk, B, kKeys))
+      !make_map(&m[7], v, st[6], st[7], st[8], Dv, Hkv, Sk, B, kKeys))
     return int(cudaErrorInvalidValue);
   // The epilogues store bf16 pairs: dq, dk, dv and their strides even.
   for (int t = 0; t < 3; ++t) {
@@ -1252,31 +1319,17 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                    static_cast<const __nv_bfloat16*>(dout), lse, scratch,
                    scratch + rows, st[9], st[10], st[11], st[12], st[13],
                    st[14], H, Sq, SqPad, rows};
-  const int64_t prep_blocks = (rows + 7) / 8;
-  if (prep_blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
-  switch (D) {
-    case 16: flash_bwd_prep<16><<<unsigned(prep_blocks), 256, 0, stream>>>(p);
-      break;
-    case 32: flash_bwd_prep<32><<<unsigned(prep_blocks), 256, 0, stream>>>(p);
-      break;
-    case 64: flash_bwd_prep<64><<<unsigned(prep_blocks), 256, 0, stream>>>(p);
-      break;
-    case 128:
-      flash_bwd_prep<128><<<unsigned(prep_blocks), 256, 0, stream>>>(p);
-      break;
-    default: return int(cudaErrorInvalidValue);
-  }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
   const Args a{dq, dk, dv, scratch, scratch + rows,
                st[15], st[16], st[17], st[18], st[19], st[20],
                st[21], st[22], st[23], H, Hkv, Sq, Sk, SqPad, causal, window,
                1.0f / sqrtf(float(D))};
+  if (D == 96 && Dv == 64) return launch_d<96, 64>(m, p, a, B, stream);
+  if (D != Dv) return int(cudaErrorInvalidValue);
   switch (D) {
-    case 16: return launch_d<16>(m, a, B, stream);
-    case 32: return launch_d<32>(m, a, B, stream);
-    case 64: return launch_d<64>(m, a, B, stream);
-    case 128: return launch_d<128>(m, a, B, stream);
+    case 16: return launch_d<16, 16>(m, p, a, B, stream);
+    case 32: return launch_d<32, 32>(m, p, a, B, stream);
+    case 64: return launch_d<64, 64>(m, p, a, B, stream);
+    case 128: return launch_d<128, 128>(m, p, a, B, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -1288,19 +1341,19 @@ namespace {
 constexpr int kVariantSimt = 0;
 constexpr int kVariantTc = 1;
 
-// The one place the variant is chosen, by the forward's rule: bf16 at
-// D >= 16 goes to the tensor cores (wgmma's k16 depth); f32 (whose
-// tensor-core path would be TF32) and D = 8 go to the SIMT kernels.
+// The one place the variant is chosen, by the forward's rule: bf16 with D
+// a multiple of wgmma's k16 depth goes to the tensor cores; f32 (whose
+// tensor-core path would be TF32) and D in {8, 24} go to the SIMT kernels.
 // Mirrored by kernel_variant() in flash_attention.py.
 int variant_for(int bf16, int D) {
-  return bf16 && D >= 16 ? kVariantTc : kVariantSimt;
+  return bf16 && D % 16 == 0 ? kVariantTc : kVariantSimt;
 }
 
 int dispatch(int bf16, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse,
              float* scratch, int64_t scratch_len, void* dq, void* dk,
              void* dv, const int64_t* strides, int B, int H, int Hkv, int Sq,
-             int Sk, int D, int causal, int window, int* variant,
+             int Sk, int D, int Dv, int causal, int window, int* variant,
              void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv != 0 ||
       Sq < 1 || Sk < 1)
@@ -1309,15 +1362,15 @@ int dispatch(int bf16, const void* q, const void* k, const void* v,
   *variant = var;
   if (var == kVariantTc)
     return tc::launch(q, k, v, o, dout, lse, scratch, scratch_len, dq, dk,
-                      dv, strides, B, H, Hkv, Sq, Sk, D, causal, window,
+                      dv, strides, B, H, Hkv, Sq, Sk, D, Dv, causal, window,
                       static_cast<cudaStream_t>(stream));
   if (scratch_len < int64_t(B) * H * Sq) return int(cudaErrorInvalidValue);
   if (bf16)
     return launch<__nv_bfloat16>(q, k, v, o, dout, lse, scratch, dq, dk, dv,
-                                 strides, B, H, Hkv, Sq, Sk, D, causal,
+                                 strides, B, H, Hkv, Sq, Sk, D, Dv, causal,
                                  window, stream);
   return launch<float>(q, k, v, o, dout, lse, scratch, dq, dk, dv, strides,
-                       B, H, Hkv, Sq, Sk, D, causal, window, stream);
+                       B, H, Hkv, Sq, Sk, D, Dv, causal, window, stream);
 }
 
 }  // namespace
@@ -1325,7 +1378,8 @@ int dispatch(int bf16, const void* q, const void* k, const void* v,
 extern "C" {
 
 // strides: 24 element strides, (b, h, s) of q, k, v, o, do, dq, dk, dv in
-// that order; the D axis of each must have unit stride. lse: the forward's
+// that order; the head axis of each must have unit stride. D is the head
+// dim of q, k, dq and dk, Dv that of v, o, do and dv. lse: the forward's
 // contiguous f32 (B, H, Sq) log-sum-exp; scratch: `scratch_len` floats of
 // f32 scratch, at least tc::scratch_floats(B, H, Sq) (bwd_scratch_floats
 // in flash_attention.py), 16-byte aligned, which the call fills (Δ, and
@@ -1337,10 +1391,11 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const float* lse, float* scratch,
                             int64_t scratch_len, void* dq, void* dk,
                             void* dv, const int64_t* strides, int B, int H,
-                            int Hkv, int Sq, int Sk, int D, int causal,
-                            int window, int* variant, void* stream) {
+                            int Hkv, int Sq, int Sk, int D, int Dv,
+                            int causal, int window, int* variant,
+                            void* stream) {
   return dispatch(0, q, k, v, o, dout, lse, scratch, scratch_len, dq, dk, dv,
-                  strides, B, H, Hkv, Sq, Sk, D, causal, window, variant,
+                  strides, B, H, Hkv, Sq, Sk, D, Dv, causal, window, variant,
                   stream);
 }
 
@@ -1349,10 +1404,11 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const float* lse, float* scratch,
                              int64_t scratch_len, void* dq, void* dk,
                              void* dv, const int64_t* strides, int B, int H,
-                             int Hkv, int Sq, int Sk, int D, int causal,
-                             int window, int* variant, void* stream) {
+                             int Hkv, int Sq, int Sk, int D, int Dv,
+                             int causal, int window, int* variant,
+                             void* stream) {
   return dispatch(1, q, k, v, o, dout, lse, scratch, scratch_len, dq, dk, dv,
-                  strides, B, H, Hkv, Sq, Sk, D, causal, window, variant,
+                  strides, B, H, Hkv, Sq, Sk, D, Dv, causal, window, variant,
                   stream);
 }
 

@@ -8,9 +8,11 @@ running max and sums in f32). Query head ``h`` reads KV head
 ``h // (H/Hkv)``. Masks: ``k_pos < Sk``, causal ``q_pos >= k_pos``,
 optional window ``q_pos - k_pos < W``; masked scores are -1e30, as in
 the TPU kernel. The kernels take the head-dim pairs ``(D, Dv)`` of
-:data:`KERNEL_DIMS`: ``D == Dv`` in :data:`HEAD_DIMS`, and (96, 64),
-MLA's (minicpm3-4b), whose launches the wrapper also counts in
-``flash_attention.launches_split``. The plain version takes any pair.
+:data:`KERNEL_DIMS`: ``D == Dv`` in :data:`HEAD_DIMS`, (96, 64), MLA's
+(minicpm3-4b), and (24, 16), the reduced MLA's, forward and backward
+alike; the wrapper also counts their launches in
+``flash_attention.launches_split`` and ``.launches_bwd_split``. The
+plain version takes any pair.
 
 The forward kernels are in ``csrc/flash_attention.cu`` (CUDA C++ for
 sm_90a; its header has the bound at the prefill shape and the designs);
@@ -20,13 +22,13 @@ kernels, and the C launcher dispatches between them by dtype and D
 (:func:`kernel_variant` is its Python mirror; the wrapper raises if the
 two disagree):
 
-- ``"tc"``, bf16 with D in {16, 32, 64, 96, 128}: TMA loads and
-  ``wgmma`` on the tensor cores, the serving path's kernel. Its one
-  rounding beyond the plain version's is P in bf16 before P·V, made
-  exact to ~2^-17 on the tiles that cross a mask edge (where a row may
-  hold few keys).
-- ``"simt"``, f32 (on the tensor cores it would be TF32) and D = 8
-  (below wgmma's k16 depth): f32 FMAs on the CUDA cores.
+- ``"tc"``, bf16 with D a multiple of wgmma's k16 depth (16, 32, 64,
+  96, 128): TMA loads and ``wgmma`` on the tensor cores, the serving
+  path's kernel. Its one rounding beyond the plain version's is P in
+  bf16 before P·V, made exact to ~2^-17 on the tiles that cross a mask
+  edge (where a row may hold few keys).
+- ``"simt"``, f32 (on the tensor cores it would be TF32) and D in {8,
+  24} (not a multiple of k16): f32 FMAs on the CUDA cores.
 
 This is a dispatch, not a fallback: a failed build or launch of either
 raises. TMA addresses a tensor only from a 16-byte aligned base with
@@ -35,22 +37,26 @@ wrapper copies a q, k or v view that misses that to a contiguous tensor
 first, so such a call still runs on the tensor cores.
 
 The backward is ``csrc/flash_attention_bwd.cu``
-(:func:`flash_attention_bwd`, f32 and bf16, every D of the forward with
-``D == Dv``; a pair with ``D != Dv`` raises ``NotImplementedError``
-there and in :class:`FlashAttentionFn`, before anything launches): from
-q, k, v, the output o, the forward's per-row log-sum-exp ``lse``
+(:func:`flash_attention_bwd`, f32 and bf16, every pair of the forward):
+from q, k, v, the output o, the forward's per-row log-sum-exp ``lse``
 (``(B, H, Sq)`` f32, which the forward kernels store only when asked) and
 the output's gradient dO it computes dQ, dK and dV, dK and dV summed over
 the query heads of each KV head. Its C launcher chooses between two
 variants by the forward's rule (:func:`kernel_variant` again):
 
-- ``"tc"``, bf16 with D in {16, 32, 64, 128}: TMA and ``wgmma``, a dK/dV
-  kernel per key tile and a dQ kernel per query tile (the training
-  path's). The products take P and dS as two bf16 parts each (hi and the
-  remainder lo), so its only rounding beyond the plain version's is ~2^-17
-  of each term; the wrapper copies a q, k, v, o or dO view that TMA cannot
-  address first, as the forward does.
-- ``"simt"``, f32 and D = 8: f32 FMAs on the CUDA cores.
+- ``"tc"``, bf16 with D in {16, 32, 64, 96, 128}: TMA and ``wgmma``, a
+  dK/dV kernel per key tile and a dQ kernel per query tile (the training
+  path's; at (96, 64) dK and dQ are n128 products over q's and k's zero
+  half, as no n96 layout exists). The products take P and dS as two
+  bf16 parts each (hi and the remainder lo), so its only rounding beyond
+  the plain version's is ~2^-17 of each term; the wrapper copies a q, k,
+  v, o or dO view that TMA cannot address first, as the forward does.
+- ``"simt"``, f32 and D in {8, 24}: f32 FMAs on the CUDA cores, with
+  dQ and dK D wide and dV and Δ Dv wide.
+
+The backward's bound is operations: 6D + 4Dv FLOP per visible (q, k)
+pair (the forward's is 2(D + Dv)), 0.0353 ms at MLA's training shape
+(B=2, H=40, S=1024, (96, 64), causal) on the card's 989 TFLOP/s.
 
 Both are deterministic: every gradient element has one writer. The JAX
 package has no backward kernel (it takes this gradient by autodiff of its
@@ -73,8 +79,9 @@ output and the gradients are laid out like their inputs.
 ``flash_attention.launches_tc`` and ``.launches_simt`` those of each
 variant, ``.launches_split`` those with ``D != Dv`` (also counted in
 their kernel's), ``flash_attention.launches_bwd`` backward calls (each enqueues
-the backward's three kernels: a pre-pass for Δ, dK/dV, dQ) and
-``.launches_bwd_tc`` / ``.launches_bwd_simt`` those of each variant.
+the backward's three kernels: a pre-pass for Δ, dK/dV, dQ),
+``.launches_bwd_tc`` / ``.launches_bwd_simt`` those of each variant and
+``.launches_bwd_split`` those with ``D != Dv``.
 """
 from __future__ import annotations
 
@@ -88,10 +95,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)
-# (D of q and k, Dv of v) pairs the kernels are built for.
-KERNEL_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64),)
-SPLIT_BWD = ("the backward kernels have no D != Dv variant yet (ROADMAP "
-             "Queue B item 3: B2' for MLA's (96, 64))")
+# (D of q and k, Dv of v) pairs the kernels are built for: MLA's
+# (minicpm3-4b) and the reduced MLA's beside D == Dv.
+KERNEL_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64), (24, 16))
 _DTYPES = (torch.float32, torch.bfloat16)
 TMA_ALIGN = 16          # bytes: TMA's base and stride granule
 BWD_ROW_PAD = 128       # the tc backward's scratch rows: Sq rounded up
@@ -99,10 +105,11 @@ BWD_ROW_PAD = 128       # the tc backward's scratch rows: Sq rounded up
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
     """Which kernels a CUDA call runs, forward and backward alike: ``"tc"``
-    (tensor cores) for bf16 at D >= 16, ``"simt"`` for f32 and D = 8 (D
-    of q and k). Mirrors ``variant_for`` in ``csrc/flash_attention.cu``
-    and ``csrc/flash_attention_bwd.cu``, which make the choice."""
-    return "tc" if dtype == torch.bfloat16 and d >= 16 else "simt"
+    (tensor cores) for bf16 with D a multiple of wgmma's k16 depth,
+    ``"simt"`` for f32 and D in {8, 24} (D of q and k). Mirrors
+    ``variant_for`` in ``csrc/flash_attention.cu`` and
+    ``csrc/flash_attention_bwd.cu``, which make the choice."""
+    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
 
 
 def bwd_scratch_floats(b: int, h: int, sq: int) -> int:
@@ -234,7 +241,7 @@ def _lib_bwd() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
                        + [ctypes.c_void_p] * 3
                        + [ctypes.POINTER(ctypes.c_int64)]
-                       + [ctypes.c_int] * 8
+                       + [ctypes.c_int] * 9
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -346,18 +353,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                      window: int | None) -> None:
-    """The backward's inputs: q, k, v as the forward takes them, with
-    ``D == Dv`` (else ``NotImplementedError``); o and do shaped and typed
-    like q with unit stride on D; lse a contiguous f32 ``(B, H, Sq)`` on
-    q's device."""
+    """The backward's inputs: q, k, v as the forward takes them; o and do
+    the output's ``(B, H, Sq, Dv)`` in q's dtype on q's device, with unit
+    stride on Dv; lse a contiguous f32 ``(B, H, Sq)`` on q's device."""
     check_inputs(q, k, v, window)
-    _require_equal_dims(q, v)
+    want = (*q.shape[:3], v.shape[3])
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+        if (tuple(t.shape) != want or t.dtype != q.dtype
+                or t.device != q.device):
             raise ValueError(f"flash_attention_bwd: {name} is "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}; "
-                             f"want q's {tuple(q.shape)} {q.dtype} on "
-                             f"{q.device}")
+                             f"want {want} {q.dtype} on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention_bwd: the head dim of {name} "
                              f"must have unit stride")
@@ -379,7 +385,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_bwd_inputs(q, k, v, o, lse, do, window)
     _require_cuda("flash_attention_bwd", q)
     b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, d_v = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     variant = kernel_variant(q.dtype, d)
     if variant == "tc":
@@ -402,7 +408,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                  n_scratch, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 strides, b, h, hkv, sq, sk, d, int(causal),
+                 strides, b, h, hkv, sq, sk, d, d_v, int(causal),
                  0 if window is None else int(window),
                  ctypes.byref(launched), stream)
     if err != 0:
@@ -410,6 +416,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"launch failed: cudaError {err}")
     _check_variant("flash_attention_bwd", launched.value, variant)
     flash_attention.launches_bwd += 1
+    flash_attention.launches_bwd_split += d != d_v
     if variant == "tc":
         flash_attention.launches_bwd_tc += 1
     else:
@@ -417,23 +424,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-def _require_equal_dims(q: torch.Tensor, v: torch.Tensor) -> None:
-    if q.shape[-1] != v.shape[-1]:
-        raise NotImplementedError(
-            f"flash_attention under grad with D={q.shape[-1]} != "
-            f"Dv={v.shape[-1]}: {SPLIT_BWD}")
-
-
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with a kernel on both sides: the forward kernel with
     ``lse`` (saving q, k, v, o and lse), the backward kernel for dq, dk
-    and dv. CUDA tensors only (the launchers raise otherwise), with
-    ``D == Dv``: a pair with ``D != Dv`` raises ``NotImplementedError``
-    before any launch (``SPLIT_BWD``)."""
+    and dv, at every pair of :data:`KERNEL_DIMS`. CUDA tensors only (the
+    launchers raise otherwise)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        _require_equal_dims(q, v)
         out, lse = flash_attention_fwd(q, k, v, causal, window,
                                        with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -453,7 +451,7 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
-    """The kernel on CUDA tensors -> ``(B, H, Sq, D)`` in q's dtype, laid
+    """The kernel on CUDA tensors -> ``(B, H, Sq, Dv)`` in q's dtype, laid
     out like q. With grad enabled and an input that requires grad, through
     :class:`FlashAttentionFn` (the output carries the kernel backward's
     autograd node); otherwise one forward launch with no ``lse``. Raises
@@ -470,3 +468,4 @@ flash_attention.launches_split = 0
 flash_attention.launches_bwd = 0
 flash_attention.launches_bwd_tc = 0
 flash_attention.launches_bwd_simt = 0
+flash_attention.launches_bwd_split = 0

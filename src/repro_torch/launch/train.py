@@ -12,6 +12,9 @@ per-satellite token corpora:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
       --full --rounds 3 --sats 4 --orbits 2 --seq 1024 --batch-per-sat 2 \
       --local-steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm3-4b \
+      --full --rounds 3 --sats 4 --orbits 2 --seq 1024 --batch-per-sat 2 \
+      --local-steps 2
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
       -m repro_torch.launch.train --full --rounds 3 --sats 4 --orbits 2 \
       --round-kind fedhap_fused
@@ -33,7 +36,9 @@ fold of the S replicas with the closed-form Eq. 14-16 weights in one
 ``fedagg_leaves`` launch; ``--round-kind`` does not change it, as in the
 reference's single-device path. On the card each mixer runs forward and
 backward through its kernels: attention through ``flash_attention`` and
-``flash_attention_bwd``, RWKV-6's time mix through ``rwkv6_wkv`` and
+``flash_attention_bwd`` (MLA's too: minicpm3-4b's q and k 96 wide and v
+64 at full width, 24 and 16 reduced, each pair a variant of both
+kernels), RWKV-6's time mix through ``rwkv6_wkv`` and
 ``rwkv6_wkv_bwd``, Mamba's scan through ``selective_scan`` and
 ``selective_scan_bwd``. Full-width jamba-v0.1-52b does not fit one card
 (52 B params per replica); one replica per card over several cards is

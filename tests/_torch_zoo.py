@@ -44,14 +44,14 @@ def reduced(arch: str, **overrides):
 
 
 @functools.cache
-def zoo_pair(arch: str, **overrides):
+def zoo_pair(arch: str, own_fan_in: bool | None = None, **overrides):
     """(port model, JAX model, JAX params, port params on the CPU) of the
-    reduced ``arch``; whisper's stacked matrices at own fan-in. Cached,
-    never mutated by the tests."""
+    reduced ``arch``; the stacked matrices at own fan-in for whisper (or
+    where ``own_fan_in`` says so). Cached, never mutated by the tests."""
     cfg, jcfg = reduced(arch, **overrides)
     tm, jm = Transformer(cfg), JaxTransformer(jcfg)
     jp = jm.init(jax.random.key(0))
-    if arch in OWN_FAN_IN:
+    if arch in OWN_FAN_IN if own_fan_in is None else own_fan_in:
         factors = chip_smoke().own_fan_in_factors(tm)
 
         def scale(tree, prefix=""):

@@ -257,11 +257,13 @@ def test_tensor_core_emulation_matches_plain_on_ragged_rows(causal, window):
 
 
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", fa_mod.HEAD_DIMS)
+@pytest.mark.parametrize("d", sorted({d for d, _ in fa_mod.KERNEL_DIMS}))
 def test_kernel_variant_by_dtype_and_head_dim(dname, d):
-    """bf16 at D >= 16 runs on the tensor cores; f32 (TF32 there) and
-    D = 8 (below wgmma's k16 depth) on the SIMT kernel."""
-    want = "tc" if dname == "bfloat16" and d >= 16 else "simt"
+    """bf16 with D a multiple of wgmma's k16 depth (16, 32, 64, 96, 128)
+    runs on the tensor cores; f32 (TF32 there) and D in {8, 24} on the
+    SIMT kernel."""
+    want = "tc" if dname == "bfloat16" and d in (16, 32, 64, 96, 128) \
+        else "simt"
     assert fa_mod.kernel_variant(DTYPES[dname][0], d) == want
 
 

@@ -91,18 +91,19 @@ def _tc_bwd_emulation(q, k, v, o, lse, do, causal=True, window=None,
     dq = torch.einsum("bhqk,bhkd->bhqd", _operand(ds, split, q_edge),
                       kq) * scale
     dk = dk.view(b, hkv, group, sk, d).sum(2)
-    dv = dv.view(b, hkv, group, sk, d).sum(2)
+    dv = dv.view(b, hkv, group, sk, v.shape[3]).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _train_like(seed, b=1, h=8, hkv=4, s=1024, d=128):
-    """The training shape's rows (S=1024, qwen3's D=128 and group of 2) at
-    reduced heads, bf16, with the forward's o and lse from the plain
-    version."""
+def _train_like(seed, b=1, h=8, hkv=4, s=1024, d=128, dv=None):
+    """The training shape's rows (S=1024, qwen3's D=128 and group of 2, or
+    MLA's (96, 64) with ``dv``) at reduced heads, bf16, with the
+    forward's o and lse from the plain version."""
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(torch.bfloat16) for shape in (
-        (b, h, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, h, s, d)))
+        (b, h, s, d), (b, hkv, s, d), (b, hkv, s, dv), (b, h, s, dv)))
     o = fa_mod.flash_attention_plain(q, k, v)
     lse = fa_mod.flash_attention_lse_plain(q, k)
     return q, k, v, o, lse, do
@@ -119,6 +120,21 @@ def test_tc_bwd_numerics_fit_bwd_tolerance(seed):
     the tolerance chip_smoke.py holds them to at the training shape."""
     tol = chip_smoke().BWD_BF16_TOL
     q, k, v, o, lse, do = _train_like(seed)
+    got = _tc_bwd_emulation(q, k, v, o, lse, do)
+    want = fa_mod.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                   **tol, err_msg=name)
+
+
+@pytest.mark.parametrize("seed,h,hkv", [(32, 4, 4), (33, 4, 2)])
+def test_tc_bwd_split_numerics_fit_bwd_tolerance(seed, h, hkv):
+    """The same at MLA's (96, 64) training rows (S=1024, minicpm3-4b's
+    group of 1, and a group of 2): the n128 products over q's and k's zero
+    half add exact zeros, so the rounding is the D = Dv kernels'."""
+    tol = chip_smoke().BWD_BF16_TOL
+    q, k, v, o, lse, do = _train_like(seed, h=h, hkv=hkv, d=96, dv=64)
     got = _tc_bwd_emulation(q, k, v, o, lse, do)
     want = fa_mod.flash_attention_bwd_plain(q, k, v, o, lse, do)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -152,9 +168,13 @@ JAX_CASES = [
     (1, 4, 1, 37, 20, 32, True, None),
     (2, 4, 2, 30, 30, 128, False, 12),
     (1, 16, 8, 48, 48, 128, True, None),
+    (1, 4, 4, 40, 40, 96, True, None),
+    (1, 4, 2, 33, 70, 96, False, 9),
 ]
 JAX_IDS = [f"B{b}H{h}G{h // hkv}Sq{sq}Sk{sk}D{d}{'c' if c else 'n'}w{w}"
            for b, h, hkv, sq, sk, d, c, w in JAX_CASES]
+# Dv of each case's v and dO: MLA's 64 where D is 96.
+JAX_DV = {96: 64}
 F32 = dict(atol=2e-5, rtol=1e-4)
 
 
@@ -164,10 +184,11 @@ def test_tc_bwd_emulation_matches_jax_grad(case):
     ~2^-17 of each term: the emulation meets the f32 tolerance the plain
     backward meets against jax.grad of the oracle."""
     b, h, hkv, sq, sk, d, causal, window = case
+    dv = JAX_DV.get(d, d)
     rng = np.random.default_rng(7)
     q, k, v, do = (rng.standard_normal(shape).astype(np.float32)
                    for shape in ((b, h, sq, d), (b, hkv, sk, d),
-                                 (b, hkv, sk, d), (b, h, sq, d)))
+                                 (b, hkv, sk, dv), (b, h, sq, dv)))
     with jax.default_device(jax.devices("cpu")[0]), \
             jax.default_matmul_precision("highest"):
         _, vjp = jax.vjp(lambda a, b_, c: ref.flash_attention_ref(
@@ -183,17 +204,18 @@ def test_tc_bwd_emulation_matches_jax_grad(case):
 
 
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", fa_mod.HEAD_DIMS)
+@pytest.mark.parametrize("d", sorted({d for d, _ in fa_mod.KERNEL_DIMS}))
 def test_kernel_variant_for_backward(dname, d):
     """The backward's C launcher chooses its variant by the forward's
-    rule, which kernel_variant mirrors: bf16 at D >= 16 on the tensor
-    cores, f32 and D = 8 on the SIMT kernels. The wrapper counts each."""
+    rule, which kernel_variant mirrors: bf16 with D a multiple of k16 (16,
+    32, 64, 96, 128) on the tensor cores, f32 and D in {8, 24} on the SIMT
+    kernels. The wrapper counts each, and the split pairs apart."""
     dtype = getattr(torch, dname)
-    want = "tc" if dname == "bfloat16" and d >= 16 else "simt"
+    want = "tc" if dname == "bfloat16" and d % 16 == 0 else "simt"
     assert fa_mod.kernel_variant(dtype, d) == want
     fn = fa_mod.flash_attention
     assert all(isinstance(getattr(fn, f"launches_bwd{x}"), int)
-               for x in ("", "_tc", "_simt"))
+               for x in ("", "_tc", "_simt", "_split"))
 
 
 @pytest.mark.parametrize("b,h,sq", [(1, 1, 1), (2, 16, 1024), (4, 16, 4096),

@@ -1,12 +1,13 @@
 """The flash kernels' head-dim pairs (``repro_torch.kernels
 .flash_attention``): q and k of head dim D, v of Dv, the output of Dv.
 
-The kernels take the pairs of ``KERNEL_DIMS``: D == Dv in ``HEAD_DIMS``
-and (96, 64), MLA's (minicpm3-4b), a variant of its own that the C
-launcher reports apart and the wrapper counts in ``launches_split``. The
-plain version takes any pair on the CPU (the reduced MLA's is (24, 16)),
-held here to a dense f64 reference. Under grad a pair with D != Dv
-raises before any launch: the backward kernels have no such variant.
+The kernels take the pairs of ``KERNEL_DIMS``: D == Dv in ``HEAD_DIMS``,
+(96, 64), MLA's (minicpm3-4b), and (24, 16), the reduced MLA's, forward
+and backward; the wrapper counts their launches in ``launches_split``
+and ``launches_bwd_split``. The plain version takes any pair on the CPU,
+held here to a dense f64 reference. Under grad both split pairs build
+the kernels' autograd node (``tests/test_torch_flash_split_bwd.py``
+holds their gradients).
 The ``cuda``-marked tests hold the kernels to the plain version on the
 card (bf16 on the tensor cores, f32 on the SIMT kernel), with causal,
 windowed and bidirectional masks, ragged lengths and Sq != Sk
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa_mod, ops
 
-from _torch_flash import chip_smoke, tc_emulation
+from _torch_flash import chip_smoke, plain_launchers, tc_emulation
 
 torch.set_num_threads(2)
 
@@ -74,9 +75,9 @@ def test_op_takes_any_head_dims_on_cpu(d, dv, sq, sk, causal, window):
 
 
 def test_kernel_dims_table():
-    assert (96, 64) in fa_mod.KERNEL_DIMS
+    assert (96, 64) in fa_mod.KERNEL_DIMS and (24, 16) in fa_mod.KERNEL_DIMS
     assert all((d, d) in fa_mod.KERNEL_DIMS for d in fa_mod.HEAD_DIMS)
-    assert len(fa_mod.KERNEL_DIMS) == len(fa_mod.HEAD_DIMS) + 1
+    assert len(fa_mod.KERNEL_DIMS) == len(fa_mod.HEAD_DIMS) + 2
 
 
 # chip_smoke.py's phase 7 sweeps: (96, 64) as (B, H, Hkv, Sq, Sk, causal,
@@ -138,26 +139,30 @@ def test_split_output_is_laid_out_like_q():
     assert fa_mod._out_like(q, 96).stride() == q.stride()
 
 
-def test_split_dims_under_grad_raise_before_any_launch():
-    """MLA's flash under grad: the kernel wrapper and the autograd
-    Function raise NotImplementedError naming the ROADMAP item, and the
-    backward's input check refuses the pair too."""
-    q, k, v = _views(1, 2, 2, 8, 8, 96, 64)
-    q.requires_grad_()
-    fn = fa_mod.flash_attention
-    before = (fn.launches, fn.launches_bwd)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 3"):
-        fn(q, k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 3"):
-        fa_mod.FlashAttentionFn.apply(q, k, v, True, None)
-    o = q.new_zeros(1, 2, 8, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 3"):
+def test_split_dims_under_grad_raise_before_any_launch(monkeypatch):
+    """MLA's flash under grad, at both split pairs: nothing raises any
+    more. The kernel wrapper and the autograd Function run the forward
+    launcher with lse and the backward launcher (replaced here by the
+    plain versions), whose input check takes o and dO Dv wide; the
+    gradients are the plain version's autograd, as on the CPU path."""
+    calls = plain_launchers(monkeypatch)
+    for d, dv in ((96, 64), (24, 16)):
+        q, k, v = _views(1, 2, 2, 8, 8, d, dv)
+        q.requires_grad_()
+        del calls[:]
+        for run in (lambda: fa_mod.flash_attention(q, k, v),
+                    lambda: fa_mod.FlashAttentionFn.apply(q, k, v, True,
+                                                          None)):
+            out = run()
+            assert out.shape == (1, 2, 8, dv)
+            (g,) = torch.autograd.grad(out.sum(), [q])
+            (want,) = torch.autograd.grad(
+                ops.flash_attention_op(q, k, v).sum(), [q])
+            np.testing.assert_allclose(g.numpy(), want.numpy(), atol=1e-6,
+                                       rtol=1e-6)
+        assert calls == [("fwd", True), ("bwd", True, None)] * 2
+        o = q.new_zeros(1, 2, 8, dv)
         fa_mod.check_bwd_inputs(q, k, v, o, q.new_zeros(1, 2, 8), o, None)
-    assert (fn.launches, fn.launches_bwd) == before
-    # On the CPU the plain version's autograd is the gradient.
-    out = ops.flash_attention_op(q, k, v)
-    (g,) = torch.autograd.grad(out.sum(), [q])
-    assert g.shape == q.shape and bool(torch.isfinite(g).all())
 
 
 # ------------------------------------------------------------- the card
@@ -189,6 +194,33 @@ def test_split_kernel_matches_plain_on_card(b, h, hkv, sq, sk, causal,
                                want.float().cpu().numpy(), **TOL[dname])
 
 
+# chip_smoke.py's phase 7 sweep of the reduced MLA's (24, 16) pair.
+REDUCED_CASES = chip_smoke().FLASH_REDUCED_MLA_SWEEP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal,window", REDUCED_CASES)
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_reduced_mla_pair_matches_plain_on_card(b, h, hkv, sq, sk, causal,
+                                                window, dname):
+    """The reduced MLA's (24, 16): D = 24 is not a multiple of wgmma's
+    k16, so both dtypes run the SIMT kernel, counted as a split launch."""
+    _on_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, dname)
+    q, k, v = _views(b, h, hkv, sq, sk, 24, 16, dtype, "cuda", seed=14)
+    fn = fa_mod.flash_attention
+    before = (fn.launches_tc, fn.launches_simt, fn.launches_split)
+    got = fn(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fn.launches_tc, fn.launches_simt, fn.launches_split) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert got.shape == (b, h, sq, 16) and got.transpose(1, 2).is_contiguous()
+    want = fa_mod.flash_attention_plain(q, k, v, causal, window)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dname])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,sq,sk,d", CROSS_CASES)
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
@@ -207,7 +239,8 @@ def test_bidirectional_ragged_sq_ne_sk_on_card(b, h, hkv, sq, sk, d, dname):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,dv", [(48, 48), (256, 256), (64, 96)])
+@pytest.mark.parametrize("d,dv", [(48, 48), (256, 256), (64, 96), (24, 24),
+                                  (96, 96)])
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 def test_pair_outside_the_table_refused_on_card(d, dv, dname):
     """The kernels take only the pairs of KERNEL_DIMS: the kernel wrapper

@@ -25,10 +25,11 @@ from repro.configs import get_config as jax_get_config
 from repro.kernels import ref
 from repro.models import attention as jax_attn
 from repro_torch.configs import get_config
-from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import flash_attention as fa_mod, ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_rope, rms_norm_headwise
 
+from _torch_flash import plain_launchers
 from _torch_zoo import jax_decode, port_decode, tokens, zoo_pair
 
 torch.set_num_threads(2)
@@ -124,6 +125,57 @@ def test_mla_forward_block_matches_jax(s):
         got = attn.mla_forward(tm.cfg, tmix, torch.from_numpy(x),
                                torch.from_numpy(pos))
     _close(got.numpy(), want)
+
+
+# MLA's leaf gradients, port vs jax.grad: both f32, their sums in other
+# orders (~1e-6 relative); the scores (|s| up to ~30 at this init) carry
+# that into the softmax's weights and so into every gradient, as into the
+# outputs (REL). Measured on the CPU: within 1.3e-5 of each leaf's
+# largest entry (kv_norm, w_dq, w_uk, w_uq the largest).
+GRAD_REL = 1e-4
+
+
+@pytest.mark.parametrize("s", [16, 64])
+@pytest.mark.parametrize("path", ["plain", "kernel_fn"])
+def test_mla_leaf_grads_match_jax_grad(s, path, monkeypatch):
+    """Every leaf's gradient of one MLA layer (and the input's), the
+    port's ``mla_forward`` against ``jax.grad`` of the JAX package's on
+    the same reduced params (q·k 24, v 16) and cotangent. ``w_kr``'s
+    gradient is the sum over the heads of dK's rope part (``k_rope``
+    expanded to every head, then concatenated): the JAX package's
+    broadcast gradient. ``plain`` is the CPU training path (the plain
+    flash version's autograd); ``kernel_fn`` routes the attention through
+    ``FlashAttentionFn`` (the kernels' autograd node, its launchers
+    replaced by the plain versions), as on the card."""
+    tm, jm, jp, tp = zoo_pair(ARCH)
+    jmix, tmix = _layer0(tm, jp, tp)
+    x = _x(tm, 2, s, seed=9)
+    ct = np.random.default_rng(10).standard_normal(x.shape).astype(
+        np.float32)
+    pos = np.arange(s, dtype=np.int32)
+
+    def jloss(p, xx):
+        y = jax_attn.mla_forward(jm.cfg, p, xx, jnp.asarray(pos))
+        return jnp.sum(y * jnp.asarray(ct))
+    with jax.default_matmul_precision("highest"):
+        jg, jgx = jax.grad(jloss, argnums=(0, 1))(jmix, jnp.asarray(x))
+    if path == "kernel_fn":
+        calls = plain_launchers(monkeypatch)
+        monkeypatch.setattr(ops, "flash_attention_op",
+                            lambda q, k, v, causal=True, window=None:
+                            fa_mod.flash_attention(q, k, v, causal, window))
+    p = {k: v.clone().requires_grad_() for k, v in tmix.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    y = attn.mla_forward(tm.cfg, p, xt, torch.from_numpy(pos))
+    got = torch.autograd.grad((y * torch.from_numpy(ct)).sum(),
+                              [*p.values(), xt])
+    if path == "kernel_fn":
+        assert calls == [("fwd", True), ("bwd", True, None)]
+    want = dict(jg, x=jgx)
+    assert set(p) == set(jg)
+    for name, g in zip([*p, "x"], got):
+        _close(g.numpy(), want[name], rel=GRAD_REL)
+
 
 
 def test_mla_cache_is_compressed():

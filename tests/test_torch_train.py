@@ -5,7 +5,8 @@ round (``repro.launch.train._single_device_round``), mirroring
 
 Reduced qwen3-0.6b (2 layers, d_model 256, f32), 4 satellites over 2
 orbits, sequence 32, 2 local steps, lr 0.1 (and the round test also at
-reduced rwkv6-3b and reduced jamba-v0.1-52b, below): params made by the JAX
+reduced rwkv6-3b, reduced jamba-v0.1-52b and reduced minicpm3-4b, whose
+MLA attends through the flash pair (24, 16), below): params made by the JAX
 package and carried into the port with ``params_from_numpy``, batches
 bit-equal (numpy), the same visibility draws. Tolerance of the two
 rounds: losses ``rtol=1e-6`` and every leaf ``atol=5e-6`` after two
@@ -41,10 +42,13 @@ from repro_torch.launch import train
 from repro_torch.models import Transformer, params_from_numpy
 
 from _torch_jamba import JAMBA, jamba_pair
+from _torch_zoo import zoo_pair
 
 torch.set_num_threads(2)
 
 ARCH = "qwen3-0.6b"
+# MLA (q·k 24, v 16 at reduced size: the flash pair (24, 16)).
+MLA = "minicpm3-4b"
 N_SATS, BATCH, SEQ = 4, 2, 32
 LOSS_TOL = dict(rtol=1e-6, atol=0)
 LEAF_TOL = dict(atol=5e-6, rtol=0)
@@ -76,9 +80,23 @@ def _reduced_pair(arch: str):
     if arch == JAMBA:
         tm, jm, jp, _ = jamba_pair()
         return tm, jm, jp
+    if arch == MLA:
+        tm, jm, jp, _ = mla_pair()
+        return tm, jm, jp
     jm = JaxTransformer(jax_get_config(arch).reduced())
     return Transformer(get_config(arch).reduced()), jm, \
         jm.init(jax.random.key(0))
+
+
+def mla_pair():
+    """The reduced minicpm3-4b at own fan-in (``chip_smoke
+    .own_fan_in_factors`` applied to the JAX-made params, as
+    ``tests/_torch_zoo.py`` does for whisper-small): at the reference's
+    init (every stacked matrix at std 1/sqrt(2)) its MLA layers put out
+    |y| ~ 100 on unit inputs, and two rounds of SGD at lr 0.1 carry the
+    f32 sums' order into the losses at 1.2e-3 relative (the first
+    round's at 2.9e-6); at own fan-in both stay within ``LOSS_TOL``."""
+    return zoo_pair(MLA, own_fan_in=True)
 
 
 @pytest.fixture(scope="module")
@@ -231,12 +249,13 @@ def _run_both(pair, rounds: int, vis_seed: int = 0):
             jlosses, _flat_jax(jparams_S))
 
 
-@pytest.mark.parametrize("arch", [ARCH, "rwkv6-3b", JAMBA])
+@pytest.mark.parametrize("arch", [ARCH, "rwkv6-3b", JAMBA, MLA])
 def test_two_rounds_match_jax_single_device_round(arch, pair):
     """Two rounds of each family's mixer: attention (qwen3-0.6b), the
     WKV recurrence (rwkv6-3b; the JAX package's chunked ``_wkv_chunk``,
-    whose clamp does not bind at the init's decays and chunk 16) and the
-    Mamba scan with MoE (jamba at own fan-in)."""
+    whose clamp does not bind at the init's decays and chunk 16), the
+    Mamba scan with MoE (jamba at own fan-in) and MLA (minicpm3-4b at own
+    fan-in: q·k 24, v 16, the port's split flash pair)."""
     p = pair if arch == ARCH else _reduced_pair(arch)
     losses, got, jlosses, want = _run_both(p, 2)
     loss_tol, leaf_tol = ROUND_TOL.get(arch, (LOSS_TOL, LEAF_TOL))
@@ -280,7 +299,7 @@ def test_fed_training_reduces_loss(pair):
     assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
 
 
-@pytest.mark.parametrize("arch", [ARCH, "rwkv6-3b", JAMBA])
+@pytest.mark.parametrize("arch", [ARCH, "rwkv6-3b", JAMBA, MLA])
 def test_remat_gives_the_same_gradients(arch, pair):
     """``cfg.remat`` recomputes each period in the backward: the same
     loss and gradients, bit for bit on the CPU, for each family's mixer
@@ -313,6 +332,19 @@ def test_cli_on_cpu_writes_a_checkpoint_the_reference_loads(tmp_path, pair):
     got = _flat_jax(tree)
     for k, leaf in res["params_S"].items():
         np.testing.assert_array_equal(got[k], leaf[0].numpy(), err_msg=k)
+
+
+def test_cli_trains_mla_on_cpu():
+    """``--arch minicpm3-4b`` with the CLI's defaults but the device (the
+    reduced config: MLA with q·k 24 and v 16, f32): two rounds, finite
+    losses, the single-device path, rows equal after each fold."""
+    res = train.main(["--arch", MLA, "--device", "cpu", "--rounds", "2",
+                      "--seq", "32"])
+    assert res["path"] == "single_device"
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    for k, leaf in res["params_S"].items():
+        assert all(torch.equal(leaf[s], leaf[0])
+                   for s in range(1, leaf.shape[0])), k
 
 
 def test_cli_rejects_sats_not_a_multiple_of_orbits():
