@@ -79,8 +79,7 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     (kernel) and on the CPU (plain version); the logits must agree;
 13. rwkv decode vs prefill — full width, f32 then bf16, B=2, S=64 (two
     of the kernel's 32-step tiles); two planted faults at step 32 (a
-    decay skipped, a stale token shift); the same readings with the
-    stacked matrices at their own fan-in, reported only;
+    decay skipped, a stale token shift);
 14. rwkv serve — full-width rwkv6-3b in bf16: ``prefill`` at B=4,
     S=4096 (the counts zeroed just before, read just after: 32
     ``rwkv6_wkv`` launches, no input copied), ``greedy_generate`` at
@@ -137,9 +136,7 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     settings (it must set ``cudnn.deterministic``): a run of 4 events, a
     run cut at 2 and the cut run resumed; the history equal and the final
     params and strategy state bit-equal; then a checkpoint written on the
-    card loads into a CPU engine leaf for leaf; and the run-to-run spread
-    of fedspace with cuDNN's default algorithms (the flag cleared for
-    those two runs), reported only;
+    card loads into a CPU engine leaf for leaf;
 23. flash backward — ``flash_attention_bwd`` (three kernels: a
     pre-pass, dK/dV, dQ; bf16 with D a multiple of 16 runs the
     tensor-core ones, f32 and D in {8, 24} the SIMT ones, and each call's
@@ -252,9 +249,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     where a planted fault must break the tolerance (MLA's latents one
     slot off, whisper's cross caches from other frames) and whisper's
     logits must move when its frames are zeroed;
-32. zoo serve — granite-moe-1b-a400m, minicpm3-4b and whisper-small at
-    full depth, mistral-nemo-12b, pixtral-12b, deepseek-coder-33b and
-    qwen3-moe-30b-a3b cut in depth (``ZOO_SERVE``), full width, bf16:
+32. zoo serve — granite-moe-1b-a400m, minicpm3-4b, whisper-small,
+    deepseek-coder-33b and qwen3-moe-30b-a3b at full depth,
+    mistral-nemo-12b and pixtral-12b cut in depth (``ZOO_SERVE``), full
+    width, bf16:
     each drawn at the reference's init and one prefill read there
     (attention, router and next-token softmaxes' top-1 weight, max
     |logit|), rescaled to own fan-in where ``ZOO_SERVE`` says so (the
@@ -264,8 +262,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     before and read just after (one tensor-core flash launch per
     attention layer: 24 for granite, 62 of the (96, 64) variant for
     minicpm3-4b, 12 + 12 + 12 for whisper's encoder, self- and
-    cross-attention; none SIMT), one ``greedy_generate`` at serve's
-    defaults, and one prefill under torch.profiler;
+    cross-attention; none SIMT), the prefill's peak device memory beside
+    the dry run's prediction for the same call (``predicted_peak``,
+    reported), one ``greedy_generate`` at serve's defaults, and one
+    prefill under torch.profiler;
 33. mesh — a 1-rank NCCL process group (from a ``file://`` store in a
     ``tempfile`` directory; the bootstrap on the loopback) and its
     ``("data",)`` mesh (``launch.mesh.make_sim_mesh(1)``): the default
@@ -298,7 +298,20 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     s/round, trained tokens/s, peak memory, the card's draw and a profile
     of one round by category; then ``python -m repro_torch.launch.train
     --arch minicpm3-4b`` with its defaults for 2 rounds, its launches
-    counted.
+    counted;
+35. roofline — qwen3-0.6b at full width, bf16, one device's step of two
+    production cells of the 16 x 16 mesh, each run once after a
+    warm-up: ``prefill_32k`` (batch 2 x 32768; the counts zeroed just
+    before and read just after: 28 tensor-core flash launches, as many
+    as the dry run counted) and ``decode_32k`` (one step, batch 8
+    against a 32768 cache). Beside each, ``repro_torch.launch
+    .roofline.roofline_one``'s terms for the same cell and
+    ``launch.dryrun.lower_one``'s memory; the phase fails where the
+    device time is below the compute term (FLOP cannot be beaten: the
+    count would be wrong), where the peak device memory is below the
+    dry run's arguments, or where it is off their sum with the
+    temporaries by more than ``PEAK_BAND``; it prints the measured /
+    predicted ratios and the compute term's share of the device time.
 
 Each phase prints its seconds (``[time] phase N in ... s``).
 
@@ -341,11 +354,6 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM data sheet (dense, at the 700 W limit): HBM rate and the f32
-# rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12   # dense, tensor cores
 
 # Kernel-vs-plain tolerances: those of the JAX package's own kernel sweep
 # (tests/test_kernels.py). f32: the kernel's sequential FMA chain and the
@@ -402,8 +410,8 @@ DECODE_BF16_ATOL = 0.25
 # state by 1 - w = 0.25% at the init's decays: in bf16 it reads 0.47,
 # within the noise, so phase 13 requires it to break only the f32
 # tolerance and reports its bf16 reading. With the matrices at their own
-# fan-in the sound f32 reading is ~3 (phase 13 reports it): no tolerance
-# could separate a fault there, so the checks run at the reference's init.
+# fan-in the sound f32 reading is ~3 on an H100: no tolerance could
+# separate a fault there, so the checks run at the reference's init.
 RWKV_DECODE_TOL = {"float32": dict(atol=1e-2, rtol=1e-3),
                    "bfloat16": dict(atol=1.5, rtol=0)}
 # WKV kernel vs plain at the sweep: the CPU tests' tolerances
@@ -429,6 +437,15 @@ WKV_PREFILL_TOL = {"float32": dict(atol=2e-3, rtol=1e-4),
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def bound(flop: float, nbytes: float, tensor_cores: bool
+          ) -> tuple[float, str]:
+    """A call's bound in ms and what bounds it, over the card's peaks
+    (``repro_torch.launch.roofline.bound_ms``: the H100 data sheet's
+    rates, bf16 on the tensor cores or f32, and HBM's)."""
+    from repro_torch.launch.roofline import bound_ms
+    return bound_ms(flop, nbytes, tensor_cores)
 
 
 def nvidia_smi(query: str) -> str:
@@ -569,16 +586,14 @@ def phase_kernels(torch, fedagg_mod, ops, leaf_shapes, n_sats):
                           "float32", f"leaf {name}")
         worst = max(worst, err)
         p = x.shape[1]
-        nbytes = (n_sats * p + p) * 4 + n_sats * 4
+        flop, nbytes = fedagg_mod.fedagg_cost(n_sats, [p], torch.float32)
         rows.append(dict(
             leaf=name, P=p, max_abs_err=err,
             ms=time_ms(torch, lambda x=x: fedagg(x, w)),
             device_ms=device_ms(torch, lambda x=x: fedagg(x, w)),
             plain_ms=time_ms(torch, lambda x=x: fedagg_plain(x, w)),
             library_ms=time_ms(torch, lambda x=x: torch.mv(x.t(), w)),
-            bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
-                               2 * n_sats * p / F32_FLOP_PER_S),
-            bytes=nbytes))
+            bound_ms=bound(flop, nbytes, False)[0], bytes=nbytes))
     for r in rows:
         log("kernels", "fedagg leaf " + json.dumps(r))
 
@@ -605,8 +620,8 @@ def phase_kernels(torch, fedagg_mod, ops, leaf_shapes, n_sats):
         log("kernels", f"fedagg_leaves {dname}, the CNN's {len(xd)} "
             f"leaves: one launch, bit-equal to one-leaf launches, within "
             f"{TOL[dname]} of the plain fold")
-    total_bytes = sum(r["bytes"] for r in rows)
-    total_flop = sum(2 * n_sats * r["P"] for r in rows)
+    total_flop, total_bytes = fedagg_mod.fedagg_cost(
+        n_sats, [r["P"] for r in rows], torch.float32)
     # Timed as earlier PRs timed the fold: back-to-back calls, each
     # call's host cost included (time_ms); beside it the device time with
     # the host's cost hidden (device_ms).
@@ -616,10 +631,7 @@ def phase_kernels(torch, fedagg_mod, ops, leaf_shapes, n_sats):
     plain_ms = time_ms(torch, lambda: leaves_plain(xs, w))
     lib_ms = time_ms(torch, mv)
     fold_dev, lib_dev = device_ms(torch, fold), device_ms(torch, mv)
-    bound_ms = 1e3 * max(total_bytes / HBM_BYTES_PER_S,
-                         total_flop / F32_FLOP_PER_S)
-    bound_by = ("bytes" if total_bytes / HBM_BYTES_PER_S
-                >= total_flop / F32_FLOP_PER_S else "operations")
+    bound_ms, bound_by = bound(total_flop, total_bytes, False)
     log("kernels", f"fedagg fold of {len(xs)} leaves, S={n_sats}, "
         f"{total_bytes} bytes, bound {bound_ms:.4f} ms ({bound_by}); back "
         f"to back with the host's cost: kernel {fold_ms:.4f} ms (one "
@@ -711,9 +723,9 @@ def phase_fold_rows(torch, leaves, leaves_plain, xs, gen, dev,
     for i, (g, want) in enumerate(zip(leaves(xs, w), leaves_plain(xs, w))):
         err = max(err, check_close(torch, g, want, "float32",
                                    f"fedagg_leaves S={s} leaf {i}"))
-    nbytes = sum((s * x.shape[1] + x.shape[1]) * 4 + s * 4 for x in xs)
-    flop = sum(2 * s * x.shape[1] for x in xs)
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S)
+    from repro_torch.kernels.fedagg import fedagg_cost
+    flop, nbytes = fedagg_cost(s, [x.shape[1] for x in xs], torch.float32)
+    bound_ms, bound_by = bound(flop, nbytes, False)
     fold = lambda: leaves(xs, w)                                # noqa: E731
     mv = lambda: [torch.mv(x.t(), w) for x in xs]               # noqa: E731
     out = dict(S=s, bytes=nbytes, max_abs_err=err, ms=time_ms(torch, fold),
@@ -721,8 +733,7 @@ def phase_fold_rows(torch, leaves, leaves_plain, xs, gen, dev,
                plain_ms=time_ms(torch, lambda: leaves_plain(xs, w)),
                library_ms=time_ms(torch, mv),
                library_device_ms=device_ms(torch, mv), bound_ms=bound_ms,
-               bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= flop / F32_FLOP_PER_S else "operations"))
+               bound_by=bound_by)
     log("kernels", f"fedagg fold of {len(xs)} leaves, S={s} ({what}), "
         f"{nbytes} bytes, bound "
         f"{bound_ms:.4f} ms; back to back with the host's cost: kernel "
@@ -1136,13 +1147,11 @@ def phase_flash(torch, fa_mod):
         plain_ms = time_ms(torch, lambda: plain(q, k, v), reps=5, warmup=1)
         lib_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
                                              enable_gqa=True), reps=10)
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
         # The causal pairs this input needs, 2 FLOP per multiply-add in
         # each of Q·Kᵀ and P·V.
-        flop = 4 * b * h * d * s * (s + 1) // 2
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
-        bound_ms = 1e3 * max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        flop, nbytes = fa_mod.flash_attention_cost(
+            tuple(q.shape), tuple(k.shape), tuple(v.shape), q.dtype)
+        bound_ms, bound_by = bound(flop, nbytes, True)
         log("flash", f"prefill shape {what} bf16 causal: tensor-core kernel "
             f"{ms:.4f} ms at {flop / ms / 1e9:.2f} TFLOP/s, SIMT kernel "
             f"(f32) {ms32:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
@@ -1275,11 +1284,9 @@ def phase_flash_split(torch, fa_mod) -> dict:
     dev_ms = device_ms(torch, lambda: fa(q, k, v), reps=20)
     plain_ms = time_ms(torch, lambda: plain(q, k, v), reps=2, warmup=1)
     lib_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True), reps=10)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, v))
-    flop = b * h * sq * (sq + 1) * (d + dv)      # causal pairs, 2 per MAC
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    flop, nbytes = fa_mod.flash_attention_cost(      # causal pairs
+        tuple(q.shape), tuple(k.shape), tuple(v.shape), q.dtype)
+    bound_ms, bound_by = bound(flop, nbytes, True)
     log("flash", f"minicpm3-4b prefill shape {what} bf16 causal: (96, 64) "
         f"tensor-core kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms "
         f"device, at {flop / dev_ms / 1e9:.2f} TFLOP/s; plain "
@@ -1467,15 +1474,10 @@ def phase_wkv(torch, wkv_mod):
     # decay; the kernel's work does not depend on the values.
     ms = time_ms(torch, lambda: wkv(*args), reps=10)
     plain_ms = time_ms(torch, lambda: plain(*args), reps=2, warmup=1)
-    nbytes = sum(t.numel() * t.element_size() for t in args) \
-        + args[0].numel() * args[0].element_size()
-    # What the function needs per (b, h, step): y = rᵀS + (Σ_n r u k) v
-    # is 2N² + 5N (the bonus term is a dot product, O(N)), and the update
-    # S = w ⊙ S + k vᵀ is 3N²; the bound counts the function's work.
-    flop = b * h * s * (5 * n * n + 5 * n)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    # The function's work (rwkv6_wkv_cost): 5N² + 5N a (b, h, step).
+    flop, nbytes = wkv_mod.rwkv6_wkv_cost(tuple(args[0].shape),
+                                          args[0].dtype, args[3].dtype)
+    bound_ms, bound_by = bound(flop, nbytes, False)
     args32 = tuple(a.float() for a in args[:4]) + (args[4],)
     ms32 = time_ms(torch, lambda: wkv(*args32), reps=10)
     log("wkv", f"prefill shape B={b} H={h} S={s} N={n}, bf16 r/k/v/y, f32 "
@@ -1702,7 +1704,8 @@ def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
     ``aux_in`` goes into each prefill (whisper's frames, pixtral's
     patches), ``frames`` into ``greedy_generate`` (whisper), which is
     timed over ``gen_calls`` calls. Returns the prefill's launch
-    counts."""
+    counts, the tokens, the prompts and the prefill's peak device memory
+    (bytes, everything allocated counted)."""
     from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
 
     b, s = PREFILL["b"], PREFILL["s"]
@@ -1727,7 +1730,8 @@ def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
             last).all():
         raise AssertionError(f"prefill logits {tuple(last.shape)} not "
                              f"finite or misshapen")
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 2**30
     walls = [wall]
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1766,7 +1770,7 @@ def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
     for i in range(2):
         log(phase, f"seq{i}: prompt={out[i, :plen].tolist()} "
             f"gen={out[i, plen:].tolist()}")
-    return counts, tokens, prompts
+    return counts, tokens, prompts, peak_bytes
 
 
 def phase_serve_profile(torch, model, params, serve, tokens, needle: str):
@@ -1790,7 +1794,7 @@ def phase_serve_profile(torch, model, params, serve, tokens, needle: str):
 
 def lm_slice(torch, Transformer, get_config, serve, arch: str,
              kernels: dict, kernel: str, needle: str, faults: dict,
-             decode_tols: dict, phases: tuple, own_fan_in: bool,
+             decode_tols: dict, phases: tuple,
              clock: "Clock", numbers: tuple,
              variant: str | None = None) -> int:
     """One LM slice on the card, full width: ``forward`` card vs CPU in
@@ -1798,24 +1802,14 @@ def lm_slice(torch, Transformer, get_config, serve, arch: str,
     the planted ``faults``; then the serve slice in bf16, its counts
     zeroed just before the prefill and read just after (one launch of
     ``kernel`` per layer, all of them of ``variant`` where it is given),
-    and its profile.
-    With ``own_fan_in``, decode vs prefill with the stacked matrices at
-    their own fan-in is reported first (``own_fan_in_factors``).
-    Each of the three phases' seconds goes to ``clock`` under its number
-    in ``numbers``. Returns the launches of ``kernel`` in that prefill."""
+    and its profile. Each of the three phases' seconds goes to ``clock``
+    under its number in ``numbers``. Returns the launches of ``kernel``
+    in that prefill."""
     card_phase, decode_phase, serve_phase = phases
     model32, params_cpu = phase_lm_card_vs_cpu(torch, Transformer,
                                                get_config, arch, card_phase)
     clock.lap(f"{numbers[0]} ({card_phase})")
     model = Transformer(get_config(arch))
-    factors = own_fan_in_factors(model) if own_fan_in else {}
-    for m in (model32, model) if factors else ():
-        dtype = getattr(torch, m.cfg.param_dtype)
-        own = {k: (v.to("cuda") * factors.get(k, 1.0)).to(dtype)
-               for k, v in params_cpu.items()}
-        phase_decode_vs_prefill(torch, m, own, {}, None, decode_phase,
-                                " at own fan-in")
-        del own
     params = {k: v.to("cuda") for k, v in params_cpu.items()}
     phase_decode_vs_prefill(torch, model32, params, faults,
                             decode_tols["float32"], decode_phase)
@@ -1829,8 +1823,8 @@ def lm_slice(torch, Transformer, get_config, serve, arch: str,
     expected = {kernel: layers}
     if variant:
         expected[f"{kernel}.{variant}"] = layers
-    counts, tokens, _ = phase_serve(torch, model, params, serve, kernels,
-                                    expected, serve_phase)
+    counts, tokens, _, _ = phase_serve(torch, model, params, serve,
+                                       kernels, expected, serve_phase)
     phase_serve_profile(torch, model, params, serve, tokens, needle)
     clock.lap(f"{numbers[2]} ({serve_phase})")
     return counts[kernel]
@@ -1988,12 +1982,9 @@ def phase_scan(torch, scan_mod):
     # work does not depend on the values.
     ms = time_ms(torch, lambda: scan(*args), reps=10)
     plain_ms = time_ms(torch, lambda: plain(*args), reps=2, warmup=1)
-    nbytes = sum(t.numel() * t.element_size() for t in args) \
-        + b * s * d * args[1].element_size()
-    flop = 4 * b * s * d * n        # one FMA of the update, one of y
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    flop, nbytes = scan_mod.selective_scan_cost(      # an FMA each of
+        tuple(args[0].shape), args[0].dtype, args[1].dtype)   # h and y
+    bound_ms, bound_by = bound(flop, nbytes, False)
     log("scan", f"prefill shape B={b} S={s} D={d} N={n}, abar f32, bx/c/y "
         f"bf16: kernel {ms:.4f} ms (all f32: {ms32:.4f} ms), plain "
         f"{plain_ms:.4f} ms, no one-call PyTorch equivalent; {nbytes} "
@@ -2673,14 +2664,10 @@ def phase_fold_flush(torch, fedagg_mod, leaf_shapes, s: int) -> dict:
 # Phase 22: resume at full width; events per uninterrupted run, and the
 # event the cut run stops at. The executor restricts cuDNN to its
 # deterministic algorithms, so a resumed run must equal the uninterrupted
-# one bit for bit; with cuDNN's default algorithms (turned back on
-# explicitly for two runs) two uninterrupted fedspace runs on an H100
-# differ, and that run-to-run spread over SPREAD_FLUSHES flushes is
-# reported beside it.
+# one bit for bit.
 RESUME_SCENARIOS = (("fedhap", "one_hap"), ("fedspace", "gs"),
                     ("fedhap_buffered", "haps:2"))
 RESUME_EVENTS, RESUME_CUT = 4, 2
-SPREAD_FLUSHES = 2
 
 
 def latest_arrays(directory) -> dict:
@@ -2711,10 +2698,8 @@ def phase_resume(torch, sim) -> dict:
     resume restores its rng and plane counters). The resumed history
     must equal the uninterrupted one exactly, and the final checkpoints'
     params and strategy state bit for bit. Then one checkpoint written on
-    the card loads into a CPU engine, leaf for leaf, and two
-    uninterrupted fedspace runs with cuDNN's default algorithms give the
-    card's run-to-run spread (reported only). Returns the readings by
-    strategy."""
+    the card loads into a CPU engine, leaf for leaf. Returns the readings
+    by strategy."""
     import tempfile
 
     out = {}
@@ -2821,43 +2806,7 @@ def phase_resume(torch, sim) -> dict:
         log("resume", f"{strategy}: the card's checkpoint (events "
             f"{RESUME_EVENTS}) loads into a CPU engine leaf for leaf "
             f"({len(leaves)} leaves, bit-equal), history restored")
-    out["spread_default_cudnn"] = fedspace_spread(torch, sim)
     return out
-
-
-def fedspace_spread(torch, sim) -> float:
-    """Max |diff| of the final params and bases of two uninterrupted
-    fedspace/gs runs of SPREAD_FLUSHES flushes with cuDNN's default
-    algorithms (the executor's deterministic flag cleared after it is
-    built, and set again after), and whether their histories are equal
-    (reported only)."""
-    import tempfile
-
-    arrays, hists = [], []
-    with tempfile.TemporaryDirectory() as tmp:
-        for i in range(2):
-            d = pathlib.Path(tmp) / f"run{i}"
-            eng = sim.RoundEngine(sim.SimConfig(
-                strategy="fedspace", stations="gs",
-                max_rounds=SPREAD_FLUSHES))
-            eng.executor
-            torch.backends.cudnn.deterministic = False
-            try:
-                hists.append(eng.run(
-                    checkpoint_dir=d,
-                    checkpoint_every=SPREAD_FLUSHES).history)
-            finally:
-                torch.backends.cudnn.deterministic = True
-            arrays.append(latest_arrays(d))
-            del eng
-    worst = max(float(np.abs(arrays[0][k] - arrays[1][k]).max())
-                for k in arrays[0])
-    log("resume", f"fedspace/gs, cuDNN's default algorithms, two "
-        f"uninterrupted runs of {SPREAD_FLUSHES} flushes: max |diff| of "
-        f"params and bases {worst:.3e}, histories equal: "
-        f"{hists[0] == hists[1]} (reported only)")
-    torch.cuda.empty_cache()
-    return worst
 
 
 # Phase 26: the sanitizer at full width, with the scenario table of the
@@ -3324,15 +3273,11 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float,
         # The function: 2.5x the forward's causal FLOP (QKᵀ again, dP, dV,
         # dK, dQ). The design: 3.5x with S and dP recomputed for dQ, 5x
         # with dV, dK and dQ each two products (P and dS as hi + lo).
-        flop = 2.5 * 4 * b * h * d * s * (s + 1) / 2
-        nbytes = (sum(x.numel() * x.element_size()
-                      for x in (q, k, v, out, do, q, k, v))
-                  + lse.numel() * 4)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
-        bound_ms = 1e3 * max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        bound_recompute = 1e3 * max(t_bytes, t_ops * 3.5 / 2.5)
-        bound_design = 1e3 * max(t_bytes, t_ops * 5.0 / 2.5)
+        flop, nbytes = fa_mod.flash_attention_bwd_cost(
+            tuple(q.shape), tuple(k.shape), tuple(v.shape), q.dtype)
+        bound_ms, bound_by = bound(flop, nbytes, True)
+        bound_recompute = bound(flop * 3.5 / 2.5, nbytes, True)[0]
+        bound_design = bound(flop * 5.0 / 2.5, nbytes, True)[0]
         log("flash-bwd", f"{what} bf16 causal: backward kernels (tc) "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
             f"{lib_ms:.4f} ms (back to back with the host's cost); device "
@@ -3430,7 +3375,6 @@ def _reduced_mla_times(torch, fa_mod, gen) -> dict:
     fwd, bwd = fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd
     sh = MLA_REDUCED_ATTN
     b, h, s, d, dv = (sh[x] for x in ("b", "h", "sq", "d", "dv"))
-    pairs = b * h * s * (s + 1) / 2
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -3442,32 +3386,28 @@ def _reduced_mla_times(torch, fa_mod, gen) -> dict:
         for g, w in zip(bwd(*args), fa_mod.flash_attention_bwd_plain(*args)):
             check_close(torch, g, w, dname, f"(24, 16) backward {dname}",
                         tol)
-        rate = F32_FLOP_PER_S if dname == "float32" else BF16_FLOP_PER_S
-        size = q.element_size()
+        shapes = (tuple(q.shape), tuple(k.shape), tuple(v.shape), dtype)
         row = {}
-        for what, flop, nbytes, kern, plain, lib in (
-                ("fwd", pairs * 2 * (d + dv),
-                 size * (q.numel() + k.numel() + 2 * v.numel()),
+        for what, (flop, nbytes), kern, plain, lib in (
+                ("fwd", fa_mod.flash_attention_cost(*shapes),
                  lambda: fwd(q, k, v),
                  lambda: fa_mod.flash_attention_plain(q, k, v),
                  lambda: sdpa(q, k, v, is_causal=True)),
-                ("bwd", pairs * (6 * d + 4 * dv),
-                 size * 2 * (q.numel() + k.numel() + v.numel() + do.numel())
-                 + 4 * lse.numel(), lambda: bwd(*args),
+                ("bwd", fa_mod.flash_attention_bwd_cost(*shapes),
+                 lambda: bwd(*args),
                  lambda: fa_mod.flash_attention_bwd_plain(*args), None)):
             if lib is None:
                 grads = [x.detach().requires_grad_() for x in (q, k, v)]
                 ref = sdpa(*grads, is_causal=True)
                 lib = lambda ref=ref, grads=grads: torch.autograd.grad(  # noqa: E731
                     ref, grads, do, retain_graph=True)
-            t_ops, t_bytes = flop / rate, nbytes / HBM_BYTES_PER_S
+            bound_ms, bound_by = bound(flop, nbytes, dname == "bfloat16")
             row[what] = dict(
                 ms=time_ms(torch, kern), device_ms=device_ms(torch, kern),
                 plain_ms=time_ms(torch, plain, reps=5),
                 library_ms=time_ms(torch, lib, reps=10),
                 library_device_ms=device_ms(torch, lib, reps=20),
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_ms=bound_ms, bound_by=bound_by)
             r = row[what]
             log("flash-bwd", f"(24, 16) {what} {dname} at B={b} H={h} S={s} "
                 f"(SIMT): {r['ms']:.4f} ms back to back, "
@@ -3615,18 +3555,14 @@ def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
             del ref_out, grads, sdpa_bwd
         except RuntimeError as e:                 # the pair refused
             lib_err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
-        pairs = b * h * s * (s + 1) / 2           # causal (q, k) pairs
-        flop = pairs * (6 * d + 4 * dv)
+        flop, nbytes = fa_mod.flash_attention_bwd_cost(
+            tuple(q.shape), tuple(k.shape), tuple(v.shape), q.dtype)
+        pairs = b * h * fa_mod.visible_pairs(s, s)    # causal (q, k) pairs
         flop_design = pairs * (12 * d + 8 * dv)
         flop_issued = flop_design + pairs * 8 * (128 - d)
-        nbytes = (sum(x.numel() * x.element_size()
-                      for x in (q, k, v, out, do, q, k, v))
-                  + lse.numel() * 4)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
-        bound_ms = 1e3 * max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        bound_design = 1e3 * max(t_bytes, flop_design / BF16_FLOP_PER_S)
-        bound_issued = 1e3 * max(t_bytes, flop_issued / BF16_FLOP_PER_S)
+        bound_ms, bound_by = bound(flop, nbytes, True)
+        bound_design = bound(flop_design, nbytes, True)[0]
+        bound_issued = bound(flop_issued, nbytes, True)[0]
         lib_text = (f"sdpa backward {lib_ms:.4f} ms back to back, "
                     f"{lib_dev:.4f} ms device ({dev_ms / lib_dev:.2f}x)"
                     if lib_err is None else f"sdpa backward refused: "
@@ -4099,8 +4035,9 @@ def phase_train(torch, Transformer, get_config, kernels: dict,
     flat = [x.view(n_sats, -1) for x in params.values()]
     wb = w.to(torch.bfloat16)
     mv = lambda: [torch.mv(x.t(), wb) for x in flat]            # noqa: E731
-    nbytes = sum((n_sats + 1) * x.shape[1] * 2 for x in flat) + n_sats * 4
-    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    flop, nbytes = fedagg_mod.fedagg_cost(
+        n_sats, [x.shape[1] for x in flat], torch.bfloat16)
+    bound_ms = bound(flop, nbytes, False)[0]
     fold_ms, fold_dev = time_ms(torch, fold), device_ms(torch, fold, reps=20)
     lib_ms, lib_dev = time_ms(torch, mv), device_ms(torch, mv, reps=20)
     plain = fedagg_mod.fedagg_leaves_plain
@@ -4366,9 +4303,7 @@ def _bwd_timing(torch, bwd, args, plain, flop: float, nbytes: int,
     dev = device_ms(torch, lambda: bwd(*args), reps=10)
     plain_ms = (time_ms(torch, lambda: plain(*args), reps=plain_reps,
                         warmup=1) if plain else None)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = bound(flop, nbytes, False)
     log(phase, f"{what}: device {dev:.4f} ms, back to back {ms:.4f} ms"
         + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else "")
         + f"; {nbytes} bytes, {flop:.4e} FLOP, bound {bound_ms:.4f} ms "
@@ -4494,16 +4429,14 @@ def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
             f"{BWD_REL}")
     del first, second, want, shifted
 
-    def moved(args):
-        """Bytes read (every input once) and written (dr, dk, dv, dw like
-        r, k, v, w; du f32)."""
-        return sum(t.numel() * t.element_size() for t in args) \
-            + sum(t.numel() * t.element_size() for t in args[:4]) \
-            + 4 * h * n
+    def cost(args):
+        """FLOP and bytes (every input read once, dr, dk, dv, dw and du
+        written once): ``rwkv6_wkv_bwd_cost``."""
+        return wkv_mod.rwkv6_wkv_bwd_cost(tuple(args[0].shape),
+                                          args[0].dtype, args[3].dtype)
 
-    flop = b * h * s * (14 * n * n + 16 * n)
     entry = _bwd_timing(torch, lambda *a: bwd(*a, *ckpts), args, plain,
-                        flop, moved(args),
+                        *cost(args),
                         f"training shape B={b} H={h} S={s} N={n}, given "
                         f"the forward's checkpoints", "wkv-bwd")
     entry.update(_fwd_times(torch, lambda: fwd(*args[:5]),
@@ -4517,7 +4450,7 @@ def phase_wkv_bwd(torch, wkv_mod, ptxas: dict) -> dict:
     args = inputs(b, h, s, n, bf16, f32, (0.7, 0.999))
     ckpts = fwd_ckpt(*args[:5])[1:]
     serve = _bwd_timing(torch, lambda *a: bwd(*a, *ckpts), args, None,
-                        b * h * s * (14 * n * n + 16 * n), moved(args),
+                        *cost(args),
                         f"serve shape B={b} H={h} S={s} N={n}, given the "
                         f"forward's checkpoints", "wkv-bwd")
     serve.update(_fwd_times(torch, lambda: fwd(*args[:5]),
@@ -4674,15 +4607,14 @@ def phase_scan_bwd(torch, scan_mod, ptxas: dict) -> dict:
         if isinstance(abar_from, tuple):
             del args, ckpt
 
-    def moved(args):
-        """Bytes read (every input once) and written (d abar, d bx like
-        abar, bx; dc (B, S, N) bf16)."""
-        return sum(t.numel() * t.element_size() for t in args) \
-            + sum(t.numel() * t.element_size() for t in args[:2]) \
-            + args[2].shape[0] * args[2].shape[1] * n * 2
+    def cost(args):
+        """FLOP and bytes (every input read once, d abar, d bx and dc
+        written once): ``selective_scan_bwd_cost``."""
+        return scan_mod.selective_scan_bwd_cost(tuple(args[0].shape),
+                                                args[0].dtype, args[1].dtype)
 
     entry = _bwd_timing(torch, lambda *a: bwd(*a, ckpt), args, plain,
-                        8 * b * s * d * n, moved(args),
+                        *cost(args),
                         f"training shape B={b} S={s} D={d} N={n}, given "
                         f"the forward's checkpoints", "scan-bwd")
     entry.update(_fwd_times(torch, lambda: fwd(*args[:3]),
@@ -4697,7 +4629,7 @@ def phase_scan_bwd(torch, scan_mod, ptxas: dict) -> dict:
     args = inputs(b, s, d, n, "mixed", (0.8, 0.999))
     ckpt = fwd_ckpt(*args[:3])[1]
     serve = _bwd_timing(torch, lambda *a: bwd(*a, ckpt), args, None,
-                        8 * b * s * d * n, moved(args),
+                        *cost(args),
                         f"serve shape B={b} S={s} D={d} N={n}, given the "
                         f"forward's checkpoints", "scan-bwd")
     serve.update(_fwd_times(torch, lambda: fwd(*args[:3]),
@@ -4846,22 +4778,22 @@ ZOO_F32_LAYERS = 4
 # serves at the stacked matrices' own fan-in, where the reference's init
 # saturates the prefill (``init_reading``; the phase reads it for every
 # arch and fails where the reading and ``own`` disagree). deepseek-coder
-# -33b (62 GiB in bf16) and qwen3-moe-30b-a3b (57 GiB) fit the card, but
-# not beside the f32 draw of their largest stacked leaf (34 and 39 GB):
-# cut, as jamba runs one period. mistral-nemo-12b and pixtral-12b run at
-# full depth in 16-17 s each, deepseek-coder-33b at 32 layers in 13 s,
-# qwen3-moe-30b-a3b at 24 in 25 s (two decode calls each; H100 80GB
-# HBM3): those four run at half that depth or less, and decode once, to
-# keep the script within its time on a slow host. The reference's init
-# draws a stacked matrix at std 1/sqrt(layers), so a cut arch reads it at
-# the layers it runs.
+# -33b (62 GiB in bf16) and qwen3-moe-30b-a3b (57 GiB), the two that come
+# nearest to the card's 80 GB, run at full depth: the initializer draws a
+# large leaf in blocks of rows (``models/params.py``), so no leaf's f32
+# draw (34 and 39 GB whole) exists beside the weights. mistral-nemo-12b
+# and pixtral-12b run at full depth in 16-17 s each (two decode calls;
+# NVIDIA H100 80GB HBM3, 700.00 W): they run at half of it, and the last
+# four decode once, to keep the script within its time on a slow host.
+# The reference's init draws a stacked matrix at std 1/sqrt(layers), so
+# a cut arch reads it at the layers it runs.
 ZOO_SERVE = (("granite-moe-1b-a400m", None, True),
              ("minicpm3-4b", None, True),
              ("whisper-small", None, True),
              ("mistral-nemo-12b", 20, True),
              ("pixtral-12b", 20, True),
-             ("deepseek-coder-33b", 16, True),
-             ("qwen3-moe-30b-a3b", 12, False))
+             ("deepseek-coder-33b", None, True),
+             ("qwen3-moe-30b-a3b", None, False))
 # A prefill is saturated where one of its softmaxes (the attention rows,
 # the MoE routers, the next-token distribution) puts on average more than
 # this share of its weight on one entry.
@@ -4869,6 +4801,23 @@ SATURATED_TOP1 = 0.5
 # The rows each reading takes: the last query rows of every attention
 # call, and the last positions' logits.
 READ_ROWS = 64
+
+
+def predicted_peak(torch, model, tokens, aux_in) -> tuple[int, int]:
+    """The dry run's prediction for ``serve.prefill(model, params, tokens,
+    aux_in)``: the same call traced on meta tensors of the same shapes
+    and dtypes (``repro_torch.launch.dryrun``), its argument bytes (the
+    weights and inputs) and the peak of its temporaries."""
+    from repro_torch.launch import dryrun, specs
+
+    def meta(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+    inputs = {"tokens": meta(tokens),
+              **{k: meta(v) for k, v in (aux_in or {}).items()}}
+    params = dryrun.meta_params(model, dtype=getattr(
+        torch, model.cfg.param_dtype))
+    counts = dryrun.trace(specs.make_prefill_step(model), params, inputs)[1]
+    return counts.argument_bytes, counts.temp_bytes
 
 
 def init_reading(torch, model, params, tokens, aux_in) -> dict:
@@ -5108,6 +5057,7 @@ def phase_zoo_serve(torch, Transformer, get_config, serve,
         t_arch = time.perf_counter()
         model = _zoo_model(Transformer, get_config, arch, layers, "bfloat16")
         cfg = model.cfg
+        base = torch.cuda.memory_allocated()
         gen = torch.Generator(device="cuda").manual_seed(0)
         t0 = time.perf_counter()
         params = init_params(fan_in_defs(model, own=False), gen, "cuda",
@@ -5152,9 +5102,17 @@ def phase_zoo_serve(torch, Transformer, get_config, serve,
         expected = {"flash_attention": n, "flash_attention.tc": n}
         if cfg.attention_kind == "mla":
             expected["flash_attention.split"] = n
-        counts, tokens, _ = phase_serve(torch, model, params, serve, kernels,
-                                        expected, "zoo-serve", aux_in,
-                                        frames, gen_calls=1)
+        counts, tokens, _, peak = phase_serve(
+            torch, model, params, serve, kernels, expected, "zoo-serve",
+            aux_in, frames, gen_calls=1)
+        arg, temp = predicted_peak(torch, model, tokens, aux_in)
+        log("zoo-serve", f"{arch} prefill peak device memory: measured "
+            f"{(peak - base) / 2**30:.3f} GiB above the "
+            f"{base / 2**30:.3f} GiB held before its weights were drawn; "
+            f"the dry run predicts {(arg + temp) / 2**30:.3f} GiB "
+            f"(arguments {arg / 2**30:.3f}, temporaries "
+            f"{temp / 2**30:.3f}): measured / predicted "
+            f"{(peak - base) / (arg + temp):.3f}")
         out[arch] = counts["flash_attention"]
         log_profile("zoo-serve", f"{arch} one prefill B={b} "
                     f"S={PREFILL['s']}", profile_device(
@@ -5369,6 +5327,143 @@ class Clock:
         return dt
 
 
+# Phase 35: the roofline against the card. qwen3-0.6b at full width, one
+# device's step of two production cells of the 16 x 16 mesh (the dry
+# run's per-device batch: 32 / 16 = 2 for prefill_32k, 128 / 16 = 8 for
+# decode_32k). A measured peak may differ from the dry run's by the
+# allocator's 512-byte rounding and by what the card's kernels allocate
+# that meta tensors do not (cuBLAS workspaces): PEAK_BAND of it.
+ROOFLINE_ARCH = "qwen3-0.6b"
+ROOFLINE_CELLS = ("prefill_32k", "decode_32k")
+PEAK_BAND = 0.25
+
+
+def phase_roofline(torch, Transformer, get_config, kernels: dict) -> dict:
+    """Each of ``ROOFLINE_CELLS`` run once on the card after a warm-up,
+    the launch counts zeroed just before and read just after (prefill:
+    one tensor-core flash launch a layer, the dry run's count; decode:
+    no kernel), its peak device memory above what was held before its
+    weights were drawn, and its device time (``device_ms``, three calls),
+    beside ``roofline_one``'s terms and ``lower_one``'s memory for the
+    same cell. Fails, after both cells, where the device time is below
+    the compute term, the peak below the arguments, or the peak off
+    arguments + temporaries by more than ``PEAK_BAND``. Returns the
+    readings by cell."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun, roofline, specs
+
+    cfg = get_config(ROOFLINE_ARCH)
+    model = Transformer(cfg)
+    out, failed = {}, []
+    for cell in ROOFLINE_CELLS:
+        shape = SHAPES[cell]
+        t0 = time.perf_counter()
+        art = roofline.roofline_one(ROOFLINE_ARCH, cell)
+        dry = dryrun.lower_one(ROOFLINE_ARCH, cell, multi_pod=False)
+        traced_s = time.perf_counter() - t0
+        mem = dry["memory_analysis"]
+        arg, temp = mem["argument_size_in_bytes"], mem["temp_size_in_bytes"]
+        b = dryrun.device_batch(False, shape.global_batch)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = model.init(gen, "cuda", torch.bfloat16)
+        rng = np.random.default_rng(5)
+        if shape.mode == "prefill":
+            tokens = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, shape.seq_len)).astype(np.int32))
+            inputs = {"tokens": tokens.cuda()}
+            step = specs.make_prefill_step(model)
+            run = lambda: step(params, inputs)             # noqa: E731
+            expected = {"flash_attention": cfg.num_layers,
+                        "flash_attention.tc": cfg.num_layers}
+        else:
+            cache = model.init_cache(b, shape.seq_len, device="cuda")
+            token = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b,)).astype(np.int32)).cuda()
+            serve = specs.make_serve_step(model, use_window=False)
+            run = lambda: serve(params, cache, token)      # noqa: E731
+            expected = {}
+        dry_calls = {k: v["calls"] for k, v in dry["kernels"].items()}
+        if dry_calls != {k: v for k, v in expected.items() if "." not in k}:
+            failed.append(f"{cell}: the dry run counted {dry_calls} kernel "
+                          f"calls; the card is expected to launch "
+                          f"{expected}")
+        run()                                                # warm-up
+        torch.cuda.synchronize()
+        counters = launch_counters(kernels)
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        result = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = {name: getattr(fn, attr)
+                  for name, (fn, attr) in counters.items()}
+        want = {name: expected.get(name, 0) for name in counters}
+        if counts != want:
+            failed.append(f"{cell} launched {counts}; want {want}")
+        if shape.mode == "prefill":
+            ok = bool(torch.isfinite(result.float()).all())
+        else:
+            ok = bool(((result[0] >= 0) & (result[0] < cfg.vocab_size)).all())
+        if not ok:
+            failed.append(f"{cell}: the step's output is not finite logits "
+                          f"or in-vocabulary tokens")
+        dev_ms = device_ms(torch, run, reps=3, warmup=0)
+        terms = art["terms_s"]
+        compute_ms, memory_ms = 1e3 * terms["compute_s"], \
+            1e3 * terms["memory_s"]
+        predicted = arg + temp
+        row = dict(device_ms=dev_ms, compute_ms=compute_ms,
+                   memory_ms=memory_ms, dominant=art["dominant"],
+                   flops=art["per_device"]["flops"],
+                   bytes=art["per_device"]["bytes"],
+                   useful_flops_ratio=art["useful_flops_ratio"],
+                   peak_bytes=peak, argument_bytes=arg, temp_bytes=temp,
+                   launches=counts.get("flash_attention", 0),
+                   traced_s=traced_s)
+        out[cell] = row
+        log("roofline", f"{ROOFLINE_ARCH} {cell}, one device of the 16x16 "
+            f"mesh (batch {b}, {shape.seq_len} positions), bf16: device "
+            f"time {dev_ms:.3f} ms; roofline ({roofline.CARD}): compute "
+            f"{compute_ms:.3f} ms ({art['per_device']['flops']:.4e} FLOP, "
+            f"{art['per_device']['flops_f32']:.4e} of them f32), memory "
+            f"{memory_ms:.3f} ms ({art['per_device']['bytes']:.4e} B), "
+            f"dominant {art['dominant']}; device time / the larger term "
+            f"{dev_ms / max(compute_ms, memory_ms):.3f}, compute term "
+            f"{compute_ms / dev_ms:.3f} of the device time; launches "
+            f"{counts.get('flash_attention', 0)} (dry run {dry_calls}); "
+            f"useful FLOP ratio {art['useful_flops_ratio']:.4f}; traced on "
+            f"the host in {traced_s:.1f} s")
+        log("roofline", f"{cell} peak device memory: measured "
+            f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held "
+            f"before its weights; the dry run {predicted / 2**30:.3f} GiB "
+            f"(arguments {arg / 2**30:.3f}, temporaries "
+            f"{temp / 2**30:.3f}): measured / predicted "
+            f"{peak / predicted:.3f} (band {PEAK_BAND})")
+        if dev_ms < compute_ms:
+            failed.append(f"{cell}: device time {dev_ms:.4f} ms below the "
+                          f"compute term {compute_ms:.4f} ms: the FLOP "
+                          f"count is wrong")
+        if peak < arg:
+            failed.append(f"{cell}: peak {peak} B below the dry run's "
+                          f"arguments {arg} B")
+        if abs(peak - predicted) > PEAK_BAND * predicted:
+            failed.append(f"{cell}: peak {peak} B off the dry run's "
+                          f"{predicted} B by more than {PEAK_BAND}")
+        del params, run, result
+        if shape.mode == "prefill":
+            del inputs
+        else:
+            del cache
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("roofline against the card: "
+                             + "; ".join(failed))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     clock = Clock()
@@ -5509,7 +5604,7 @@ def main() -> int:
          "lost slot": (fault_lost_slot, True)},
         {"float32": LM_F32_TOL, "bfloat16": dict(atol=DECODE_BF16_ATOL,
                                                  rtol=0)},
-        ("lm", "decode", "serve"), own_fan_in=False, clock=clock,
+        ("lm", "decode", "serve"), clock=clock,
         numbers=(8, 9, 10), variant="tc")
 
     # 11. the WKV kernel against its plain version
@@ -5523,7 +5618,7 @@ def main() -> int:
         {"decay skipped": (fault_decay_skipped, False),
          "stale token shift": (fault_stale_token_shift, True)},
         RWKV_DECODE_TOL, ("rwkv", "rwkv-decode", "rwkv-serve"),
-        own_fan_in=True, clock=clock, numbers=(12, 13, 14))
+        clock=clock, numbers=(12, 13, 14))
 
     # 15. the selective-scan kernel against its plain version
     scan_entry = phase_scan(torch, scan_mod)
@@ -5542,7 +5637,7 @@ def main() -> int:
                                 "jamba-decode")
     clock.lap("17 (jamba-decode)")
     model = Transformer(jamba)
-    counts, tokens, _ = phase_serve(
+    counts, tokens, _, _ = phase_serve(
         torch, model, params, serve, kernels,
         {"selective_scan": 7, "flash_attention": 1, "flash_attention.tc": 1},
         "jamba-serve")
@@ -5682,7 +5777,16 @@ def main() -> int:
         "flash_attention.split"]
     entry["launches_train_mla"] = mla["launches"]["fedagg"]
     clock.lap("34 (mla-train)")
-    log("done", f"phases 1-34 in {time.perf_counter() - t_start:.1f} s")
+
+    # 35. the roofline against the card: qwen3-0.6b's prefill_32k and
+    # decode_32k steps of one device beside the dry run's terms and
+    # memory; counts zeroed per cell.
+    flash_entry["roofline"] = phase_roofline(torch, Transformer, get_config,
+                                             kernels)
+    flash_entry["launches_roofline"] = flash_entry["roofline"][
+        "prefill_32k"]["launches"]
+    clock.lap("35 (roofline)")
+    log("done", f"phases 1-35 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
                                   scan_entry, bwd_entry, split_bwd_entry,

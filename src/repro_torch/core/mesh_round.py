@@ -21,6 +21,13 @@ the reference's axis names (``("data", "model")`` or ``("pod", "data",
 The backend follows the device: gloo for CPU tensors, NCCL for CUDA
 tensors; a tensor offered to a group of the other backend raises.
 
+Each of the three primitives reports its collective's kind and output
+bytes (the JAX package's ``parse_collective_bytes`` payload) to the
+dry run's meter when one is installed (``kernels/meter.py``). On meta
+tensors, which only the dry run passes (``launch/dryrun.py``), they
+return empty tensors of the result's shape and touch no process group;
+any other tensor goes through the group as it always does.
+
 Three rounds, as in the reference:
 
 - ``fedhap`` (faithful): K-hop rings per orbit performing the Eq.-14
@@ -61,6 +68,7 @@ from repro_torch.core.dissemination import (
     hap_chain_up,
 )
 from repro_torch.core.weights import PARTIAL_MODES
+from repro_torch.kernels import meter
 from repro_torch.kernels.ops import fold_stacked_tree
 
 #: Alignment of every leaf inside a packed flat buffer, in f32 elements
@@ -190,6 +198,9 @@ def _shared_base(tree: Mapping[str, torch.Tensor]) -> Optional[torch.Tensor]:
 def psum_(x: torch.Tensor, mesh: Any, axes: Sequence[str]) -> torch.Tensor:
     """In-place sum of ``x`` over ``axes`` (``jax.lax.psum``); returns
     ``x``."""
+    meter.report_collective("all-reduce", x.numel() * x.element_size())
+    if x.device.type == "meta":
+        return x
     group = axis_group(mesh, axes)
     _check_backend(group, x)
     dist.all_reduce(x, group=group)
@@ -212,6 +223,10 @@ def psum_tree(tree: Mapping[str, torch.Tensor], mesh: Any,
 def all_gather(x: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
     """``jax.lax.all_gather`` of a 0-d tensor over one axis: the ``(n,)``
     vector of every rank's value, in axis order."""
+    n = mesh.shape[list(mesh.mesh_dim_names).index(axis)]
+    meter.report_collective("all-gather", n * x.element_size())
+    if x.device.type == "meta":
+        return x.new_empty(n)
     group = axis_group(mesh, (axis,))
     _check_backend(group, x)
     out = x.new_empty(dist.get_world_size(group))
@@ -236,8 +251,12 @@ def ppermute_tree(tree: Mapping[str, torch.Tensor], mesh: Any, axis: str,
     if dst == [me] and src == [me]:
         return dict(tree)
     flat, layout = _pack(tree)
-    _check_backend(axis_group(mesh, (axis,)), flat)
+    meter.report_collective("collective-permute",
+                            flat.numel() * flat.element_size())
     recv = torch.zeros_like(flat)
+    if flat.device.type == "meta":
+        return _unpack(recv, layout)
+    _check_backend(axis_group(mesh, (axis,)), flat)
     ops = []
     if dst:
         ops.append(dist.P2POp(dist.isend, flat, _peer(mesh, axis, dst[0])))

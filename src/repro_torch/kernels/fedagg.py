@@ -16,7 +16,9 @@ choice between kernel and plain version is made in
 CUDA tensor never reaches the plain version. The kernel has no backward:
 both raise when grad is enabled and an input requires grad
 (``guard.autograd_guard``). ``fedagg.launches`` counts kernel launches
-(of either entry point).
+(of either entry point). :func:`fedagg_cost` is a fold's FLOP and bytes,
+the bound's numerator; :func:`fedagg_leaves_meta` is the fold on meta
+tensors, which reports that cost to the dry run's meter.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meter
 from repro_torch.kernels.guard import autograd_guard
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -52,6 +54,34 @@ def fedagg_leaves_plain(xs: list[torch.Tensor],
     """Plain version of :func:`fedagg_leaves`: :func:`fedagg_plain` per
     leaf."""
     return [fedagg_plain(x, w) for x in xs]
+
+
+def fedagg_cost(s: int, ps: list[int], dtype: torch.dtype
+                ) -> tuple[int, int]:
+    """(FLOP, bytes) of one fold of ``S`` rows over leaves of ``P_i``
+    columns in ``dtype``: a multiply and an add per row and column, f32
+    on the CUDA cores; each row read once, each output written once, the
+    S f32 weights read once."""
+    p = sum(ps)
+    return 2 * s * p, (s + 1) * p * dtype.itemsize + 4 * s
+
+
+def fedagg_leaves_meta(xs: list[torch.Tensor],
+                       w: torch.Tensor) -> list[torch.Tensor]:
+    """:func:`fedagg_leaves` on meta tensors: the same checks and the same
+    outputs (views of one flat buffer at 16-byte aligned offsets), empty;
+    reports :func:`fedagg_cost` to the installed meter."""
+    if not xs:
+        raise ValueError("fedagg_leaves: no leaves")
+    for x in xs:
+        check_inputs(x, w)
+    dtype = xs[0].dtype
+    ps = [x.shape[1] for x in xs]
+    offsets, total = out_offsets(ps, xs[0].element_size())
+    flat = torch.empty(total, dtype=dtype, device=w.device)
+    meter.report_kernel("fedagg", *fedagg_cost(w.shape[0], ps, dtype),
+                        tensor_cores=False)
+    return [flat[o:o + p] for o, p in zip(offsets, ps)]
 
 
 def out_offsets(ps: list[int], elem_size: int) -> tuple[list[int], int]:

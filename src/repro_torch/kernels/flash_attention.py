@@ -82,6 +82,15 @@ their kernel's), ``flash_attention.launches_bwd`` backward calls (each enqueues
 the backward's three kernels: a pre-pass for Δ, dK/dV, dQ),
 ``.launches_bwd_tc`` / ``.launches_bwd_simt`` those of each variant and
 ``.launches_bwd_split`` those with ``D != Dv``.
+
+:func:`flash_attention_cost` and :func:`flash_attention_bwd_cost` are a
+call's FLOP and bytes, the bounds' numerators, from its visible (q, k)
+pairs (:func:`visible_pairs`). On meta tensors
+(:func:`flash_attention_meta`, which ``ops.flash_attention_op`` calls
+for them) nothing launches: the output comes back empty, and the call
+reports its cost to the dry run's meter (``kernels/meter.py``), under
+grad through :class:`FlashAttentionMetaFn`, whose backward reports the
+backward kernels' cost.
 """
 from __future__ import annotations
 
@@ -89,9 +98,10 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meter
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -159,6 +169,48 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
         1.0 / math.sqrt(q.shape[-1]))
     ok = _mask(q.shape[2], k.shape[2], causal, window, q.device)
     return torch.where(ok, s, torch.full_like(s, NEG_INF)), ok
+
+
+@functools.lru_cache(maxsize=256)
+def visible_pairs(sq: int, sk: int, causal: bool = True,
+                  window: int | None = None) -> int:
+    """The (q, k) pairs a query head attends to under the kernels' masks:
+    ``k_pos < Sk``, causal ``k_pos <= q_pos``, window ``q_pos - k_pos <
+    W``, positions counted from 0 in q and in k. Causal at Sq = Sk it is
+    S(S+1)/2."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, sk - 1) if causal else np.full_like(q, sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_cost(q_shape: tuple, k_shape: tuple, v_shape: tuple,
+                         dtype: torch.dtype, causal: bool = True,
+                         window: int | None = None,
+                         with_lse: bool = False) -> tuple[int, int]:
+    """(FLOP, bytes) of one forward call: 2D + 2Dv FLOP a visible pair
+    (Q·Kᵀ and P·V, a multiply and an add each); q, k and v read once, the
+    output written once, and with ``with_lse`` the f32 log-sum-exp."""
+    b, h, sq, d = q_shape
+    sk, dv = k_shape[2], v_shape[3]
+    flops = b * h * visible_pairs(sq, sk, causal, window) * 2 * (d + dv)
+    nbytes = dtype.itemsize * (math.prod(q_shape) + math.prod(k_shape)
+                               + math.prod(v_shape) + b * h * sq * dv)
+    return flops, nbytes + (4 * b * h * sq if with_lse else 0)
+
+
+def flash_attention_bwd_cost(q_shape: tuple, k_shape: tuple, v_shape: tuple,
+                             dtype: torch.dtype, causal: bool = True,
+                             window: int | None = None) -> tuple[int, int]:
+    """(FLOP, bytes) of one backward call: 6D + 4Dv FLOP a visible pair
+    (Q·Kᵀ again, dP = dO·Vᵀ, dV = Pᵀ·dO, dQ = dS·K, dK = dSᵀ·Q); q, k, v,
+    o, dO and the f32 lse read once, dq, dk and dv written once."""
+    b, h, sq, d = q_shape
+    sk, dv = k_shape[2], v_shape[3]
+    flops = b * h * visible_pairs(sq, sk, causal, window) * (6 * d + 4 * dv)
+    nbytes = dtype.itemsize * 2 * (math.prod(q_shape) + math.prod(k_shape)
+                                   + math.prod(v_shape) + b * h * sq * dv)
+    return flops, nbytes + 4 * b * h * sq
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -459,6 +511,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, window)
     return flash_attention_fwd(q, k, v, causal, window)[0]
+
+
+class FlashAttentionMetaFn(torch.autograd.Function):
+    """:class:`FlashAttentionFn` on meta tensors: the forward reports the
+    forward kernel's cost (with lse) and saves what the kernel's Function
+    saves, the backward reports the backward kernels' cost and returns
+    empty gradients (with the backward's f32 scratch allocated, as the
+    launcher does)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _meta_forward(q, k, v, causal, window, with_lse=True)
+        lse = q.new_empty(q.shape[:3], dtype=torch.float32)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        b, h, sq, d = q.shape
+        q.new_empty(bwd_scratch_floats(b, h, sq), dtype=torch.float32)
+        meter.report_kernel(
+            "flash_attention_bwd",
+            *flash_attention_bwd_cost(tuple(q.shape), tuple(k.shape),
+                                      tuple(v.shape), q.dtype, ctx.causal,
+                                      ctx.window),
+            tensor_cores=kernel_variant(q.dtype, d) == "tc")
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None, None)
+
+
+def _meta_forward(q, k, v, causal, window, with_lse: bool) -> torch.Tensor:
+    meter.report_kernel(
+        "flash_attention",
+        *flash_attention_cost(tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                              q.dtype, causal, window, with_lse),
+        tensor_cores=kernel_variant(q.dtype, q.shape[3]) == "tc")
+    return _out_like(q, v.shape[3])
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True,
+                         window: int | None = None) -> torch.Tensor:
+    """The kernels on meta tensors, launching nothing: the empty output
+    laid out as :func:`flash_attention` lays it out, the call's cost
+    reported to the installed meter; under grad through
+    :class:`FlashAttentionMetaFn`, as :func:`flash_attention` goes
+    through :class:`FlashAttentionFn`. The kernels' table of ``(D,
+    Dv)`` pairs binds as on CUDA tensors."""
+    check_inputs(q, k, v, window)
+    if (q.shape[3], v.shape[3]) not in KERNEL_DIMS:
+        raise ValueError(f"flash_attention: head dims (D, Dv) = "
+                         f"{(q.shape[3], v.shape[3])} not in the kernels' "
+                         f"{KERNEL_DIMS}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionMetaFn.apply(q, k, v, causal, window)
+    return _meta_forward(q, k, v, causal, window, with_lse=False)
 
 
 flash_attention.launches = 0

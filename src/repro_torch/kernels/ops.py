@@ -17,6 +17,14 @@ otherwise launch the forward alone, as serving does. The fold has no
 backward: on CUDA inputs that require grad its wrapper raises
 (``guard.autograd_guard``). On CPU tensors the plain versions' autograd
 is the gradient.
+
+Meta tensors take a branch of their own: the kernel's ``*_meta``
+function returns the output empty, of the kernel's shape, dtype and
+layout, and reports the kernel's cost (its module's cost function) to
+the meter the dry run installs (``kernels/meter.py``); under grad the
+meta autograd Function's backward does the same for the backward
+kernel. It is a device of its own, not a fallback: a CUDA tensor never
+reaches it, and a CPU tensor still goes to the plain version.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ from repro_torch.kernels import fedagg as _fedagg
 from repro_torch.kernels import rwkv6_wkv as _wkv
 from repro_torch.kernels import selective_scan as _scan
 from repro_torch.kernels.flash_attention import (
-    check_inputs, flash_attention, flash_attention_plain)
+    check_inputs, flash_attention, flash_attention_meta,
+    flash_attention_plain)
 
 
 def _weights(weights: Any, device: torch.device) -> torch.Tensor:
@@ -48,6 +57,8 @@ def fedagg_op(stacked: torch.Tensor, weights: Any) -> torch.Tensor:
     if stacked.device.type == "cpu":
         _fedagg.check_inputs(stacked, w)
         return _fedagg.fedagg_plain(stacked, w)
+    if stacked.device.type == "meta":
+        return _fedagg.fedagg_leaves_meta([stacked], w)[0]
     raise ValueError(f"fedagg_op: unsupported device {stacked.device}")
 
 
@@ -58,7 +69,7 @@ def fedagg_tree(params_stacked: Mapping[str, torch.Tensor],
     into one flat buffer, which would cost an extra pass over the whole
     stack). CUDA leaves go through one ``fedagg_leaves`` call (one kernel
     launch for up to ``MAX_LEAVES`` leaves), CPU leaves through
-    ``fedagg_leaves_plain``."""
+    ``fedagg_leaves_plain``, meta leaves through ``fedagg_leaves_meta``."""
     keys = list(params_stacked)
     xs = [params_stacked[k] for k in keys]
     w = _weights(weights, xs[0].device)
@@ -69,6 +80,8 @@ def fedagg_tree(params_stacked: Mapping[str, torch.Tensor],
         for x in flat:
             _fedagg.check_inputs(x, w)
         folded = _fedagg.fedagg_leaves_plain(flat, w)
+    elif w.device.type == "meta":
+        folded = _fedagg.fedagg_leaves_meta(flat, w)
     else:
         raise ValueError(f"fedagg_tree: unsupported device {w.device}")
     return {k: y.view(x.shape[1:]) for k, x, y in zip(keys, xs, folded)}
@@ -97,10 +110,11 @@ def fold_stacked_tree(params_stacked: Mapping[str, torch.Tensor],
     """The simulator's weighted model fold: Σ_s weights[s]·stacked[s].
 
     On CUDA leaves it runs the ``fedagg`` kernel, one launch for the
-    whole tree (:func:`fedagg_tree`); on CPU leaves the plain per-leaf fold
+    whole tree (:func:`fedagg_tree`, which on meta leaves reports that
+    launch's cost instead); on CPU leaves the plain per-leaf fold
     (:func:`tree_combine`)."""
     first = next(iter(params_stacked.values()))
-    if first.device.type == "cuda":
+    if first.device.type in ("cuda", "meta"):
         return fedagg_tree(params_stacked, weights)
     if first.device.type == "cpu":
         return tree_combine(params_stacked, weights)
@@ -128,6 +142,8 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
+    if q.device.type == "meta":
+        return flash_attention_meta(q, k, v, causal, window)
     raise ValueError(f"flash_attention_op: unsupported device {q.device}")
 
 
@@ -153,6 +169,8 @@ def selective_scan_op(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
         return _scan.selective_scan(abar, bx, c)
     if abar.device.type == "cpu":
         return _scan.selective_scan_plain(abar, bx, c)
+    if abar.device.type == "meta":
+        return _scan.selective_scan_meta(abar, bx, c)
     raise ValueError(f"selective_scan_op: unsupported device {abar.device}")
 
 
@@ -177,4 +195,6 @@ def rwkv6_wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _wkv.rwkv6_wkv(r, k, v, w, u)
     if r.device.type == "cpu":
         return _wkv.rwkv6_wkv_plain(r, k, v, w, u)
+    if r.device.type == "meta":
+        return _wkv.rwkv6_wkv_meta(r, k, v, w, u)
     raise ValueError(f"rwkv6_wkv_op: unsupported device {r.device}")

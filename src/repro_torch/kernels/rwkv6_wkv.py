@@ -41,7 +41,12 @@ dy or an input likewise; its gradients are laid out like their inputs.
 ``rwkv6_wkv.launches`` counts forward launches,
 ``rwkv6_wkv.launches_ckpt`` those of them that stored checkpoints,
 ``rwkv6_wkv.launches_bwd`` backward launches (one call, two kernels),
-``rwkv6_wkv.copies`` the inputs copied so.
+``rwkv6_wkv.copies`` the inputs copied so. :func:`rwkv6_wkv_cost` and
+:func:`rwkv6_wkv_bwd_cost` are a call's FLOP and bytes, the bounds'
+numerators; on meta tensors (:func:`rwkv6_wkv_meta`, which
+``ops.rwkv6_wkv_op`` calls for them) nothing launches, and the call
+reports that cost to the dry run's meter (``kernels/meter.py``), under
+grad through :class:`RwkvWkvMetaFn`.
 """
 from __future__ import annotations
 
@@ -51,7 +56,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meter
 
 HEAD_SIZES = (4, 8, 16, 32, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -64,6 +69,32 @@ def ckpt_shapes(b: int, h: int, s: int, n: int) -> tuple[tuple, tuple]:
     the state before every CKPT_STEPS steps ``(B, H, ceil(S/16), N, N)``
     and c_t ``(B, H, S)``."""
     return (b, h, -(-s // CKPT_STEPS), n, n), (b, h, s)
+
+
+def rwkv6_wkv_cost(shape: tuple, dtype: torch.dtype, w_dtype: torch.dtype,
+                   ckpt: bool = False) -> tuple[int, int]:
+    """(FLOP, bytes) of one forward call over r ``(B, H, S, N)``: per (b,
+    h, step) y = rᵀS + (Σ_n r u k) v is 2N² + 5N and the update S = w ⊙ S
+    + k vᵀ is 3N²; r, k, v, w and the f32 u read once, y written once,
+    and with ``ckpt`` the f32 checkpoints and c_t stored."""
+    b, h, s, n = shape
+    rows = b * h * s * n
+    nbytes = 4 * rows * dtype.itemsize + rows * w_dtype.itemsize + 4 * h * n
+    if ckpt:
+        nbytes += 4 * sum(math.prod(x) for x in ckpt_shapes(b, h, s, n))
+    return b * h * s * (5 * n * n + 5 * n), nbytes
+
+
+def rwkv6_wkv_bwd_cost(shape: tuple, dtype: torch.dtype,
+                       w_dtype: torch.dtype) -> tuple[int, int]:
+    """(FLOP, bytes) of one backward call: 14N² + 16N a (b, h, step);
+    r, k, v, w, u and dy read once, dr, dk, dv, dw and the f32 du written
+    once (the checkpoints are the forward's output, not counted)."""
+    b, h, s, n = shape
+    rows = b * h * s * n
+    nbytes = (7 * rows * dtype.itemsize + 2 * rows * w_dtype.itemsize
+              + 8 * h * n)
+    return b * h * s * (14 * n * n + 16 * n), nbytes
 
 
 def _plain_forward(r, k, v, w, u, keep: bool):
@@ -460,6 +491,55 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             t.requires_grad for t in (r, k, v, w, u)):
         return RwkvWkvFn.apply(r, k, v, w, u)
     return rwkv6_wkv_fwd(r, k, v, w, u)
+
+
+class RwkvWkvMetaFn(torch.autograd.Function):
+    """:class:`RwkvWkvFn` on meta tensors: the forward reports the
+    checkpointing forward's cost and saves its checkpoints, the backward
+    reports the backward kernel's cost and returns empty gradients (with
+    du's scratch allocated, as the launcher does)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        y = _meta_forward(r, k, v, w, ckpt=True)
+        shape_ck, shape_c = ckpt_shapes(*r.shape)
+        ckpt = r.new_empty(shape_ck, dtype=torch.float32)
+        c = r.new_empty(shape_c, dtype=torch.float32)
+        ctx.save_for_backward(r, k, v, w, u, ckpt, c)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        r, k, v, w, u, _, _ = ctx.saved_tensors
+        b, h, _, n = r.shape
+        r.new_empty(b * h * n, dtype=torch.float32)
+        meter.report_kernel(
+            "rwkv6_wkv_bwd",
+            *rwkv6_wkv_bwd_cost(tuple(r.shape), r.dtype, w.dtype),
+            tensor_cores=False)
+        return (torch.empty_like(r), torch.empty_like(k),
+                torch.empty_like(v), torch.empty_like(w),
+                u.new_empty((h, n), dtype=torch.float32))
+
+
+def _meta_forward(r, k, v, w, ckpt: bool) -> torch.Tensor:
+    meter.report_kernel("rwkv6_wkv",
+                        *rwkv6_wkv_cost(tuple(r.shape), r.dtype, w.dtype,
+                                        ckpt), tensor_cores=False)
+    return torch.empty_like(r)
+
+
+def rwkv6_wkv_meta(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The kernels on meta tensors, launching nothing: y laid out like r,
+    empty, the call's cost reported to the installed meter; under grad
+    through :class:`RwkvWkvMetaFn`, as :func:`rwkv6_wkv` goes through
+    :class:`RwkvWkvFn`."""
+    check_inputs(r, k, v, w, u)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        return RwkvWkvMetaFn.apply(r, k, v, w, u)
+    return _meta_forward(r, k, v, w, ckpt=False)
 
 
 rwkv6_wkv.launches = 0

@@ -39,16 +39,22 @@ and its gradient comes back ``(B, S, N)`` contiguous.
 ``selective_scan.launches`` counts forward launches,
 ``selective_scan.launches_ckpt`` those of them that stored checkpoints,
 ``selective_scan.launches_bwd`` backward launches (one call, two
-kernels).
+kernels). :func:`selective_scan_cost` and :func:`selective_scan_bwd_cost`
+are a call's FLOP and bytes, the bounds' numerators; on meta tensors
+(:func:`selective_scan_meta`, which ``ops.selective_scan_op`` calls for
+them) nothing launches, and the call reports that cost to the dry run's
+meter (``kernels/meter.py``), under grad through
+:class:`SelectiveScanMetaFn`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meter
 
 STATE_SIZES = (4, 8, 16)
 # (abar dtype, bx dtype); c takes bx's dtype, and so does y.
@@ -63,6 +69,35 @@ def ckpt_shape(b: int, s: int, d: int, n: int) -> tuple:
     """Shape of the checkpoints the forward stores under grad (f32): the
     state before every CKPT_STEPS steps, ``(B, ceil(S/8), D, N)``."""
     return (b, -(-s // CKPT_STEPS), d, n)
+
+
+def selective_scan_cost(abar_shape: tuple, abar_dtype: torch.dtype,
+                        bx_dtype: torch.dtype, ckpt: bool = False
+                        ) -> tuple[int, int]:
+    """(FLOP, bytes) of one forward call over abar ``(B, S, D, N)``: an
+    FMA of the update and one of y a state element a step, 4BSDN; abar,
+    bx and c read once, y written once (c and y in bx's dtype), and with
+    ``ckpt`` the f32 checkpoints stored."""
+    b, s, d, n = abar_shape
+    e = bx_dtype.itemsize
+    nbytes = (b * s * d * n * (abar_dtype.itemsize + e) + b * s * n * e
+              + b * s * d * e)
+    if ckpt:
+        nbytes += 4 * math.prod(ckpt_shape(b, s, d, n))
+    return 4 * b * s * d * n, nbytes
+
+
+def selective_scan_bwd_cost(abar_shape: tuple, abar_dtype: torch.dtype,
+                            bx_dtype: torch.dtype) -> tuple[int, int]:
+    """(FLOP, bytes) of one backward call: 8BSDN (the adjoint's FMA, d
+    abar, dc's FMA and the state rebuilt, a state element a step); abar,
+    bx, c and dy read once, d abar, d bx and dc written once (the
+    checkpoints are the forward's output, not counted)."""
+    b, s, d, n = abar_shape
+    e = bx_dtype.itemsize
+    nbytes = (2 * b * s * d * n * (abar_dtype.itemsize + e)
+              + 2 * b * s * n * e + b * s * d * e)
+    return 8 * b * s * d * n, nbytes
 
 
 def _plain_forward(abar, bx, c, keep: bool):
@@ -390,6 +425,54 @@ def selective_scan(abar: torch.Tensor, bx: torch.Tensor,
             t.requires_grad for t in (abar, bx, c)):
         return SelectiveScanFn.apply(abar, bx, c)
     return selective_scan_fwd(abar, bx, c)
+
+
+class SelectiveScanMetaFn(torch.autograd.Function):
+    """:class:`SelectiveScanFn` on meta tensors: the forward reports the
+    checkpointing forward's cost and saves its checkpoints, the backward
+    reports the backward kernel's cost and returns empty gradients (with
+    its f32 scratch allocated, as the launcher does)."""
+
+    @staticmethod
+    def forward(ctx, abar, bx, c):
+        y = _meta_forward(abar, bx, c, ckpt=True)
+        ckpt = abar.new_empty(ckpt_shape(*abar.shape), dtype=torch.float32)
+        ctx.save_for_backward(abar, bx, c, ckpt)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        abar, bx, c, _ = ctx.saved_tensors
+        b, s, d, n = abar.shape
+        abar.new_empty(bwd_scratch_floats(b, s, d, n), dtype=torch.float32)
+        meter.report_kernel(
+            "selective_scan_bwd",
+            *selective_scan_bwd_cost(tuple(abar.shape), abar.dtype,
+                                     bx.dtype), tensor_cores=False)
+        return (torch.empty_like(abar), torch.empty_like(bx),
+                abar.new_empty((b, s, n), dtype=c.dtype))
+
+
+def _meta_forward(abar, bx, c, ckpt: bool) -> torch.Tensor:
+    b, s, d, _ = abar.shape
+    meter.report_kernel(
+        "selective_scan",
+        *selective_scan_cost(tuple(abar.shape), abar.dtype, bx.dtype, ckpt),
+        tensor_cores=False)
+    return abar.new_empty((b, s, d), dtype=bx.dtype)
+
+
+def selective_scan_meta(abar: torch.Tensor, bx: torch.Tensor,
+                        c: torch.Tensor) -> torch.Tensor:
+    """The kernels on meta tensors, launching nothing: y ``(B, S, D)``
+    empty in bx's dtype, the call's cost reported to the installed
+    meter; under grad through :class:`SelectiveScanMetaFn`, as
+    :func:`selective_scan` goes through :class:`SelectiveScanFn`."""
+    check_inputs(abar, bx, c)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (abar, bx, c)):
+        return SelectiveScanMetaFn.apply(abar, bx, c)
+    return _meta_forward(abar, bx, c, ckpt=False)
 
 
 selective_scan.launches = 0

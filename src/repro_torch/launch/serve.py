@@ -13,9 +13,9 @@ Every zoo architecture of the JAX package serves (``--arch``, see
 ``repro_torch.configs``). ``--full`` jamba-v0.1-52b is 51.6e9 params,
 96 GiB in bf16: more than one card holds (``chip_smoke.py`` serves one
 period of it); ``--full`` deepseek-coder-33b (62 GiB in bf16) and
-qwen3-moe-30b-a3b (57 GiB) fit an 80 GB card's weights but not the f32
-draw of their largest stacked leaf beside them (``chip_smoke.py`` serves
-them at a cut depth). For an encoder-decoder architecture (whisper) the
+qwen3-moe-30b-a3b (57 GiB) fit an 80 GB card at full depth (the
+initializer draws a large leaf in blocks of rows, ``models/params.py``).
+For an encoder-decoder architecture (whisper) the
 CLI primes the cross-attention caches from seeded frame embeddings,
 standing in for the stub frontend, as the JAX CLI does.
 

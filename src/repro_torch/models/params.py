@@ -31,6 +31,27 @@ class ParamDef:
     scale: float | None = None  # stddev for normal; fan-in default if None
 
 
+#: The largest f32 draw of a leaf made in one piece (bytes).
+DRAW_BYTES = 1 << 26
+
+
+def _row_blocks(shape: tuple[int, ...]) -> list[slice]:
+    """Blocks of rows along the first axis of a leaf of two or more dims
+    whose f32 draw exceeds :data:`DRAW_BYTES`, each drawn in one piece: as
+    many rows as fit (at least one), rounded up to a multiple of 16
+    elements, the last block taking any remainder under 16 elements. The
+    CPU generator fills normals 16 at a time, so on the CPU such blocks
+    draw what one call over the leaf draws: a seed gives the same
+    weights."""
+    n, row = shape[0], math.prod(shape[1:])
+    unit = 16 // math.gcd(row, 16)
+    step = -(-max(1, DRAW_BYTES // (4 * row)) // unit) * unit
+    starts = list(range(0, n, step))
+    if len(starts) > 1 and (n - starts[-1]) * row < 16:
+        starts.pop()
+    return [slice(i, j) for i, j in zip(starts, starts[1:] + [n])]
+
+
 def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device,
                dtype: torch.dtype) -> torch.Tensor:
     if d.init == "zeros":
@@ -43,10 +64,21 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, device: torch.device,
             fan_in = d.shape[0] if len(d.shape) >= 2 else max(d.shape[-1], 1)
             scale = 1.0 / math.sqrt(max(fan_in, 1))
         # Draw on the generator's device, then move: the same seed gives
-        # the same weights on every device.
-        x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                        device=gen.device)
-        return (scale * x).to(device=device, dtype=dtype)
+        # the same weights on every device. A leaf over DRAW_BYTES of f32
+        # is drawn in blocks of rows along its first axis, each cast as it
+        # goes, so its f32 draw never exists whole (a stacked leaf of
+        # deepseek-coder-33b is 34 GB in f32).
+        if len(d.shape) < 2 or 4 * math.prod(d.shape) <= DRAW_BYTES:
+            x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                            device=gen.device)
+            return (scale * x).to(device=device, dtype=dtype)
+        out = torch.empty(d.shape, dtype=dtype, device=device)
+        for rows in _row_blocks(d.shape):
+            x = torch.randn((rows.stop - rows.start,) + d.shape[1:],
+                            generator=gen, dtype=torch.float32,
+                            device=gen.device)
+            out[rows] = (scale * x).to(device=device, dtype=dtype)
+        return out
     if d.init == "constant":
         return torch.full(d.shape, d.scale or 0.0, dtype=dtype,
                           device=device)

@@ -177,11 +177,14 @@ BAD_INPUTS = [
     (_t(1, 2, 8, 16), _t(1, 2, 8, 16), _t(1, 2, 9, 16), None, ValueError),
     (_t(1, 2, 8, 16), _t(1, 2, 8, 16), _t(1, 2, 8, 16), 0, ValueError),
     (_t(1, 2, 0, 16), _t(1, 2, 8, 16), _t(1, 2, 8, 16), None, ValueError),
-    (_t(1, 2, 8, 16, device="meta"), _t(1, 2, 8, 16, device="meta"),
-     _t(1, 2, 8, 16, device="meta"), None, ValueError),
+    (_t(1, 2, 8, 12, device="meta"), _t(1, 2, 8, 12, device="meta"),
+     _t(1, 2, 8, 12, device="meta"), None, ValueError),
 ]
 # The table of head-dim pairs binds only the kernels, and is checked on the
 # card (tests/test_torch_flash_dims.py): the plain version takes any pair.
+# Meta tensors stand for the kernels' calls in the dry run, so the table
+# binds them too (D = 12 is not in it); tests/test_torch_roofline.py
+# holds good meta calls and the kernel wrappers' refusal of them.
 BAD_IDS = ["f64", "int", "mixed-dtype", "rank-3", "H-not-multiple-of-Hkv",
            "D-stride-not-1", "k-v-mismatch", "window-0", "Sq-0",
            "meta-device"]

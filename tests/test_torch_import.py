@@ -57,6 +57,10 @@ MODULES = [
     "repro_torch.launch.sim_time",
     "repro_torch.launch.recurrent_bwd_time",
     "repro_torch.launch.mesh",
+    "repro_torch.launch.specs",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.roofline",
+    "repro_torch.kernels.meter",
 ]
 
 

@@ -199,8 +199,12 @@ def test_mesh_errors(tmp_path):
             mr.build_round(mesh, one, None, model_specs={"w": (None,)})
         with pytest.raises(ValueError, match="kind"):
             mr.build_round(mesh, one, None, kind="kind")
-        # a tensor of another device never goes to the gloo group
+        # a tensor of another device never goes to the gloo group; a meta
+        # tensor (the dry run's) goes to no group at all
         with pytest.raises(ValueError, match="meta tensor offered to a gloo"):
-            mr.psum(torch.zeros(1, device="meta"), mesh, ("data",))
+            mr._check_backend(mesh.get_group("data"),
+                              torch.zeros(1, device="meta"))
+        assert mr.psum(torch.zeros(1, device="meta"), mesh,
+                       ("data",)).device.type == "meta"
         with pytest.raises(ValueError, match="DeviceMesh"):
             mr.sharded_fold({"w": torch.ones(1, 2)}, [1.0], object())
