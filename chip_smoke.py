@@ -112,8 +112,9 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     its abar in (0.01, 0.99), ``greedy_generate`` at serve's defaults,
     and the profiles of phase 10;
 19. routed — each routed strategy at full width on the card with its
-    station scenario (fedisl/gs, fedisl_ideal/meo, fedsink/haps:2,
-    fedhap_async/haps:2, fedhap_buffered/haps:2), default local steps,
+    station scenario (fedsink/haps:2, fedhap_async/haps:2,
+    fedhap_buffered/haps:2; fedisl/gs and fedisl_ideal/meo are Table
+    II's rows, which phase 36 runs), default local steps,
     batch and plan block, ``max_rounds=16`` (two blocks or more): the
     counts zeroed just before each run and read just after must show
     one ``fedagg`` launch per valid round or cycle event (the S=40 fold
@@ -123,14 +124,12 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     events (two flushes, two buffered) at full width with
     ``local_steps=2`` on the card and on the CPU from the same init and
     tensors: params, cycle bases and buffer must agree;
-21. ticks — the tick baselines at full width on the card with the JAX
-    tests' scenarios, default local steps and batch: fedsat/gs_np for 8
-    orbit-events and fedspace/gs for 2 flushes; the counts zeroed just
-    before each run and read just after must show one ``fedagg`` launch
-    per orbit-event (S=8) and one per flush (S = the rows buffered);
-    accuracies finite and above chance; s/event, peak memory and the
-    card's draw logged; then the fold at the first flush's S, timed as
-    phase 3 times S=8 (``fold_flush``);
+21. ticks — fedsat/gs_np, the JAX tests' scenario, at full width on
+    the card with default local steps and batch for 8 orbit-events (the
+    fedspace/gs run is Table II's row, which phase 36 runs); the counts
+    zeroed just before the run and read just after must show one
+    ``fedagg`` launch per orbit-event (S=8); accuracies finite and above
+    chance; s/event, peak memory and the card's draw logged;
 22. resume — fedhap/one_hap, fedspace/gs and fedhap_buffered/haps:2 at
     full width with ``checkpoint_every=1`` and the executor's own cuDNN
     settings (it must set ``cudnn.deterministic``): a run of 4 events, a
@@ -311,19 +310,50 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     count would be wrong), where the peak device memory is below the
     dry run's arguments, or where it is off their sum with the
     temporaries by more than ``PEAK_BAND``; it prints the measured /
-    predicted ratios and the compute term's share of the device time.
+    predicted ratios and the compute term's share of the device time;
+36. table2 — the paper's Table II through ``repro_torch.launch.table2``
+    at its ``--full`` tier (the CNN on 70k digits, 54 local steps, 120
+    rounds, 72 h, non-IID), every row on the card, FedISL (ideal) capped
+    at 16 rounds and FedSpace at 4 flushes (``TABLE2_CAPS``): the counts
+    zeroed just before each row's run and read just after must show one
+    ``fedagg`` launch per valid round (S=40, in two blocks or more), per
+    fedsat orbit-event (S=8) and per fedspace flush (S = the rows
+    buffered); each engine on ``cuda``; accuracies finite in [0, 1];
+    hours not decreasing and within the 72 h horizon up to the last
+    entry; FedHAP-oneHAP and the rows phases 19 and 21 ran before above
+    chance; each row's columns, s per round, orbit-event or flush, and
+    the paper's ordering (a reading) logged; then the fold at FedSpace's
+    first flush's S, timed as phase 3 times S=8 (``fold_flush``);
+37. constellation — the flash forward and backward at
+    ``examples/train_constellation_torch.py``'s attention shape (f32,
+    B=2, H=4, Hkv=2, S=256, D=64: the SIMT kernels) and the WKV forward
+    at ``examples/serve_constellation_torch.py``'s prefill shape against
+    their plain versions, timed beside their bounds and SDPA; then the
+    training example at its defaults (30 rounds, the 32.5M decoder, f32,
+    4 satellites): the counts zeroed just before and read per round, one
+    ``fedagg`` launch and one SIMT flash forward and backward launch per
+    layer and satellite step a round, the loss falling, rows bit-equal,
+    its checkpoint reloaded bit for bit; then the serve example at its
+    defaults (reduced rwkv6-3b): decoding launches nothing (its steps
+    are plain), ``serve.prefill`` of the CLI's own model, params and
+    prompts one ``rwkv6_wkv`` launch per layer, finite logits within
+    ``LM_F32_TOL`` of the CPU's, their argmax the CLI's first token.
 
 Each phase prints its seconds (``[time] phase N in ... s``).
 
 Prints a ``{"kernels": [...]}`` JSON line (``fedagg``'s entry with the
-phase 19, 21 and 26 launch counts by strategy, ``launches_routed``,
-``launches_ticks`` and ``launches_sanitized``, phase 25's
+phase 19, 21, 26 and 36 launch counts by strategy or row,
+``launches_routed``, ``launches_ticks``, ``launches_sanitized`` and
+``launches_table2``, phase 37's ``launches_constellation``, phase 25's
 ``launches_train``, phase 30's ``launches_train_rwkv``, the LM fold's
 times ``fold_lm`` and phase 33's ``launches_mesh`` (the sharded run's
 count and the fused LM rounds' under ``train``); ``flash_attention``'s with phase 25's
-``launches_train``, phase 32's ``launches_zoo`` by architecture and the
+``launches_train``, phase 37's ``launches_constellation`` and its
+readings at the example's shape under ``constellation``, phase 32's
+``launches_zoo`` by architecture and the
 (96, 64) variant's own entry under ``split``, its launches those of
-phase 32's minicpm3-4b prefill; ``rwkv6_wkv``'s with phase 30's; the backward's
+phase 32's minicpm3-4b prefill; ``rwkv6_wkv``'s with phase 30's and
+phase 37's ``launches_serve_example``; the backward's
 entry, ``flash_attention_bwd``, with its variant, timed at the training
 shape with the serve shape's numbers under ``serve`` and ptxas' report
 under ``ptxas``; and the recurrences' backward entries,
@@ -2404,9 +2434,10 @@ def phase_jamba_prefill_reads(torch, model, params, serve, tokens, ops,
 
 
 # Phase 19: the routed strategies with the station scenarios of the JAX
-# package's tests (tests/test_sim_fused.py).
-ROUTED_SCENARIOS = (("fedisl", "gs"), ("fedisl_ideal", "meo"),
-                    ("fedsink", "haps:2"), ("fedhap_async", "haps:2"),
+# package's tests (tests/test_sim_fused.py). fedisl/gs and
+# fedisl_ideal/meo are Table II's rows FedISL and FedISL (ideal): phase 36
+# runs them, with this phase's gates.
+ROUTED_SCENARIOS = (("fedsink", "haps:2"), ("fedhap_async", "haps:2"),
                     ("fedhap_buffered", "haps:2"))
 # Rounds (round family) or aggregations (cycle family) per run: at least
 # two blocks of 8 each.
@@ -2562,10 +2593,10 @@ def phase_cycle_card_vs_cpu(torch, sim) -> None:
 
 # Phase 21: the tick baselines with the station scenarios of the JAX
 # package's tests (tests/test_sim_fused.py); max_rounds counts fedsat's
-# orbit-events and fedspace's flushes, cut from 16 and 4 to keep the
-# script within its time on a slow host (fedspace's flushes take 3-7 s
-# each).
-TICK_RUNS = (("fedsat", "gs_np", 8), ("fedspace", "gs", 2))
+# orbit-events, cut from 16 to keep the script within its time on a slow
+# host. fedspace/gs is Table II's row FedSpace: phase 36 runs it (4
+# flushes), with this phase's gates.
+TICK_RUNS = (("fedsat", "gs_np", 8),)
 
 
 @contextlib.contextmanager
@@ -2585,15 +2616,13 @@ def recorded_folds(ex_mod, rows: list):
 
 
 def phase_ticks(torch, sim, fedagg_mod) -> dict:
-    """fedsat (gs_np, 8 orbit-events) and fedspace (gs, 2 flushes) at
-    full width on the card with default local steps and batch: the
-    fedagg counts zeroed just before each run and read just after must
-    show one launch per fedsat orbit-event, folding the orbit's 8
-    members, and one per fedspace flush, folding the rows buffered;
-    accuracies finite and above chance. Returns the launch counts, the
-    rows of each fold and the timings by strategy."""
+    """fedsat (gs_np, 8 orbit-events) at full width on the card with
+    default local steps and batch: the fedagg counts zeroed just before
+    the run and read just after must show one launch per orbit-event,
+    folding the orbit's 8 members; accuracies finite and above chance.
+    Returns the launch counts, the rows of each fold and the timings by
+    strategy."""
     from repro_torch.sim import executor as ex_mod
-    from repro_torch.sim.strategies import FedSpace
 
     out = {}
     for strategy, stations, max_rounds in TICK_RUNS:
@@ -2614,13 +2643,8 @@ def phase_ticks(torch, sim, fedagg_mod) -> dict:
             launches = fedagg_mod.fedagg.launches
         accs = [a for _, _, a in res.history]
         events = res.history[-1][1] if accs else 0
-        if strategy == "fedsat":
-            unit, units = "orbit-event", "orbit-events"
-            ok_rows = rows == [eng.cfg.sats_per_orbit] * events
-        else:
-            unit, units = "flush", "flushes"
-            flush = FedSpace()._flush_size(eng)
-            ok_rows = len(rows) == events and all(r >= flush for r in rows)
+        unit, units = "orbit-event", "orbit-events"
+        ok_rows = rows == [eng.cfg.sats_per_orbit] * events
         log("ticks", f"{strategy}/{stations}: engine built in {build_s:.2f} "
             f"s; {res.rounds} evals, {events} {units}, {res.sim_hours:.4f} "
             f"simulated h, in {wall:.3f} s: {wall / max(events, 1):.4f} "
@@ -2650,7 +2674,7 @@ def phase_ticks(torch, sim, fedagg_mod) -> dict:
 
 
 def phase_fold_flush(torch, fedagg_mod, leaf_shapes, s: int) -> dict:
-    """The fold at a fedspace flush's S (phase 21's first flush): the
+    """The fold at a fedspace flush's S (phase 36's first flush): the
     CNN's 8 leaves, f32, timed as phase 3 times S=8."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -5464,6 +5488,430 @@ def phase_roofline(torch, Transformer, get_config, kernels: dict) -> dict:
     return out
 
 
+# Phase 36: the paper's Table II at ``launch/table2.py``'s ``--full`` tier
+# (the CNN on 70k digits, 54 local steps, 120 rounds, 72 h, non-IID),
+# every row on the card. Two rows are capped for the script's time:
+# FedISL (ideal)'s rounds last seconds of simulated time, so it would run
+# all 120, and FedSpace's ~32 flushes take 2-4 s each (host-bound);
+# ``python examples/paper_reproduction_torch.py --full`` runs them
+# uncapped. Phases 19 and 21 no longer run fedisl/gs, fedisl_ideal/meo and
+# fedspace/gs: the rows FedISL, FedISL (ideal) and FedSpace are those
+# runs, held here to the same gates.
+TABLE2_CAPS = {"FedISL (ideal)": 16, "FedSpace": 4}
+# Rows whose final accuracy must be above chance: FedHAP-oneHAP (the main
+# path's station setup) and the rows phases 19 and 21 gated so.
+TABLE2_ABOVE_CHANCE = ("FedHAP-oneHAP", "FedISL", "FedISL (ideal)",
+                       "FedSat (ideal)", "FedSpace")
+
+
+def _table2_gates(name: str, row: dict, r: dict, flush: int) -> list:
+    """The gates of one Table II row on the card (``r``: its engine,
+    result and counts); returns the failures."""
+    eng, res = r["eng"], r["res"]
+    cfg = eng.cfg
+    accs = [a for _, _, a in res.history]
+    hours = [t for t, _, _ in res.history]
+    failed = []
+    if eng.device.type != "cuda":
+        failed.append(f"{name}: engine on {eng.device}")
+    if cfg.strategy == "fedsat":
+        ok = (r["launches"] == r["units"] >= cfg.max_rounds
+              and r["rows"] == [cfg.sats_per_orbit] * r["units"])
+    elif cfg.strategy == "fedspace":
+        ok = (r["launches"] == r["units"] == len(r["rows"])
+              and r["units"] >= cfg.max_rounds
+              and all(x >= flush for x in r["rows"]))
+    else:
+        ok = (r["launches"] == r["units"] and r["blocks"] >= 2
+              and r["rows"] == [eng.n_sats] * r["units"])
+    if not ok:
+        failed.append(f"{name}: {r['launches']} fedagg launches folding "
+                      f"{r['rows']} rows for {r['units']} valid "
+                      f"{r['unit']}s in {r['blocks']} blocks (max_rounds "
+                      f"{cfg.max_rounds}); expected one launch per "
+                      f"{r['unit']}")
+    if not accs or not all(math.isfinite(a) and 0.0 <= a <= 1.0
+                           for a in accs):
+        failed.append(f"{name}: accuracies not finite in [0, 1]: {accs}")
+    # A round or flush starts only within the horizon; the last may end
+    # past it.
+    if any(b < a for a, b in zip(hours, hours[1:])) \
+            or any(t > cfg.horizon_h for t in hours[:-1]):
+        failed.append(f"{name}: hours decrease or pass the {cfg.horizon_h} "
+                      f"h horizon before the last entry: {hours}")
+    if name in TABLE2_ABOVE_CHANCE and (not accs or accs[-1] <= 0.10):
+        failed.append(f"{name}: final accuracy {row['final_acc']} not "
+                      f"above chance")
+    return failed
+
+
+def phase_table2(torch, fedagg_mod) -> dict:
+    """Phase 36: every Table II row through ``launch/table2.py`` on the
+    card, at the ``--full`` tier (``TABLE2_CAPS`` aside): the counts
+    zeroed just before each row's run and read just after must show one
+    ``fedagg`` launch per valid round (S = 40), fedsat orbit-event (S = 8)
+    or fedspace flush (S = the rows buffered); its engine on ``cuda``;
+    accuracies finite in [0, 1]; hours not decreasing and within 72 h
+    up to the last entry; ``TABLE2_ABOVE_CHANCE`` above chance. Logs each
+    row's reference columns, s per unit and the paper's ordering (a
+    reading). Returns the rows' readings and FedSpace's rows per fold."""
+    from repro_torch.launch import table2
+    from repro_torch.sim import executor as ex_mod
+    from repro_torch.sim.strategies import FedSpace
+
+    runs = []
+
+    def counted(real):
+        class Counted(real):
+            def run(self, *args, **kw):
+                counter, rows = [0, 0], []
+                if self.cfg.strategy not in table2.ASYNC:
+                    count_valid(self.executor, "run_block", 4, counter)
+                torch.cuda.reset_peak_memory_stats()
+                with recorded_folds(ex_mod, rows):
+                    fedagg_mod.fedagg.launches = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = super().run(*args, **kw)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = fedagg_mod.fedagg.launches
+                ticks = self.cfg.strategy in table2.ASYNC
+                runs.append(dict(
+                    eng=self, res=res, wall=wall, launches=launches,
+                    rows=rows, blocks=counter[1],
+                    units=(res.history[-1][1] if res.history else 0)
+                    if ticks else counter[0],
+                    unit={"fedsat": "orbit-event", "fedspace": "flush"}.get(
+                        self.cfg.strategy, "round"),
+                    peak=torch.cuda.max_memory_allocated() / 2**30))
+                return res
+        return Counted
+
+    out, failed = {}, []
+    with patched(table2, "SatcomSimulator", counted):
+        for name in table2.configs(quick=False):
+            cap = TABLE2_CAPS.get(name)
+            row = table2.run(quick=False, methods=[name],
+                             **({"max_rounds": cap} if cap else {}))[0]
+            r = runs.pop()
+            cfg = r["eng"].cfg
+            flush = FedSpace()._flush_size(r["eng"])
+            failed += _table2_gates(name, row, r, flush)
+            s_unit = r["wall"] / max(r["units"], 1)
+            plural = "es" if r["unit"] == "flush" else "s"
+            log("table2", f"{name} ({cfg.strategy}/{cfg.stations}"
+                f"{f', capped at max_rounds={cap}' if cap else ''}): "
+                f"accuracy {row['final_acc']}, hours to 80% "
+                f"{row['hours_to_80pct']}, {row['rounds']} evals, "
+                f"{r['units']} {r['unit']}{plural}, {row['sim_hours']} "
+                f"simulated "
+                f"h, wall {row['wall_s']} s with the engine's build (run "
+                f"{r['wall']:.3f} s: {s_unit:.4f} s/{r['unit']}); fedagg "
+                f"launches {r['launches']}, rows per fold "
+                f"{sorted(set(r['rows']))}; peak device memory "
+                f"{r['peak']:.2f} GiB; card now "
+                f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+            log("table2", f"{name}: history (h, accuracy) {row['history']}")
+            out[name] = dict(
+                final_acc=row["final_acc"],
+                hours_to_80pct=row["hours_to_80pct"], rounds=row["rounds"],
+                sim_hours=row["sim_hours"], wall_s=row["wall_s"],
+                units=r["units"], unit=r["unit"], s_per_unit=s_unit,
+                launches=r["launches"], rows=r["rows"], capped=cap)
+            del r, row
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("Table II on the card: " + "; ".join(failed))
+    # The paper's ordering, a reading: the FedHAP rows first in accuracy
+    # and in hours to 80% (a row that never reaches it counts as last).
+    fedhap = [n for n in out if n.startswith("FedHAP")]
+    by_acc = sorted(out, key=lambda n: -out[n]["final_acc"])
+    by_tta = sorted(out, key=lambda n: (out[n]["hours_to_80pct"] is None,
+                                        out[n]["hours_to_80pct"] or 0.0))
+    log("table2", f"ordering by accuracy {by_acc}, by hours to 80% "
+        f"{by_tta}; FedHAP rows first in accuracy: "
+        f"{set(by_acc[:len(fedhap)]) == set(fedhap)}, in hours to 80%: "
+        f"{set(by_tta[:len(fedhap)]) == set(fedhap)} (a reading; "
+        f"{', '.join(TABLE2_CAPS)} capped)")
+    return dict(rows=out, fedspace_rows=out["FedSpace"]["rows"])
+
+
+# Phase 37: the constellation examples at their defaults. The LM example's
+# attention per satellite step: batch 2, 4 heads over 2 KV heads, seq
+# 256, head dim 64, f32 (the flash kernels' SIMT variant), causal.
+CONSTELLATION_ATTN = dict(b=2, h=4, hkv=2, s=256, d=64)
+# The serve example's WKV prefill: the reduced rwkv6-3b (d_model 256,
+# head size 32: 8 heads), batch 4, prompt 12, f32.
+CONSTELLATION_WKV = dict(b=4, h=8, s=12, n=32)
+
+
+def _example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _constellation_kernels(torch, fa_mod, wkv_mod) -> dict:
+    """The flash forward and backward at the LM example's shape and the
+    WKV forward at the serve example's prefill shape against their plain
+    versions on the card (each call's variant counted), timed beside
+    their bounds and, for flash, SDPA (forward and backward, device
+    time)."""
+    fa = fa_mod.flash_attention
+    b, h, hkv, s, d = (CONSTELLATION_ATTN[x]
+                       for x in ("b", "h", "hkv", "s", "d"))
+    what = f"f32 B={b} H={h} Hkv={hkv} S={s} D={d} causal"
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    q, k, v, do = _flash_views(torch, gen, b, h, hkv, s, s, d, torch.float32)
+    fwd, bwd = fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd
+    before = (fa.launches_simt, fa.launches_bwd_simt)
+    out, lse = fwd(q, k, v, with_lse=True)
+    grads = bwd(q, k, v, out, lse, do)
+    if (fa.launches_simt, fa.launches_bwd_simt) != (before[0] + 1,
+                                                    before[1] + 1):
+        raise AssertionError(f"flash {what}: not on the SIMT kernels")
+    ferr = check_close(torch, out, fa_mod.flash_attention_plain(q, k, v),
+                       "float32", f"flash {what}")
+    check_close(torch, lse, fa_mod.flash_attention_lse_plain(q, k),
+                "float32", f"flash lse {what}", LSE_TOL)
+    berr = max(check_close(torch, g, w, "float32", f"flash bwd {n} {what}")
+               for n, g, w in zip(("dq", "dk", "dv"), grads,
+                                  fa_mod.flash_attention_bwd_plain(
+                                      q, k, v, out, lse, do)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    args = [x.detach().requires_grad_() for x in (q, k, v)]
+    ref_out = sdpa(*args, is_causal=True, enable_gqa=True)
+    shapes = (tuple(q.shape), tuple(k.shape), tuple(v.shape))
+    fwd_b = bound(*fa_mod.flash_attention_cost(*shapes, q.dtype), False)
+    bwd_b = bound(*fa_mod.flash_attention_bwd_cost(*shapes, q.dtype), False)
+    t = dict(
+        fwd_ms=time_ms(torch, lambda: fwd(q, k, v)),
+        fwd_device_ms=device_ms(torch, lambda: fwd(q, k, v)),
+        fwd_plain_ms=time_ms(torch, lambda: fa_mod.flash_attention_plain(
+            q, k, v), reps=5, warmup=1),
+        fwd_library_device_ms=device_ms(torch, lambda: sdpa(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        bwd_ms=time_ms(torch, lambda: bwd(q, k, v, out, lse, do)),
+        bwd_device_ms=device_ms(torch, lambda: bwd(q, k, v, out, lse, do)),
+        bwd_plain_ms=time_ms(torch, lambda: fa_mod.flash_attention_bwd_plain(
+            q, k, v, out, lse, do), reps=5, warmup=1),
+        bwd_library_device_ms=device_ms(torch, lambda: torch.autograd.grad(
+            ref_out, args, do, retain_graph=True), reps=20),
+        fwd_bound_ms=fwd_b[0], fwd_bound_by=fwd_b[1],
+        bwd_bound_ms=bwd_b[0], bwd_bound_by=bwd_b[1],
+        fwd_max_abs_err=ferr, bwd_max_abs_err=berr)
+    log("constellation", f"flash {what} (SIMT): forward max |err| "
+        f"{ferr:.3e}, backward {berr:.3e} ({TOL['float32']}); device time "
+        f"forward {t['fwd_device_ms']:.4f} ms (SDPA "
+        f"{t['fwd_library_device_ms']:.4f}, bound {fwd_b[0]:.5f} ms, "
+        f"{fwd_b[1]}), backward {t['bwd_device_ms']:.4f} ms (SDPA's "
+        f"{t['bwd_library_device_ms']:.4f}, bound {bwd_b[0]:.5f} ms, "
+        f"{bwd_b[1]}); back to back forward {t['fwd_ms']:.4f}, backward "
+        f"{t['bwd_ms']:.4f}, plain {t['fwd_plain_ms']:.4f} / "
+        f"{t['bwd_plain_ms']:.4f} ms")
+    del q, k, v, do, out, lse, grads, args, ref_out
+
+    wkv = wkv_mod.rwkv6_wkv
+    b, h, s, n = (CONSTELLATION_WKV[x] for x in ("b", "h", "s", "n"))
+    wwhat = f"f32 B={b} H={h} S={s} N={n}"
+    r_, k_, v_, w_, u_ = _wkv_views(torch, gen, b, h, s, n, torch.float32,
+                                    torch.float32, (0.7, 0.999))
+    before = wkv.launches
+    y = wkv(r_, k_, v_, w_, u_)
+    if wkv.launches != before + 1:
+        raise AssertionError(f"rwkv6_wkv {wwhat}: did not count a launch")
+    werr = check_close(torch, y, wkv_mod.rwkv6_wkv_plain(r_, k_, v_, w_, u_),
+                       "float32", f"rwkv6_wkv {wwhat}", WKV_TOL["float32"])
+    wb = bound(*wkv_mod.rwkv6_wkv_cost((b, h, s, n), torch.float32,
+                                       torch.float32), False)
+    t.update(wkv_ms=time_ms(torch, lambda: wkv(r_, k_, v_, w_, u_)),
+             wkv_device_ms=device_ms(torch, lambda: wkv(r_, k_, v_, w_, u_)),
+             wkv_plain_ms=time_ms(torch, lambda: wkv_mod.rwkv6_wkv_plain(
+                 r_, k_, v_, w_, u_), reps=5, warmup=1),
+             wkv_bound_ms=wb[0], wkv_bound_by=wb[1], wkv_max_abs_err=werr)
+    log("constellation", f"rwkv6_wkv {wwhat}: max |err| {werr:.3e} "
+        f"({WKV_TOL['float32']}); device {t['wkv_device_ms']:.4f} ms, back "
+        f"to back {t['wkv_ms']:.4f} ms, plain {t['wkv_plain_ms']:.4f} ms, "
+        f"bound {wb[0]:.6f} ms ({wb[1]})")
+    return t
+
+
+def phase_constellation(torch, kernels: dict, fa_mod, wkv_mod) -> dict:
+    """Phase 37: ``examples/train_constellation_torch.py`` at its defaults
+    (30 rounds of the 32.5M qwen3-family decoder, f32, 4 satellites, seq
+    256): the counts zeroed just before its ``main`` and read per round
+    must show one ``fedagg`` launch and, per satellite step, one flash
+    forward and one backward launch per layer, all SIMT; the loss falls,
+    rows are bit-equal after the last fold, the checkpoint reloads bit
+    for bit. Then ``examples/serve_constellation_torch.py`` at its
+    defaults (reduced rwkv6-3b): the CLI steps its prompt through
+    ``decode_step`` (plain: no launch, as counted), then ``serve.prefill``
+    of the CLI's own model, params and prompts: one ``rwkv6_wkv`` launch
+    per layer, finite logits, within ``LM_F32_TOL`` of the CPU's and
+    their argmax the CLI's first generated token (where the CPU's top two
+    differ by more than that). The kernels at both examples' shapes are
+    held to their plain versions first."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch import serve
+
+    times = _constellation_kernels(torch, fa_mod, wkv_mod)
+    ex = _example("train_constellation_torch")
+    counters = launch_counters(kernels)
+    launch_keys = [k for k in counters if not k.endswith(".copies")]
+    per_round, built = [], {}
+
+    def counted(real):
+        def build(model, fed_cfg):
+            step = real(model, fed_cfg)
+            built["model"] = model
+
+            def counted_step(*args):
+                before = {k: getattr(*counters[k]) for k in launch_keys}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = step(*args)
+                torch.cuda.synchronize()
+                per_round.append((time.perf_counter() - t0, {
+                    k: getattr(*counters[k]) - before[k]
+                    for k in launch_keys}))
+                return got
+            return counted_step
+        return build
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            patched(ex, "single_device_round", counted):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ex.main(["--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        totals = {k: getattr(*counters[k]) for k in launch_keys}
+        params_S, losses = res["params_S"], res["losses"]
+        model = built["model"]
+        n_sats = next(iter(params_S.values())).shape[0]
+        steps = model.cfg.num_layers * n_sats
+        want = {k: 0 for k in launch_keys}
+        want.update({"fedagg": 1, "flash_attention": steps,
+                     "flash_attention.simt": steps,
+                     "flash_attention.bwd": steps,
+                     "flash_attention.bwd_simt": steps})
+        bad = [(i, c) for i, (_, c) in enumerate(per_round) if c != want]
+        if len(per_round) != len(losses) or bad:
+            raise AssertionError(f"train_constellation_torch: "
+                                 f"{len(per_round)} rounds counted for "
+                                 f"{len(losses)} losses; launches "
+                                 f"{bad[:2]}; want {want} a round")
+        if not losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train_constellation_torch: losses "
+                                 f"{losses}")
+        for key, leaf in params_S.items():
+            if not all(torch.equal(leaf[s], leaf[0])
+                       for s in range(1, n_sats)):
+                raise AssertionError(f"train_constellation_torch: rows of "
+                                     f"{key} differ after the fold")
+        row0 = {k: x[0] for k, x in params_S.items()}
+        loaded, manifest = load_checkpoint(tmp, row0)
+        if manifest["step"] != len(losses) or manifest["metadata"][
+                "losses"] != losses or not all(
+                torch.equal(loaded[k], v) for k, v in row0.items()):
+            raise AssertionError("train_constellation_torch: the checkpoint "
+                                 "did not load back bit for bit")
+    walls = [w for w, _ in per_round]
+    median = sorted(walls)[len(walls) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = n_sats * CONSTELLATION_ATTN["b"] * CONSTELLATION_ATTN["s"]
+    launches = {k: v for k, v in want.items() if v}
+    log("constellation", f"train_constellation_torch: "
+        f"{model.count_params()} params x {n_sats} satellites, "
+        f"{len(losses)} rounds in {wall:.2f} s (model build and checkpoint "
+        f"included; the rounds' steps {sum(walls):.2f} s of it); loss {losses[0]:.4f} -> {losses[-1]:.4f}; s/round "
+        f"median {median:.4f} (first {walls[0]:.4f}, last {walls[-1]:.4f}); "
+        f"{tokens / median:.1f} trained tokens/s at the median, "
+        f"{res['tokens_per_s']:.1f} by the example's own clock; peak device "
+        f"memory {peak:.2f} GiB; launches per round {launches}, in all "
+        f"{ {k: v for k, v in totals.items() if v} }; rows bit-equal, the "
+        f"checkpoint reloads bit for bit; card now "
+        f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    log("constellation", f"losses {[round(x, 4) for x in losses]}")
+    out = dict(losses=losses, s_per_round=walls, peak_gib=peak,
+               tokens_per_s=tokens / median, launches_per_round=launches,
+               totals=totals, times=times)
+    del params_S, row0, loaded, res, model, built
+    torch.cuda.empty_cache()
+
+    # The serve example at its defaults; its greedy_generate call's model,
+    # params and prompts kept for the prefill.
+    seen = {}
+
+    def keep(real):
+        def wrapped(model, params, prompts, gen, **kw):
+            seen.update(model=model, params=params, prompts=prompts)
+            return real(model, params, prompts, gen, **kw)
+        return wrapped
+
+    with patched(serve, "greedy_generate", keep):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        toks = _example("serve_constellation_torch").main([])
+        serve_s = time.perf_counter() - t0
+        decode_counts = {k: getattr(*counters[k]) for k in launch_keys}
+    model, params, prompts = seen["model"], seen["params"], seen["prompts"]
+    plen = prompts.shape[1]
+    if any(decode_counts.values()):
+        raise AssertionError(f"serve_constellation_torch: decoding launched "
+                             f"{decode_counts}; its steps are plain")
+    tokens = torch.as_tensor(prompts, device="cuda").long()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    logits = serve.prefill(model, params, tokens)
+    torch.cuda.synchronize()
+    counts = {k: getattr(*counters[k]) for k in launch_keys}
+    copies = wkv_mod.rwkv6_wkv.copies
+    want = {k: 0 for k in launch_keys}
+    want["rwkv6_wkv"] = model.cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"serve_constellation_torch prefill launched "
+                             f"{counts}; want {want}")
+    if logits.shape != (prompts.shape[0], model.cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"serve prefill logits {tuple(logits.shape)} "
+                             f"not finite")
+    want_logits = serve.prefill(model, {k: v.cpu() for k, v in params.items()},
+                                tokens.cpu())
+    err = check_close(torch, logits.cpu(), want_logits, "float32",
+                      "serve_constellation_torch prefill, card vs CPU",
+                      LM_F32_TOL)
+    top2 = want_logits.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > LM_F32_TOL["atol"] \
+        + LM_F32_TOL["rtol"] * top2[:, 0].abs()
+    first = torch.as_tensor(toks[:, plen]).long()
+    agree = logits.argmax(-1).cpu() == first
+    if not bool(agree[clear].all()):
+        raise AssertionError(f"serve prefill argmax {logits.argmax(-1)} vs "
+                             f"the CLI's first generated tokens {first}")
+    log("constellation", f"serve_constellation_torch ({model.cfg.name}, "
+        f"batch {prompts.shape[0]}, prompt {plen}, {toks.shape[1] - plen} "
+        f"generated) in {serve_s:.2f} s, decoding launched nothing; its "
+        f"prefill launched {counts['rwkv6_wkv']} rwkv6_wkv ({copies} inputs "
+        f"copied), logits "
+        f"{tuple(logits.shape)} finite, card vs CPU max |err| {err:.3e} "
+        f"({LM_F32_TOL}), argmax = the CLI's first token on "
+        f"{int(agree[clear].sum())} of {int(clear.sum())} clear rows")
+    out.update(wkv_launches=counts["rwkv6_wkv"], serve_s=serve_s)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     clock = Clock()
@@ -5661,13 +6109,10 @@ def main() -> int:
         phase_cycle_card_vs_cpu(torch, sim)
         clock.lap("20 (cycle card vs CPU)")
 
-        # 21. the tick baselines on the card; counts zeroed per run. Then
-        # the fold at the first flush's S.
+        # 21. fedsat on the card; counts zeroed per run.
         ticks = phase_ticks(torch, sim, fedagg_mod)
         entry["launches_ticks"] = {k: v["launches"]
                                    for k, v in ticks.items()}
-        entry["fold_flush"] = phase_fold_flush(
-            torch, fedagg_mod, leaf_shapes, ticks["fedspace"]["rows"][0])
         clock.lap("21 (ticks)")
 
         # 22. checkpoint and resume on the card; a card checkpoint on the
@@ -5786,7 +6231,30 @@ def main() -> int:
     flash_entry["launches_roofline"] = flash_entry["roofline"][
         "prefill_32k"]["launches"]
     clock.lap("35 (roofline)")
-    log("done", f"phases 1-35 in {time.perf_counter() - t_start:.1f} s")
+
+    # 36. the paper's Table II at the --full tier, every row on the card
+    # (two capped); counts zeroed per row. Then the fold at FedSpace's
+    # first flush's S.
+    with patched(engine_mod, "load_dataset", lambda _: load_dataset):
+        table = phase_table2(torch, fedagg_mod)
+    entry["launches_table2"] = {k: v["launches"]
+                                for k, v in table["rows"].items()}
+    entry["fold_flush"] = phase_fold_flush(
+        torch, fedagg_mod, leaf_shapes, table["fedspace_rows"][0])
+    clock.lap("36 (table2)")
+
+    # 37. the constellation examples at their defaults; counts zeroed
+    # before each.
+    constellation = phase_constellation(torch, kernels, fa_mod, wkv_mod)
+    flash_entry["constellation"] = constellation["times"]
+    flash_entry["launches_constellation"] = constellation["totals"][
+        "flash_attention"]
+    bwd_entry["launches_constellation"] = constellation["totals"][
+        "flash_attention.bwd"]
+    entry["launches_constellation"] = constellation["totals"]["fedagg"]
+    wkv_entry["launches_serve_example"] = constellation["wkv_launches"]
+    clock.lap("37 (constellation)")
+    log("done", f"phases 1-37 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
                                   scan_entry, bwd_entry, split_bwd_entry,

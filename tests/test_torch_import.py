@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: ``repro_torch`` and ``chip_smoke.py``
-import neither jax nor the JAX package ``repro``."""
+"""The PyTorch port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+the port's examples (``examples/*_torch.py``) import neither jax nor the
+JAX package ``repro``."""
 import ast
 import os
 import pathlib
@@ -61,6 +62,7 @@ MODULES = [
     "repro_torch.launch.dryrun",
     "repro_torch.launch.roofline",
     "repro_torch.kernels.meter",
+    "repro_torch.launch.table2",
 ]
 
 
@@ -98,7 +100,8 @@ def _imported_names(path: pathlib.Path) -> list[str]:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("*_torch.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_static_scan_no_jax_or_repro_imports(path):
     bad = [n for n in _imported_names(path) if _forbidden(n)]
