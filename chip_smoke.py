@@ -299,7 +299,9 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     --arch minicpm3-4b`` with its defaults for 2 rounds, its launches
     counted;
 35. roofline — qwen3-0.6b at full width, bf16, one device's step of two
-    production cells of the 16 x 16 mesh, each run once after a
+    production cells on a ``(data=16, model=1)`` mesh (the 16 x 16
+    mesh's per-device batch, the whole model on the device, as one card
+    holds it), each run once after a
     warm-up: ``prefill_32k`` (batch 2 x 32768; the counts zeroed just
     before and read just after: 28 tensor-core flash launches, as many
     as the dry run counted) and ``decode_32k`` (one step, batch 8
@@ -338,6 +340,20 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     are plain), ``serve.prefill`` of the CLI's own model, params and
     prompts one ``rwkv6_wkv`` launch per layer, finite logits within
     ``LM_F32_TOL`` of the CPU's, their argmax the CLI's first token.
+38. tensor parallel — tensor parallelism over ``model``
+    (``models/sharding.py``): every kernel at the shard shapes of the
+    full-width archs at ``model`` in {2, 4}, held to its plain version
+    and timed beside its bound (the flash forward at the prefill shape
+    and its backward at the training shape for qwen3-0.6b's 8/4 and 4/2
+    query/KV heads and minicpm3-4b's (96, 64) pair at 20 and 10 heads;
+    the WKV forward and backward at rwkv6-3b's 20 and 10 heads and the
+    scan's at jamba's d_inner/m = 4096 and 2048, at the training shape;
+    the fold on one rank's contiguous shards of the qwen3-0.6b LM fold);
+    then ``launch.train --full --sats 1`` on a 1-rank NCCL ``(data=1,
+    model=1)`` mesh, the counts and the ``model`` axis's collectives
+    zeroed just before and read just after: the sanitized specs' sharded
+    code path (all-reduces and gathers over ``model``, the kernels'
+    launches), bit-equal to phase 33's single-device round.
 
 Each phase prints its seconds (``[time] phase N in ... s``).
 
@@ -365,8 +381,10 @@ the (96, 64) backward's entry, ``flash_attention_bwd<D=96, Dv=64>``
 shape's readings under ``serve``, the split sweep's errors, ptxas'
 report, phase 34's readings under ``train_slice``; phase 34's forward
 launches are the (96, 64) entry's ``launches_train_mla`` and its folds
-``fedagg``'s), the card line, and last ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX or ``repro``.
+``fedagg``'s; phase 38's shard-shape readings are each entry's
+``tp_shards`` and its tensor-parallel run's launches ``launches_tp``),
+the card line, and last ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -5299,6 +5317,10 @@ def _mesh_runs(torch, sim, fedagg_mod, mesh, ref_history, ref_blocks,
     # the same fold whatever --round-kind says, so once).
     want = train.main(MESH_LM + ["--single-device"])
     torch.cuda.synchronize()
+    # Phase 38 holds the tensor-parallel path to this run.
+    out["single_device"] = {
+        "losses": list(want["losses"]),
+        "params": {k: v.cpu() for k, v in want["params_S"].items()}}
     out["train"] = {}
     for kind in ("fedhap", "fedhap_fused"):
         args = MESH_LM + ["--round-kind", kind]
@@ -5337,6 +5359,273 @@ def _mesh_runs(torch, sim, fedagg_mod, mesh, ref_history, ref_blocks,
     return out
 
 
+# Phase 38: tensor parallelism over ``model``. The kernels at the shard
+# shapes of the full-width archs at model = 2 and 4 (a rank's heads,
+# channels or leaf shards): the flash forward at the prefill shape, the
+# rest at the training shape (B=2, S=1024), where the plain recurrences'
+# step loops stay short.
+TP_MODELS = (2, 4)
+TP_FLASH = {"qwen3-0.6b": (16, 8, 128, 128), "minicpm3-4b": (40, 40, 96, 64)}
+TP_WKV = dict(b=2, h=40, s=1024, n=64)
+TP_SCAN = dict(b=2, s=1024, d=8192, n=16)
+TP_FOLD_ARCH = "qwen3-0.6b"
+
+
+def _timed(torch, fn, plain, reps: int = 10) -> tuple[float, float]:
+    """(device ms of the kernel, ms of the plain version)."""
+    return (device_ms(torch, fn, reps=reps),
+            time_ms(torch, plain, reps=2, warmup=1))
+
+
+def _reading(err, ms, plain_ms, cost, tensor_cores, lib_ms=None) -> dict:
+    b_ms, by = bound(*cost, tensor_cores)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def _tp_flash(torch, fa_mod, gen, out: dict) -> None:
+    """Phase 38's flash readings into ``out`` (forward and backward, the
+    (D, D) and (96, 64) pairs apart)."""
+    bf16 = torch.bfloat16
+    fa, plain = fa_mod.flash_attention, fa_mod.flash_attention_plain
+    bwd, bwd_plain = fa_mod.flash_attention_bwd, \
+        fa_mod.flash_attention_bwd_plain
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for arch, (h0, hkv0, d, dv) in TP_FLASH.items():
+        fwd_key, bwd_key = (("flash", "flash_bwd") if d == dv else
+                            ("flash_split", "flash_split_bwd"))
+        for m in TP_MODELS:
+            h, hkv = h0 // m, hkv0 // m
+            label = f"{arch} model={m}: H={h} Hkv={hkv} D={d} Dv={dv}"
+            q, k, v = _split_views(torch, gen, 4, h, hkv, 4096, 4096, d, dv,
+                                   bf16)
+            n_tc = fa.launches_tc
+            got = fa(q, k, v)
+            if fa.launches_tc != n_tc + 1:
+                raise AssertionError(f"tp flash {label}: not the tensor-core "
+                                     f"kernel")
+            err = check_close(torch, got, plain(q, k, v), "bfloat16",
+                              f"tp flash {label}", PREFILL_BF16_TOL)
+            del got
+            ms, plain_ms = _timed(torch, lambda: fa(q, k, v),
+                                  lambda: plain(q, k, v))
+            lib = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
+                                              enable_gqa=True), reps=10)
+            f = out[fwd_key][label] = _reading(
+                err, ms, plain_ms, fa_mod.flash_attention_cost(
+                    tuple(q.shape), tuple(k.shape), tuple(v.shape), bf16),
+                True, lib)
+            del q, k, v
+            q, k, v = _split_views(torch, gen, 2, h, hkv, 1024, 1024, d, dv,
+                                   bf16)
+            o, lse = fa_mod.flash_attention_fwd(q, k, v, with_lse=True)
+            do = torch.randn_like(o)
+            n_tc = fa.launches_bwd_tc
+            got = bwd(q, k, v, o, lse, do)
+            if fa.launches_bwd_tc != n_tc + 1:
+                raise AssertionError(f"tp flash bwd {label}: not the "
+                                     f"tensor-core kernels")
+            want = bwd_plain(q, k, v, o, lse, do)
+            err = max(check_close(torch, g, w, "bfloat16",
+                                  f"tp flash bwd {n} {label}", BWD_BF16_TOL)
+                      for n, g, w in zip(("dq", "dk", "dv"), got, want))
+            del got, want
+            ms, plain_ms = _timed(torch, lambda: bwd(q, k, v, o, lse, do),
+                                  lambda: bwd_plain(q, k, v, o, lse, do))
+            g = out[bwd_key][label] = _reading(
+                err, ms, plain_ms, fa_mod.flash_attention_bwd_cost(
+                    tuple(q.shape), tuple(k.shape), tuple(v.shape), bf16),
+                True)
+            del q, k, v, o, lse, do
+            log("tp", f"flash {label}: forward (B=4, S=4096) max |err| "
+                f"{f['max_abs_err']:.3e}, {f['ms']:.4f} ms against plain "
+                f"{f['plain_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms, "
+                f"sdpa {f['library_ms']:.4f} ms; backward (B=2, S=1024) "
+                f"max |err| {g['max_abs_err']:.3e}, {g['ms']:.4f} ms "
+                f"against plain {g['plain_ms']:.4f} ms, bound "
+                f"{g['bound_ms']:.4f} ms")
+
+
+def _tp_recurrence(torch, label: str, fwd, fwd_ckpt, plain, bwd,
+                   bwd_plain, args, names, tol, costs, out_f, out_b
+                   ) -> None:
+    """One recurrence's readings at a shard shape: the checkpointing
+    forward against the plain version at ``tol``, the backward on its
+    checkpoints against the plain backward (``check_grads``)."""
+    y, *ckpt = fwd_ckpt(*args)
+    err = check_close(torch, y, plain(*args), "bfloat16", f"tp {label}",
+                      tol)
+    ms, plain_ms = _timed(torch, lambda: fwd(*args), lambda: plain(*args))
+    f = out_f[label] = _reading(err, ms, plain_ms, costs[0], False)
+    dy = torch.randn_like(y)
+    rel = check_grads(torch, bwd(*args, dy, *ckpt), bwd_plain(*args, dy),
+                      f"tp {label} backward", names)
+    bms, bplain = _timed(torch, lambda: bwd(*args, dy, *ckpt),
+                         lambda: bwd_plain(*args, dy))
+    g = out_b[label] = _reading(max(rel.values()), bms, bplain, costs[1],
+                                False)
+    g["max_rel_err"] = g.pop("max_abs_err")
+    log("tp", f"{label}: forward max |err| {err:.3e}, {ms:.4f} ms against "
+        f"plain {plain_ms:.4f} ms, bound {f['bound_ms']:.4f} ms; backward "
+        f"max |err| / max |plain| {g['max_rel_err']:.3e}, {bms:.4f} ms "
+        f"against plain {bplain:.4f} ms, bound {g['bound_ms']:.4f} ms")
+
+
+def phase_tp_kernels(torch, fa_mod, wkv_mod, scan_mod, fedagg_mod,
+                     Transformer, get_config) -> dict:
+    """Phase 38's kernels (see the module docstring); returns
+    ``{"flash", "flash_bwd", "flash_split", "flash_split_bwd", "wkv",
+    "wkv_bwd", "scan", "scan_bwd", "fedagg"}``, each ``{shape: reading}``
+    with the kernel's error against its plain version (the backwards'
+    relative to the largest gradient), its device time, the plain
+    version's time and its bound."""
+    from repro_torch.models.sharding import local_shape, sanitize_specs
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    out = {k: {} for k in ("flash", "flash_bwd", "flash_split",
+                           "flash_split_bwd", "wkv", "wkv_bwd", "scan",
+                           "scan_bwd", "fedagg")}
+    _tp_flash(torch, fa_mod, gen, out)
+
+    b, s, n = TP_WKV["b"], TP_WKV["s"], TP_WKV["n"]
+    for m in TP_MODELS:
+        h = TP_WKV["h"] // m
+        shape = (b, h, s, n)
+        _tp_recurrence(
+            torch, f"wkv rwkv6-3b model={m}: B={b} H={h} S={s} N={n}",
+            wkv_mod.rwkv6_wkv_fwd, wkv_mod.rwkv6_wkv_fwd_ckpt,
+            wkv_mod.rwkv6_wkv_plain, wkv_mod.rwkv6_wkv_bwd,
+            wkv_mod.rwkv6_wkv_bwd_plain,
+            _wkv_views(torch, gen, b, h, s, n, bf16, f32, (0.7, 0.999)),
+            ("dr", "dk", "dv", "dw", "du"), WKV_PREFILL_TOL["bfloat16"],
+            (wkv_mod.rwkv6_wkv_cost(shape, bf16, f32),
+             wkv_mod.rwkv6_wkv_bwd_cost(shape, bf16, f32)),
+            out["wkv"], out["wkv_bwd"])
+    b, s, n = TP_SCAN["b"], TP_SCAN["s"], TP_SCAN["n"]
+    for m in TP_MODELS:
+        d = TP_SCAN["d"] // m
+        shape = (b, s, d, n)
+        _tp_recurrence(
+            torch, f"scan jamba model={m}: B={b} S={s} D={d} N={n}",
+            scan_mod.selective_scan_fwd, scan_mod.selective_scan_fwd_ckpt,
+            scan_mod.selective_scan_plain, scan_mod.selective_scan_bwd,
+            scan_mod.selective_scan_bwd_plain,
+            _scan_inputs(torch, gen, b, s, d, n, "mixed", (0.8, 0.999)),
+            ("dabar", "dbx", "dc"), SCAN_PREFILL_TOL["bfloat16"],
+            (scan_mod.selective_scan_cost(shape, f32, bf16),
+             scan_mod.selective_scan_bwd_cost(shape, f32, bf16)),
+            out["scan"], out["scan_bwd"])
+
+    # The fold of one rank's shards of the LM fold: S=4 bf16 rows of each
+    # leaf's contiguous shard (the sanitized specs at model = m).
+    model = Transformer(get_config(TP_FOLD_ARCH))
+    defs = model.defs()
+    n_sats = 4
+    w = torch.rand(n_sats, generator=gen, device="cuda")
+    w = w / w.sum()
+    wb = w.to(bf16)
+    for m in TP_MODELS:
+        specs = sanitize_specs(defs, model.specs(), {"model": m})
+        xs = [(0.02 * torch.randn(
+            (n_sats, math.prod(local_shape(dd.shape, specs[k], m))),
+            generator=gen, device="cuda")).to(bf16)
+            for k, dd in defs.items()]
+        n_p = sum(x.shape[1] for x in xs)
+        label = f"{TP_FOLD_ARCH} model={m}: S={n_sats} bf16 P={n_p}"
+        got = fedagg_mod.fedagg_leaves(xs, w)
+        want = fedagg_mod.fedagg_leaves_plain(xs, w)
+        err = max(check_close(torch, g, x, "bfloat16", f"tp fold {label}",
+                              FOLD_BF16_TOL) for g, x in zip(got, want))
+        del got, want
+        ms, plain_ms = _timed(torch,
+                              lambda: fedagg_mod.fedagg_leaves(xs, w),
+                              lambda: fedagg_mod.fedagg_leaves_plain(xs, w))
+        lib = device_ms(torch, lambda: [torch.mv(x.t(), wb) for x in xs],
+                        reps=10)
+        f = out["fedagg"][label] = _reading(
+            err, ms, plain_ms, fedagg_mod.fedagg_cost(
+                n_sats, [x.shape[1] for x in xs], bf16), False, lib)
+        log("tp", f"fold {label}: max |err| {err:.3e}, {ms:.4f} ms against "
+            f"plain {plain_ms:.4f} ms, bound {f['bound_ms']:.4f} ms, "
+            f"torch.mv per leaf {lib:.4f} ms")
+        del xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_train(torch, kernels: dict, single_device: dict) -> dict:
+    """Phase 38's tensor-parallel code path: ``launch.train`` with
+    ``MESH_LM`` on a 1-rank NCCL group, whose ``(data=1, model=1)`` mesh
+    makes ``build_fed_train_step`` shard every leaf by the sanitized
+    ``model.specs()`` (each rank's shard is the whole leaf); the kernels'
+    counts and the ``model`` axis's collectives zeroed just before and
+    read just after. Its losses and params must be bit-equal to phase
+    33's single-device round (``single_device``). Returns the launches
+    and the collectives."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    from repro_torch.models import sharding
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    coll = {"all-reduce": 0, "all-gather": 0}
+
+    def counting(kind):
+        def wrap(real):
+            def counted(self, x):
+                coll[kind] += 1
+                return real(self, x)
+            return counted
+        return wrap
+
+    fa = kernels["flash_attention"]
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=60))
+        try:
+            with patched(sharding.ModelAxis, "_all_reduce",
+                         counting("all-reduce")), \
+                    patched(sharding.ModelAxis, "_gather_pieces",
+                            counting("all-gather")):
+                for kern in kernels.values():
+                    kern.launches = 0
+                fa.launches_bwd = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = train.main(MESH_LM + ["--round-kind", "fedhap_fused"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {name: kern.launches
+                            for name, kern in kernels.items()}
+                launches["flash_attention.bwd"] = fa.launches_bwd
+        finally:
+            dist.destroy_process_group()
+    equal = (got["losses"] == single_device["losses"] and all(
+        torch.equal(got["params_S"][k].cpu(), v)
+        for k, v in single_device["params"].items()))
+    log("tp", f"launch.train {' '.join(MESH_LM)} --round-kind fedhap_fused "
+        f"on a 1-rank NCCL (data=1, model=1) mesh, the sanitized specs' "
+        f"sharded path: {wall:.2f} s with the model's init, losses "
+        f"{got['losses']}; launches {launches}; model-axis collectives "
+        f"{coll}; bit-equal to phase 33's single-device round: {equal}")
+    if got["path"] != "mesh" or not all(coll.values()):
+        raise AssertionError(f"the tensor-parallel path did not run: path "
+                             f"{got['path']}, collectives {coll}")
+    if launches["fedagg"] != 2 or not launches["flash_attention"] \
+            or not launches["flash_attention.bwd"]:
+        raise AssertionError(f"tensor-parallel launches {launches}: want "
+                             f"one fold a round and the flash kernels")
+    if not equal:
+        raise AssertionError("the tensor-parallel path on a (1, 1) mesh "
+                             "differs from phase 33's single-device round")
+    return dict(launches=launches, collectives=coll, seconds=wall)
+
+
 class Clock:
     """Each phase's seconds: ``lap(label)`` logs the time since the last
     lap (or since the clock was made) as that phase's."""
@@ -5359,6 +5648,9 @@ class Clock:
 # that meta tensors do not (cuBLAS workspaces): PEAK_BAND of it.
 ROOFLINE_ARCH = "qwen3-0.6b"
 ROOFLINE_CELLS = ("prefill_32k", "decode_32k")
+# One card holds the whole model: the dry run's device at model = 1 (at
+# the production model = 16 its params would be a sixteenth's).
+ROOFLINE_MESH = (16, 1)
 PEAK_BAND = 0.25
 
 
@@ -5382,12 +5674,15 @@ def phase_roofline(torch, Transformer, get_config, kernels: dict) -> dict:
     for cell in ROOFLINE_CELLS:
         shape = SHAPES[cell]
         t0 = time.perf_counter()
-        art = roofline.roofline_one(ROOFLINE_ARCH, cell)
-        dry = dryrun.lower_one(ROOFLINE_ARCH, cell, multi_pod=False)
+        art = roofline.roofline_one(ROOFLINE_ARCH, cell,
+                                    mesh_shape=ROOFLINE_MESH)
+        dry = dryrun.lower_one(ROOFLINE_ARCH, cell, multi_pod=False,
+                               mesh_shape=ROOFLINE_MESH)
         traced_s = time.perf_counter() - t0
         mem = dry["memory_analysis"]
         arg, temp = mem["argument_size_in_bytes"], mem["temp_size_in_bytes"]
-        b = dryrun.device_batch(False, shape.global_batch)
+        b = dryrun.device_batch(False, shape.global_batch,
+                                dict(zip(("data", "model"), ROOFLINE_MESH)))
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5448,7 +5743,7 @@ def phase_roofline(torch, Transformer, get_config, kernels: dict) -> dict:
                    launches=counts.get("flash_attention", 0),
                    traced_s=traced_s)
         out[cell] = row
-        log("roofline", f"{ROOFLINE_ARCH} {cell}, one device of the 16x16 "
+        log("roofline", f"{ROOFLINE_ARCH} {cell}, one device of the 16x1 "
             f"mesh (batch {b}, {shape.seq_len} positions), bf16: device "
             f"time {dev_ms:.3f} ms; roofline ({roofline.CARD}): compute "
             f"{compute_ms:.3f} ms ({art['per_device']['flops']:.4e} FLOP, "
@@ -6254,7 +6549,26 @@ def main() -> int:
     entry["launches_constellation"] = constellation["totals"]["fedagg"]
     wkv_entry["launches_serve_example"] = constellation["wkv_launches"]
     clock.lap("37 (constellation)")
-    log("done", f"phases 1-37 in {time.perf_counter() - t_start:.1f} s")
+
+    # 38. tensor parallelism over model: the kernels at the shard shapes,
+    # then launch.train's sharded path on a 1-rank NCCL (1, 1) mesh,
+    # counts zeroed just before and read just after, bit-equal to phase
+    # 33's single-device round.
+    shards = phase_tp_kernels(torch, fa_mod, wkv_mod, scan_mod, fedagg_mod,
+                              Transformer, get_config)
+    tp = phase_tp_train(torch, kernels, mesh.pop("single_device"))
+    for e, key in ((entry, "fedagg"), (flash_entry, "flash"),
+                   (split_entry, "flash_split"), (bwd_entry, "flash_bwd"),
+                   (split_bwd_entry, "flash_split_bwd"), (wkv_entry, "wkv"),
+                   (wkv_bwd_entry, "wkv_bwd"), (scan_entry, "scan"),
+                   (scan_bwd_entry, "scan_bwd")):
+        e["tp_shards"] = shards[key]
+    entry["launches_tp"] = tp["launches"]["fedagg"]
+    flash_entry["launches_tp"] = tp["launches"]["flash_attention"]
+    bwd_entry["launches_tp"] = tp["launches"]["flash_attention.bwd"]
+    entry["tp_collectives"] = tp["collectives"]
+    clock.lap("38 (tensor parallel)")
+    log("done", f"phases 1-38 in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
                                   scan_entry, bwd_entry, split_bwd_entry,

@@ -47,10 +47,13 @@ Three rounds, as in the reference:
   of the model: :func:`sharded_fold`.
 - ``fedavg``: the star-topology baseline (a weighted all-reduce).
 
-A ``model`` axis larger than 1 is replication: each model index runs
-its own copy of the round over its own data (and pod) group. Trailing
-dims sharded over ``model`` (the reference's ``model_specs``, GSPMD
-tensor parallelism) are ROADMAP Queue A item 19 and raise.
+Over a ``model`` axis larger than 1 each model index runs its own copy
+of the round over its own data (and pod) group. The round is leafwise
+on the satellite's weights, so with trailing dims sharded over ``model``
+(the reference's ``model_specs``, ``models/sharding.py``) each rank runs
+it on its own contiguous slice of every leaf, as the reference's
+``shard_map`` body sees its block; :func:`sharded_fold` folds those
+slices. With no ``model_specs`` the leaves replicate over ``model``.
 """
 from __future__ import annotations
 
@@ -75,10 +78,6 @@ from repro_torch.kernels.ops import fold_stacked_tree
 #: (64 bytes: the CPU allocator's alignment, a multiple of the fold
 #: kernel's 16), so unpacked views are aligned like fresh tensors.
 PACK_ALIGN = 16
-
-_SPECS = ("trailing dims sharded over the 'model' axis (model_specs, "
-          "GSPMD tensor parallelism) are not ported yet (ROADMAP Queue A "
-          "item 19); pass model_specs=None to replicate over 'model'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -608,14 +607,15 @@ def build_round(mesh: Any, cfg: FedRoundConfig, param_tree_example: Any,
     ``(S, ...)`` stack; ``sizes_local`` and ``visible_local`` are its
     ``(1,)`` entries, on the params' device. ``stats`` (``gate``,
     ``covered``, ``upload_mass``) are 0-d device tensors, the same on
-    every rank. ``param_tree_example`` is the reference's argument for
-    its partition specs; with ``model_specs=None`` (replication over
-    ``model``) the port needs none of it. Raises ``ValueError`` outside
-    a process group or when the mesh cannot tile ``cfg.cmap``."""
-    del param_tree_example
+    every rank. ``model_specs`` (trailing specs, leaf by leaf) shard the
+    leaves over ``model``: ``params_local`` then holds this rank's slice
+    of each (``sharding.shard_params``), and the round runs on the
+    slices; the round itself is the same for any specs.
+    ``param_tree_example`` is the reference's argument for its partition
+    specs; the port needs none of it. Raises ``ValueError`` outside a
+    process group or when the mesh cannot tile ``cfg.cmap``."""
+    del param_tree_example, model_specs
     _require_mesh(mesh, "build_round")
-    if model_specs is not None:
-        raise NotImplementedError(f"build_round: {_SPECS}")
     names = tuple(mesh.mesh_dim_names)
     if "data" not in names:
         raise ValueError(f"build_round needs a 'data' axis; mesh axes "

@@ -4,10 +4,12 @@ one device without allocating anything (port of ``repro.launch.dryrun``).
 For each combination this driver:
   1. builds the production mesh (16x16 single-pod / 2x16x16 multi-pod,
      with ``make_constellation_map``'s 4 x 4 satellites a pod) on torch's
-     fake process group, for the train step's collectives;
+     fake process group, for the steps' collectives;
   2. makes the params and the step's inputs on the meta device (the
      torch counterpart of ``ShapeDtypeStruct``: shapes and dtypes, no
-     memory), one device's shard of them (``launch/specs.py``);
+     memory), one device's shard of them: the batch over the lead axes
+     (``launch/specs.py``) and every leaf over ``model`` by its sanitized
+     spec (``models/sharding.py``);
   3. runs the right step (train / prefill / serve) once under a
      ``TorchDispatchMode`` that sees every aten op, with the kernels'
      and the collectives' meter installed (``kernels/meter.py``);
@@ -34,10 +36,13 @@ The artifact, per device:
     layout of the JAX package's ``parse_collective_bytes``.
   - ``kernels``: calls, FLOP and bytes of each kernel.
   - ``param_count`` / ``active_param_count`` from ``Transformer``.
-  - ``model_axis``: ``"replicated"``. Tensor parallelism over ``model``
-    is ROADMAP Queue A item 19: until it lands every device of a
-    ``model`` group holds the whole model, so the per-device params
-    bytes exceed the JAX package's, which shards them.
+  - ``model_axis``: ``"sharded"``: each device holds its shard of every
+    leaf, so the per-device params bytes are the JAX package's sanitized
+    shards'; ``sharding``: each leaf's sanitized spec and local shape,
+    and the leaves the layers gathered at use (heads that ``model`` does
+    not divide) or once a step (leaves ``sanitize_specs`` relocated).
+    The ``model`` axis's all-reduces and all-gathers are metered with the
+    round's collectives.
   - ``aten_ops``: the ops traced. ``lower_s`` is the trace's seconds;
     nothing compiles, so ``compile_s`` is 0 and ``hlo_lines`` null.
 
@@ -73,6 +78,7 @@ from torch.utils._pytree import tree_flatten
 from repro_torch.configs import SHAPES, get_config, list_configs
 from repro_torch.kernels import meter as meter_lib
 from repro_torch.launch import specs as specs_lib
+from repro_torch.models import sharding
 from repro_torch.models.transformer import Transformer
 
 #: The production meshes: 16 x 16 for one pod, 2 x 16 x 16 for two.
@@ -179,6 +185,7 @@ class Counts:
     kernels: dict
     collectives: dict
     seconds: float
+    gathered: tuple = ()
 
     def cost_analysis(self) -> dict:
         return {"flops": float(self.flops),
@@ -247,10 +254,15 @@ def fake_mesh(shape: tuple[int, ...], names: tuple[str, ...]) -> Iterator:
 
 
 def meta_params(model: Transformer, lead: tuple[int, ...] = (),
-                dtype: torch.dtype = torch.bfloat16) -> dict:
+                dtype: torch.dtype = torch.bfloat16,
+                specs: dict | None = None, m: int = 1) -> dict:
     """The model's params on the meta device in ``dtype``, each leaf with
-    ``lead`` prepended (the satellite dim of a train step's shard)."""
-    return {k: torch.empty(lead + d.shape, dtype=dtype, device="meta")
+    ``lead`` prepended (the satellite dim of a train step's shard); with
+    ``specs`` (sanitized trailing specs), one of ``m`` devices' shard
+    over ``model``."""
+    return {k: torch.empty(lead + sharding.local_shape(
+                d.shape, None if specs is None else specs[k], m),
+                           dtype=dtype, device="meta")
             for k, d in model.defs().items()}
 
 
@@ -260,11 +272,14 @@ def _shard(x: torch.Tensor, n: int) -> torch.Tensor:
                        dtype=x.dtype, device="meta")
 
 
-def device_batch(multi_pod: bool, batch: int) -> int:
-    """One device's share of a serving batch on the production mesh: the
-    batch over the devices ``specs._dp`` splits it over."""
-    shape, names = MESHES[multi_pod]
-    sizes = dict(zip(names, shape))
+def device_batch(multi_pod: bool, batch: int,
+                 sizes: dict | None = None) -> int:
+    """One device's share of a serving batch on the production mesh (or
+    on a mesh of axis ``sizes``): the batch over the devices
+    ``specs._dp`` splits it over."""
+    if sizes is None:
+        shape, names = MESHES[multi_pod]
+        sizes = dict(zip(names, shape))
     axes = specs_lib._dp(multi_pod, batch, sizes)
     return batch // (math.prod(sizes[a] for a in axes) if axes else 1)
 
@@ -272,56 +287,75 @@ def device_batch(multi_pod: bool, batch: int) -> int:
 def trace_step(cfg, shape_name: str, multi_pod: bool,
                round_kind: str = "fedhap", partial_mode: str = "paper",
                local_steps: int = 1, ship_echo: bool = True,
-               what: str = "step") -> Counts:
+               what: str = "step",
+               mesh_shape: tuple[int, ...] | None = None) -> Counts:
     """Trace one device's step of ``cfg`` at ``shape_name``: ``what`` is
     ``"step"`` (the whole step), or for a train shape ``"round"`` (the
-    FedHAP round alone, at full model size)."""
+    FedHAP round alone, on the model's shards). ``mesh_shape`` replaces
+    the production mesh's shape (same axis names)."""
     shape = SHAPES[shape_name]
     model = Transformer(cfg)
-    if shape.mode == "train":
-        mesh_shape, names = MESHES[multi_pod]
-        with fake_mesh(mesh_shape, names) as mesh:
-            step, cmap = specs_lib.make_train_step(
+    default, names = MESHES[multi_pod]
+    mesh_shape = tuple(mesh_shape or default)
+    sizes = dict(zip(names, mesh_shape))
+    specs = specs_lib.model_specs(model, sizes)
+    m = sizes["model"]
+    with fake_mesh(mesh_shape, names) as mesh:
+        if shape.mode == "train":
+            step, _, _, cmap = specs_lib.make_train_step(
                 model, mesh, round_kind=round_kind,
                 partial_mode=partial_mode, ship_global_echo=ship_echo,
                 local_steps=local_steps)
-            s = cmap.total_sats
+            n = math.prod(sizes[a] for a in names if a != "model")
             spec = specs_lib.train_input_specs(cfg, shape, cmap)
-            batch = {k: _shard(v, s) for k, v in spec["batch"].items()}
-            params = meta_params(model, (1,))
-            sizes, visible = (_shard(spec[k], s) for k in ("sizes",
-                                                            "visible"))
+            batch = {k: _shard(v, n) for k, v in spec["batch"].items()}
+            params = meta_params(model, (1,), specs=specs, m=m)
+            sat_sizes, visible = (_shard(spec[k], n)
+                                  for k in ("sizes", "visible"))
             if what == "round":
                 from repro_torch.core.mesh_round import (FedRoundConfig,
                                                          build_round)
                 rcfg = FedRoundConfig(cmap=cmap, partial_mode=partial_mode,
                                       ship_global_echo=ship_echo)
-                fn = build_round(mesh, rcfg, None, kind=round_kind)
-                return trace(fn, params, sizes, visible)[1]
-            return trace(step, params, batch, sizes, visible)[1]
-    params = meta_params(model)
-    b = device_batch(multi_pod, shape.global_batch)
-    if shape.mode == "prefill":
-        inputs = {k: _shard(v, shape.global_batch // b) for k, v in
-                  specs_lib.prefill_input_specs(cfg, shape).items()}
-        return trace(specs_lib.make_prefill_step(model), params, inputs)[1]
-    use_window = specs_lib.use_window_for(cfg, shape)
-    inputs = specs_lib.decode_input_specs(cfg, shape, model, use_window,
-                                          batch=b)
-    serve = specs_lib.make_serve_step(model, use_window)
-    return trace(serve, params, inputs["cache"], inputs["token"])[1]
+                fn = build_round(mesh, rcfg, None, model_specs=specs,
+                                 kind=round_kind)
+                return trace(fn, params, sat_sizes, visible)[1]
+            counts = trace(step, params, batch, sat_sizes, visible)[1]
+            axis = step.axis
+        else:
+            params = meta_params(model, specs=specs, m=m)
+            b = device_batch(multi_pod, shape.global_batch, sizes)
+            if shape.mode == "prefill":
+                inputs = {k: _shard(v, shape.global_batch // b) for k, v in
+                          specs_lib.prefill_input_specs(cfg, shape).items()}
+                fn = specs_lib.make_prefill_step(model, mesh)
+                counts = trace(fn, params, inputs)[1]
+            else:
+                use_window = specs_lib.use_window_for(cfg, shape)
+                fn = specs_lib.make_serve_step(model, use_window, mesh)
+                inputs = specs_lib.decode_input_specs(
+                    cfg, shape, model, use_window, batch=b, axis=fn.axis)
+                counts = trace(fn, params, inputs["cache"],
+                               inputs["token"])[1]
+            axis = fn.axis
+    counts.gathered = tuple(sorted(axis.gathered))
+    return counts
 
 
 def lower_one(arch: str, shape_name: str, multi_pod: bool,
               round_kind: str = "fedhap", partial_mode: str = "paper",
-              local_steps: int = 1) -> dict:
+              local_steps: int = 1,
+              mesh_shape: tuple[int, ...] | None = None) -> dict:
     """Trace one combination; returns the artifact dict."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     counts = trace_step(cfg, shape_name, multi_pod, round_kind,
-                        partial_mode, local_steps)
+                        partial_mode, local_steps, mesh_shape=mesh_shape)
     model = Transformer(cfg)
-    mesh_shape, _ = MESHES[multi_pod]
+    default, names = MESHES[multi_pod]
+    mesh_shape = tuple(mesh_shape or default)
+    m = dict(zip(names, mesh_shape))["model"]
+    specs = specs_lib.model_specs(model, dict(zip(names, mesh_shape)))
     train = shape.mode == "train"
     return {
         "arch": arch,
@@ -339,7 +373,14 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool,
         "kernels": counts.kernels,
         "param_count": model.count_params(),
         "active_param_count": model.active_param_count(),
-        "model_axis": "replicated",
+        "model_axis": "sharded",
+        "sharding": {
+            "specs": {k: list(s) for k, s in specs.items()},
+            "local_shapes": {k: list(sharding.local_shape(d.shape, specs[k],
+                                                          m))
+                             for k, d in model.defs().items()},
+            "gathered": list(counts.gathered),
+        },
         "aten_ops": counts.ops,
         "hlo_lines": None,
     }

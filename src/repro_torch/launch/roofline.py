@@ -25,8 +25,11 @@ extrapolated) is not needed: the step is traced once at full depth. As
 ``_variant`` does, the compute count is made with ``remat=False``: the
 recomputed forward of activation checkpointing is not the step's own
 work. For ``train`` shapes the FedHAP round is also traced on its own at
-full model size and reported as ``aggregation`` (it is part of the
-step's counts already).
+the model's shards and reported as ``aggregation`` (it is part of the
+step's counts already). Every count is one device's, its params its
+shards over ``model`` (``model_axis: "sharded"``): the collective term
+holds the ``model`` axis's all-reduces and all-gathers (the
+tensor-parallel layers' and the gathered leaves') beside the round's.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.roofline --arch qwen3-0.6b \\
@@ -70,10 +73,10 @@ _SUGGEST = {
                "activations in bf16, and read each cache or weight once a "
                "step"),
     "collective": ("replace the K-hop ring echo with the fused "
-                   "closed-form round (one all-reduce), shard the model "
-                   "over 'model' (Queue A item 19) so each GPU sends its "
-                   "shard only, or overlap the round's collectives with "
-                   "local compute"),
+                   "closed-form round (one all-reduce), overlap the "
+                   "'model' axis's all-reduces and the round's "
+                   "collectives with local compute, or gather fewer "
+                   "leaves (heads that 'model' does not divide)"),
 }
 
 
@@ -106,21 +109,26 @@ def _totals(c: dryrun.Counts) -> dict:
 def roofline_one(arch: str, shape_name: str, multi_pod: bool = False,
                  round_kind: str = "fedhap", partial_mode: str = "paper",
                  ship_echo: bool = True,
-                 overrides: dict | None = None) -> dict:
+                 overrides: dict | None = None,
+                 mesh_shape: tuple[int, ...] | None = None) -> dict:
+    """One cell's terms; ``mesh_shape`` replaces the production mesh's
+    shape (same axis names)."""
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     cfg = dataclasses.replace(cfg, remat=False)
     shape = SHAPES[shape_name]
-    mesh_shape, _ = dryrun.MESHES[multi_pod]
+    mesh_shape = tuple(mesh_shape or dryrun.MESHES[multi_pod][0])
     chips = math.prod(mesh_shape)
     total = _totals(dryrun.trace_step(cfg, shape_name, multi_pod, round_kind,
-                                      partial_mode, ship_echo=ship_echo))
+                                      partial_mode, ship_echo=ship_echo,
+                                      mesh_shape=mesh_shape))
     agg = None
     if shape.mode == "train":
         agg = _totals(dryrun.trace_step(cfg, shape_name, multi_pod,
                                         round_kind, partial_mode,
-                                        ship_echo=ship_echo, what="round"))
+                                        ship_echo=ship_echo, what="round",
+                                        mesh_shape=mesh_shape))
 
     n_active = Transformer(cfg).active_param_count()
     if shape.mode == "train":
@@ -148,7 +156,7 @@ def roofline_one(arch: str, shape_name: str, multi_pod: bool = False,
         "ship_echo": ship_echo if train else None,
         "chips": chips,
         "card": CARD,
-        "model_axis": "replicated",
+        "model_axis": "sharded",
         "per_device": total,
         "aggregation": agg,
         "terms_s": terms,

@@ -29,8 +29,10 @@ an attention block, MLA and cross-attention alike, ``rwkv6_wkv`` for
 RWKV, ``selective_scan`` for Mamba), returning the last position's
 logits; the stub frontends' inputs go in as ``aux_in`` (whisper's
 frames, which its encoder reads, and pixtral's patches, prepended to
-the prompt in the one causal pass). The mesh and sharding
-half of ``specs`` waits for ROADMAP Queue A item 19.
+the prompt in the one causal pass). With ``axis`` (the mesh's
+``model`` axis, ``models/sharding.py``) it runs on this rank's shards
+and returns the whole logits on every rank; ``launch/specs.py`` builds
+the sharded prefill and serve steps.
 """
 from __future__ import annotations
 
@@ -51,12 +53,14 @@ def _device_of(params: dict) -> torch.device:
 
 @torch.no_grad()
 def prefill(model: Transformer, params: dict, tokens: torch.Tensor,
-            aux_in: dict | None = None) -> torch.Tensor:
+            aux_in: dict | None = None, axis=None) -> torch.Tensor:
     """Last-position logits (B, V) of ``model.forward(params, tokens,
-    aux_in)``; only that position is unembedded ("what serving
+    aux_in, axis)``; only that position is unembedded ("what serving
     needs")."""
-    x, _ = model.hidden_states(params, tokens, aux_in)
-    return model.logits(params, x[:, -1:])[:, 0]
+    if axis is not None:
+        params = axis.prepare(params)
+    x, _ = model.hidden_states(params, tokens, aux_in, axis)
+    return model.logits(params, x[:, -1:], axis)[:, 0]
 
 
 @torch.no_grad()

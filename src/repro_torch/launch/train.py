@@ -23,9 +23,15 @@ Same flags as the JAX package's CLI, plus ``--device`` and
 ``--single-device``. Like the reference, the CLI shards the
 satellites over a mesh when the world holds one rank per satellite
 (torchrun with ``--nproc-per-node`` equal to ``--sats``, or a multiple of
-it, the extra ranks replicating over ``model``): each rank trains its own
-satellite's replica and the round is ``--round-kind``'s collective round
-(:func:`repro_torch.core.fed_step.build_fed_train_step`). Run alone with
+it): the mesh is ``(data=sats, model=world // sats)``, each ``data``
+index trains its own satellite's replica, tensor-parallel over its
+``model`` ranks (each holds its shard of every leaf by the sanitized
+``model.specs()``, ``models/sharding.py``, as the reference's GSPMD
+step), and the round is ``--round-kind``'s collective round on each
+rank's slices (:func:`repro_torch.core.fed_step.build_fed_train_step`);
+``torchrun --nproc-per-node 4 ... --sats 2 --orbits 1`` gives ``(data=2,
+model=2)``. ``--ckpt-dir`` gathers the shards over ``model`` and the lead
+rank writes the reference's format. Run alone with
 ``--sats 1``, it starts a 1-rank group itself (NCCL on the card, gloo on
 the CPU, from a ``file://`` store in a temporary directory), so the mesh
 path runs on one card as the reference's does on a ``(1, 1)`` mesh.
@@ -40,9 +46,10 @@ backward through its kernels: attention through ``flash_attention`` and
 64 at full width, 24 and 16 reduced, each pair a variant of both
 kernels), RWKV-6's time mix through ``rwkv6_wkv`` and
 ``rwkv6_wkv_bwd``, Mamba's scan through ``selective_scan`` and
-``selective_scan_bwd``. Full-width jamba-v0.1-52b does not fit one card
-(52 B params per replica); one replica per card over several cards is
-ROADMAP Queue A item 19, and its mixer trains at reduced size here.
+``selective_scan_bwd``; on a ``model`` axis at the rank's heads or
+channels. Full-width jamba-v0.1-52b does not fit one card (52 B params
+per replica); over ``model`` its period shards across cards, which no
+run has used yet (ROADMAP), and its mixer trains at reduced size here.
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
 from repro_torch.debug.sanitize import to_device
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models.sharding import gather_params, shard_params
 from repro_torch.models.transformer import Transformer
 
 
@@ -191,8 +199,9 @@ def _train_mesh(device: torch.device, n_sats: int):
 
 def main(argv: list[str] | None = None) -> dict:
     """The CLI; returns ``{"losses", "params_S", "path"}``: the per-round
-    losses, this rank's satellite-stacked params (``(1, ...)`` leaves on
-    the mesh path) and ``"mesh"`` or ``"single_device"``."""
+    losses, this rank's satellite-stacked params (on the mesh path
+    ``(1, ...)`` leaves, this rank's shards over ``model``) and
+    ``"mesh"`` or ``"single_device"``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b", choices=list_configs())
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -279,8 +288,9 @@ def _run(args: argparse.Namespace, device: torch.device) -> dict:
         mine = None
     else:
         sat = mesh.get_local_rank("data")
-        params_S = stack_params(params, 1)
         step_fn = build_fed_train_step(model, fed_cfg, mesh)
+        params_S = stack_params(shard_params(params, step_fn.axis.specs,
+                                             step_fn.axis), 1)
         mine = slice(sat, sat + 1)
     del params
 
@@ -308,10 +318,14 @@ def _run(args: argparse.Namespace, device: torch.device) -> dict:
             print(f"  round {rnd:4d}  loss {loss:.4f}  "
                   f"gate {float(metrics['gate']):.0f}  "
                   f"({time.perf_counter()-t0:.1f}s)", flush=True)
-    if args.ckpt_dir and lead:
-        save_checkpoint(args.ckpt_dir, {k: x[0] for k, x in params_S.items()},
-                        args.rounds, {"arch": cfg.name})
-        print(f"[train] checkpoint written to {args.ckpt_dir}")
+    if args.ckpt_dir:
+        row0 = {k: x[0] for k, x in params_S.items()}
+        if mesh is not None:        # every rank joins the gather
+            row0 = gather_params(row0, step_fn.axis.specs, step_fn.axis)
+        if lead:
+            save_checkpoint(args.ckpt_dir, row0, args.rounds,
+                            {"arch": cfg.name})
+            print(f"[train] checkpoint written to {args.ckpt_dir}")
     return {"losses": losses, "params_S": params_S,
             "path": "single_device" if mesh is None else "mesh"}
 

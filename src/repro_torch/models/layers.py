@@ -12,15 +12,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamDef
+from repro_torch.models.sharding import Shards, on_shards
 
 
 # ---------------------------------------------------------------- norms
 def norm_def(d: int, kind: str) -> dict:
     if kind == "rmsnorm":
-        return {"scale": ParamDef((d,), "ones")}
+        return {"scale": ParamDef((d,), "ones", axes=(None,))}
     if kind == "layernorm":
-        return {"scale": ParamDef((d,), "ones"),
-                "bias": ParamDef((d,), "zeros")}
+        return {"scale": ParamDef((d,), "ones", axes=(None,)),
+                "bias": ParamDef((d,), "zeros", axes=(None,))}
     raise ValueError(kind)
 
 
@@ -70,14 +71,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ---------------------------------------------------------------- mlp
 def mlp_def(d_model: int, d_ff: int, act: str) -> dict:
-    p = {"w_down": ParamDef((d_ff, d_model)),
-         "w_up": ParamDef((d_model, d_ff))}
+    p = {"w_down": ParamDef((d_ff, d_model), axes=("model", None)),
+         "w_up": ParamDef((d_model, d_ff), axes=(None, "model"))}
     if act == "silu":  # gated (SwiGLU)
-        p["w_gate"] = ParamDef((d_model, d_ff))
+        p["w_gate"] = ParamDef((d_model, d_ff), axes=(None, "model"))
     return p
 
 
-def apply_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+#: The MLP's parallel form (leaf -> its sharded dim): column-parallel up
+#: and gate, row-parallel down.
+MLP_WANT = {"w_up": 1, "w_gate": 1, "w_down": 0}
+
+
+def apply_mlp(p: dict, x: torch.Tensor, act: str,
+              tp: Shards | None = None) -> torch.Tensor:
+    """The FFN; with ``tp`` (the ``model`` axis) on the rank's columns of
+    ``w_up`` / ``w_gate`` and rows of ``w_down``, then an all-reduce."""
+    p, tp = on_shards(tp, p, MLP_WANT)
+    if tp is not None:
+        x = tp.enter(x)
     up = x @ p["w_up"]
     if act == "silu":
         up = F.silu(x @ p["w_gate"]) * up
@@ -86,18 +98,47 @@ def apply_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
         up = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(act)
-    return up @ p["w_down"]
+    y = up @ p["w_down"]
+    return y if tp is None else tp.exit(y)
 
 
 # ---------------------------------------------------------------- embed
 def embed_def(vocab: int, d_model: int) -> dict:
-    return {"table": ParamDef((vocab, d_model), scale=0.02)}
+    return {"table": ParamDef((vocab, d_model), scale=0.02,
+                              axes=("model", None))}
 
 
-def apply_embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def apply_embed(p: dict, tokens: torch.Tensor,
+                tp: Shards | None = None) -> torch.Tensor:
+    """The table's rows of ``tokens``; with ``tp``, vocab-parallel: each
+    rank looks up the tokens among its own rows, zeros the others, and an
+    all-reduce joins them (each token's row comes from one rank, so the
+    sum is exact)."""
+    p, tp = on_shards(tp, p, {"table": 0})
+    if tp is None:
+        return p["table"][tokens]
+    rows = p["table"].shape[0]
+    local = tokens - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    e = p["table"][local.clamp(0, rows - 1)]
+    return tp.exit(torch.where(mine[..., None], e, 0.0).to(e.dtype))
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Logits via the (possibly tied) embedding table: (..., d) -> (..., V)."""
-    return x @ table.T
+def unembed(table: torch.Tensor, x: torch.Tensor,
+            tp: Shards | None = None) -> torch.Tensor:
+    """Logits via the (possibly tied) embedding table: (..., d) -> (..., V);
+    with ``tp``, each rank's logits over its own rows, gathered."""
+    p, tp = on_shards(tp, {"table": table}, {"table": 0})
+    if tp is None:
+        return x @ p["table"].T
+    return tp.gather(tp.enter(x) @ p["table"].T, x.dim() - 1)
+
+
+def apply_head(head: torch.Tensor, x: torch.Tensor,
+               tp: Shards | None = None) -> torch.Tensor:
+    """Logits via an untied head (d, V); with ``tp``, each rank's columns,
+    gathered."""
+    p, tp = on_shards(tp, {"head": head}, {"head": 1})
+    if tp is None:
+        return x @ p["head"]
+    return tp.gather(tp.enter(x) @ p["head"], x.dim() - 1)

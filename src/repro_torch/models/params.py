@@ -25,10 +25,22 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """One parameter tensor: shape and init scheme."""
+    """One parameter tensor: shape, init scheme and the mesh axis each dim
+    is partitioned over (``None``: replicated), as the JAX package's
+    ``ParamDef.axes``."""
     shape: tuple[int, ...]
     init: str = "normal"  # normal | zeros | ones | constant | s4d_a_log
     scale: float | None = None  # stddev for normal; fan-in default if None
+    axes: tuple[str | None, ...] | None = None  # partition axis per dim
+
+    def pspec(self) -> tuple:
+        """The partition spec as a tuple of axis names (``None`` for a
+        replicated dim): torch has no ``PartitionSpec``, a tuple stands in
+        for it."""
+        if self.axes is None:
+            return (None,) * len(self.shape)
+        assert len(self.axes) == len(self.shape), (self.axes, self.shape)
+        return tuple(self.axes)
 
 
 #: The largest f32 draw of a leaf made in one piece (bytes).
@@ -120,10 +132,19 @@ def flatten_defs(tree: Mapping[str, Any], prefix: str = "") -> dict:
     return out
 
 
+def param_specs(defs: Mapping[str, ParamDef],
+                prefix: tuple = ()) -> dict:
+    """Per leaf, its partition spec as a tuple (:meth:`ParamDef.pspec`)
+    with ``prefix`` prepended (e.g. the satellite replica dim sharded over
+    ``"data"``); keys as ``defs``'."""
+    return {k: (*prefix, *d.pspec()) for k, d in flatten_defs(defs).items()}
+
+
 def add_leading_axis(tree: Mapping[str, Any], n: int) -> dict:
     """Prepend a dimension of size ``n`` (e.g. layers) to every ParamDef of
-    a (nested or flat) dict; returned flat."""
-    return {k: ParamDef((n,) + d.shape, d.init, d.scale)
+    a (nested or flat) dict; returned flat. The new dim is unsharded."""
+    return {k: ParamDef((n,) + d.shape, d.init, d.scale,
+                        (None,) + tuple(d.axes or [None] * len(d.shape)))
             for k, d in flatten_defs(tree).items()}
 
 

@@ -40,8 +40,19 @@ encoder-decoder stack's self-attention cache ``self/{k,v,pos}`` and the
 encoder's k/v ``cross/{k,v}`` of ``(num_layers, B, S_enc, H_kv, D)``,
 which :meth:`Transformer.prime_encdec` fills) and updates them in place.
 
-Not ported yet: MoE's shard-local dispatch ``moe_dispatch_local``
-(ROADMAP Queue A item 19), which raises ``NotImplementedError``.
+Tensor parallelism over the mesh's ``model`` axis: ``hidden_states``,
+``forward``, ``logits``, ``init_cache``, ``prime_encdec`` and
+``decode_step`` take an optional ``axis``
+(:class:`repro_torch.models.sharding.ModelAxis`) with ``params`` this
+rank's shards (``sharding.shard_params`` by the sanitized
+:meth:`Transformer.specs`). Each block then runs on its local heads,
+channels or experts where ``model`` divides them and meets the other
+ranks in all-reduces, or gathers its leaves and runs whole
+(``models/sharding.py``); the embedding is vocab-parallel and the logits
+are gathered, so ``forward`` returns whole logits on every rank and the
+loss is unchanged. ``axis=None`` is the unsharded path.
+:meth:`Transformer.specs` and :meth:`Transformer.cache_specs` are the
+reference's partition specs, as tuples.
 """
 from __future__ import annotations
 
@@ -57,6 +68,7 @@ from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     apply_embed,
+    apply_head,
     apply_mlp,
     apply_norm,
     embed_def,
@@ -70,12 +82,9 @@ from repro_torch.models.params import (
     flatten_defs,
     init_params,
     param_count,
+    param_specs,
 )
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.moe is not None and cfg.moe_dispatch_local:
-        raise NotImplementedError(f"{cfg.name}: {moe_lib.LOCAL_DISPATCH}")
+from repro_torch.models.sharding import ModelAxis, Shards
 
 
 # ====================================================== block definitions
@@ -110,42 +119,60 @@ def _block_defs(cfg: ArchConfig, kind: str, is_moe: bool,
     return d
 
 
-def _ffn(cfg: ArchConfig, is_moe: bool, p: dict,
-         h2: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _sub(tp: Optional[Shards], name: str) -> Optional[Shards]:
+    return None if tp is None else tp.sub(name)
+
+
+def _ffn(cfg: ArchConfig, is_moe: bool, p: dict, h2: torch.Tensor,
+         tp: Optional[Shards] = None
+         ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on the normed input: (y, MoE aux loss or None)."""
     if is_moe:
-        return moe_lib.apply_moe(cfg, p["moe"], h2)
-    return apply_mlp(p["mlp"], h2, cfg.act), None
+        return moe_lib.apply_moe(cfg, p["moe"], h2, _sub(tp, "moe"))
+    return apply_mlp(p["mlp"], h2, cfg.act, _sub(tp, "mlp")), None
 
 
 def _apply_block(cfg: ArchConfig, kind: str, is_moe: bool, p: dict,
                  x: torch.Tensor, positions: torch.Tensor, *,
                  causal: bool = True, window: Optional[int] = None,
-                 enc: Optional[torch.Tensor] = None
+                 enc: Optional[torch.Tensor] = None,
+                 tp: Optional[Shards] = None
                  ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block forward; with ``enc`` (the encoder's states), a decoder
     block's cross-attention after its self-attention. Returns (x, the MoE
     aux loss, or None for a block without MoE, whose aux the JAX package
-    counts as 0)."""
+    counts as 0). ``tp``: the block's leaves' shards."""
+    mixer = _sub(tp, "mixer")
     if kind == "rwkv":
         x = x + rwkv_lib.rwkv_time_mix(
-            cfg, p["mixer"], apply_norm(p["norm1"], x, cfg.norm_kind))
+            cfg, p["mixer"], apply_norm(p["norm1"], x, cfg.norm_kind), mixer)
         return x + rwkv_lib.rwkv_channel_mix(
-            cfg, p["cm"], apply_norm(p["norm2"], x, cfg.norm_kind)), None
+            cfg, p["cm"], apply_norm(p["norm2"], x, cfg.norm_kind),
+            _sub(tp, "cm")), None
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
     if kind == "mamba":
-        x = x + ssm_lib.mamba_forward(cfg, p["mixer"], h)
+        x = x + ssm_lib.mamba_forward(cfg, p["mixer"], h, mixer)
     elif cfg.attention_kind == "mla":
-        x = x + attn.mla_forward(cfg, p["mixer"], h, positions)
+        x = x + attn.mla_forward(cfg, p["mixer"], h, positions, mixer)
     else:
         x = x + attn.attention_forward(cfg, p["mixer"], h, positions,
-                                       causal=causal, window=window)
+                                       causal=causal, window=window,
+                                       tp=mixer)
     if enc is not None:
         hx = apply_norm(p["norm_x"], x, cfg.norm_kind)
         x = x + attn.attention_forward(cfg, p["xattn"], hx, positions,
-                                       causal=False, kv_x=enc)
-    y, aux = _ffn(cfg, is_moe, p, apply_norm(p["norm2"], x, cfg.norm_kind))
+                                       causal=False, kv_x=enc,
+                                       tp=_sub(tp, "xattn"))
+    y, aux = _ffn(cfg, is_moe, p, apply_norm(p["norm2"], x, cfg.norm_kind),
+                  tp)
     return x + y, aux
+
+
+def _shards(axis: Optional[ModelAxis], prefix: str,
+            layer: bool = False) -> Optional[Shards]:
+    """The shards of the leaves under ``prefix`` (``layer``: stacked over
+    layers), or None without a ``model`` axis."""
+    return None if axis is None else axis.shards(prefix, layer)
 
 
 def _layer(params: dict, prefix: str, i: Optional[int] = None) -> dict:
@@ -168,7 +195,6 @@ class Transformer:
     """Functional model wrapper bound to an ArchConfig."""
 
     def __init__(self, cfg: ArchConfig):
-        _check_supported(cfg)
         self.cfg = cfg
         pat = cfg.block_pattern
         if cfg.num_layers % len(pat) != 0:
@@ -195,7 +221,8 @@ class Transformer:
             "layers": add_leading_axis(layers, self.num_periods),
         }
         if not cfg.tie_embeddings:
-            d["head"] = ParamDef((cfg.d_model, cfg.vocab_size), scale=0.02)
+            d["head"] = ParamDef((cfg.d_model, cfg.vocab_size), scale=0.02,
+                                 axes=(None, "model"))
         if cfg.is_encdec:
             d["encoder"] = {
                 "layers": add_leading_axis(_block_defs(cfg, "attn", False),
@@ -208,6 +235,46 @@ class Transformer:
              dtype: torch.dtype | None = None) -> dict:
         dtype = dtype or getattr(torch, self.cfg.param_dtype)
         return init_params(self.defs(), gen, device, dtype)
+
+    def specs(self, prefix: tuple = ()) -> dict:
+        """Each leaf's partition spec (the defs' ``axes``) as a tuple, with
+        ``prefix`` prepended: the reference's ``model.specs()``."""
+        return param_specs(self.defs(), prefix)
+
+    def cache_specs(self, use_window: bool = False,
+                    long_ctx: bool = False) -> dict:
+        """Partition specs matching :meth:`init_cache`'s keys (the
+        reference's ``cache_specs``, flat): every stacked leaf's first dim
+        (the layers) unsharded; ``idx`` a 0-d spec."""
+        cfg = self.cfg
+        window = cfg.sliding_window if use_window else None
+        specs: dict[str, Any] = {"idx": ()}
+
+        def stack(prefix: str, one: dict) -> None:
+            for name, spec in one.items():
+                specs[f"{prefix}{name}"] = (None, *spec)
+        if cfg.is_encdec:
+            stack("self/", attn.kv_cache_specs(window, 0, long_ctx))
+            for name in ("k", "v"):
+                specs[f"cross/{name}"] = (None, "data", None, "model", None)
+            return specs
+        for j, kind in enumerate(self.pattern):
+            if kind == "rwkv":
+                one = rwkv_lib.rwkv_cache_specs()
+            elif kind == "mamba":
+                one = ssm_lib.mamba_cache_specs()
+            elif cfg.attention_kind == "mla":
+                one = attn.mla_cache_specs(long_ctx)
+            else:
+                one = attn.kv_cache_specs(window, 0, long_ctx)
+            stack(f"layers/b{j}/", one)
+        return specs
+
+    def model_axis(self, mesh: Any, specs: dict) -> ModelAxis:
+        """The ``model`` axis of ``mesh`` for this model, the leaves
+        sharded by ``specs`` (sanitized trailing specs,
+        ``launch/specs.sanitize_specs``)."""
+        return ModelAxis.from_mesh(mesh, specs, self.specs())
 
     def count_params(self) -> int:
         return param_count(self.defs())
@@ -227,15 +294,18 @@ class Transformer:
 
     # --------------------------------------------------------- forward
     def hidden_states(self, params: dict, tokens: torch.Tensor,
-                      aux_in: Optional[dict] = None
+                      aux_in: Optional[dict] = None,
+                      axis: Optional[ModelAxis] = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """The final-normed hidden states (B, S, d_model) of ``forward``,
         before the unembedding, and the summed MoE aux loss (f32 scalar,
-        0 without MoE). ``aux_in`` as for :meth:`forward`."""
+        0 without MoE). ``aux_in`` and ``axis`` as for :meth:`forward`."""
         cfg = self.cfg
         act_dtype = getattr(torch, cfg.act_dtype)
-        x = apply_embed({"table": params["embed/table"]},
-                        tokens.long()).to(act_dtype)
+        if axis is not None:
+            params = axis.prepare(params)
+        x = apply_embed({"table": params["embed/table"]}, tokens.long(),
+                        _shards(axis, "embed/")).to(act_dtype)
         if cfg.vision_patches and aux_in and "patches" in aux_in:
             x = torch.cat([aux_in["patches"].to(act_dtype), x], dim=1)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
@@ -246,18 +316,20 @@ class Transformer:
             if not aux_in or "frames" not in aux_in:
                 raise ValueError(f"{cfg.name}: an encoder-decoder stack "
                                  f"reads aux_in['frames']")
-            enc = self._encode(params, aux_in["frames"])
+            enc = self._encode(params, aux_in["frames"], axis)
 
         def period(x: torch.Tensor, aux: torch.Tensor, i: int):
             if cfg.is_encdec:
                 x, _ = _apply_block(cfg, "attn", False,
                                     _layer(params, "layers/", i), x,
-                                    positions, enc=enc)
+                                    positions, enc=enc,
+                                    tp=_shards(axis, "layers/", True))
                 return x, aux
             for j, kind in enumerate(self.pattern):
                 x, a = _apply_block(cfg, kind, cfg.layer_is_moe(j),
                                     _layer(params, f"layers/b{j}/", i), x,
-                                    positions)
+                                    positions,
+                                    tp=_shards(axis, f"layers/b{j}/", True))
                 if a is not None:
                     aux = aux + a
             return x, aux
@@ -274,7 +346,8 @@ class Transformer:
         return apply_norm(_layer(params, "final_norm/"), x,
                           cfg.norm_kind), aux
 
-    def _encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params: dict, frames: torch.Tensor,
+                axis: Optional[ModelAxis] = None) -> torch.Tensor:
         """The encoder over the stub frontend's frame embeddings
         (bidirectional: the flash kernel with the causal mask off),
         final-normed."""
@@ -285,18 +358,25 @@ class Transformer:
         for i in range(cfg.encoder_layers):
             x, _ = _apply_block(cfg, "attn", False,
                                 _layer(params, "encoder/layers/", i), x,
-                                positions, causal=False)
+                                positions, causal=False,
+                                tp=_shards(axis, "encoder/layers/", True))
         return apply_norm(_layer(params, "encoder/final_norm/"), x,
                           cfg.norm_kind)
 
-    def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """Unembed hidden states: the tied table or the head."""
+    def logits(self, params: dict, x: torch.Tensor,
+               axis: Optional[ModelAxis] = None) -> torch.Tensor:
+        """Unembed hidden states: the tied table or the head; with
+        ``axis``, each rank's vocab shard, gathered."""
+        if axis is not None:
+            params = axis.prepare(params)
         if self.cfg.tie_embeddings:
-            return unembed(params["embed/table"], x)
-        return x @ params["head"]
+            return unembed(params["embed/table"], x,
+                           _shards(axis, "embed/"))
+        return apply_head(params["head"], x, _shards(axis, ""))
 
     def forward(self, params: dict, tokens: torch.Tensor,
-                aux_in: Optional[dict] = None
+                aux_in: Optional[dict] = None,
+                axis: Optional[ModelAxis] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B, S, V), aux_loss: the MoE blocks' summed
         load-balance loss, an f32 scalar, 0 without MoE). ``aux_in`` holds
@@ -304,13 +384,25 @@ class Transformer:
         ``"frames"`` (B, S_enc, d_model), which an encoder-decoder stack
         requires, and ``"patches"`` (B, P, d_model), which a vision stack
         prepends (its logits then cover ``P + S`` positions); a stack
-        without the feature ignores them."""
-        x, aux = self.hidden_states(params, tokens, aux_in)
-        return self.logits(params, x), aux
+        without the feature ignores them. ``axis``: the mesh's ``model``
+        axis, ``params`` then this rank's shards (the module's text)."""
+        if axis is not None:
+            params = axis.prepare(params)
+        x, aux = self.hidden_states(params, tokens, aux_in, axis)
+        return self.logits(params, x, axis), aux
 
     # ----------------------------------------------------------- decode
+    def _local_heads(self, axis: Optional[ModelAxis], prefix: str,
+                     want: dict, units: int) -> int:
+        """``m`` where the layers under ``prefix`` run on their shards
+        (their caches then hold ``1/m`` of the heads or channels), else
+        1."""
+        tp = _shards(axis, prefix, True)
+        return tp.size if tp is not None and tp.parallel(want, units) else 1
+
     def init_cache(self, batch: int, max_len: int, use_window: bool = False,
-                   device: torch.device | str = "cuda") -> dict:
+                   device: torch.device | str = "cuda",
+                   axis: Optional[ModelAxis] = None) -> dict:
         """Decode cache in the activation dtype: ``idx`` (a Python int,
         the next position) and per block ``layers/b{j}/{k,v,pos}`` (an
         attention block), ``layers/b{j}/{c_kv,k_rope,pos}`` (an MLA
@@ -319,7 +411,11 @@ class Transformer:
         are the same size for any ``max_len``), stacked over the periods;
         for an encoder-decoder stack ``self/{k,v,pos}`` and zeroed
         ``cross/{k,v}`` (filled by :meth:`prime_encdec`), stacked over the
-        decoder's layers."""
+        decoder's layers. With ``axis``, the caches of blocks that run on
+        their shards hold the rank's KV heads (RWKV heads, Mamba
+        channels), as :meth:`cache_specs` places them over ``model``; an
+        MLA block's latents, and the caches of blocks that gather, are
+        whole on every rank."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.act_dtype)
         window = cfg.sliding_window if use_window else None
@@ -330,97 +426,128 @@ class Transformer:
                 cache[f"{prefix}{name}"] = leaf.expand(
                     self.num_periods, *leaf.shape).contiguous()
         if cfg.is_encdec:
+            m = self._local_heads(axis, "layers/mixer/", attn.GQA_WANT,
+                                  cfg.num_kv_heads)
             stack("self/", attn.init_kv_cache(cfg, batch, max_len, window,
-                                              dtype, device))
+                                              dtype, device, m))
+            mx = self._local_heads(axis, "layers/xattn/", attn.GQA_WANT,
+                                   cfg.num_kv_heads)
             shape = (cfg.num_layers, batch, cfg.encoder_seq,
-                     cfg.num_kv_heads, cfg.head_dim)
+                     cfg.num_kv_heads // mx, cfg.head_dim)
             for name in ("k", "v"):
                 cache[f"cross/{name}"] = torch.zeros(shape, dtype=dtype,
                                                      device=device)
             return cache
         for j, kind in enumerate(self.pattern):
+            pre = f"layers/b{j}/mixer/"
             if kind == "rwkv":
-                one = rwkv_lib.init_rwkv_cache(cfg, batch, dtype, device)
+                one = rwkv_lib.init_rwkv_cache(
+                    cfg, batch, dtype, device, self._local_heads(
+                        axis, pre, rwkv_lib.TIME_MIX_WANT, cfg.rwkv_heads))
             elif kind == "mamba":
-                one = ssm_lib.init_mamba_cache(cfg, batch, dtype, device)
+                one = ssm_lib.init_mamba_cache(
+                    cfg, batch, dtype, device, self._local_heads(
+                        axis, pre, ssm_lib.MAMBA_WANT, cfg.d_inner_mamba))
             elif cfg.attention_kind == "mla":
                 one = attn.init_mla_cache(cfg, batch, max_len, dtype, device)
             else:
-                one = attn.init_kv_cache(cfg, batch, max_len, window, dtype,
-                                         device)
+                one = attn.init_kv_cache(
+                    cfg, batch, max_len, window, dtype, device,
+                    self._local_heads(axis, pre, attn.GQA_WANT,
+                                      cfg.num_kv_heads))
             stack(f"layers/b{j}/", one)
         return cache
 
     def prime_encdec(self, params: dict, cache: dict,
-                     frames: torch.Tensor) -> dict:
+                     frames: torch.Tensor,
+                     axis: Optional[ModelAxis] = None) -> dict:
         """Run the encoder over ``frames`` (B, S_enc, d_model) and fill the
         cross-attention caches (``cross/k``, ``cross/v``, replaced by the
         encoder's k/v of every decoder layer). Returns ``cache``."""
         cfg = self.cfg
-        enc = self._encode(params, frames)
+        if axis is not None:
+            params = axis.prepare(params)
+        enc = self._encode(params, frames, axis)
+        tp = _shards(axis, "layers/", True)
         xcs = [attn.cross_attention_cache(
-            cfg, _layer(params, "layers/", i)["xattn"], enc)
+            cfg, _layer(params, "layers/", i)["xattn"], enc,
+            _sub(tp, "xattn"))
             for i in range(cfg.num_layers)]
         for name in ("k", "v"):
             cache[f"cross/{name}"] = torch.stack([xc[name] for xc in xcs])
         return cache
 
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
-                    use_window: bool = False) -> tuple[torch.Tensor, dict]:
+                    use_window: bool = False,
+                    axis: Optional[ModelAxis] = None
+                    ) -> tuple[torch.Tensor, dict]:
         """One token for the whole stack. token: (B,) int. Updates
-        ``cache`` in place and returns (logits (B, V), cache)."""
+        ``cache`` in place and returns (logits (B, V), cache); with
+        ``axis``, the cache of :meth:`init_cache` with that axis."""
         cfg = self.cfg
         idx = cache["idx"]
+        if axis is not None:
+            params = axis.prepare(params)
         x = apply_embed({"table": params["embed/table"]},
-                        token.long()[:, None]).to(getattr(torch, cfg.act_dtype))
+                        token.long()[:, None],
+                        _shards(axis, "embed/")).to(
+                            getattr(torch, cfg.act_dtype))
         window = cfg.sliding_window if use_window else None
         if cfg.is_encdec:
+            tp = _shards(axis, "layers/", True)
             for i in range(cfg.num_layers):
                 p = _layer(params, "layers/", i)
                 hin = apply_norm(p["norm1"], x, cfg.norm_kind)
                 y, _ = attn.attention_decode(
                     cfg, p["mixer"], hin, _layer(cache, "self/", i), idx,
-                    window)
+                    window, _sub(tp, "mixer"))
                 x = x + y
                 hx = apply_norm(p["norm_x"], x, cfg.norm_kind)
                 x = x + attn.cross_attention_decode(
-                    cfg, p["xattn"], hx, _layer(cache, "cross/", i))
+                    cfg, p["xattn"], hx, _layer(cache, "cross/", i),
+                    _sub(tp, "xattn"))
                 x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x,
                                                        cfg.norm_kind),
-                                  cfg.act)
-            return self._decoded(params, cache, x)
+                                  cfg.act, _sub(tp, "mlp"))
+            return self._decoded(params, cache, x, axis)
         for i in range(self.num_periods):
             for j, kind in enumerate(self.pattern):
                 p = _layer(params, f"layers/b{j}/", i)
                 c = _layer(cache, f"layers/b{j}/", i)
+                tp = _shards(axis, f"layers/b{j}/", True)
+                mixer = _sub(tp, "mixer")
                 hin = apply_norm(p["norm1"], x, cfg.norm_kind)
                 if kind == "rwkv":
-                    y, _ = rwkv_lib.rwkv_decode(cfg, p["mixer"], hin, c)
+                    y, _ = rwkv_lib.rwkv_decode(cfg, p["mixer"], hin, c,
+                                                mixer)
                     x = x + y
                     h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
                     x = x + rwkv_lib.rwkv_channel_mix_decode(
-                        cfg, p["cm"], h2, c["x_prev_cm"])
+                        cfg, p["cm"], h2, c["x_prev_cm"], _sub(tp, "cm"))
                     c["x_prev_cm"].copy_(h2[:, 0])
                     continue
                 if kind == "mamba":
-                    y, _ = ssm_lib.mamba_decode(cfg, p["mixer"], hin, c)
+                    y, _ = ssm_lib.mamba_decode(cfg, p["mixer"], hin, c,
+                                                mixer)
                 elif cfg.attention_kind == "mla":
-                    y, _ = attn.mla_decode(cfg, p["mixer"], hin, c, idx)
+                    y, _ = attn.mla_decode(cfg, p["mixer"], hin, c, idx,
+                                           mixer)
                 else:
                     y, _ = attn.attention_decode(cfg, p["mixer"], hin, c,
-                                                 idx, window)
+                                                 idx, window, mixer)
                 x = x + y
                 y, _ = _ffn(cfg, cfg.layer_is_moe(j), p,
-                            apply_norm(p["norm2"], x, cfg.norm_kind))
+                            apply_norm(p["norm2"], x, cfg.norm_kind), tp)
                 x = x + y
-        return self._decoded(params, cache, x)
+        return self._decoded(params, cache, x, axis)
 
-    def _decoded(self, params: dict, cache: dict,
-                 x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    def _decoded(self, params: dict, cache: dict, x: torch.Tensor,
+                 axis: Optional[ModelAxis] = None
+                 ) -> tuple[torch.Tensor, dict]:
         """The step's end: advance ``idx``, final norm, logits (B, V)."""
         cache["idx"] += 1
         x = apply_norm(_layer(params, "final_norm/"), x, self.cfg.norm_kind)
-        return self.logits(params, x)[:, 0], cache
+        return self.logits(params, x, axis)[:, 0], cache
 
 
 # ============================================================== loss

@@ -23,8 +23,13 @@ import numpy as np
 POD1 = dict(cmap=(2, 4, 1), mesh=(8, 1), names=("data", "model"))
 # two pods: 1 orbit x 2 satellites per pod on (pod=2, data=2, model=2)
 POD2 = dict(cmap=(1, 2, 2), mesh=(2, 2, 2), names=("pod", "data", "model"))
+# tensor parallelism: 2 orbits x 2 satellites on (data=4, model=2)
+TP = dict(cmap=(2, 2, 1), mesh=(4, 2), names=("data", "model"))
 KINDS = ("fedhap", "fedhap_fused", "fedavg")
 TRIALS = 2
+#: Trailing specs of make_params' leaves over ``model``: w's columns and
+#: b sharded, t (3 wide) replicated.
+MODEL_SPECS = {"w": (None, "model"), "b": ("model",), "t": (None,)}
 
 
 def make_params(n: int, seed: int) -> dict:
@@ -83,6 +88,18 @@ def cases() -> list[dict]:
                     kind=kind, mode=mode, weighting="paper", hap_ring=ring,
                     echo=False, params=params2, sizes=sizes2,
                     visible=vis2))
+    # model_specs: the leaves' trailing dims sharded over model
+    vis_tp = np.array([False, True, True, False])
+    for where, tag, prm, sz, vis in ((TP, "tp", params2, sizes2, vis_tp),
+                                     (POD2, "tp_pod2", params2, sizes2,
+                                      vis2)):
+        for kind in KINDS:
+            for specs in (MODEL_SPECS, None):
+                out.append(dict(
+                    name=f"{tag}{'' if specs else '_rep'}/{kind}",
+                    where=where, kind=kind, mode="paper", weighting="paper",
+                    hap_ring=True, echo=kind == "fedhap", params=prm,
+                    sizes=sz, visible=vis, specs=specs))
     return out
 
 
@@ -107,14 +124,16 @@ def round_ranks(rank: int, world: int) -> dict:
     from repro_torch.kernels.ops import fold_stacked_tree
     from repro_torch.sim.executor import FusedExecutor
 
+    from repro_torch.models import sharding as sh
+
     meshes = {}
-    for where in (POD1, POD2):
-        meshes[where["names"]] = init_device_mesh(
+    for where in (POD1, POD2, TP):
+        meshes[where["mesh"]] = init_device_mesh(
             "cpu", where["mesh"], mesh_dim_names=where["names"])
     out = {}
     for c in cases():
         names = c["where"]["names"]
-        mesh = meshes[names]
+        mesh = meshes[c["where"]["mesh"]]
         cfg = mr.FedRoundConfig(
             cmap=ConstellationMeshMap(*c["where"]["cmap"]),
             partial_mode=c["mode"], orbit_weighting=c["weighting"],
@@ -122,9 +141,16 @@ def round_ranks(rank: int, world: int) -> dict:
         s = _sat_index(mesh, names)
         local = {k: torch.from_numpy(v[s:s + 1].copy())
                  for k, v in c["params"].items()}
-        fn = mr.build_round(mesh, cfg, None, kind=c["kind"])
+        specs = c.get("specs")
+        if specs is not None:
+            axis = sh.ModelAxis.from_mesh(mesh, specs, specs)
+            local = sh.shard_params(local, specs, axis, lead=1)
+        fn = mr.build_round(mesh, cfg, None, model_specs=specs,
+                            kind=c["kind"])
         new, stats = fn(local, torch.from_numpy(c["sizes"][s:s + 1]),
                         torch.from_numpy(c["visible"][s:s + 1]))
+        if specs is not None:
+            new = sh.gather_params(new, specs, axis, lead=1)
         out[c["name"]] = (s, {k: v.numpy() for k, v in new.items()},
                           {k: float(v) for k, v in stats.items()})
 
@@ -189,23 +215,29 @@ def jax_main(path: str) -> None:
     from repro.core.dissemination import ConstellationMeshMap
     from repro.core.mesh_round import FedRoundConfig, build_round
 
+    from jax.sharding import PartitionSpec as P
+
     assert jax.device_count() == 8, jax.device_count()
-    meshes = {w["names"]: jax.make_mesh(w["mesh"], w["names"])
-              for w in (POD1, POD2)}
+    meshes = {w["mesh"]: jax.make_mesh(w["mesh"], w["names"])
+              for w in (POD1, POD2, TP)}
     fns = {}
     out = {}
     for c in cases():
-        mesh = meshes[c["where"]["names"]]
-        key = (c["where"]["names"], c["kind"], c["mode"], c["weighting"],
-               c["hap_ring"], c["echo"])
+        mesh = meshes[c["where"]["mesh"]]
+        specs = c.get("specs")
+        key = (c["where"]["mesh"], c["kind"], c["mode"], c["weighting"],
+               c["hap_ring"], c["echo"], specs is not None)
         if key not in fns:
             cfg = FedRoundConfig(
                 cmap=ConstellationMeshMap(*c["where"]["cmap"]),
                 partial_mode=c["mode"], orbit_weighting=c["weighting"],
                 hap_ring=c["hap_ring"], ship_global_echo=c["echo"])
             example = {k: v[0] for k, v in c["params"].items()}
+            jspecs = (None if specs is None
+                      else {k: P(*s) for k, s in specs.items()})
             with set_mesh(mesh):
                 fns[key] = jax.jit(build_round(mesh, cfg, example,
+                                               model_specs=jspecs,
                                                kind=c["kind"]))
         with set_mesh(mesh):
             new, stats = fns[key](

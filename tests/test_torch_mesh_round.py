@@ -10,8 +10,12 @@ gloo ranks (``tests/_torch_dist.py``) that run every case of
 three kinds x paper / exact x echo on / off, and exact + global
 weighting), the Eq.-15 gate closed, and two pods ``(1, 2, 2)`` on
 ``(pod=2, data=2, model=2)`` (the HAP ring on and off; ``model``
-replicates). Each case is its own test: every rank's params within atol
-1e-5 of the JAX row of its satellite, ``gate`` and ``covered`` equal,
+replicates), and the leaves sharded over ``model`` by ``model_specs``
+(w's columns and b; t replicated) on ``(data=4, model=2)`` (2 orbits x
+2) and on the two-pod mesh, all three kinds, each rank's slices run
+through the round and gathered back (``models/sharding.py``). Each case
+is its own test: every rank's params within atol 1e-5 of the JAX row of
+its satellite, ``gate`` and ``covered`` equal,
 ``upload_mass`` within f32 rounding (measured here: params within
 1.2e-7). A second fixture spawns 4 ranks for the one-rank-per-satellite
 LM step (``launch.train`` on the mesh path, reduced qwen3-0.6b, 2
@@ -84,6 +88,29 @@ def test_round_matches_jax(case, runs):
                                    want[f"{case}/stat/upload_mass"],
                                    rtol=1e-6)
     assert seen == set(range(len(CASES[case]["sizes"])))
+
+
+@pytest.mark.parametrize("case", [n for n in CASES
+                                  if n.startswith(("tp/", "tp_pod2/"))])
+def test_sharded_leaves_round_as_replicated(case, runs):
+    """With model_specs each rank runs the round on its slices: gathered,
+    the leaves are the JAX package's sharded round's within 1.2e-7, and
+    the same round's on whole leaves (bit for bit for the ring, whose
+    steps are leafwise; within 1.2e-7 where an all-reduce sums a packed
+    buffer whose layout the slices change); the stats are equal."""
+    want, ranks = runs
+    rep = case.replace("/", "_rep/", 1)
+    for r in ranks:
+        sat, params, stats = r[case]
+        _, whole, whole_stats = r[rep]
+        assert stats == whole_stats
+        for k, v in params.items():
+            if case.endswith("/fedhap"):
+                np.testing.assert_array_equal(v, whole[k], err_msg=k)
+            np.testing.assert_allclose(v, whole[k], atol=1.2e-7, rtol=0,
+                                       err_msg=k)
+            np.testing.assert_allclose(v[0], want[f"{case}/{k}"][sat],
+                                       atol=1.2e-7, rtol=0, err_msg=k)
 
 
 @pytest.mark.parametrize("case", [n for n in CASES if "/gate/" in n])
@@ -195,8 +222,6 @@ def test_mesh_errors(tmp_path):
         with pytest.raises(ValueError, match="cannot tile"):
             mr.build_round(mesh, mr.FedRoundConfig(), None)
         one = mr.FedRoundConfig(cmap=ConstellationMeshMap(1, 1, 1))
-        with pytest.raises(NotImplementedError, match="Queue A item 19"):
-            mr.build_round(mesh, one, None, model_specs={"w": (None,)})
         with pytest.raises(ValueError, match="kind"):
             mr.build_round(mesh, one, None, kind="kind")
         # a tensor of another device never goes to the gloo group; a meta

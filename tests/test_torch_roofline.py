@@ -228,25 +228,39 @@ def test_dryrun_at_full_width(monkeypatch, arch, shape, mesh):
     assert devices.seen == {"meta"}
     assert art["cost_analysis"]["flops"] > 0
     assert art["mesh"] == ("2x16x16" if mesh == "multi" else "16x16")
-    assert art["model_axis"] == "replicated"
+    assert art["model_axis"] == "sharded"
     mem = art["memory_analysis"]
     assert mem["argument_size_in_bytes"] > 0 and mem["temp_size_in_bytes"] > 0
+    # the model axis's all-reduces, in every step
+    assert art["collectives"]["all-reduce"]["count"] > 0
     if shape == "train_4k":
         assert art["collectives"]["total_bytes"] > 1e6
         assert "flash_attention_bwd" in art["kernels"]
-    else:
-        assert art["collectives"]["total_bytes"] == 0
 
 
 def test_prefill_counts_exactly_at_full_width():
+    """One device of 16 x 16: model = 16 does not divide the 8 KV heads,
+    so attention runs whole on its gathered leaves (4 all-gathers a
+    layer); the MLP runs on 1/16 of d_ff (one all-reduce a layer), the
+    embedding on 1/16 of the vocab (one all-reduce), and the last
+    position's logits are 1/16 of the vocab, gathered."""
     cfg = get_config("qwen3-0.6b")
     b, s = 2, SHAPES["prefill_32k"].seq_len           # 32 over data=16
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    proj = d * h * dh + 2 * d * hkv * dh + h * dh * d + 3 * d * cfg.d_ff
+    attn = d * h * dh + 2 * d * hkv * dh + h * dh * d
+    proj = attn + 3 * d * cfg.d_ff // 16
     flash = b * h * s * (s + 1) // 2 * 4 * dh
     want = (cfg.num_layers * (2 * b * s * proj + flash)
-            + 2 * b * d * cfg.vocab_size)
+            + 2 * b * d * cfg.vocab_size // 16)
     art = roofline.roofline_one("qwen3-0.6b", "prefill_32k")
+    coll = art["per_device"]["coll_detail"]
+    assert coll["all-reduce"] == {"count": 1 + cfg.num_layers,
+                                  "bytes": (1 + cfg.num_layers) * 2 * b * s
+                                  * d}
+    assert coll["all-gather"] == {
+        "count": 4 * cfg.num_layers + 1,
+        "bytes": 2 * (cfg.num_layers * (2 * d * h * dh + 2 * d * hkv * dh)
+                      + b * cfg.vocab_size)}
     assert art["per_device"]["flops"] == want
     assert art["per_device"]["flops_f32"] == 0
     assert art["aggregation"] is None and art["chips"] == 256
@@ -259,7 +273,8 @@ def test_prefill_counts_exactly_at_full_width():
     assert terms["compute_s"] == pytest.approx(want / 989e12, rel=1e-12)
     assert terms["memory_s"] == pytest.approx(
         art["per_device"]["bytes"] / 3.35e12, rel=1e-12)
-    assert terms["collective_s"] == 0
+    assert terms["collective_s"] == pytest.approx(
+        art["per_device"]["coll_bytes"] / 50e9, rel=1e-12)
     assert art["dominant"] == max(terms, key=terms.get)[:-2]
 
 

@@ -98,14 +98,21 @@ def test_configs_equal_field_by_field():
         {k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()}
 
 
-@pytest.mark.parametrize("overrides", [
-    dict(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=128),
-         moe_dispatch_local=True),
-], ids=["moe_dispatch_local"])
-def test_unported_blocks_raise(overrides):
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), **overrides)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(cfg)
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_jamba_local_dispatch_stack_matches_jax(blocks):
+    """The stack with ``moe_dispatch_local`` (each MoE block's tokens in
+    ``blocks`` blocks): logits and the summed aux against the JAX
+    package's, on jamba's period at own fan-in."""
+    tm, jm, jp, tp = jamba_pair()
+    over = dict(moe_dispatch_local=True, moe_dispatch_blocks=blocks)
+    tm = Transformer(dataclasses.replace(tm.cfg, **over))
+    jm = JaxTransformer(dataclasses.replace(jm.cfg, **over))
+    tokens = _tokens(2, 16, tm.cfg.vocab_size)
+    want, waux = jm.forward(jp, jnp.asarray(tokens))
+    with torch.no_grad():
+        got, aux = tm.forward(tp, torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    assert abs(float(aux) - float(waux)) < 1e-6
 
 
 @pytest.mark.parametrize("overrides", [
