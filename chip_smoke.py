@@ -38,14 +38,16 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
 6. profile — one more full-width round under torch.profiler: device
    time by kernel and the device's busy share of the round;
 7. flash — the ``flash_attention`` kernels against their plain version
-   on the card (bf16 at D >= 16 runs the tensor-core kernel, f32 and D=8
-   the SIMT one; each call's variant is counted): the CPU tests' sweep
+   on the card (bf16 at D >= 16 runs the wgmma kernel, f32 and D=8 the
+   mma.sync one; each call's variant is counted): the CPU tests' sweep
    (f32 and bf16, windows, bidirectional) plus ragged lengths around the
    tensor-core tiles (S = 1 .. 300, GQA groups 1-8, windows 1, 63, 200),
    and both prefill shapes (qwen3-0.6b's B=4, H=16, Hkv=8, S=4096,
    D=128 and jamba's H=32 over 8, causal) in f32 and bf16, where three
    planted long-row faults must break the bf16 tolerance; timed at both
-   shapes in bf16 beside the f32 SIMT kernel, the plain version, its
+   shapes in bf16 beside the f32 mma kernel (at qwen3-0.6b's shape also
+   in device time beside SDPA's f32 and the f32 bound), the plain
+   version, its
    bound and ``scaled_dot_product_attention`` (``library_ms``, timed
    here only); then MLA's head dims (q and k 96, v 64) in f32 and bf16,
    causal, windowed and bidirectional, S = 1 .. 300, each launch counted
@@ -61,7 +63,7 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
    planted cache faults must break the same tolerance;
 10. serve — full-width qwen3-0.6b in bf16: ``prefill`` at B=4, S=4096
     (the counts zeroed just before, read just after: 28 flash launches,
-    all 28 of the tensor-core kernel, none of the SIMT one),
+    all 28 of the tensor-core kernel, none of the mma one),
     then ``greedy_generate`` at serve's defaults (batch 4, prompt 16,
     gen 32); then one prefill and a few decode steps under
     torch.profiler;
@@ -138,13 +140,14 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     card loads into a CPU engine leaf for leaf;
 23. flash backward — ``flash_attention_bwd`` (three kernels: a
     pre-pass, dK/dV, dQ; bf16 with D a multiple of 16 runs the
-    tensor-core ones, f32 and D in {8, 24} the SIMT ones, and each call's
-    variant is counted)
+    tensor-core ones, f32 and D in {8, 24} the mma ones (two kernels: dQ
+    with Δ, dK/dV), and each call's variant is counted)
     against ``flash_attention_bwd_plain`` and the forward's lse against
     ``flash_attention_lse_plain`` on the card: a sweep in f32 and bf16
     over every head dim, GQA groups 1/2/4, causal and not, windows,
     Sq != Sk and transposed views (autograd through ``FlashAttentionFn``
-    bit-equal to the direct call); then the training shape (B=2, H=16,
+    and a second call bit-equal to the first); then the training shape
+    (B=2, H=16,
     Hkv=8, S=1024, D=128) and the serve shape (B=4, S=4096) in bf16, on
     the tensor cores, where three planted faults (the GQA sum dropped, Δ
     not subtracted, the causal mask off by one) in a dense copy must
@@ -155,8 +158,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     with and without lse (the serving path passes none); ptxas' registers
     and spills of each new backward kernel. Then the split pairs
     (``FLASH_BWD_SPLIT_SWEEP``: MLA's (96, 64) and the reduced MLA's (24,
-    16), f32 on SIMT, bf16 (96, 64) on the tensor cores and (24, 16) on
-    SIMT, each call's variant and ``launches_bwd_split`` counted, two
+    16), f32 on mma, bf16 (96, 64) on the tensor cores and (24, 16) on
+    mma, each call's variant and ``launches_bwd_split`` counted, two
     calls and autograd bit-equal, the planted faults of
     ``dense_bwd`` caught), and (96, 64) at MLA's training shape
     (B=2, H=40, S=1024) and prefill shape (B=4, S=4096) in bf16, timed
@@ -261,7 +264,7 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     before and read just after (one tensor-core flash launch per
     attention layer: 24 for granite, 62 of the (96, 64) variant for
     minicpm3-4b, 12 + 12 + 12 for whisper's encoder, self- and
-    cross-attention; none SIMT), the prefill's peak device memory beside
+    cross-attention; none mma), the prefill's peak device memory beside
     the dry run's prediction for the same call (``predicted_peak``,
     reported), one ``greedy_generate`` at serve's defaults, and one
     prefill under torch.profiler;
@@ -288,7 +291,7 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     card: at full width cut to 4 layers, f32 at own fan-in, each leaf's
     gradient card vs CPU within ``TRAIN_GRAD_RTOL`` and a planted
     backward fault (Δ not subtracted) caught; one ``single_device_round``
-    of the reduced config (q·k 24, v 16: the (24, 16) pair, SIMT) card
+    of the reduced config (q·k 24, v 16: the (24, 16) pair, mma) card
     vs CPU, its launches counted; the slice of phase 25 at full width
     (bf16, remat, ``TRAIN_SLICE``, the CLI's init): per round one
     ``fedagg`` launch and per satellite step 124 flash forward (62 + 62
@@ -328,12 +331,12 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     first flush's S, timed as phase 3 times S=8 (``fold_flush``);
 37. constellation — the flash forward and backward at
     ``examples/train_constellation_torch.py``'s attention shape (f32,
-    B=2, H=4, Hkv=2, S=256, D=64: the SIMT kernels) and the WKV forward
+    B=2, H=4, Hkv=2, S=256, D=64: the mma kernels) and the WKV forward
     at ``examples/serve_constellation_torch.py``'s prefill shape against
     their plain versions, timed beside their bounds and SDPA; then the
     training example at its defaults (30 rounds, the 32.5M decoder, f32,
     4 satellites): the counts zeroed just before and read per round, one
-    ``fedagg`` launch and one SIMT flash forward and backward launch per
+    ``fedagg`` launch and one mma flash forward and backward launch per
     layer and satellite step a round, the loss falling, rows bit-equal,
     its checkpoint reloaded bit for bit; then the serve example at its
     defaults (reduced rwkv6-3b): decoding launches nothing (its steps
@@ -487,13 +490,14 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def bound(flop: float, nbytes: float, tensor_cores: bool
+def bound(flop: float, nbytes: float, tensor_cores: bool, f32: bool = False
           ) -> tuple[float, str]:
     """A call's bound in ms and what bounds it, over the card's peaks
     (``repro_torch.launch.roofline.bound_ms``: the H100 data sheet's
-    rates, bf16 on the tensor cores or f32, and HBM's)."""
+    rates, bf16 on the tensor cores, f32 on them as 3xTF32 with ``f32``,
+    or f32 outside them, and HBM's)."""
     from repro_torch.launch.roofline import bound_ms
-    return bound_ms(flop, nbytes, tensor_cores)
+    return bound_ms(flop, nbytes, tensor_cores, f32)
 
 
 def nvidia_smi(query: str) -> str:
@@ -523,14 +527,18 @@ def ptxas_report(log_text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             short = re.search(r"\d+(flash_\w+?)I(f|13__nv_bfloat16)?Li(\d+)E"
-                              r"(?:Li(\d+)E)?", name)
+                              r"(?:Li(\d+)E)?(?:Li(\d+)E)?", name)
             if short:
                 dtype = {"f": "f32, ", "13__nv_bfloat16": "bf16, "}.get(
                     short.group(2), "")
                 # The forward's kernels take (D, Dv); name the pair only
-                # where the two differ.
+                # where the two differ. The mma kernels' last parameter:
+                # the forward's warps a block, the backward's split.
                 dv = short.group(4)
                 dv = f", Dv={dv}" if dv and dv != short.group(3) else ""
+                if short.group(5):
+                    dv += (", warps=" if "fwd" in short.group(1)
+                           else ", split=") + short.group(5)
                 out[f"{short.group(1)}<{dtype}D={short.group(3)}{dv}>"] = (
                     int(m.group(1)), *spills)
             # The recurrences' kernels: <types..., N=n> (the WKV forward's
@@ -1141,37 +1149,46 @@ def phase_flash(torch, fa_mod):
             dname = str(dtype).split(".")[-1]
             q, k, v = _bshd_views(torch, gen, b, h, hkv, s, d, dtype)
             variant = fa_mod.kernel_variant(dtype, d)
-            before = (fa.launches_tc, fa.launches_simt)
+            before = (fa.launches_tc, fa.launches_mma)
             err = check_close(torch, fa(q, k, v, causal, window),
                               plain(q, k, v, causal, window), dname,
                               f"flash {dname} B={b} H={h} Hkv={hkv} S={s} "
                               f"D={d} causal={causal} window={window}")
-            ran = (fa.launches_tc - before[0], fa.launches_simt - before[1])
+            ran = (fa.launches_tc - before[0], fa.launches_mma - before[1])
             if ran != ((1, 0) if variant == "tc" else (0, 1)):
                 raise AssertionError(f"flash {dname} D={d}: launches "
-                                     f"(tc, simt) {ran}; want {variant}")
+                                     f"(tc, mma) {ran}; want {variant}")
             log("flash", f"{dname} B={b} H={h} Hkv={hkv} S={s} D={d} "
                 f"causal={causal} window={window} ({variant}): max |err| "
                 f"{err:.3e}")
 
     # The prefill shapes: jamba's first, then qwen3-0.6b's, whose numbers
     # go into the kernels line. bf16 runs the tensor-core kernel, f32 the
-    # SIMT one (counted).
+    # mma one (counted).
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = 0.0
     for shape in (JAMBA_FLASH_PREFILL, PREFILL):
         b, h, hkv, s, d = (shape[x] for x in ("b", "h", "hkv", "s", "d"))
         what = f"B={b} H={h} Hkv={hkv} S={s} D={d}"
         q, k, v = _bshd_views(torch, gen, b, h, hkv, s, d, torch.float32)
-        n_simt = fa.launches_simt
+        n_mma = fa.launches_mma
         err32 = check_close(torch, fa(q, k, v), plain(q, k, v), "float32",
                             f"flash f32 at the prefill shape {what}")
         ms32 = time_ms(torch, lambda: fa(q, k, v), reps=3, warmup=1)
-        if fa.launches_simt - n_simt != 5:
-            raise AssertionError("f32 flash calls did not all run the SIMT "
+        if fa.launches_mma - n_mma != 5:
+            raise AssertionError("f32 flash calls did not all run the mma "
                                  "kernel")
         log("flash", f"prefill shape {what} f32: max |err| {err32:.3e} "
-            f"({TOL['float32']}); SIMT kernel {ms32:.4f} ms")
+            f"({TOL['float32']}); mma kernel {ms32:.4f} ms back to back")
+        if shape is PREFILL:
+            f32_prefill = _f32_device_times(
+                torch, lambda: fa(q, k, v), lambda: sdpa(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                fa_mod.flash_attention_cost(
+                    tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                    torch.float32), reps=3)
+            log("flash", f"prefill shape {what} f32 causal, device time: "
+                + _f32_text(f32_prefill, "mma kernel", "sdpa"))
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         n_tc = fa.launches_tc
         got = fa(q, k, v)
@@ -1201,7 +1218,7 @@ def phase_flash(torch, fa_mod):
             tuple(q.shape), tuple(k.shape), tuple(v.shape), q.dtype)
         bound_ms, bound_by = bound(flop, nbytes, True)
         log("flash", f"prefill shape {what} bf16 causal: tensor-core kernel "
-            f"{ms:.4f} ms at {flop / ms / 1e9:.2f} TFLOP/s, SIMT kernel "
+            f"{ms:.4f} ms at {flop / ms / 1e9:.2f} TFLOP/s, mma kernel "
             f"(f32) {ms32:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{lib_ms:.4f} ms at {flop / lib_ms / 1e9:.2f} TFLOP/s; "
             f"{nbytes} bytes, {flop:.4e} FLOP, bound {bound_ms:.4f} ms "
@@ -1212,7 +1229,30 @@ def phase_flash(torch, fa_mod):
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:87",
                 launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                f32_prefill=f32_prefill)
+
+
+def _f32_device_times(torch, kern, lib, cost: tuple, reps: int) -> dict:
+    """An f32 call of an mma kernel and the library's call for the same
+    function, both in device time, beside the function's bound: its f32
+    FLOP at the rate the kernel runs them, 3xTF32 on the tensor cores
+    (``bound(..., f32=True)``), or its bytes."""
+    flop, nbytes = cost
+    ms = device_ms(torch, kern, reps=reps, warmup=1)
+    lib_ms = device_ms(torch, lib, reps=reps, warmup=1)
+    bound_ms, bound_by = bound(flop, nbytes, True, f32=True)
+    return dict(device_ms=ms, library_device_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def _f32_text(r: dict, kern: str, lib: str) -> str:
+    return (f"{kern} {r['device_ms']:.4f} ms, {lib} "
+            f"{r['library_device_ms']:.4f} ms "
+            f"({r['device_ms'] / r['library_device_ms']:.2f}x); bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, f32 as 3xTF32 at "
+            f"165 TFLOP/s); the kernel at "
+            f"{r['bound_ms'] / r['device_ms']:.3f} of its bound")
 
 
 # Phase 7's sweep of MLA's head dims (q and k 96, v 64: minicpm3-4b) as
@@ -1224,7 +1264,7 @@ FLASH_SPLIT_SWEEP = (
      for causal, window in ((True, None), (True, 63), (False, None))]
     + [(1, 8, 2, 300, 300, True, None), (1, 8, 1, 200, 200, True, 1),
        (1, 4, 4, 7, 300, False, None), (1, 4, 2, 300, 1, False, None)])
-# The reduced MLA's (24, 16) pair (SIMT in both dtypes) as (B, H, Hkv,
+# The reduced MLA's (24, 16) pair (mma in both dtypes) as (B, H, Hkv,
 # Sq, Sk, causal, window): ragged lengths, a window, Sq != Sk both ways.
 FLASH_REDUCED_MLA_SWEEP = ((2, 4, 4, 65, 65, True, None),
                            (1, 4, 2, 300, 300, True, 63),
@@ -1258,8 +1298,8 @@ def _split_views(torch, gen, b, h, hkv, sq, sk, d, dv, dtype):
 
 def phase_flash_split(torch, fa_mod) -> dict:
     """Phase 7, the head-dim pairs (96, 64) and (24, 16) and the
-    bidirectional Sq != Sk shapes: each case in f32 (SIMT) and bf16
-    (tensor cores; (24, 16) SIMT) against the
+    bidirectional Sq != Sk shapes: each case in f32 (mma) and bf16
+    (tensor cores; (24, 16) mma) against the
     plain version at ``SPLIT_TOL``, its variant and split launches
     counted, and at whisper's cross-attention shape in bf16 the planted
     faults of the ragged last K/V tile caught; then the pair
@@ -1282,7 +1322,7 @@ def phase_flash_split(torch, fa_mod) -> dict:
             q, k, v = _split_views(torch, gen, b, h, hkv, sq, sk, d, dv,
                                    dtype)
             variant = fa_mod.kernel_variant(dtype, d)
-            before = (fa.launches_tc, fa.launches_simt, fa.launches_split)
+            before = (fa.launches_tc, fa.launches_mma, fa.launches_split)
             what = (f"flash {dname} B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} "
                     f"D={d} Dv={dv} causal={causal} window={window}")
             got = fa(q, k, v, causal, window)
@@ -1295,11 +1335,11 @@ def phase_flash_split(torch, fa_mod) -> dict:
             if (dname, sq, sk) == ("bfloat16",) + WHISPER_CROSS:
                 check_ragged_faults(torch, q, k, v, want)
             del got, want
-            ran = (fa.launches_tc - before[0], fa.launches_simt - before[1],
+            ran = (fa.launches_tc - before[0], fa.launches_mma - before[1],
                    fa.launches_split - before[2])
             want = ((1, 0) if variant == "tc" else (0, 1)) + (int(d != dv),)
             if ran != want:
-                raise AssertionError(f"{what}: launches (tc, simt, split) "
+                raise AssertionError(f"{what}: launches (tc, mma, split) "
                                      f"{ran}; want {want}")
             key = (dname, (d, dv) if d != dv else None)
             worst[key] = max(worst.get(key, 0.0), err)
@@ -1719,20 +1759,20 @@ def phase_decode_vs_prefill(torch, model, params, faults: dict,
 
 def launch_counters(kernels: dict) -> dict:
     """Every count of the wrappers in ``kernels``: ``name`` -> (wrapper,
-    "launches"), ``name.tc`` / ``name.simt`` -> the per-variant launch
+    "launches"), ``name.tc`` / ``name.mma`` -> the per-variant launch
     counts, ``name.split`` -> flash's launches with D != Dv (MLA's),
     ``name.ckpt`` -> the forward launches that stored the
     backward's checkpoints (WKV), ``name.bwd`` -> the backward launches,
-    ``name.bwd_tc`` / ``name.bwd_simt`` those of each variant and
+    ``name.bwd_tc`` / ``name.bwd_mma`` those of each variant and
     ``name.bwd_split`` those with D != Dv, and
     ``name.copies`` -> the inputs a wrapper copied before its launch,
     where a wrapper has them."""
     out = {}
     for name, fn in kernels.items():
         out[name] = (fn, "launches")
-        for attr in ("launches_tc", "launches_simt", "launches_split",
+        for attr in ("launches_tc", "launches_mma", "launches_split",
                      "launches_ckpt", "launches_bwd", "launches_bwd_tc",
-                     "launches_bwd_simt", "launches_bwd_split", "copies"):
+                     "launches_bwd_mma", "launches_bwd_split", "copies"):
             if hasattr(fn, attr):
                 out[f"{name}.{attr.removeprefix('launches_')}"] = (fn, attr)
     return out
@@ -1744,8 +1784,8 @@ def phase_serve(torch, model, params, serve, kernels: dict, expected: dict,
     """The serve slice on the card: prefill B=4, S=4096 (counted), then
     greedy_generate at serve's defaults. ``kernels`` maps each kernel's
     name to its wrapper (with the ``launches`` count, and for flash the
-    ``launches_tc`` and ``launches_simt`` counts of its variants, read as
-    ``flash_attention.tc`` and ``flash_attention.simt``, and for WKV the
+    ``launches_tc`` and ``launches_mma`` counts of its variants, read as
+    ``flash_attention.tc`` and ``flash_attention.mma``, and for WKV the
     ``copies`` of views its kernel could not address, ``rwkv6_wkv.copies``);
     the prefill must launch each kernel and variant as often as
     ``expected`` says (one not named there: never) and copy nothing.
@@ -3128,8 +3168,8 @@ def dense_bwd(torch, q, k, v, o, lse, do, fault: str | None = None,
     of each group (the group sum dropped), ``"delta"`` dS = P ⊙ dP (Δ not
     subtracted), ``"causal"`` one future key (k = q + 1) let through the
     mask; and the split pairs' ``"last column group dropped"`` (dQ's and
-    dK's last group of 16 columns left at 0: columns 16-23 at D = 24, the
-    SIMT kernels' partial group of tx < 8; 80-95 at D = 96) and ``"delta
+    dK's last group of 16 columns left at 0: columns 16-23 at D = 24, a
+    partial group; 80-95 at D = 96) and ``"delta
     over D"`` (Δ summed over D columns of o's and dO's rows instead of
     their Dv, the extra D - Dv read from the memory after each row). With
     no fault it is the plain backward."""
@@ -3177,7 +3217,8 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float,
     """Phase 23: the backward kernels against flash_attention_bwd_plain
     on the card (and the forward's lse against flash_attention_lse_plain);
     the sweep in f32 and bf16, each call's variant counted (bf16 at D >=
-    16 on the tensor cores, f32 and D = 8 on the SIMT kernels), then the
+    16 on the tensor cores, f32 and D = 8 on the mma kernels; two calls
+    bit-equal), then the
     training and serve shapes in bf16 with three planted faults; timed
     beside the plain version, its bounds and SDPA's backward; ptxas'
     report of each tensor-core backward kernel (``ptxas``, from phase
@@ -3199,7 +3240,7 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float,
             lerr = check_close(torch, lse, lse_plain(q, k, causal, window),
                                "float32", f"flash lse {what}", LSE_TOL)
             counts = ("launches_bwd", "launches_bwd_tc",
-                      "launches_bwd_simt")
+                      "launches_bwd_mma")
             before = [getattr(fa, c) for c in counts]
             got = bwd(q, k, v, out, lse, do, causal, window)
             variant = fa_mod.kernel_variant(dtype, d)
@@ -3227,9 +3268,13 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float,
                 raise AssertionError(f"flash bwd {what}: autograd through "
                                      f"FlashAttentionFn differs from the "
                                      f"kernel called directly")
+            again = bwd(q, k, v, out, lse, do, causal, window)
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise AssertionError(f"flash bwd {what}: two calls differ")
             log("flash-bwd", f"{what}: variant {variant}; lse max |err| "
                 f"{lerr:.3e}; dq, dk, dv max |err| {errs[0]:.3e}, "
-                f"{errs[1]:.3e}, {errs[2]:.3e}")
+                f"{errs[1]:.3e}, {errs[2]:.3e}; autograd and a second call "
+                f"bit-equal")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes = {"train": dict(TRAIN_ATTN), "serve": dict(PREFILL)}
@@ -3248,9 +3293,20 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float,
                         for g, w in zip(got, want))
             ms32 = time_ms(torch, lambda: bwd(q, k, v, out, lse, do),
                            reps=5, warmup=1)
+            args = [x.detach().requires_grad_() for x in (q, k, v)]
+            ref_out = sdpa(*args, is_causal=True, enable_gqa=True)
+            f32_train = _f32_device_times(
+                torch, lambda: bwd(q, k, v, out, lse, do),
+                lambda: torch.autograd.grad(ref_out, args, do,
+                                            retain_graph=True),
+                fa_mod.flash_attention_bwd_cost(
+                    tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                    torch.float32), reps=10)
             log("flash-bwd", f"{what} f32: max |err| {err32:.3e} "
-                f"({TOL['float32']}); kernel {ms32:.4f} ms")
-            del got, want
+                f"({TOL['float32']}); kernels (mma) {ms32:.4f} ms back to "
+                f"back; device time: " + _f32_text(
+                    f32_train, "kernels", "sdpa backward"))
+            del got, want, args, ref_out
         q, k, v, do = _flash_views(torch, gen, b, h, hkv, s, s, d,
                                    torch.bfloat16)
         out, lse = fwd(q, k, v, with_lse=True)
@@ -3365,7 +3421,7 @@ def phase_flash_bwd(torch, fa_mod, fwd_prefill_ms: float,
                 bound_ms_design=train["bound_ms_design"],
                 library_ms=train["library_ms"],
                 library_device_ms=train["library_device_ms"],
-                serve=out_entry["serve"],
+                serve=out_entry["serve"], f32_train=f32_train,
                 ptxas={k: dict(registers=r, spill_stores=st, spill_loads=ld)
                        for k, (r, st, ld) in report.items()})
 
@@ -3407,7 +3463,7 @@ MLA_REDUCED_ATTN = dict(b=2, h=4, hkv=4, sq=256, sk=256, d=24, dv=16)
 
 
 def _reduced_mla_times(torch, fa_mod, gen) -> dict:
-    """The (24, 16) pair's forward and backward (SIMT in f32 and bf16) at
+    """The (24, 16) pair's forward and backward (mma in f32 and bf16) at
     ``MLA_REDUCED_ATTN``: each checked against its plain version, timed
     back to back and as device time beside the plain version, SDPA's
     forward and backward and its bound (the bytes, or the operations at
@@ -3443,7 +3499,8 @@ def _reduced_mla_times(torch, fa_mod, gen) -> dict:
                 ref = sdpa(*grads, is_causal=True)
                 lib = lambda ref=ref, grads=grads: torch.autograd.grad(  # noqa: E731
                     ref, grads, do, retain_graph=True)
-            bound_ms, bound_by = bound(flop, nbytes, dname == "bfloat16")
+            bound_ms, bound_by = bound(flop, nbytes, True,
+                                       f32=dname == "float32")
             row[what] = dict(
                 ms=time_ms(torch, kern), device_ms=device_ms(torch, kern),
                 plain_ms=time_ms(torch, plain, reps=5),
@@ -3452,7 +3509,7 @@ def _reduced_mla_times(torch, fa_mod, gen) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
             r = row[what]
             log("flash-bwd", f"(24, 16) {what} {dname} at B={b} H={h} S={s} "
-                f"(SIMT): {r['ms']:.4f} ms back to back, "
+                f"(mma): {r['ms']:.4f} ms back to back, "
                 f"{r['device_ms']:.4f} ms device; plain {r['plain_ms']:.4f} "
                 f"ms; sdpa {r['library_ms']:.4f} ms back to back, "
                 f"{r['library_device_ms']:.4f} device; bound "
@@ -3464,8 +3521,8 @@ def _reduced_mla_times(torch, fa_mod, gen) -> dict:
 
 def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
     """Phase 23, the split pairs (MLA's (96, 64), the reduced MLA's (24,
-    16)): ``FLASH_BWD_SPLIT_SWEEP`` in f32 (SIMT) and bf16 ((96, 64) on
-    the tensor cores, (24, 16) on SIMT) against the plain backward (f32 at
+    16)): ``FLASH_BWD_SPLIT_SWEEP`` in f32 (mma) and bf16 ((96, 64) on
+    the tensor cores, (24, 16) on mma) against the plain backward (f32 at
     ``TOL``, bf16 at ``BWD_BF16_TOL``), each call's variant and split
     count checked, autograd bit-equal to the direct call, the planted
     faults caught on the first case of each pair; then (96, 64) at MLA's
@@ -3477,7 +3534,7 @@ def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
     fa = fa_mod.flash_attention
     bwd, plain = fa_mod.flash_attention_bwd, fa_mod.flash_attention_bwd_plain
     gen = torch.Generator(device="cuda").manual_seed(230)
-    counts = ("launches_bwd", "launches_bwd_tc", "launches_bwd_simt",
+    counts = ("launches_bwd", "launches_bwd_tc", "launches_bwd_mma",
               "launches_bwd_split")
     faulted = set()
     worst: dict = {}
@@ -3545,16 +3602,27 @@ def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
         if not big:
             args = _split_bwd_case(torch, fa_mod, gen, shape,
                                    dtype=torch.float32)
-            before = fa.launches_bwd_simt
+            before = fa.launches_bwd_mma
             err32 = max(check_close(torch, g, w, "float32",
                                     f"split bwd f32 {what}")
                         for g, w in zip(bwd(*args), plain(*args)))
-            if fa.launches_bwd_simt != before + 1:
-                raise AssertionError(f"split bwd f32 {what}: not on SIMT")
+            if fa.launches_bwd_mma != before + 1:
+                raise AssertionError(f"split bwd f32 {what}: not on mma")
             ms32 = time_ms(torch, lambda: bwd(*args), reps=3, warmup=1)
-            log("flash-bwd", f"{what} f32 (SIMT): max |err| {err32:.3e} "
-                f"({TOL['float32']}); kernels {ms32:.4f} ms")
-            del args
+            q, k, v, _, _, do = args
+            grads = [x.detach().requires_grad_() for x in (q, k, v)]
+            ref_out = sdpa(*grads, is_causal=True)
+            f32_train = _f32_device_times(
+                torch, lambda: bwd(*args), lambda: torch.autograd.grad(
+                    ref_out, grads, do, retain_graph=True),
+                fa_mod.flash_attention_bwd_cost(
+                    tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                    torch.float32), reps=5)
+            log("flash-bwd", f"{what} f32 (mma): max |err| {err32:.3e} "
+                f"({TOL['float32']}); kernels {ms32:.4f} ms back to back; "
+                f"device time: " + _f32_text(f32_train, "kernels",
+                                             "sdpa backward"))
+            del args, grads, ref_out, q, k, v, do
         args = _split_bwd_case(torch, fa_mod, gen, shape,
                                dtype=torch.bfloat16)
         q, k, v, out, lse, do = args
@@ -3653,6 +3721,7 @@ def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
                 library_device_ms=train["library_device_ms"],
                 library_error=train["library_error"],
                 serve=out_entry["serve"], reduced=reduced,
+                f32_train=f32_train,
                 sweep_max_abs_err={f"({d}, {dv}) {n}": e
                                    for (d, dv, n), e in worst.items()},
                 ptxas={k: dict(registers=r, spill_stores=st, spill_loads=ld)
@@ -4157,9 +4226,9 @@ def phase_mla_train(torch, Transformer, get_config, kernels: dict,
     """Phase 34: minicpm3-4b trains on the card. (1) Full width cut to
     ``MLA_TRAIN_LAYERS``, f32 at own fan-in: each leaf's gradient card vs
     CPU within ``TRAIN_GRAD_RTOL`` (the flash (96, 64) pair forward and
-    backward on the SIMT kernels), a planted backward fault (Δ not
+    backward on the mma kernels), a planted backward fault (Δ not
     subtracted) caught. (2) One ``single_device_round`` of the reduced
-    config (q·k 24, v 16: the (24, 16) pair on SIMT) card vs CPU, its
+    config (q·k 24, v 16: the (24, 16) pair on mma) card vs CPU, its
     launches counted. (3) The full-width slice of phase 25's settings
     (bf16, remat; ``TRAIN_LAUNCHES``: every flash launch the (96, 64)
     pair's on the tensor cores). (4) ``launch.train`` with its defaults
@@ -4190,16 +4259,16 @@ def phase_mla_train(torch, Transformer, get_config, kernels: dict,
                                  fed_cfg(1, 2, 1), train, stack_params,
                                  "mla-train-cvc", kernels)
     n = cfg.num_layers * 2                      # layers x satellites
-    want = {"flash_attention": n, "flash_attention.simt": n,
+    want = {"flash_attention": n, "flash_attention.mma": n,
             "flash_attention.split": n, "flash_attention.bwd": n,
-            "flash_attention.bwd_simt": n, "flash_attention.bwd_split": n,
+            "flash_attention.bwd_mma": n, "flash_attention.bwd_split": n,
             "flash_attention.tc": 0, "flash_attention.bwd_tc": 0}
     got = {k: reduced["counts"][k] for k in want}
     if got != want:
         raise AssertionError(f"reduced {arch} round launched {got}; want "
                              f"{want}")
     log("mla-train-cvc", f"{cfg.name}: the (24, 16) pair's {n} forward and "
-        f"{n} backward launches, all SIMT, in the card's round; "
+        f"{n} backward launches, all mma, in the card's round; "
         f"{time.perf_counter() - t0:.2f} s")
     del params, batches
 
@@ -4222,8 +4291,8 @@ def phase_mla_train(torch, Transformer, get_config, kernels: dict,
     rounds = int(MLA_CLI[MLA_CLI.index("--rounds") + 1])
     n = red.num_layers * 4 * rounds              # 4 satellites, 1 step
     want = {"flash_attention": n, "flash_attention.split": n,
-            "flash_attention.simt": n, "flash_attention.bwd": n,
-            "flash_attention.bwd_split": n, "flash_attention.bwd_simt": n,
+            "flash_attention.mma": n, "flash_attention.bwd": n,
+            "flash_attention.bwd_split": n, "flash_attention.bwd_mma": n,
             "fedagg": rounds}
     got = {k: counts[k] for k in want}
     if got != want or res["path"] != "single_device" or not all(
@@ -5432,18 +5501,25 @@ def _tp_flash(torch, fa_mod, gen, out: dict) -> None:
             del got, want
             ms, plain_ms = _timed(torch, lambda: bwd(q, k, v, o, lse, do),
                                   lambda: bwd_plain(q, k, v, o, lse, do))
+            # SDPA's backward on the same inputs, device time as the
+            # kernels'.
+            qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+            ref = sdpa(*qkv, is_causal=True, enable_gqa=True)
+            lib = device_ms(torch, lambda: torch.autograd.grad(
+                ref, qkv, do, retain_graph=True), reps=10)
             g = out[bwd_key][label] = _reading(
                 err, ms, plain_ms, fa_mod.flash_attention_bwd_cost(
                     tuple(q.shape), tuple(k.shape), tuple(v.shape), bf16),
-                True)
-            del q, k, v, o, lse, do
+                True, lib)
+            del q, k, v, o, lse, do, qkv, ref
             log("tp", f"flash {label}: forward (B=4, S=4096) max |err| "
                 f"{f['max_abs_err']:.3e}, {f['ms']:.4f} ms against plain "
                 f"{f['plain_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms, "
                 f"sdpa {f['library_ms']:.4f} ms; backward (B=2, S=1024) "
                 f"max |err| {g['max_abs_err']:.3e}, {g['ms']:.4f} ms "
                 f"against plain {g['plain_ms']:.4f} ms, bound "
-                f"{g['bound_ms']:.4f} ms")
+                f"{g['bound_ms']:.4f} ms, sdpa's backward "
+                f"{g['library_ms']:.4f} ms (device)")
 
 
 def _tp_recurrence(torch, label: str, fwd, fwd_ckpt, plain, bwd,
@@ -5747,7 +5823,9 @@ def phase_roofline(torch, Transformer, get_config, kernels: dict) -> dict:
             f"mesh (batch {b}, {shape.seq_len} positions), bf16: device "
             f"time {dev_ms:.3f} ms; roofline ({roofline.CARD}): compute "
             f"{compute_ms:.3f} ms ({art['per_device']['flops']:.4e} FLOP, "
-            f"{art['per_device']['flops_f32']:.4e} of them f32), memory "
+            f"{art['per_device']['flops_f32']:.4e} of them f32 off the "
+            f"tensor cores, {art['per_device']['flops_tf32x3']:.4e} as "
+            f"3xTF32), memory "
             f"{memory_ms:.3f} ms ({art['per_device']['bytes']:.4e} B), "
             f"dominant {art['dominant']}; device time / the larger term "
             f"{dev_ms / max(compute_ms, memory_ms):.3f}, compute term "
@@ -5934,7 +6012,7 @@ def phase_table2(torch, fedagg_mod) -> dict:
 
 # Phase 37: the constellation examples at their defaults. The LM example's
 # attention per satellite step: batch 2, 4 heads over 2 KV heads, seq
-# 256, head dim 64, f32 (the flash kernels' SIMT variant), causal.
+# 256, head dim 64, f32 (the flash kernels' mma variant), causal.
 CONSTELLATION_ATTN = dict(b=2, h=4, hkv=2, s=256, d=64)
 # The serve example's WKV prefill: the reduced rwkv6-3b (d_model 256,
 # head size 32: 8 heads), batch 4, prompt 12, f32.
@@ -5964,12 +6042,12 @@ def _constellation_kernels(torch, fa_mod, wkv_mod) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(37)
     q, k, v, do = _flash_views(torch, gen, b, h, hkv, s, s, d, torch.float32)
     fwd, bwd = fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd
-    before = (fa.launches_simt, fa.launches_bwd_simt)
+    before = (fa.launches_mma, fa.launches_bwd_mma)
     out, lse = fwd(q, k, v, with_lse=True)
     grads = bwd(q, k, v, out, lse, do)
-    if (fa.launches_simt, fa.launches_bwd_simt) != (before[0] + 1,
+    if (fa.launches_mma, fa.launches_bwd_mma) != (before[0] + 1,
                                                     before[1] + 1):
-        raise AssertionError(f"flash {what}: not on the SIMT kernels")
+        raise AssertionError(f"flash {what}: not on the mma kernels")
     ferr = check_close(torch, out, fa_mod.flash_attention_plain(q, k, v),
                        "float32", f"flash {what}")
     check_close(torch, lse, fa_mod.flash_attention_lse_plain(q, k),
@@ -5982,8 +6060,10 @@ def _constellation_kernels(torch, fa_mod, wkv_mod) -> dict:
     args = [x.detach().requires_grad_() for x in (q, k, v)]
     ref_out = sdpa(*args, is_causal=True, enable_gqa=True)
     shapes = (tuple(q.shape), tuple(k.shape), tuple(v.shape))
-    fwd_b = bound(*fa_mod.flash_attention_cost(*shapes, q.dtype), False)
-    bwd_b = bound(*fa_mod.flash_attention_bwd_cost(*shapes, q.dtype), False)
+    fwd_b = bound(*fa_mod.flash_attention_cost(*shapes, q.dtype), True,
+                  f32=True)
+    bwd_b = bound(*fa_mod.flash_attention_bwd_cost(*shapes, q.dtype), True,
+                  f32=True)
     t = dict(
         fwd_ms=time_ms(torch, lambda: fwd(q, k, v)),
         fwd_device_ms=device_ms(torch, lambda: fwd(q, k, v)),
@@ -6000,7 +6080,7 @@ def _constellation_kernels(torch, fa_mod, wkv_mod) -> dict:
         fwd_bound_ms=fwd_b[0], fwd_bound_by=fwd_b[1],
         bwd_bound_ms=bwd_b[0], bwd_bound_by=bwd_b[1],
         fwd_max_abs_err=ferr, bwd_max_abs_err=berr)
-    log("constellation", f"flash {what} (SIMT): forward max |err| "
+    log("constellation", f"flash {what} (mma): forward max |err| "
         f"{ferr:.3e}, backward {berr:.3e} ({TOL['float32']}); device time "
         f"forward {t['fwd_device_ms']:.4f} ms (SDPA "
         f"{t['fwd_library_device_ms']:.4f}, bound {fwd_b[0]:.5f} ms, "
@@ -6036,12 +6116,43 @@ def _constellation_kernels(torch, fa_mod, wkv_mod) -> dict:
     return t
 
 
+def flash_mma_entries(constellation: dict, ptxas: dict) -> list:
+    """The kernels-line entries of flash's mma kernels (f32 at every head
+    dim, bf16 at D in {8, 24}): the forward ``flash_fwd_mma`` and the
+    backward's pair ``flash_bwd_dq_mma`` + ``flash_bwd_dkdv_mma``, at the
+    LM example's shape, their main path (phase 37's 30 rounds, where
+    every launch is theirs). ``ms`` and ``library_ms`` (SDPA) are device
+    time; back to back in ``ms_back_to_back``."""
+    t, totals = constellation["times"], constellation["totals"]
+    src = "src/repro_torch/kernels/csrc/"
+    entries = []
+    for name, key, part, count, prefix in (
+            ("flash_fwd_mma", "flash_attention.cu", "fwd",
+             "flash_attention.mma", "flash_fwd_mma"),
+            ("flash_bwd_dq_mma + flash_bwd_dkdv_mma",
+             "flash_attention_bwd.cu", "bwd", "flash_attention.bwd_mma",
+             "flash_bwd_")):
+        entries.append(dict(
+            name=name, route="cuda", variant="mma", source=src + key,
+            replaces="src/repro/kernels/flash_attention.py:87",
+            launches=totals[count], max_abs_err=t[f"{part}_max_abs_err"],
+            ms=t[f"{part}_device_ms"], ms_back_to_back=t[f"{part}_ms"],
+            plain_ms=t[f"{part}_plain_ms"], bound_ms=t[f"{part}_bound_ms"],
+            bound_by=t[f"{part}_bound_by"],
+            library_ms=t[f"{part}_library_device_ms"],
+            shape=dict(CONSTELLATION_ATTN, dtype="float32", causal=True),
+            ptxas={k: dict(registers=r, spill_stores=st, spill_loads=ld)
+                   for k, (r, st, ld) in ptxas.items()
+                   if k.startswith(prefix) and "_mma" in k}))
+    return entries
+
+
 def phase_constellation(torch, kernels: dict, fa_mod, wkv_mod) -> dict:
     """Phase 37: ``examples/train_constellation_torch.py`` at its defaults
     (30 rounds of the 32.5M qwen3-family decoder, f32, 4 satellites, seq
     256): the counts zeroed just before its ``main`` and read per round
     must show one ``fedagg`` launch and, per satellite step, one flash
-    forward and one backward launch per layer, all SIMT; the loss falls,
+    forward and one backward launch per layer, all mma; the loss falls,
     rows are bit-equal after the last fold, the checkpoint reloads bit
     for bit. Then ``examples/serve_constellation_torch.py`` at its
     defaults (reduced rwkv6-3b): the CLI steps its prompt through
@@ -6097,9 +6208,9 @@ def phase_constellation(torch, kernels: dict, fa_mod, wkv_mod) -> dict:
         steps = model.cfg.num_layers * n_sats
         want = {k: 0 for k in launch_keys}
         want.update({"fedagg": 1, "flash_attention": steps,
-                     "flash_attention.simt": steps,
+                     "flash_attention.mma": steps,
                      "flash_attention.bwd": steps,
-                     "flash_attention.bwd_simt": steps})
+                     "flash_attention.bwd_mma": steps})
         bad = [(i, c) for i, (_, c) in enumerate(per_round) if c != want]
         if len(per_round) != len(losses) or bad:
             raise AssertionError(f"train_constellation_torch: "
@@ -6247,7 +6358,7 @@ def main() -> int:
                 log("build", f"  {line.strip()}")
         ptxas.update(ptxas_report(info["log"]))
     for label, (regs, stores, loads) in ptxas.items():
-        if "_tc" in label:
+        if "_tc" in label or "_mma" in label:
             log("build", f"ptxas {label}: {regs} registers, {stores} bytes "
                 f"spill stores, {loads} bytes spill loads")
     log("build", f"all kernels built in {time.perf_counter() - t0:.2f} s")
@@ -6548,6 +6659,7 @@ def main() -> int:
         "flash_attention.bwd"]
     entry["launches_constellation"] = constellation["totals"]["fedagg"]
     wkv_entry["launches_serve_example"] = constellation["wkv_launches"]
+    mma_entries = flash_mma_entries(constellation, ptxas)
     clock.lap("37 (constellation)")
 
     # 38. tensor parallelism over model: the kernels at the shard shapes,
@@ -6572,7 +6684,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [entry, flash_entry, wkv_entry,
                                   scan_entry, bwd_entry, split_bwd_entry,
-                                  wkv_bwd_entry, scan_bwd_entry]}))
+                                  wkv_bwd_entry, scan_bwd_entry,
+                                  *mma_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,7 +6,7 @@ orbits) with FedHAP rounds on synthetic per-satellite token corpora. The
 defaults train a 32.5M-parameter model for 30 rounds; ``--rounds 200
 --d-model 768`` trains the 70.0M one of the reference's "few hundred
 steps" deliverable. It runs on the card (attention forward and backward
-on the flash kernels' SIMT variant, f32 at head dim 64; each round's
+on the flash kernels' mma variant, f32 at head dim 64; each round's
 fold in one ``fedagg_leaves`` launch); ``--cpu`` runs it on the CPU
 (without a card and without ``--cpu`` it raises).
 
@@ -39,9 +39,9 @@ from repro_torch.models.transformer import Transformer
 # The kernel launch counts the run reports (on the card).
 COUNTS = ((fedagg, "launches", "fedagg_leaves"),
           (flash_attention, "launches", "flash forward"),
-          (flash_attention, "launches_simt", "flash forward (SIMT)"),
+          (flash_attention, "launches_mma", "flash forward (mma)"),
           (flash_attention, "launches_bwd", "flash backward"),
-          (flash_attention, "launches_bwd_simt", "flash backward (SIMT)"))
+          (flash_attention, "launches_bwd_mma", "flash backward (mma)"))
 
 
 def build_model(d_model: int, layers: int, vocab: int) -> Transformer:

@@ -15,13 +15,12 @@
 // `_flash_kernel` at :27), whose oracle is `flash_attention_ref`
 // (src/repro/kernels/ref.py:18).
 //
-// Two hand-written kernels, chosen in one place (variant_for, by dtype and
-// Dqk):
-// - flash_fwd_tc: bf16 with Dqk in {16, 32, 64, 96, 128}, on the tensor
-//   cores (wgmma). The serving path (bf16, D = 128) runs it.
-// - flash_fwd: f32 (whose tensor-core path would be TF32, which the port
-//   does not use) and Dqk in {8, 24} (not a multiple of wgmma's k16
-//   depth), f32 FMAs on the CUDA cores.
+// Two hand-written kernels, both on the tensor cores, chosen in one place
+// (variant_for, by dtype and Dqk):
+// - flash_fwd_tc ("tc"): bf16 with Dqk in {16, 32, 64, 96, 128}, wgmma and
+//   TMA. The serving path (bf16, D = 128) runs it.
+// - flash_fwd_mma ("mma"): f32 at every pair (3xTF32) and bf16 at Dqk in
+//   {8, 24} (no multiple of wgmma's k16 depth), warp-level mma.sync.
 // Both are templated on the pair (Dqk, Dv); the wrapper counts the
 // launches with Dqk != Dv apart.
 //
@@ -86,26 +85,47 @@
 // (flash_attention_bwd.cu) reads to rebuild P. Training passes it; the
 // serving path passes null and stores nothing more.
 //
-// flash_fwd (the SIMT kernel, unchanged from the first port):
-// - One block of 256 threads per (64-row query tile, query head, batch),
-//   tiles launched last-first, unreachable K tiles skipped.
-// - The Q tile and each K tile sit transposed in shared memory, in f32
-//   (converted once at load); each thread computes a 4x4 block of the
-//   64x64 score tile from float4 reads of both (16 FMAs per two shared
-//   loads). Rows of a score tile live in one half-warp, so the row max
-//   and row sum are shuffles.
-// - Online softmax as in the TPU kernel: m starts at -1e30 (not -inf),
-//   masked scores are -1e30, l is clamped at 1e-30 at the end. A row
-//   whose first visited tile is wholly masked (under a window) gathers
-//   exp(0) rubbish there; alpha = exp(-1e30 - m) = 0 wipes it when the
-//   row's diagonal tile arrives. With -inf that row would be NaN. The
-//   tensor-core kernel relies on the same.
-// - P goes through shared memory (transposed) into P·V in f32; V reuses
-//   the K buffer, so shared memory is (Dqk + max(Dqk, Dv) + 64) * 68
-//   floats: 87,040 bytes at D=128, two blocks per SM. Its ceiling is the
-//   67 TFLOP/s f32 rate.
+// flash_fwd_mma (it replaced the first port's SIMT kernel: f32 FMAs on the
+// CUDA cores, 13.16 ms for f32 D = 128 at the prefill shape on an H100 SXM
+// at 700 W):
+// - The arithmetic of mma_common.cuh: f32 as 3xTF32 on m16n8k8 (each
+//   operand hi + lo, three products, f32 sums: the f32 plain version to
+//   ~2^-21 of each term; S's two correction products in an accumulator of
+//   their own, so that a chain of dependent mma's is one a k step), bf16
+//   on m16n8k16 with Dqk zero-padded to 16 or 32 columns in shared memory
+//   and P as hi + lo bf16 parts (~2^-17).
+//   S = Q·Kᵀ with A = Q and B = K from shared memory; O += P·V with A = P
+//   from the score accumulators (the accumulator's layout is the A
+//   fragment's, in a permuted key order for tf32) and B = V.
+// - One block of 4 warps per (64 / split query rows, query head, batch),
+//   tiles launched last first; each warp owns 16 rows. Split 1 where
+//   B·H·ceil(Sq/64) fills the SMs; else 4: the block's four warps share 16
+//   rows, each takes every fourth slice of a K/V tile's keys with its own
+//   online softmax, and their (m, l, O) merge at the end in a fixed order
+//   (m the largest, O and l rescaled by exp(m_w - m)). The example LM's
+//   shape (B=2, H=4, S=256) has 32 blocks of 64 rows for 132 SMs, 128 of
+//   16.
+// - K and V tiles of 64 keys (32 where Dqk + Dv >= 160) through two
+//   shared-memory stages filled by cp.async, the next tile's copy in flight
+//   during this one's products; Q loaded once. Rows padded to 4 floats / 8
+//   bf16 past the zero-padded width: every fragment load is free of bank
+//   conflicts.
+// - Online softmax on the accumulator fragment, a row in the 4 lanes of a
+//   quad: m starts at -1e30 (not -inf), masked scores are -1e30 (masks only
+//   on tiles that cross an edge for the warp's rows), l is clamped at
+//   1e-30 at the end. A row whose first visited tile is wholly masked
+//   (under a window) gathers exp(0) rubbish there; alpha = exp(-1e30 - m)
+//   = 0 wipes it when the row's diagonal tile arrives. With -inf that row
+//   would be NaN. The tensor-core kernel relies on the same.
 // - Strides (b, h, s) in elements for each of q, k, v, o, unit stride on
-//   D: the model's (B, S, H, D) projections go in as views, no copies.
+//   D: the model's (B, S, H, D) projections go in as views. cp.async reads
+//   16-byte chunks: the rows of q, k and v must be 16-byte aligned (the
+//   wrapper copies a view whose are not, as for TMA); o is stored a scalar
+//   at a time.
+// Bound at the example LM's shape (f32, B=2, H=4, Hkv=2, S=256, D=64,
+// causal): 6.7e7 FLOP, 0.00041 ms as 3xTF32 (three TF32 products a term:
+// 495 / 3 = 165 TFLOP/s, launch/roofline.py); at that size the time is
+// latency: a block's key tiles in series.
 //
 // Plain C interface for ctypes (no PyTorch headers): every entry point
 // launches on the caller's stream, never synchronises, allocates nothing
@@ -119,25 +139,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_common.cuh"
 #include "tc_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;            // 16 x 16 threads, 4x4 each
-constexpr int kPitch = kBlockQ + 4;      // row pitch of transposed tiles
 constexpr float kNegInf = -1e30f;        // as the TPU kernel's NEG_INF
 constexpr float kMinDenom = 1e-30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 struct Args {
   const void* q;
@@ -155,47 +165,67 @@ struct Args {
   float scale;
 };
 
-// Columns of the output (and of V) a thread owns: D >= 64 as float4
-// groups at 4*tx + 64*g (16 lanes read 256 contiguous bytes);
-// D < 64 as single columns tx + 16*j (tx < D for D = 8).
-template <int D>
-struct Cols {
-  static constexpr bool kVec = D % 64 == 0;
-  static constexpr int kN = kVec ? D / 16 : (D + 15) / 16;
-  __device__ static __forceinline__ int col(int tx, int j) {
-    return kVec ? 4 * tx + 64 * (j / 4) + (j % 4) : tx + 16 * j;
-  }
-};
-
-// Load rows [s0, s0 + 64) of a (S, D) slice into shared memory as f32,
-// zero past S. Transposed: dst[d * kPitch + r]; else dst[r * D + d].
-template <typename T, int D, bool kTransposed>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t s_stride, int s0, int S) {
-  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int s = s0 + r;
-    const float x = s < S ? to_f32(src[int64_t(s) * s_stride + d]) : 0.f;
-    if (kTransposed)
-      dst[d * kPitch + r] = x;
-    else
-      dst[r * D + d] = x;
-  }
+// Keys per K/V tile: 64, or 32 where the head dims are wide (Dqk + Dv >=
+// 160: (96, 64) and f32 D = 128), so that two stages leave room for two
+// blocks an SM.
+__host__ __device__ constexpr int tile_keys(int dqk, int dv) {
+  return dqk + dv >= 160 ? 32 : 64;
 }
 
-template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
-  extern __shared__ float4 smem4[];
-  constexpr int DKV = DQK > DV ? DQK : DV;
-  float* qT = reinterpret_cast<float*>(smem4);   // [DQK][kPitch]
-  float* kv = qT + DQK * kPitch;   // K^T [DQK][kPitch] | V [64][DV]
-  float* pT = kv + DKV * kPitch;                 // P^T [64][kPitch]
-  using C = Cols<DV>;
-  constexpr int NC = C::kN;
+// Stages of the cp.async ring: 2 for blocks of 64 rows or keys (the
+// large shapes, where a third would cost a block an SM), 4 where the walk
+// is split four ways (the small shapes: one block an SM walks its tiles in
+// series, and each tile's load would wait out its latency).
+__host__ __device__ constexpr int ring_stages(int split) {
+  return split == 1 ? 2 : 4;
+}
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nq = (a.Sq + kBlockQ - 1) / kBlockQ;
-  const int q0 = (nq - 1 - int(blockIdx.x)) * kBlockQ;
+// Shared memory of the forward block, in elements of T: the Q tile of
+// 16·4/KS rows, then the stages of K and of V tiles; each tile row-major,
+// mma::pitch wide. After the loop the split warps' partial results (m, l
+// and O of their rows) pass through the K stages.
+template <typename T, int DQK, int DV, int KS>
+struct FwdSmem {
+  static constexpr int kBK = tile_keys(DQK, DV);
+  static constexpr int kBQ = 16 * (4 / KS);
+  static constexpr int kStages = ring_stages(KS);
+  static constexpr int kPQ = mma::pitch<T>(DQK);
+  static constexpr int kPV = mma::pitch<T>(DV);
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kBQ * kPQ;
+  static constexpr int kV = kK + kStages * kBK * kPQ;
+  static constexpr size_t kBytes =
+      size_t(kV + kStages * kBK * kPV) * sizeof(T);
+  static constexpr int kMerge = DV / 2 + 4;     // floats a lane passes on
+  static_assert((4 - 4 / KS) * 32 * kMerge * sizeof(float) <=
+                    size_t(kStages * kBK * kPQ) * sizeof(T),
+                "the forward's merge does not fit the K stages");
+};
+
+// One block of 4 warps per (16·4/KS query rows, query head, batch), tiles
+// launched last first; K and V tiles stream through shared memory
+// (a cp.async ring). Each warp owns 16 rows; the KS warps of a row
+// group take every KS-th slice of BK/KS keys of each tile, each with its
+// own online softmax, and their (m, l, O) merge at the end in a fixed
+// order.
+template <typename T, int DQK, int DV, int KS>
+__global__ void __launch_bounds__(128) flash_fwd_mma(Args a) {
+  using L = FwdSmem<T, DQK, DV, KS>;
+  constexpr int BK = L::kBK, BQ = L::kBQ, NT = 128, KC = BK / KS;
+  constexpr int NS = L::kStages;
+  constexpr int PQ = L::kPQ, PV = L::kPV;
+  constexpr int KK = mma::Traits<T>::kK;
+  constexpr int KQ = mma::kwidth<T>(DQK);     // Q·Kᵀ's zero-padded depth
+  static_assert(KC % KK == 0, "a warp's key slice is whole k steps");
+  extern __shared__ float4 smem4[];
+  T* sm = reinterpret_cast<T*>(smem4);
+  T* Qs = sm + L::kQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp / KS, ks = warp % KS;    // row group, key slice
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - int(blockIdx.x)) * BQ;     // last tile first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
   const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -203,163 +233,239 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
   const T* V = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
   T* O = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
 
-  load_tile<T, DQK, true>(qT, Q, a.q_ss, q0, a.Sq);
-
   // Reachable K tiles (loop bounds in place of the TPU kernel's
   // block-level @pl.when).
-  const int nk = (a.Sk + kBlockK - 1) / kBlockK;
+  const int nk = (a.Sk + BK - 1) / BK;
   int kt_end = nk;
-  if (a.causal) kt_end = min(nk, (q0 + kBlockQ - 1) / kBlockK + 1);
+  if (a.causal) kt_end = min(nk, (q0 + BQ - 1) / BK + 1);
   int kt_begin = 0;
   if (a.window > 0 && q0 - a.window + 1 > 0)
-    kt_begin = (q0 - a.window + 1) / kBlockK;
+    kt_begin = (q0 - a.window + 1) / BK;
+  const int n_tiles = max(kt_end - kt_begin, 0);
 
-  float m[4], l[4], acc[4][NC];
+  mma::zero_pad<T, DQK, PQ, NT>(Qs, BQ + NS * BK, tid);  // Q and K stages
+  auto load_kv = [&](int kt, int st) {
+    mma::copy_rows<T, BK, DQK, PQ, NT>(sm + L::kK + st * BK * PQ, K, a.k_ss,
+                                       kt * BK, a.Sk, tid);
+    mma::copy_rows<T, BK, DV, PV, NT>(sm + L::kV + st * BK * PV, V, a.v_ss,
+                                      kt * BK, a.Sk, tid);
+  };
+  // Q and the first NS - 1 tiles in flight, one commit group each (empty
+  // past the last tile, so that group i is tile i's).
+  mma::copy_rows<T, BQ, DQK, PQ, NT>(Qs, Q, a.q_ss, q0, a.Sq, tid);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+  for (int p = 0; p < NS - 1; ++p) {
+    if (p < n_tiles) load_kv(kt_begin + p, p);
+    mma::commit();
   }
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the last tile's reads of V and P^T are done
-    load_tile<T, DQK, true>(kv, K, a.k_ss, k0, a.Sk);
-    __syncthreads();
+  const int r0 = 16 * rg;                       // the warp's rows in the tile
+  const int row = q0 + r0 + g;                  // and row + 8
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-    // S = Q K^T on this thread's rows 4*ty + i, columns 4*tx + j.
-    float s[4][4];
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % NS;
+    const int k0 = (kt_begin + i) * BK + ks * KC;  // the warp's keys
+    if (i + NS - 1 < n_tiles)
+      load_kv(kt_begin + i + NS - 1, (i + NS - 1) % NS);
+    mma::commit();
+    mma::wait<NS - 1>();                           // tile i has landed
+    __syncthreads();
+    const T* Ks = sm + L::kK + st * BK * PQ + ks * KC * PQ;
+    const T* Vs = sm + L::kV + st * BK * PV + ks * KC * PV;
+
+    // S = Q·Kᵀ on the warp's 16 rows and KC keys.
+    float s[KC / 8][4], corr[KC / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < KC / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DQK; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qT + d * kPitch + 4 * ty);
-      const float4 kb = *reinterpret_cast<const float4*>(kv + d * kPitch + 4 * tx);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kw[4] = {kb.x, kb.y, kb.z, kb.w};
+      for (int e = 0; e < 4; ++e) s[j][e] = corr[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < KQ / KK; ++kk) {
+      mma::FragA fa;
+      mma::load_a<PQ>(fa, Qs, r0, kk * KK, g, t);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kw[j], s[i][j]);
+      for (int j = 0; j < KC / 8; ++j) {
+        mma::FragB fb;
+        mma::load_b_nk<PQ>(fb, Ks, 8 * j, kk * KK, g, t);
+        mma::mma_ss2(s[j], corr[j], fa, fb, T{});
+      }
     }
 
-    const bool masked =
-        k0 + kBlockK > a.Sk || (a.causal && k0 + kBlockK - 1 > q0) ||
-        (a.window > 0 && q0 + kBlockQ - 1 - k0 >= a.window);
+    // Online softmax: s[j][e] is row row + 8 (e / 2), key k0 + 8j + 2t +
+    // e % 2; a row lives in the 4 lanes of a quad. Masks only on slices
+    // that cross the causal or window edge or Sk for this warp's rows.
+    const bool masked = k0 + KC > a.Sk ||
+                        (a.causal && k0 + KC - 1 > q0 + r0) ||
+                        (a.window > 0 && q0 + r0 + 15 - k0 >= a.window);
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * ty + i;
-      float mx = kNegInf;
+    for (int j = 0; j < KC / 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * a.scale;
+      for (int e = 0; e < 4; ++e) {
+        float x = (s[j][e] + corr[j][e]) * a.scale;
         if (masked) {
-          const int kp = k0 + 4 * tx + j;
+          const int qp = row + 8 * (e / 2), kp = k0 + 8 * j + 2 * t + e % 2;
           bool ok = kp < a.Sk;
           if (a.causal) ok = ok && qp >= kp;
           if (a.window > 0) ok = ok && qp - kp < a.window;
           if (!ok) x = kNegInf;
         }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
       }
-      // The 16 lanes of a half-warp hold one row.
+    }
+    float alpha[2];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= alpha;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pT + (4 * tx + j) * kPitch + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();  // K^T reads done, P^T written
-    load_tile<T, DV, false>(kv, V, a.v_ss, k0, a.Sk);
-    __syncthreads();
-
-    // acc += P V on this thread's rows and columns.
-#pragma unroll 4
-    for (int c = 0; c < kBlockK; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(pT + c * kPitch + 4 * ty);
-      const float p[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float* vrow = kv + c * DV;
-      if constexpr (C::kVec) {
+    for (int j = 0; j < KC / 8; ++j) {
 #pragma unroll
-        for (int g = 0; g < NC / 4; ++g) {
-          const float4 vb = *reinterpret_cast<const float4*>(vrow + 4 * tx + 64 * g);
-          const float vv[4] = {vb.x, vb.y, vb.z, vb.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][4 * g + e] = fmaf(p[i], vv[e], acc[i][4 * g + e]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const int col = C::col(tx, j);
-          const float vv = col < DV ? vrow[col] : 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e / 2]);
+        s[j][e] = p;
+        l[e / 2] += p;
       }
+    }
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P·V: P from the score registers (split), V k-major.
+    mma::accumulate<T, PV>(o, s, Vs, g, t);
+    __syncthreads();    // every warp is done with stage st before its refill
+  }
+  mma::wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if constexpr (KS > 1) {
+    // The row group's KS partial softmaxes into the first's, in a fixed
+    // order: m = the largest m; O and l rescaled by exp(m_w - m) and
+    // summed. A slice whose keys were all masked for a row holds m =
+    // -1e30 there and is wiped by its factor exp(-1e30 - m) = 0.
+    constexpr int N = L::kMerge;
+    float* red = reinterpret_cast<float*>(sm + L::kK) +
+                 rg * (KS - 1) * 32 * N;
+    __syncthreads();
+    if (ks > 0) {
+      float* mine = red + (ks - 1) * 32 * N + lane;
+      mine[0] = m[0];
+      mine[32] = m[1];
+      mine[64] = l[0];
+      mine[96] = l[1];
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 + 4 * n + e) * 32] = o[n][e];
+    }
+    __syncthreads();
+    if (ks > 0) return;
+    float mw[KS][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mw[0][r] = m[r];
+#pragma unroll
+      for (int w = 1; w < KS; ++w) {
+        mw[w][r] = red[((w - 1) * N + r) * 32 + lane];
+        m[r] = fmaxf(m[r], mw[w][r]);
+      }
+    }
+    float f[2] = {expf(mw[0][0] - m[0]), expf(mw[0][1] - m[1])};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] *= f[r];
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= f[e / 2];
+#pragma unroll
+    for (int w = 1; w < KS; ++w) {
+      const float* theirs = red + (w - 1) * 32 * N + lane;
+      f[0] = expf(mw[w][0] - m[0]);
+      f[1] = expf(mw[w][1] - m[1]);
+      l[0] += f[0] * theirs[64];
+      l[1] += f[1] * theirs[96];
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n][e] += f[e / 2] * theirs[(4 + 4 * n + e) * 32];
     }
   }
 
-  // Normalize once and write this thread's rows.
+  // Normalise once and write the warp's rows (each quad's two).
+  float denom[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    if (r >= a.Sq) continue;
-    const float denom = fmaxf(l[i], kMinDenom);
-    if (a.lse != nullptr && tx == 0)
-      a.lse[(int64_t(b) * a.H + h) * a.Sq + r] = m[i] + logf(denom);
-    T* orow = O + int64_t(r) * a.o_ss;
+  for (int r = 0; r < 2; ++r) denom[r] = fmaxf(l[r], kMinDenom);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int col = C::col(tx, j);
-      if (col < DV) store(orow + col, acc[i][j] / denom);
+  for (int r = 0; r < 2; ++r) {
+    const int qr = row + 8 * r;
+    if (qr >= a.Sq) continue;
+    if (a.lse != nullptr && t == 0)
+      a.lse[(int64_t(b) * a.H + h) * a.Sq + qr] = m[r] + logf(denom[r]);
+    T* orow = O + int64_t(qr) * a.o_ss + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      mma::store(orow + 8 * n, o[n][2 * r] / denom[r]);
+      mma::store(orow + 8 * n + 1, o[n][2 * r + 1] / denom[r]);
     }
   }
 }
 
+template <typename T, int DQK, int DV, int KS>
+int launch_split(const Args& a, int B, cudaStream_t stream) {
+  using L = FwdSmem<T, DQK, DV, KS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma<T, DQK, DV, KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::kBytes));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((a.Sq + L::kBQ - 1) / L::kBQ, a.H, B);
+  flash_fwd_mma<T, DQK, DV, KS><<<grid, 128, L::kBytes, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+// Blocks of 64 rows where they fill the card; else of 16 rows whose 4
+// warps split each K/V tile's keys, four times as many blocks (the
+// example LM's shape, B=2, H=4, S=256: 32 blocks of 64 rows for 132 SMs,
+// 128 of 16).
 template <typename T, int DQK, int DV>
 int launch_d(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = size_t(DQK + (DQK > DV ? DQK : DV) + kBlockK) *
-                      kPitch * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.H, B);
-  flash_fwd<T, DQK, DV><<<grid, kThreads, smem, stream>>>(a);
-  return int(cudaGetLastError());
+  const int64_t blocks = int64_t((a.Sq + 63) / 64) * a.H * B;
+  if (blocks >= mma::sm_count())
+    return launch_split<T, DQK, DV, 1>(a, B, stream);
+  return launch_split<T, DQK, DV, 4>(a, B, stream);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int64_t* strides, int B, int H, int Hkv, int Sq, int Sk,
            int D, int Dv, int causal, int window, cudaStream_t stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv != 0 ||
-      Sq < 1 || Sk < 1)
+  constexpr int kElem = sizeof(T);
+  if (!mma::rows_aligned(q, strides[0], strides[1], strides[2], B, H, Sq,
+                         kElem) ||
+      !mma::rows_aligned(k, strides[3], strides[4], strides[5], B, Hkv, Sk,
+                         kElem) ||
+      !mma::rows_aligned(v, strides[6], strides[7], strides[8], B, Hkv, Sk,
+                         kElem))
     return int(cudaErrorInvalidValue);
   Args a{q, k, v, o, lse,
          strides[0], strides[1], strides[2],
@@ -367,17 +473,23 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
          strides[6], strides[7], strides[8],
          strides[9], strides[10], strides[11],
          H, Hkv, Sq, Sk, causal, window, 1.0f / sqrtf(float(D))};
-  if (D == 96 && Dv == 64) return launch_d<T, 96, 64>(a, B, stream);
+  // bf16 reaches this variant at (8, 8) and (24, 16) alone (variant_for:
+  // D not a multiple of k16), f32 at every pair.
+  if (D == 8 && Dv == 8) return launch_d<T, 8, 8>(a, B, stream);
   if (D == 24 && Dv == 16) return launch_d<T, 24, 16>(a, B, stream);
-  if (D != Dv) return int(cudaErrorInvalidValue);
-  switch (D) {
-    case 8: return launch_d<T, 8, 8>(a, B, stream);
-    case 16: return launch_d<T, 16, 16>(a, B, stream);
-    case 32: return launch_d<T, 32, 32>(a, B, stream);
-    case 64: return launch_d<T, 64, 64>(a, B, stream);
-    case 128: return launch_d<T, 128, 128>(a, B, stream);
-    default: return int(cudaErrorInvalidValue);
+  if constexpr (std::is_same_v<T, float>) {
+    if (D == 96 && Dv == 64) return launch_d<T, 96, 64>(a, B, stream);
+    if (D == Dv) {
+      switch (D) {
+        case 16: return launch_d<T, 16, 16>(a, B, stream);
+        case 32: return launch_d<T, 32, 32>(a, B, stream);
+        case 64: return launch_d<T, 64, 64>(a, B, stream);
+        case 128: return launch_d<T, 128, 128>(a, B, stream);
+        default: break;
+      }
+    }
   }
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -801,15 +913,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 namespace {
 
-constexpr int kVariantSimt = 0;
+constexpr int kVariantMma = 0;
 constexpr int kVariantTc = 1;
 
 // The one place the variant is chosen: bf16 with Dqk a multiple of
-// wgmma's k16 depth goes to the tensor cores; f32 (whose tensor-core path
-// would be TF32) and Dqk in {8, 24} go to the SIMT kernel. Mirrored by
-// kernel_variant() in flash_attention.py.
+// wgmma's k16 depth goes to the wgmma kernel; f32 (3xTF32) and Dqk in {8,
+// 24} go to the mma.sync kernel. Mirrored by kernel_variant() in
+// flash_attention.py.
 int variant_for(int bf16, int D) {
-  return bf16 && D % 16 == 0 ? kVariantTc : kVariantSimt;
+  return bf16 && D % 16 == 0 ? kVariantTc : kVariantMma;
 }
 
 int dispatch(int bf16, const void* q, const void* k, const void* v, void* o,
@@ -842,7 +954,7 @@ extern "C" {
 // (B, H, Sq) buffer that receives each row's log-sum-exp of its scaled,
 // masked scores, m + log(max(l, 1e-30)), for the backward
 // (flash_attention_bwd.cu). *variant is set to the variant launched: 1
-// tensor cores, 0 SIMT.
+// tc (wgmma), 0 mma (mma.sync).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         float* lse, const int64_t* strides, int B, int H,
                         int Hkv, int Sq, int Sk, int D, int Dv, int causal,

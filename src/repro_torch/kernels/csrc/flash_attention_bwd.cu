@@ -37,12 +37,13 @@
 // 1.1170e12 at its prefill shape (B=4, S=4096), 1.1294 ms. Measured (chip_smoke.py phase 23
 // and launch/flash_bwd_time.py, NVIDIA H100 80GB HBM3, power limit
 // 700 W, device time): the tc variant 0.106 ms at the training shape and
-// 2.12-2.14 ms at serve, SDPA's backward 0.12 and 1.51 ms; the SIMT
-// kernels took 1.98-1.99 and 41.1-41.4 ms there.
+// 2.12-2.14 ms at serve, SDPA's backward 0.12 and 1.51 ms; the first
+// port's SIMT kernels took 1.98-1.99 and 41.1-41.4 ms there.
 //
-// Two variants, chosen in one place (variant_for, by dtype and D, the
-// forward's rule; kernel_variant() in flash_attention.py mirrors it), each
-// one C call that enqueues three kernels on the caller's stream:
+// Two variants, both on the tensor cores, chosen in one place
+// (variant_for, by dtype and D, the forward's rule; kernel_variant() in
+// flash_attention.py mirrors it), each one C call that enqueues its
+// kernels on the caller's stream (tc three, mma two):
 //
 // tc: bf16 with D in {16, 32, 64, 96, 128} (D a multiple of wgmma's k16),
 // on the tensor cores (wgmma, TMA). The training path (bf16, D = 128;
@@ -129,42 +130,57 @@
 // and dO rows 8 bytes at a time): the wrapper copies a q, k, v, o or dO
 // view that misses that to a contiguous tensor first.
 //
-// simt: f32 (whose tensor-core path would be TF32, which the port does not
-// use) at every pair, and bf16 at D in {8, 24} (not a multiple of wgmma's
-// k16 depth: (8, 8) and the reduced MLA's (24, 16)), f32 FMAs on the CUDA
-// cores, the backward's first design, templated on (D, Dv): the Q and K
-// tiles, dQ and dK are D wide, the V and dO tiles, dV and Δ Dv wide.
-// - flash_bwd_delta: Δ = rowsum(dO ⊙ O) over Dv into the f32 scratch as
-//   (B, H, Sq); one warp per row.
-// - flash_bwd_dkdv: one block of 256 threads per (64-key tile, KV head g,
-//   batch). K and V tiles stay in shared memory; the block loops over the
-//   group's G query heads and, for each, over the 64-row query tiles that
-//   can see the key tile (causal and window bounds), accumulating dK and
-//   dV in registers: no atomics, one writer per dK/dV element.
-// - flash_bwd_dq: one block per (64-row query tile, query head, batch),
-//   tiles launched last-first so the long causal rows start early; Q, dO,
-//   lse and Δ stay in shared memory, the block loops over the reachable
-//   key tiles and accumulates dQ in registers.
-// Tiles sit row-major in shared memory as f32 (converted once at load)
-// with a pitch of width + 4 floats, so float4 reads of 8 neighbouring rows
-// hit distinct banks. Each thread computes the 16 scores S[ty + 16i][tx +
-// 16j] (i, j < 4) and the same 16 of dP from float4 reads; P and dS go
-// through shared memory to the products that contract over rows (dV, dK)
-// or keys (dQ), where a thread owns 4 rows and a column group of each
-// output (Cols<W>: float4 groups for W a multiple of 64, else columns
-// tx + 16j, the last group partial for W = 24: tx < 8). Shared memory at
-// D = 128: 4 tiles of 64 x 132 floats + two 64 x 68 tiles = 166.5 KB, one
-// block per SM (121 KB at (96, 64)). Its ceiling is the 67 TFLOP/s f32
-// rate.
+// mma: f32 at every pair (3xTF32) and bf16 at D in {8, 24} (no multiple
+// of wgmma's k16 depth: (8, 8) and the reduced MLA's (24, 16)), on
+// warp-level mma.sync in the arithmetic of mma_common.cuh (f32 operands
+// as TF32 hi + lo, three products with f32 sums; bf16 with the depth
+// zero-padded to k16 in shared memory, P and dS as hi + lo bf16 parts),
+// templated on (D, Dv) and on a split of 1 or 4. It replaced the first
+// port's SIMT kernels (f32 FMAs on the CUDA cores, 4x4 register tiles,
+// three launches, 0.147 ms at the example LM's shape where SDPA's
+// backward takes 0.057, on an H100 SXM at 700 W), whose blocks were too
+// few to fill the card at the small shapes, loaded each tile
+// synchronously, and ran at the 67 TFLOP/s f32 rate at best.
+// - flash_bwd_dq_mma: one block of 4 warps per (64 / split query rows,
+//   query head, batch), tiles launched last first. Its prologue computes
+//   Δ = rowsum(dO ⊙ O) over Dv for its rows (one warp a row) into shared
+//   memory and into the f32 scratch (B, H, Sq) for the next kernel: no
+//   pre-pass launch. Q and dO stay in shared memory; K and V tiles of 64
+//   keys (32 where D + Dv >= 160) stream through two cp.async stages. Per
+//   tile a warp's 16 rows take S = Q·Kᵀ and dP = dO·Vᵀ (A and B from
+//   shared memory; 3xTF32's correction products in their own
+//   accumulators, so a chain of dependent mma's is one a k step), P =
+//   exp(S·scale − lse) (0 where masked), dS = P ⊙ (dP − Δ) and dQ += dS·K
+//   (A = dS from the accumulators, in the permuted k order for TF32).
+// - flash_bwd_dkdv_mma: one block of 4 warps per (16·4 / split keys, KV
+//   head g, batch). K and V arrive once; the block walks the G query heads
+//   of g and, for each, the query tiles that can see a key of the block
+//   (the causal and window bounds), Q, dO, lse and Δ through two cp.async
+//   stages. Computed transposed, so that dV and dK take their A operand
+//   from registers: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ; Pᵀ, dSᵀ; dV += Pᵀ·dO, dK +=
+//   dSᵀ·Q.
+// Where blocks of 64 would not fill the SMs (B·H·ceil(Sq/64), or
+// B·Hkv·ceil(Sk/64), under 132) the split is 4: the four warps of a block
+// share their 16 rows (dQ) or keys (dK/dV) and take every fourth slice of
+// each streamed tile's keys or rows, and at the end the three partial sums
+// pass through shared memory into the first warp's in a fixed order. At
+// the example LM's shape (B=2, H=4, Hkv=2, S=256) dQ runs 128 blocks
+// instead of 32, dK/dV 64 instead of 16. Every gradient element has one
+// writer and every sum a fixed order: two calls are bit-equal, and no
+// float atomics are used. cp.async copies 16-byte chunks: the rows of q,
+// k, v and dO must be 16-byte aligned (the wrapper copies a view whose
+// are not; o is read a scalar at a time). Bound: at the example LM's
+// shape 1.7e8 FLOP, 0.0010 ms as 3xTF32 (165 TFLOP/s): the time is
+// latency, the walk of a block's tiles in series.
 //
 // Plain C interface for ctypes (no PyTorch headers): the entry points
 // launch on the caller's stream, never synchronise, allocate nothing (the
 // wrapper passes the f32 scratch, bwd_scratch_floats() floats in
-// flash_attention.py) and return the first cudaError_t of the three
+// flash_attention.py) and return the first cudaError_t of their
 // launches (0 on success; cudaErrorInvalidValue for a (D, Dv) pair
 // outside the table, H % Hkv != 0, a size out of range, a scratch too
-// small, or a tensor the tensor maps cannot address). No pair falls back
-// to another variant.
+// small, a tensor the tensor maps cannot address, or rows cp.async cannot
+// copy). No pair falls back to another variant.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -173,22 +189,12 @@
 
 #include <type_traits>
 
+#include "mma_common.cuh"
 #include "tc_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;               // query rows and keys per tile
-constexpr int kThreads = 256;            // 16 x 16
-constexpr int kPPitch = kBlock + 4;      // pitch of the P and dS tiles
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+constexpr int kThreads = 128;            // four warps
 
 // Element strides (b, h, s) of each tensor; D has unit stride.
 enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV, kTensors };
@@ -200,7 +206,7 @@ struct Args {
   const void* o;
   const void* dout;
   const float* lse;
-  float* delta;
+  float* delta;                          // (B, H, Sq): Δ, written by dQ's
   void* dq;
   void* dk;
   void* dv;
@@ -217,344 +223,480 @@ __device__ __forceinline__ const T* slice(const Args& a, int t, const void* p,
   return static_cast<const T*>(p) + b * a.st[t][0] + h * a.st[t][1];
 }
 
-// Columns of a 64 x D accumulator a thread owns (rows are ty + 16 i):
-// D a multiple of 64 as float4 groups at 4*tx + 64*g; else single
-// columns tx + 16*j, below D (the last group partial for D in {8, 24}).
-template <int D>
-struct Cols {
-  static constexpr bool kVec = D % 64 == 0;
-  static constexpr int kN = kVec ? D / 16 : (D + 15) / 16;
-  __device__ static __forceinline__ int col(int tx, int j) {
-    return kVec ? 4 * tx + 64 * (j / 4) + (j % 4) : tx + 16 * j;
-  }
-};
-
-// Rows [s0, s0 + 64) of a (S, D) slice into shared memory as f32,
-// row-major with pitch D + 4, zero past S.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          int64_t s_stride, int s0, int S) {
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int s = s0 + r;
-    dst[r * (D + 4) + d] =
-        s < S ? to_f32(src[int64_t(s) * s_stride + d]) : 0.f;
-  }
+// Stages of the cp.async ring: 2 for blocks of 64 rows or keys (the
+// large shapes, where a third would cost a block an SM), 4 where the walk
+// is split four ways (the small shapes: one block an SM walks its tiles in
+// series, and each tile's load would wait out its latency).
+__host__ __device__ constexpr int ring_stages(int split) {
+  return split == 1 ? 2 : 4;
 }
 
-// acc[i][j] = Σ_d A[ty + 16i][d] · B[tx + 16j][d] over two row-major
-// tiles in shared memory (pitch D + 4).
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
-                                         const float* B, int tx, int ty) {
-  constexpr int P = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * P + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      y[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * P + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
-        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
-        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
-        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
-      }
-  }
+// Rows a streamed tile holds (keys for dQ, query rows for dK/dV): 64, or
+// 32 where the head dims are wide (D + Dv >= 160: (96, 64) and f32 D =
+// 128), so that two stages leave room for two blocks an SM.
+__host__ __device__ constexpr int tile_rows(int d, int dv) {
+  return d + dv >= 160 ? 32 : 64;
 }
 
-// acc[i][c] += Σ_r W[r][ty + 16i] · X[r][col(tx, c)] over the 64 rows r of
-// a 64 x 64 weight tile W (pitch kPPitch) and a row-major 64 x D tile X
-// (pitch D + 4); with `transposed`, W[ty + 16i][r] instead.
-template <int D, bool kTransposed>
-__device__ __forceinline__ void tile_accumulate(float (&acc)[4][Cols<D>::kN],
-                                                const float* W,
-                                                const float* X, int tx,
-                                                int ty) {
-  using C = Cols<D>;
-  constexpr int P = D + 4;
-#pragma unroll 4
-  for (int r = 0; r < kBlock; ++r) {
-    float w[4];
+// Whether (q_pos, k_pos) is visible: both in range, causal, window.
+__device__ __forceinline__ bool visible(const Args& a, int qp, int kp) {
+  bool ok = qp < a.Sq && kp < a.Sk;
+  if (a.causal) ok = ok && qp >= kp;
+  if (a.window > 0) ok = ok && qp - kp < a.window;
+  return ok;
+}
+
+// Partial sums of the warps that share outputs pass through shared memory
+// (`red`, SPLIT - 1 slots of 32 x N floats for each owner warp) and are
+// added to the owner's (split 0) in a fixed order: bit-reproducible, no
+// atomics. Ends with the owner holding the sum.
+template <int N, int SPLIT>
+__device__ __forceinline__ void reduce_split(float (&x)[N][4], float* red,
+                                             int owner, int split, int lane) {
+  if constexpr (SPLIT > 1) {
+    __syncthreads();                     // the stages are free
+    float* mine = red + (owner * (SPLIT - 1)) * 32 * N * 4;
+    if (split > 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = kTransposed ? W[(ty + 16 * i) * kPPitch + r]
-                         : W[r * kPPitch + ty + 16 * i];
-    const float* xrow = X + r * P;
-    if constexpr (C::kVec) {
+      for (int n = 0; n < N; ++n)
 #pragma unroll
-      for (int g = 0; g < C::kN / 4; ++g) {
-        const float4 xv = *reinterpret_cast<const float4*>(xrow + 4 * tx +
-                                                           64 * g);
-        const float xe[4] = {xv.x, xv.y, xv.z, xv.w};
+        for (int e = 0; e < 4; ++e)
+          mine[((split - 1) * N * 4 + 4 * n + e) * 32 + lane] = x[n][e];
+    }
+    __syncthreads();
+    if (split == 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int s = 0; s < SPLIT - 1; ++s)
+#pragma unroll
+        for (int n = 0; n < N; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            acc[i][4 * g + e] = fmaf(w[i], xe[e], acc[i][4 * g + e]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < C::kN; ++j) {
-        const int c = C::col(tx, j);
-        const float xv = c < D ? xrow[c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(w[i], xv, acc[i][j]);
-      }
+            x[n][e] += mine[(s * N * 4 + 4 * n + e) * 32 + lane];
     }
   }
 }
 
-// P and dS of one (query tile q0, key tile k0) pair from the scores s and
-// dP of this thread's 16 entries, written to shared memory ([row][key],
-// pitch kPPitch). Masked entries, rows past Sq and keys past Sk get 0.
-__device__ __forceinline__ void p_and_ds(const float (&s)[4][4],
-                                         const float (&dp)[4][4],
-                                         const float* lse_s,
-                                         const float* delta_s, float* Ps,
-                                         float* dSs, int q0, int k0, int tx,
-                                         int ty, const Args& a) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, qp = q0 + r;
-    const float L = lse_s[r], dl = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j, kp = k0 + c;
-      bool ok = qp < a.Sq && kp < a.Sk;
-      if (a.causal) ok = ok && qp >= kp;
-      if (a.window > 0) ok = ok && qp - kp < a.window;
-      const float p = ok ? expf(s[i][j] * a.scale - L) : 0.f;
-      if (Ps != nullptr) Ps[r * kPPitch + c] = p;
-      dSs[r * kPPitch + c] = p * (dp[i][j] - dl);
-    }
-  }
-}
-
-// lse and Δ of rows [q0, q0 + 64) of head (b, h) into shared memory.
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
-                                               const Args& a, int b, int h,
-                                               int q0) {
-  if (threadIdx.x < kBlock) {
-    const int s = q0 + threadIdx.x;
-    const int64_t row = (int64_t(b) * a.H + h) * a.Sq + s;
-    lse_s[threadIdx.x] = s < a.Sq ? a.lse[row] : 0.f;
-    delta_s[threadIdx.x] = s < a.Sq ? a.delta[row] : 0.f;
-  }
-}
-
-template <typename T, int DV>
-__global__ void flash_bwd_delta(Args a) {
-  const int64_t row =
-      int64_t(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= int64_t(a.B) * a.H * a.Sq) return;
-  const int s = int(row % a.Sq);
-  const int h = int((row / a.Sq) % a.H);
-  const int b = int(row / (int64_t(a.Sq) * a.H));
-  const T* O = slice<T>(a, kO, a.o, b, h) + int64_t(s) * a.st[kO][2];
-  const T* dO = slice<T>(a, kDO, a.dout, b, h) + int64_t(s) * a.st[kDO][2];
-  float acc = 0.f;
-  for (int d = lane; d < DV; d += 32)      // o and dO are Dv wide
-    acc = fmaf(to_f32(dO[d]), to_f32(O[d]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) a.delta[row] = acc;
-}
-
-// Q and K tiles have pitch D + 4, dO and V tiles Dv + 4.
-template <int D, int DV>
-constexpr size_t smem_bytes() {
-  return (size_t(2) * kBlock * (D + 4) + size_t(2) * kBlock * (DV + 4) +
-          2 * kBlock * kPPitch + 2 * kBlock) *
-         sizeof(float);
-}
-
-// Stores the 64 x W accumulator `acc` (scaled by `scale`) into rows
-// [r0, r0 + 64) of a strided (S, W) slice: this thread's rows ty + 16 i,
-// its columns Cols<W>::col(tx, j) below W, rows below S.
+// Stores the accumulators x (16 rows x W columns of a warp, scaled) into
+// rows [r0, r0 + 16) of a strided (S, W) slice, rows below S.
 template <typename T, int W>
-__device__ __forceinline__ void store_tile(T* dst, int64_t s_stride,
-                                           const float (&acc)[4][Cols<W>::kN],
-                                           float scale, int r0, int S,
-                                           int tx, int ty) {
+__device__ __forceinline__ void store_rows(T* dst, int64_t ss,
+                                           const float (&x)[W / 8][4],
+                                           float scale, int r0, int S, int g,
+                                           int t) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= S) continue;
-    T* row = dst + int64_t(r) * s_stride;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= S) continue;
+    T* p = dst + int64_t(row) * ss + 2 * t;
 #pragma unroll
-    for (int j = 0; j < Cols<W>::kN; ++j) {
-      const int c = Cols<W>::col(tx, j);
-      if (c < W) store(row + c, scale * acc[i][j]);
+    for (int n = 0; n < W / 8; ++n) {
+      mma::store(p + 8 * n, scale * x[n][2 * r]);
+      mma::store(p + 8 * n + 1, scale * x[n][2 * r + 1]);
     }
   }
 }
 
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv(Args a) {
-  constexpr int P = D + 4, PV = DV + 4;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);   // [64][P]
-  float* Vs = Ks + kBlock * P;                   // [64][PV]
-  float* Qs = Vs + kBlock * PV;                  // [64][P]
-  float* dOs = Qs + kBlock * P;                  // [64][PV]
-  float* Ps = dOs + kBlock * PV;                 // [64 rows][kPPitch]
-  float* dSs = Ps + kBlock * kPPitch;
-  float* lse_s = dSs + kBlock * kPPitch;
-  float* delta_s = lse_s + kBlock;
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = blockIdx.x * kBlock;
-  const int g = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.Hkv;
-  load_rows<T, D>(Ks, slice<T>(a, kK, a.k, b, g), a.st[kK][2], k0, a.Sk);
-  load_rows<T, DV>(Vs, slice<T>(a, kV, a.v, b, g), a.st[kV][2], k0, a.Sk);
-
-  // Query tiles that can see a key of this tile.
-  const int nq = (a.Sq + kBlock - 1) / kBlock;
-  const int qt_begin = a.causal ? k0 / kBlock : 0;
-  int qt_end = nq;
-  if (a.window > 0)
-    qt_end = min(nq, (k0 + kBlock - 2 + a.window) / kBlock + 1);
-
-  // dK is D wide, dV Dv wide: each has its own columns.
-  float dk[4][Cols<D>::kN], dv[4][Cols<DV>::kN];
+// x = A·Bᵀ over W (zero-padded to the k depth) for the 16 rows of A from
+// m0 and N·8 rows of B, both row-major tiles of pitch P in shared memory:
+// S, dP (dQ's kernel) and Sᵀ, dPᵀ (dK/dV's). 3xTF32's correction products
+// sum apart (mma::mma_ss2) and join x at the end.
+template <typename T, int W, int P, int N>
+__device__ __forceinline__ void score(float (&x)[N][4], const T* A, int m0,
+                                      const T* B, int g, int t) {
+  constexpr int KK = mma::Traits<T>::kK;
+  float corr[N][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int j = 0; j < N; ++j)
 #pragma unroll
-    for (int j = 0; j < Cols<D>::kN; ++j) dk[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) x[j][e] = corr[j][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < Cols<DV>::kN; ++j) dv[i][j] = 0.f;
-  }
-
-  for (int r = 0; r < G; ++r) {
-    const int h = g * G + r;
-    const T* Q = slice<T>(a, kQ, a.q, b, h);
-    const T* dO = slice<T>(a, kDO, a.dout, b, h);
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kBlock;
-      __syncthreads();  // the last tile's reads of Qs, dOs, Ps, dSs done
-      load_rows<T, D>(Qs, Q, a.st[kQ][2], q0, a.Sq);
-      load_rows<T, DV>(dOs, dO, a.st[kDO][2], q0, a.Sq);
-      load_row_stats(lse_s, delta_s, a, b, h, q0);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_dot<D>(s, Qs, Ks, tx, ty);
-      tile_dot<DV>(dp, dOs, Vs, tx, ty);
-      p_and_ds(s, dp, lse_s, delta_s, Ps, dSs, q0, k0, tx, ty, a);
-      __syncthreads();
-      // dV[key] += Σ_row P[row][key]·dO[row];
-      // dK[key] += Σ_row dS[row][key]·Q[row] (scaled at the store).
-      tile_accumulate<DV, false>(dv, Ps, dOs, tx, ty);
-      tile_accumulate<D, false>(dk, dSs, Qs, tx, ty);
+  for (int kk = 0; kk < mma::kwidth<T>(W) / KK; ++kk) {
+    mma::FragA fa;
+    mma::load_a<P>(fa, A, m0, kk * KK, g, t);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      mma::FragB fb;
+      mma::load_b_nk<P>(fb, B, 8 * j, kk * KK, g, t);
+      mma::mma_ss2(x[j], corr[j], fa, fb, T{});
     }
   }
-
-  store_tile<T, D>(static_cast<T*>(a.dk) + b * a.st[kDK][0] +
-                       g * a.st[kDK][1],
-                   a.st[kDK][2], dk, a.scale, k0, a.Sk, tx, ty);
-  store_tile<T, DV>(static_cast<T*>(a.dv) + b * a.st[kDV][0] +
-                        g * a.st[kDV][1],
-                    a.st[kDV][2], dv, 1.f, k0, a.Sk, tx, ty);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] += corr[j][e];
 }
 
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(Args a) {
-  constexpr int P = D + 4, PV = DV + 4;
-  constexpr int NC = Cols<D>::kN;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [64][P]
-  float* dOs = Qs + kBlock * P;                  // [64][PV]
-  float* Ks = dOs + kBlock * PV;                 // [64][P]
-  float* Vs = Ks + kBlock * P;                   // [64][PV]
-  float* dSs = Vs + kBlock * PV;                 // [64 rows][kPPitch]
-  float* lse_s = dSs + kBlock * kPPitch;
-  float* delta_s = lse_s + kBlock;
+// Shared memory of the dQ block, in bytes: Q and dO tiles of BQ rows, the
+// stages of K and V tiles of BK keys, then lse and Δ of the BQ rows.
+template <typename T, int D, int DV, int KS>
+struct DqSmem {
+  static constexpr int kBK = tile_rows(D, DV);
+  static constexpr int kBQ = 16 * (4 / KS);
+  static constexpr int kStages = ring_stages(KS);
+  static constexpr int kPQ = mma::pitch<T>(D), kPV = mma::pitch<T>(DV);
+  static constexpr int kQ = 0;                       // offsets in elements
+  static constexpr int kDO = kQ + kBQ * kPQ;
+  static constexpr int kK = kDO + kBQ * kPV;
+  static constexpr int kV = kK + kStages * kBK * kPQ;
+  static constexpr int kElems = kV + kStages * kBK * kPV;
+  static constexpr size_t kStats = size_t(kElems) * sizeof(T);   // bytes
+  static constexpr size_t kBytes = kStats + 2 * kBQ * sizeof(float);
+  // The split warps' partial dQ (4 - 4/KS warps of 32 x D/2 floats) reuses
+  // the K and V stages.
+  static_assert((4 - 4 / KS) * 32 * (D / 2) * sizeof(float) <=
+                    size_t(kStages * kBK * (kPQ + kPV)) * sizeof(T),
+                "dQ's reduction does not fit the K/V stages");
+};
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nq = (a.Sq + kBlock - 1) / kBlock;
-  const int q0 = (nq - 1 - int(blockIdx.x)) * kBlock;   // last tile first
+// dQ and Δ: one block of 4 warps per (16·4/KS query rows, query head,
+// batch), tiles launched last first (the long causal rows start early).
+// Its prologue computes Δ = rowsum(dO ⊙ O) of its rows into shared memory
+// and the f32 scratch (the dK/dV kernel, launched after it, reads it
+// there). K and V tiles stream through a cp.async ring. Each warp owns 16
+// rows; the KS warps of a row group take every
+// KS-th slice of BK/KS keys of each streamed K/V tile, and their dQ sums
+// meet at the end in a fixed order.
+template <typename T, int D, int DV, int KS>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma(Args a) {
+  using L = DqSmem<T, D, DV, KS>;
+  constexpr int BK = L::kBK, BQ = L::kBQ, KC = BK / KS, NS = L::kStages;
+  constexpr int PQ = L::kPQ, PV = L::kPV;
+  constexpr int KK = mma::Traits<T>::kK;
+  static_assert(KC % KK == 0, "a warp's key slice is whole k steps");
+  extern __shared__ float4 smem4[];
+  T* sm = reinterpret_cast<T*>(smem4);
+  float* lse_s = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(smem4) + L::kStats);
+  float* dl_s = lse_s + BQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp / KS, ks = warp % KS;    // row group, key slice
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - int(blockIdx.x)) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (a.H / a.Hkv);
-  load_rows<T, D>(Qs, slice<T>(a, kQ, a.q, b, h), a.st[kQ][2], q0, a.Sq);
-  load_rows<T, DV>(dOs, slice<T>(a, kDO, a.dout, b, h), a.st[kDO][2], q0,
-                   a.Sq);
-  load_row_stats(lse_s, delta_s, a, b, h, q0);
-  const T* K = slice<T>(a, kK, a.k, b, g);
-  const T* V = slice<T>(a, kV, a.v, b, g);
+  const int hk = h / (a.H / a.Hkv);
+  const T* Q = slice<T>(a, kQ, a.q, b, h);
+  const T* dO = slice<T>(a, kDO, a.dout, b, h);
+  const T* K = slice<T>(a, kK, a.k, b, hk);
+  const T* V = slice<T>(a, kV, a.v, b, hk);
 
   // Reachable key tiles, as the forward bounds them.
-  const int nk = (a.Sk + kBlock - 1) / kBlock;
+  const int nk = (a.Sk + BK - 1) / BK;
   int kt_end = nk;
-  if (a.causal) kt_end = min(nk, (q0 + kBlock - 1) / kBlock + 1);
+  if (a.causal) kt_end = min(nk, (q0 + BQ - 1) / BK + 1);
   int kt_begin = 0;
   if (a.window > 0 && q0 - a.window + 1 > 0)
-    kt_begin = (q0 - a.window + 1) / kBlock;
+    kt_begin = (q0 - a.window + 1) / BK;
+  const int n_tiles = max(kt_end - kt_begin, 0);
 
-  float dq[4][NC];
+  mma::zero_pad<T, D, PQ, kThreads>(sm + L::kQ, BQ, tid);
+  mma::zero_pad<T, DV, PV, kThreads>(sm + L::kDO, BQ, tid);
+  mma::zero_pad<T, D, PQ, kThreads>(sm + L::kK, NS * BK, tid);
+  mma::zero_pad<T, DV, PV, kThreads>(sm + L::kV, NS * BK, tid);
+  auto load_kv = [&](int kt, int st) {
+    mma::copy_rows<T, BK, D, PQ, kThreads>(sm + L::kK + st * BK * PQ, K,
+                                           a.st[kK][2], kt * BK, a.Sk, tid);
+    mma::copy_rows<T, BK, DV, PV, kThreads>(sm + L::kV + st * BK * PV, V,
+                                            a.st[kV][2], kt * BK, a.Sk, tid);
+  };
+  mma::copy_rows<T, BQ, D, PQ, kThreads>(sm + L::kQ, Q, a.st[kQ][2], q0,
+                                         a.Sq, tid);
+  mma::copy_rows<T, BQ, DV, PV, kThreads>(sm + L::kDO, dO, a.st[kDO][2], q0,
+                                          a.Sq, tid);
+  // Q, dO and the first NS - 1 tiles in flight, one commit group each
+  // (empty past the last tile, so that group i is tile i's).
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dq[i][j] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();  // the last tile's reads of Ks, Vs, dSs done
-    load_rows<T, D>(Ks, K, a.st[kK][2], k0, a.Sk);
-    load_rows<T, DV>(Vs, V, a.st[kV][2], k0, a.Sk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<D>(s, Qs, Ks, tx, ty);
-    tile_dot<DV>(dp, dOs, Vs, tx, ty);
-    p_and_ds(s, dp, lse_s, delta_s, nullptr, dSs, q0, k0, tx, ty, a);
-    __syncthreads();
-    // dQ[row] += Σ_key dS[row][key] K[key]
-    tile_accumulate<D, true>(dq, dSs, Ks, tx, ty);
+  for (int p = 0; p < NS - 1; ++p) {
+    if (p < n_tiles) load_kv(kt_begin + p, p);
+    mma::commit();
   }
 
-  store_tile<T, D>(static_cast<T*>(a.dq) + b * a.st[kDQ][0] +
-                       h * a.st[kDQ][1],
-                   a.st[kDQ][2], dq, a.scale, q0, a.Sq, tx, ty);
+  // Δ and lse of the block's rows, one warp a row at a time.
+  {
+    const T* O = slice<T>(a, kO, a.o, b, h);
+    for (int r = warp; r < BQ; r += kThreads / 32) {
+      const int s = q0 + r;
+      float acc = 0.f;
+      if (s < a.Sq)
+        for (int c = lane; c < DV; c += 32)
+          acc = fmaf(mma::to_f32(dO[int64_t(s) * a.st[kDO][2] + c]),
+                     mma::to_f32(O[int64_t(s) * a.st[kO][2] + c]), acc);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) {
+        const int64_t idx = (int64_t(b) * a.H + h) * a.Sq + s;
+        dl_s[r] = acc;
+        lse_s[r] = s < a.Sq ? a.lse[idx] : 0.f;
+        if (s < a.Sq) a.delta[idx] = acc;
+      }
+    }
+  }
+  __syncthreads();
+  const int r0 = 16 * rg;                      // the warp's rows in the tile
+  const int row = q0 + r0 + g;                 // and row + 8
+  const float lse_r[2] = {lse_s[r0 + g], lse_s[r0 + g + 8]};
+  const float dl_r[2] = {dl_s[r0 + g], dl_s[r0 + g + 8]};
+  const T* Qs = sm + L::kQ;
+  const T* dOs = sm + L::kDO;
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % NS;
+    if (i + NS - 1 < n_tiles)
+      load_kv(kt_begin + i + NS - 1, (i + NS - 1) % NS);
+    mma::commit();
+    mma::wait<NS - 1>();                       // tile i has landed
+    __syncthreads();
+    const int c0 = ks * KC;                    // the warp's keys in the tile
+    const int kw0 = (kt_begin + i) * BK + c0;
+    const T* Ks = sm + L::kK + st * BK * PQ + c0 * PQ;
+    const T* Vs = sm + L::kV + st * BK * PV + c0 * PV;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ: 16 rows x KC keys.
+    float s[KC / 8][4], dp[KC / 8][4];
+    score<T, D, PQ, KC / 8>(s, Qs, r0, Ks, g, t);
+    score<T, DV, PV, KC / 8>(dp, dOs, r0, Vs, g, t);
+
+    // P = exp(S·scale − lse), 0 where masked; dS = P ⊙ (dP − Δ), in s.
+    // s[j][e] is row row + 8 (e / 2), key kw0 + 8j + 2t + e % 2.
+    const bool edge = kw0 + KC > a.Sk ||
+                      (a.causal && kw0 + KC - 1 > q0 + r0) ||
+                      (a.window > 0 && q0 + r0 + 15 - kw0 >= a.window);
+#pragma unroll
+    for (int j = 0; j < KC / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = expf(s[j][e] * a.scale - lse_r[e / 2]);
+        if (edge && !visible(a, row + 8 * (e / 2), kw0 + 8 * j + 2 * t + e % 2))
+          p = 0.f;
+        s[j][e] = p * (dp[j][e] - dl_r[e / 2]);
+      }
+    }
+
+    // dQ += dS·K over the warp's keys: A = dS from registers (split).
+    mma::accumulate<T, PQ>(dq, s, Ks, g, t);
+    __syncthreads();    // every warp is done with stage st before its refill
+  }
+  mma::wait<0>();
+
+  reduce_split<D / 8, KS>(dq, reinterpret_cast<float*>(sm + L::kK), rg, ks,
+                          lane);
+  if (ks == 0)
+    store_rows<T, D>(static_cast<T*>(a.dq) + b * a.st[kDQ][0] +
+                         h * a.st[kDQ][1],
+                     a.st[kDQ][2], dq, a.scale, q0 + r0, a.Sq, g, t);
 }
 
+// Shared memory of the dK/dV block, in bytes: the block's K and V tiles,
+// the stages of Q and dO tiles of BR rows, then the stages of their lse
+// and Δ.
+template <typename T, int D, int DV, int QS>
+struct DkdvSmem {
+  static constexpr int kKeys = 16 * (4 / QS);
+  static constexpr int kBR = tile_rows(D, DV);
+  static constexpr int kStages = ring_stages(QS);
+  static constexpr int kPQ = mma::pitch<T>(D), kPV = mma::pitch<T>(DV);
+  static constexpr int kK = 0;                       // offsets in elements
+  static constexpr int kV = kK + kKeys * kPQ;
+  static constexpr int kQ = kV + kKeys * kPV;
+  static constexpr int kDO = kQ + kStages * kBR * kPQ;
+  static constexpr int kElems = kDO + kStages * kBR * kPV;
+  static constexpr size_t kStats = size_t(kElems) * sizeof(T);   // bytes
+  static constexpr size_t kBytes =
+      kStats + kStages * 2 * kBR * sizeof(float);
+  // The split warps' partial dK, then dV (4 - 4/QS warps of 32 x D/2 and
+  // of 32 x Dv/2 floats) reuse the Q and dO stages.
+  static_assert((4 - 4 / QS) * 32 * ((D > DV ? D : DV) / 2) * sizeof(float) <=
+                    size_t(kStages * kBR * (kPQ + kPV)) * sizeof(T),
+                "dK/dV's reduction does not fit the Q/dO stages");
+};
+
+// dK and dV: one block of 4 warps per (16·4/QS keys, KV head g, batch). K
+// and V arrive once; the block walks the G query heads of g and, for
+// each, the BR-row query tiles that can see a key of the block (the causal
+// and window bounds), Q, dO, lse and Δ through a cp.async ring. Each
+// warp owns 16 keys; the QS warps of a key group take every QS-th slice of
+// BR/QS rows of each tile, and their dK and dV sums meet at the end in a
+// fixed order. Computed transposed, so that the products after the first
+// two take their A operand from registers:
+//   Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ; Pᵀ = exp(Sᵀ·scale − lse), 0 where masked;
+//   dSᵀ = Pᵀ ⊙ (dPᵀ − Δ); dV += Pᵀ·dO, dK += dSᵀ·Q.
+template <typename T, int D, int DV, int QS>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_mma(Args a) {
+  using L = DkdvSmem<T, D, DV, QS>;
+  constexpr int KEYS = L::kKeys, BR = L::kBR, RW = BR / QS;
+  constexpr int NS = L::kStages;
+  constexpr int PQ = L::kPQ, PV = L::kPV;
+  constexpr int KK = mma::Traits<T>::kK;
+  static_assert(RW % KK == 0, "a warp's row slice is whole k steps");
+  extern __shared__ float4 smem4[];
+  T* sm = reinterpret_cast<T*>(smem4);
+  float* stats = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(smem4) + L::kStats);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kg = warp / QS, qs = warp % QS;    // key group, row slice
+  const int k0 = blockIdx.x * KEYS;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.Hkv;
+  // Query tiles that can see a key of this block: causal, rows >= k0;
+  // window, rows <= k0 + KEYS - 2 + W.
+  const int nq = (a.Sq + BR - 1) / BR;
+  const int qt_begin = a.causal ? min(k0 / BR, nq) : 0;
+  int qt_end = nq;
+  if (a.window > 0) qt_end = min(nq, (k0 + KEYS - 2 + a.window) / BR + 1);
+  const int per_head = max(qt_end - qt_begin, 0);
+  const int n_items = G * per_head;
+
+  mma::zero_pad<T, D, PQ, kThreads>(sm + L::kK, KEYS, tid);
+  mma::zero_pad<T, DV, PV, kThreads>(sm + L::kV, KEYS, tid);
+  mma::zero_pad<T, D, PQ, kThreads>(sm + L::kQ, NS * BR, tid);
+  mma::zero_pad<T, DV, PV, kThreads>(sm + L::kDO, NS * BR, tid);
+  mma::copy_rows<T, KEYS, D, PQ, kThreads>(
+      sm + L::kK, slice<T>(a, kK, a.k, b, hk), a.st[kK][2], k0, a.Sk, tid);
+  mma::copy_rows<T, KEYS, DV, PV, kThreads>(
+      sm + L::kV, slice<T>(a, kV, a.v, b, hk), a.st[kV][2], k0, a.Sk, tid);
+  // Item i: query head hk·G + i / per_head, query tile qt_begin + i %
+  // per_head, into stage st.
+  auto load_item = [&](int i, int st) {
+    const int h = hk * G + i / per_head;
+    const int q0 = (qt_begin + i % per_head) * BR;
+    mma::copy_rows<T, BR, D, PQ, kThreads>(sm + L::kQ + st * BR * PQ,
+                                           slice<T>(a, kQ, a.q, b, h),
+                                           a.st[kQ][2], q0, a.Sq, tid);
+    mma::copy_rows<T, BR, DV, PV, kThreads>(sm + L::kDO + st * BR * PV,
+                                            slice<T>(a, kDO, a.dout, b, h),
+                                            a.st[kDO][2], q0, a.Sq, tid);
+    const int64_t row0 = (int64_t(b) * a.H + h) * a.Sq;
+    mma::copy_stats<kThreads>(stats + st * 2 * BR, a.lse + row0, BR, q0,
+                              a.Sq, tid);
+    mma::copy_stats<kThreads>(stats + st * 2 * BR + BR, a.delta + row0, BR,
+                              q0, a.Sq, tid);
+  };
+  // K, V and the first NS - 1 items in flight, one commit group each
+  // (empty past the last item, so that group i is item i's).
+#pragma unroll
+  for (int p = 0; p < NS - 1; ++p) {
+    if (p < n_items) load_item(p, p);
+    mma::commit();
+  }
+
+  const int kr0 = 16 * kg;                     // the warp's keys in the block
+  const int key = k0 + kr0 + g;                // and key + 8
+  const int rr0 = qs * RW;                     // the warp's rows in a tile
+  const T* Ks = sm + L::kK;
+  const T* Vs = sm + L::kV;
+  float dk[D / 8][4], dv[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
+
+  for (int i = 0; i < n_items; ++i) {
+    const int st = i % NS;
+    if (i + NS - 1 < n_items) load_item(i + NS - 1, (i + NS - 1) % NS);
+    mma::commit();
+    mma::wait<NS - 1>();                       // item i has landed
+    __syncthreads();
+    const int q0 = (qt_begin + i % per_head) * BR + rr0;   // the warp's rows
+    const T* Qs = sm + L::kQ + st * BR * PQ + rr0 * PQ;
+    const T* dOs = sm + L::kDO + st * BR * PV + rr0 * PV;
+    const float* lse_s = stats + st * 2 * BR + rr0;
+    const float* dl_s = lse_s + BR;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 16 keys x RW rows.
+    float sT[RW / 8][4], dpT[RW / 8][4];
+    score<T, D, PQ, RW / 8>(sT, Ks, kr0, Qs, g, t);
+    score<T, DV, PV, RW / 8>(dpT, Vs, kr0, dOs, g, t);
+
+    // Pᵀ and dSᵀ: sT[j][e] is key key + 8 (e / 2), row q0 + 8j + 2t + e % 2.
+    const bool edge = k0 + kr0 + 16 > a.Sk || q0 + RW > a.Sq ||
+                      (a.causal && q0 < k0 + kr0 + 15) ||
+                      (a.window > 0 && q0 + RW - 1 - (k0 + kr0) >= a.window);
+#pragma unroll
+    for (int j = 0; j < RW / 8; ++j) {
+      const float2 lj = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+      const float2 dj = *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = expf(sT[j][e] * a.scale - (e % 2 ? lj.y : lj.x));
+        if (edge && !visible(a, q0 + 8 * j + 2 * t + e % 2, key + 8 * (e / 2)))
+          p = 0.f;
+        dpT[j][e] = p * (dpT[j][e] - (e % 2 ? dj.y : dj.x));
+        sT[j][e] = p;
+      }
+    }
+
+    // dV += Pᵀ·dO and dK += dSᵀ·Q over the warp's rows: A from registers.
+    mma::accumulate<T, PV>(dv, sT, dOs, g, t);
+    mma::accumulate<T, PQ>(dk, dpT, Qs, g, t);
+    __syncthreads();    // every warp is done with stage st before its refill
+  }
+  mma::wait<0>();
+
+  float* red = reinterpret_cast<float*>(sm + L::kQ);
+  reduce_split<D / 8, QS>(dk, red, kg, qs, lane);
+  reduce_split<DV / 8, QS>(dv, red, kg, qs, lane);
+  if (qs == 0) {
+    store_rows<T, D>(static_cast<T*>(a.dk) + b * a.st[kDK][0] +
+                         hk * a.st[kDK][1],
+                     a.st[kDK][2], dk, a.scale, k0 + kr0, a.Sk, g, t);
+    store_rows<T, DV>(static_cast<T*>(a.dv) + b * a.st[kDV][0] +
+                          hk * a.st[kDV][1],
+                      a.st[kDV][2], dv, 1.f, k0 + kr0, a.Sk, g, t);
+  }
+}
+
+template <typename T, int D, int DV, int KS>
+int launch_dq(const Args& a, cudaStream_t stream) {
+  using L = DqSmem<T, D, DV, KS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma<T, D, DV, KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::kBytes));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((a.Sq + L::kBQ - 1) / L::kBQ, a.H, a.B);
+  flash_bwd_dq_mma<T, D, DV, KS><<<grid, kThreads, L::kBytes, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int D, int DV, int QS>
+int launch_dkdv(const Args& a, cudaStream_t stream) {
+  using L = DkdvSmem<T, D, DV, QS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_mma<T, D, DV, QS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::kBytes));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((a.Sk + L::kKeys - 1) / L::kKeys, a.Hkv, a.B);
+  flash_bwd_dkdv_mma<T, D, DV, QS><<<grid, kThreads, L::kBytes, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+// dQ (with Δ) first, then dK/dV, which reads Δ. Each splits its walk four
+// ways (blocks of 16 rows or 16 keys, four times as many) where its blocks
+// of 64 would not fill the SMs: at the example LM's shape (B=2, H=4,
+// Hkv=2, S=256) dQ has 128 blocks instead of 32, dK/dV 64 instead of 16.
 template <typename T, int D, int DV>
 int launch_d(const Args& a, cudaStream_t stream) {
-  const int64_t rows = int64_t(a.B) * a.H * a.Sq;
-  const int64_t delta_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (delta_blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
-  flash_bwd_delta<T, DV><<<unsigned(delta_blocks), kThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-
-  const int smem = int(smem_bytes<D, DV>());
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D, DV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid_kv((a.Sk + kBlock - 1) / kBlock, a.Hkv, a.B);
-  flash_bwd_dkdv<T, D, DV><<<grid_kv, kThreads, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, D, DV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid_q((a.Sq + kBlock - 1) / kBlock, a.H, a.B);
-  flash_bwd_dq<T, D, DV><<<grid_q, kThreads, smem, stream>>>(a);
-  return int(cudaGetLastError());
+  const int sms = mma::sm_count();
+  const int64_t dq_blocks = int64_t((a.Sq + 63) / 64) * a.H * a.B;
+  int err = dq_blocks >= sms ? launch_dq<T, D, DV, 1>(a, stream)
+                             : launch_dq<T, D, DV, 4>(a, stream);
+  if (err != 0) return err;
+  const int64_t kv_blocks = int64_t((a.Sk + 63) / 64) * a.Hkv * a.B;
+  return kv_blocks >= sms ? launch_dkdv<T, D, DV, 1>(a, stream)
+                          : launch_dkdv<T, D, DV, 4>(a, stream);
 }
 
 template <typename T>
@@ -565,6 +707,17 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv != 0 ||
       Sq < 1 || Sk < 1)
+    return int(cudaErrorInvalidValue);
+  constexpr int kElem = sizeof(T);
+  // cp.async reads q, k, v and dO in 16-byte chunks.
+  if (!mma::rows_aligned(q, strides[0], strides[1], strides[2], B, H, Sq,
+                         kElem) ||
+      !mma::rows_aligned(k, strides[3], strides[4], strides[5], B, Hkv, Sk,
+                         kElem) ||
+      !mma::rows_aligned(v, strides[6], strides[7], strides[8], B, Hkv, Sk,
+                         kElem) ||
+      !mma::rows_aligned(dout, strides[12], strides[13], strides[14], B, H,
+                         Sq, kElem))
     return int(cudaErrorInvalidValue);
   Args a{};
   a.q = q;
@@ -588,8 +741,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   a.window = window;
   a.scale = 1.0f / sqrtf(float(D));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // bf16 reaches the SIMT kernels at (8, 8) and (24, 16) alone
-  // (variant_for: D not a multiple of wgmma's k16), f32 at every pair.
+  // bf16 reaches this variant at (8, 8) and (24, 16) alone (variant_for:
+  // D not a multiple of wgmma's k16), f32 at every pair.
   if (D == 8 && Dv == 8) return launch_d<T, 8, 8>(a, st);
   if (D == 24 && Dv == 16) return launch_d<T, 24, 16>(a, st);
   if constexpr (std::is_same_v<T, float>) {
@@ -1338,15 +1491,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 namespace {
 
-constexpr int kVariantSimt = 0;
+constexpr int kVariantMma = 0;
 constexpr int kVariantTc = 1;
 
 // The one place the variant is chosen, by the forward's rule: bf16 with D
-// a multiple of wgmma's k16 depth goes to the tensor cores; f32 (whose
-// tensor-core path would be TF32) and D in {8, 24} go to the SIMT kernels.
-// Mirrored by kernel_variant() in flash_attention.py.
+// a multiple of wgmma's k16 depth goes to the wgmma kernels; f32 (3xTF32)
+// and D in {8, 24} go to the mma.sync kernels. Mirrored by
+// kernel_variant() in flash_attention.py.
 int variant_for(int bf16, int D) {
-  return bf16 && D % 16 == 0 ? kVariantTc : kVariantSimt;
+  return bf16 && D % 16 == 0 ? kVariantTc : kVariantMma;
 }
 
 int dispatch(int bf16, const void* q, const void* k, const void* v,
@@ -1383,8 +1536,8 @@ extern "C" {
 // contiguous f32 (B, H, Sq) log-sum-exp; scratch: `scratch_len` floats of
 // f32 scratch, at least tc::scratch_floats(B, H, Sq) (bwd_scratch_floats
 // in flash_attention.py), 16-byte aligned, which the call fills (Δ, and
-// for the tensor cores the scaled lse). *variant is set to the variant
-// launched: 1 tensor cores, 0 SIMT.
+// for the tc variant the scaled lse). *variant is set to the variant
+// launched: 1 tc (wgmma), 0 mma (mma.sync).
 
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,

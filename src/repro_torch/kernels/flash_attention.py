@@ -18,23 +18,27 @@ The forward kernels are in ``csrc/flash_attention.cu`` (CUDA C++ for
 sm_90a; its header has the bound at the prefill shape and the designs);
 they replace the Pallas TPU kernel ``flash_attention`` of
 ``repro/kernels/flash_attention.py:87``. It holds two hand-written
-kernels, and the C launcher dispatches between them by dtype and D
-(:func:`kernel_variant` is its Python mirror; the wrapper raises if the
-two disagree):
+kernels, both on the tensor cores, and the C launcher dispatches between
+them by dtype and D (:func:`kernel_variant` is its Python mirror; the
+wrapper raises if the two disagree):
 
 - ``"tc"``, bf16 with D a multiple of wgmma's k16 depth (16, 32, 64,
-  96, 128): TMA loads and ``wgmma`` on the tensor cores, the serving
-  path's kernel. Its one rounding beyond the plain version's is P in
-  bf16 before P·V, made exact to ~2^-17 on the tiles that cross a mask
-  edge (where a row may hold few keys).
-- ``"simt"``, f32 (on the tensor cores it would be TF32) and D in {8,
-  24} (not a multiple of k16): f32 FMAs on the CUDA cores.
+  96, 128): TMA loads and ``wgmma``, the serving path's kernel. Its one
+  rounding beyond the plain version's is P in bf16 before P·V, made exact
+  to ~2^-17 on the tiles that cross a mask edge (where a row may hold few
+  keys).
+- ``"mma"``, f32 at every D and bf16 at D in {8, 24} (no multiple of
+  k16): warp-level ``mma.sync`` with cp.async loads (``csrc/
+  mma_common.cuh``). f32 runs as 3xTF32: each operand split into TF32
+  parts hi + lo, three products (lo·hi + hi·lo + hi·hi) with f32 sums,
+  the plain f32 version to ~2^-21 of each term. bf16 zero-pads D to 16 or
+  32 columns and takes P as two bf16 parts, as ``"tc"`` does.
 
 This is a dispatch, not a fallback: a failed build or launch of either
-raises. TMA addresses a tensor only from a 16-byte aligned base with
-strides that are multiples of 16 bytes; for the tensor-core kernel the
-wrapper copies a q, k or v view that misses that to a contiguous tensor
-first, so such a call still runs on the tensor cores.
+raises. TMA and cp.async read rows from a 16-byte aligned base with
+strides that are multiples of 16 bytes; the wrapper copies a q, k or v
+view that misses that to a contiguous tensor first, so such a call still
+runs its kernel.
 
 The backward is ``csrc/flash_attention_bwd.cu``
 (:func:`flash_attention_bwd`, f32 and bf16, every pair of the forward):
@@ -51,14 +55,18 @@ variants by the forward's rule (:func:`kernel_variant` again):
   bf16 parts each (hi and the remainder lo), so its only rounding beyond
   the plain version's is ~2^-17 of each term; the wrapper copies a q, k,
   v, o or dO view that TMA cannot address first, as the forward does.
-- ``"simt"``, f32 and D in {8, 24}: f32 FMAs on the CUDA cores, with
-  dQ and dK D wide and dV and Δ Dv wide.
+- ``"mma"``, f32 and D in {8, 24}: ``mma.sync`` in the forward's
+  arithmetic, two kernels: dQ, whose prologue writes Δ = rowsum(dO ⊙ O),
+  then dK/dV; each splits its walk over keys or query rows four ways
+  across the warps of a block where its blocks of 64 would not fill the
+  SMs, and adds the warps' partial sums in a fixed order.
 
 The backward's bound is operations: 6D + 4Dv FLOP per visible (q, k)
 pair (the forward's is 2(D + Dv)), 0.0353 ms at MLA's training shape
 (B=2, H=40, S=1024, (96, 64), causal) on the card's 989 TFLOP/s.
 
-Both are deterministic: every gradient element has one writer. The JAX
+Both are deterministic: every gradient element has one writer, and sums
+split across warps meet in a fixed order (no float atomics). The JAX
 package has no backward kernel (it takes this gradient by autodiff of its
 blockwise jnp analogue); the port's forward is a kernel, so its gradient
 is one too. :class:`FlashAttentionFn` ties the two together for autograd.
@@ -76,12 +84,12 @@ the CPU — and a CUDA tensor never reaches the plain version. Any
 model's ``(B, S, H, D)`` projections go in as transposed views; the
 output and the gradients are laid out like their inputs.
 ``flash_attention.launches`` counts forward launches,
-``flash_attention.launches_tc`` and ``.launches_simt`` those of each
+``flash_attention.launches_tc`` and ``.launches_mma`` those of each
 variant, ``.launches_split`` those with ``D != Dv`` (also counted in
-their kernel's), ``flash_attention.launches_bwd`` backward calls (each enqueues
-the backward's three kernels: a pre-pass for Δ, dK/dV, dQ),
-``.launches_bwd_tc`` / ``.launches_bwd_simt`` those of each variant and
-``.launches_bwd_split`` those with ``D != Dv``.
+their kernel's), ``flash_attention.launches_bwd`` backward calls (each
+enqueues the backward's kernels: tc a pre-pass for Δ, dK/dV, dQ; mma dQ
+with Δ, then dK/dV), ``.launches_bwd_tc`` / ``.launches_bwd_mma`` those
+of each variant and ``.launches_bwd_split`` those with ``D != Dv``.
 
 :func:`flash_attention_cost` and :func:`flash_attention_bwd_cost` are a
 call's FLOP and bytes, the bounds' numerators, from its visible (q, k)
@@ -115,32 +123,33 @@ BWD_ROW_PAD = 128       # the tc backward's scratch rows: Sq rounded up
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
     """Which kernels a CUDA call runs, forward and backward alike: ``"tc"``
-    (tensor cores) for bf16 with D a multiple of wgmma's k16 depth,
-    ``"simt"`` for f32 and D in {8, 24} (D of q and k). Mirrors
+    (``wgmma``) for bf16 with D a multiple of wgmma's k16 depth, ``"mma"``
+    (``mma.sync``) for f32 and D in {8, 24} (D of q and k). Mirrors
     ``variant_for`` in ``csrc/flash_attention.cu`` and
     ``csrc/flash_attention_bwd.cu``, which make the choice."""
-    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
+    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "mma"
 
 
 def bwd_scratch_floats(b: int, h: int, sq: int) -> int:
     """Floats of f32 scratch a backward call takes: lse·log2(e) and Δ of
     every (b, h) row, rows padded to ``BWD_ROW_PAD`` (the tc variant's
-    need, which covers the SIMT one's Δ). Mirrors ``tc::scratch_floats``
+    need, which covers the mma one's Δ). Mirrors ``tc::scratch_floats``
     in ``csrc/flash_attention_bwd.cu``, whose launcher refuses less."""
     return 2 * b * h * (-(-sq // BWD_ROW_PAD) * BWD_ROW_PAD)
 
 
 def _check_variant(name: str, launched: int, variant: str) -> None:
     """Raise unless the C launcher ran the variant kernel_variant names
-    (it reports 1 for the tensor cores, 0 for SIMT)."""
-    if {1: "tc", 0: "simt"}.get(launched) != variant:
+    (it reports 1 for tc, 0 for mma)."""
+    if {1: "tc", 0: "mma"}.get(launched) != variant:
         raise RuntimeError(f"{name}: the launcher ran variant {launched}, "
                            f"kernel_variant says {variant!r}")
 
 
 def tma_addressable(t: torch.Tensor) -> bool:
-    """Whether TMA can address ``t``: a 16-byte aligned base, and every
-    (b, h, s) stride of an axis longer than 1 a multiple of 16 bytes."""
+    """Whether TMA (and cp.async's 16-byte copies) can address ``t``: a
+    16-byte aligned base, and every (b, h, s) stride of an axis longer
+    than 1 a multiple of 16 bytes."""
     size = t.element_size()
     return t.data_ptr() % TMA_ALIGN == 0 and all(
         n == 1 or (st * size) % TMA_ALIGN == 0
@@ -370,12 +379,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     variant = kernel_variant(q.dtype, d)
-    if variant == "tc":
-        # A fresh allocation: .contiguous() would return a contiguous view
-        # at a misaligned offset as it is.
-        q, k, v = (t if tma_addressable(t)
-                   else t.clone(memory_format=torch.contiguous_format)
-                   for t in (q, k, v))
+    # A fresh allocation: .contiguous() would return a contiguous view at a
+    # misaligned offset as it is.
+    q, k, v = (t if tma_addressable(t)
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     strides = (ctypes.c_int64 * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     lib = _lib()
@@ -398,7 +406,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if variant == "tc":
         flash_attention.launches_tc += 1
     else:
-        flash_attention.launches_simt += 1
+        flash_attention.launches_mma += 1
     return out, lse
 
 
@@ -440,13 +448,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, sk, d_v = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     variant = kernel_variant(q.dtype, d)
-    if variant == "tc":
-        # TMA reads q, k, v and dO (autograd's dO is often a view it
-        # cannot address); the pre-pass reads rows of o and dO 8 bytes at
-        # a time, so o must be as aligned.
-        q, k, v, o, do = (t if tma_addressable(t)
-                          else t.clone(memory_format=torch.contiguous_format)
-                          for t in (q, k, v, o, do))
+    # TMA or cp.async reads q, k, v and dO (autograd's dO is often a view
+    # it cannot address); the tc pre-pass reads rows of o and dO 8 bytes at
+    # a time, so o must be as aligned.
+    q, k, v, o, do = (t if tma_addressable(t)
+                      else t.clone(memory_format=torch.contiguous_format)
+                      for t in (q, k, v, o, do))
     n_scratch = bwd_scratch_floats(b, h, sq)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*(
@@ -472,7 +479,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if variant == "tc":
         flash_attention.launches_bwd_tc += 1
     else:
-        flash_attention.launches_bwd_simt += 1
+        flash_attention.launches_bwd_mma += 1
     return dq, dk, dv
 
 
@@ -538,7 +545,7 @@ class FlashAttentionMetaFn(torch.autograd.Function):
             *flash_attention_bwd_cost(tuple(q.shape), tuple(k.shape),
                                       tuple(v.shape), q.dtype, ctx.causal,
                                       ctx.window),
-            tensor_cores=kernel_variant(q.dtype, d) == "tc")
+            tensor_cores=True, f32=q.dtype == torch.float32)
         return (torch.empty_like(q), torch.empty_like(k),
                 torch.empty_like(v), None, None)
 
@@ -548,7 +555,7 @@ def _meta_forward(q, k, v, causal, window, with_lse: bool) -> torch.Tensor:
         "flash_attention",
         *flash_attention_cost(tuple(q.shape), tuple(k.shape), tuple(v.shape),
                               q.dtype, causal, window, with_lse),
-        tensor_cores=kernel_variant(q.dtype, q.shape[3]) == "tc")
+        tensor_cores=True, f32=q.dtype == torch.float32)
     return _out_like(q, v.shape[3])
 
 
@@ -573,9 +580,9 @@ def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
-flash_attention.launches_simt = 0
+flash_attention.launches_mma = 0
 flash_attention.launches_split = 0
 flash_attention.launches_bwd = 0
 flash_attention.launches_bwd_tc = 0
-flash_attention.launches_bwd_simt = 0
+flash_attention.launches_bwd_mma = 0
 flash_attention.launches_bwd_split = 0

@@ -34,19 +34,21 @@ class Meter:
     """Kernel work and collective payloads reported during one trace.
 
     ``kernels`` maps a kernel's name to ``{"calls", "flops", "bytes",
-    "flops_f32"}``; ``flops_f32`` is the part run outside the tensor
-    cores (at the card's f32 rate). ``collectives`` maps each of
+    "flops_f32", "flops_tf32x3"}``; ``flops_f32`` is the part run
+    outside the tensor cores (at the card's f32 rate), ``flops_tf32x3``
+    f32 on them as 3xTF32. ``collectives`` maps each of
     :data:`COLLECTIVES` to ``{"count", "bytes"}``."""
     kernels: dict = dataclasses.field(default_factory=dict)
     collectives: dict = dataclasses.field(default_factory=lambda: {
         c: {"count": 0, "bytes": 0} for c in COLLECTIVES})
 
-    def kernel_totals(self) -> tuple[int, int, int]:
-        """(flops, bytes, flops outside the tensor cores) of every kernel
-        call reported."""
+    def kernel_totals(self) -> tuple[int, int, int, int]:
+        """(flops, bytes, flops outside the tensor cores, f32 flops on
+        them as 3xTF32) of every kernel call reported."""
         rows = self.kernels.values()
         return (sum(r["flops"] for r in rows), sum(r["bytes"] for r in rows),
-                sum(r["flops_f32"] for r in rows))
+                sum(r["flops_f32"] for r in rows),
+                sum(r["flops_tf32x3"] for r in rows))
 
     def collective_summary(self) -> dict:
         """The JAX parser's layout: each kind's count and bytes, and
@@ -77,20 +79,24 @@ def active() -> Optional[Meter]:
 
 
 def report_kernel(name: str, flops: int, nbytes: int,
-                  tensor_cores: bool) -> None:
+                  tensor_cores: bool, f32: bool = False) -> None:
     """Add one call of kernel ``name`` to the installed meter: its FLOP
-    (on the tensor cores or, with ``tensor_cores`` False, at the f32
-    rate) and the bytes it must move."""
+    (on the tensor cores, as 3xTF32 there with ``f32``, or, with
+    ``tensor_cores`` False, at the f32 rate) and the bytes it must
+    move."""
     meter = _ACTIVE.get()
     if meter is None:
         return
     row = meter.kernels.setdefault(
-        name, {"calls": 0, "flops": 0, "bytes": 0, "flops_f32": 0})
+        name, {"calls": 0, "flops": 0, "bytes": 0, "flops_f32": 0,
+               "flops_tf32x3": 0})
     row["calls"] += 1
     row["flops"] += int(flops)
     row["bytes"] += int(nbytes)
     if not tensor_cores:
         row["flops_f32"] += int(flops)
+    elif f32:
+        row["flops_tf32x3"] += int(flops)
 
 
 def report_collective(op: str, nbytes: int) -> None:

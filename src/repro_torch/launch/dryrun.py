@@ -186,10 +186,12 @@ class Counts:
     collectives: dict
     seconds: float
     gathered: tuple = ()
+    flops_tf32x3: int = 0
 
     def cost_analysis(self) -> dict:
         return {"flops": float(self.flops),
                 "flops f32": float(self.flops_f32),
+                "flops tf32x3": float(self.flops_tf32x3),
                 "bytes accessed": float(self.bytes)}
 
     def memory_analysis(self) -> dict:
@@ -210,7 +212,7 @@ def trace(fn: Callable, *args: Any) -> tuple[Any, Counts]:
         arg_bytes = tr.arguments(flat_args)
         with tr:
             out = fn(*args)
-    k_flops, k_bytes, k_f32 = m.kernel_totals()
+    k_flops, k_bytes, k_f32, k_tf32x3 = m.kernel_totals()
     seen, out_bytes = set(), 0
     for t in tree_flatten(out)[0]:
         if isinstance(t, torch.Tensor):
@@ -220,6 +222,7 @@ def trace(fn: Callable, *args: Any) -> tuple[Any, Counts]:
                 out_bytes += st.nbytes()
     return out, Counts(
         flops=tr.flops + k_flops, flops_f32=tr.flops_f32 + k_f32,
+        flops_tf32x3=k_tf32x3,
         bytes=tr.bytes + k_bytes, ops=tr.ops, argument_bytes=arg_bytes,
         output_bytes=out_bytes, temp_bytes=tr.peak, kernels=m.kernels,
         collectives=m.collective_summary(),

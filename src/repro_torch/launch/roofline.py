@@ -3,14 +3,17 @@ run's counts (port of ``repro.launch.roofline``).
 
 The card's terms, per device:
 
-    compute    = (FLOP - FLOP_f32) / BF16_FLOP_PER_S
+    compute    = (FLOP - FLOP_f32 - FLOP_tf32x3) / BF16_FLOP_PER_S
                  + FLOP_f32 / F32_FLOP_PER_S
+                 + FLOP_tf32x3 / TF32X3_FLOP_PER_S
     memory     = bytes accessed / HBM_BYTES_PER_S
     collective = collective bytes / LINK_BYTES_PER_S
 
 ``FLOP_f32`` is the work outside the tensor cores: matmuls on f32
 operands (TF32 is off, PyTorch's default) and the recurrences' and the
-fold's kernels, which run on the CUDA cores. The peaks are the H100 SXM5
+fold's kernels, which run on the CUDA cores. ``FLOP_tf32x3`` is f32 work
+on the tensor cores as 3xTF32 (flash attention's ``mma`` kernels: three
+TF32 products a term), at a third of TF32's rate. The peaks are the H100 SXM5
 80GB data sheet's, dense, at its 700 W power limit (NVIDIA H100 80GB
 HBM3, power limit 700.00 W, is the card ``chip_smoke.py`` runs on); a
 card set below that limit runs slower under load. The link term: a
@@ -56,6 +59,10 @@ from repro_torch.models.transformer import Transformer
 BF16_FLOP_PER_S = 989e12
 #: The same, f32 outside the tensor cores.
 F32_FLOP_PER_S = 67e12
+#: The same, TF32 on the tensor cores.
+TF32_FLOP_PER_S = 495e12
+#: f32 on the tensor cores as 3xTF32 (three TF32 products a term).
+TF32X3_FLOP_PER_S = TF32_FLOP_PER_S / 3
 #: The same, HBM3.
 HBM_BYTES_PER_S = 3.35e12
 #: One 400 Gb/s NDR InfiniBand port a GPU, the inter-node link.
@@ -80,19 +87,25 @@ _SUGGEST = {
 }
 
 
-def compute_s(flops: float, flops_f32: float) -> float:
+def compute_s(flops: float, flops_f32: float,
+              flops_tf32x3: float = 0.0) -> float:
     """Seconds the card needs at least for ``flops``, of which
-    ``flops_f32`` run outside the tensor cores."""
-    return (flops - flops_f32) / BF16_FLOP_PER_S + flops_f32 / F32_FLOP_PER_S
+    ``flops_f32`` run outside the tensor cores and ``flops_tf32x3`` on
+    them as 3xTF32."""
+    return ((flops - flops_f32 - flops_tf32x3) / BF16_FLOP_PER_S
+            + flops_f32 / F32_FLOP_PER_S
+            + flops_tf32x3 / TF32X3_FLOP_PER_S)
 
 
-def bound_ms(flops: float, nbytes: float, tensor_cores: bool
-             ) -> tuple[float, str]:
+def bound_ms(flops: float, nbytes: float, tensor_cores: bool,
+             f32: bool = False) -> tuple[float, str]:
     """A kernel call's bound: the larger of its FLOP over the card's rate
-    for them (bf16 on the tensor cores, or f32) and its bytes over HBM's;
-    in ms, and which of the two bounds it (``"operations"`` or
-    ``"bytes"``)."""
-    t_ops = flops / (BF16_FLOP_PER_S if tensor_cores else F32_FLOP_PER_S)
+    for them (bf16 on the tensor cores, f32 on them as 3xTF32 with
+    ``f32``, or f32 outside them) and its bytes over HBM's; in ms, and
+    which of the two bounds it (``"operations"`` or ``"bytes"``)."""
+    rate = (F32_FLOP_PER_S if not tensor_cores
+            else TF32X3_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    t_ops = flops / rate
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -100,6 +113,7 @@ def bound_ms(flops: float, nbytes: float, tensor_cores: bool
 
 def _totals(c: dryrun.Counts) -> dict:
     return {"flops": float(c.flops), "flops_f32": float(c.flops_f32),
+            "flops_tf32x3": float(c.flops_tf32x3),
             "bytes": float(c.bytes),
             "coll_bytes": float(c.collectives["total_bytes"]),
             "coll_detail": {k: v for k, v in c.collectives.items()
@@ -140,7 +154,8 @@ def roofline_one(arch: str, shape_name: str, multi_pod: bool = False,
     model_flops_dev = model_flops / chips
 
     terms = {
-        "compute_s": compute_s(total["flops"], total["flops_f32"]),
+        "compute_s": compute_s(total["flops"], total["flops_f32"],
+                               total["flops_tf32x3"]),
         "memory_s": total["bytes"] / HBM_BYTES_PER_S,
         "collective_s": total["coll_bytes"] / LINK_BYTES_PER_S,
     }

@@ -263,10 +263,10 @@ def test_tensor_core_emulation_matches_plain_on_ragged_rows(causal, window):
 @pytest.mark.parametrize("d", sorted({d for d, _ in fa_mod.KERNEL_DIMS}))
 def test_kernel_variant_by_dtype_and_head_dim(dname, d):
     """bf16 with D a multiple of wgmma's k16 depth (16, 32, 64, 96, 128)
-    runs on the tensor cores; f32 (TF32 there) and D in {8, 24} on the
-    SIMT kernel."""
+    runs on the wgmma kernel; f32 (3xTF32) and D in {8, 24} on the
+    mma.sync kernel."""
     want = "tc" if dname == "bfloat16" and d in (16, 32, 64, 96, 128) \
-        else "simt"
+        else "mma"
     assert fa_mod.kernel_variant(DTYPES[dname][0], d) == want
 
 
@@ -318,12 +318,12 @@ def test_kernel_matches_plain_on_card(b, h, hkv, s, d, causal, window,
     tq, tk, tv = (torch.from_numpy(a).to(tdt).cuda().transpose(1, 2)
                   .contiguous().transpose(1, 2) for a in (q, k, v))
     fn = fa_mod.flash_attention
-    before = (fn.launches, fn.launches_tc, fn.launches_simt)
+    before = (fn.launches, fn.launches_tc, fn.launches_mma)
     got = fn(tq, tk, tv, causal=causal, window=window)
     torch.cuda.synchronize()
     tc = fa_mod.kernel_variant(tdt, d) == "tc"
     assert tc == (dname == "bfloat16" and d >= 16)
-    assert (fn.launches, fn.launches_tc, fn.launches_simt) == (
+    assert (fn.launches, fn.launches_tc, fn.launches_mma) == (
         before[0] + 1, before[1] + tc, before[2] + (not tc))
     assert got.transpose(1, 2).is_contiguous()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -346,10 +346,10 @@ def test_misaligned_bf16_view_runs_on_tensor_cores(d):
     q, k, v = qkv[:, :h], qkv[:, h:h + hkv], qkv[:, h + hkv:]
     assert not fa_mod.tma_addressable(q)
     fn = fa_mod.flash_attention
-    before = (fn.launches_tc, fn.launches_simt)
+    before = (fn.launches_tc, fn.launches_mma)
     got = fn(q, k, v)
     torch.cuda.synchronize()
-    assert (fn.launches_tc, fn.launches_simt) == (before[0] + 1, before[1])
+    assert (fn.launches_tc, fn.launches_mma) == (before[0] + 1, before[1])
     want = fa_mod.flash_attention_plain(q, k, v)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),

@@ -222,14 +222,14 @@ def test_bwd_kernel_matches_plain_on_card(case, dname):
         fa_mod.flash_attention_lse_plain(q, k, causal, window).cpu().numpy(),
         atol=1e-4, rtol=1e-5)
     fn = fa_mod.flash_attention
-    before = (fn.launches_bwd, fn.launches_bwd_tc, fn.launches_bwd_simt)
+    before = (fn.launches_bwd, fn.launches_bwd_tc, fn.launches_bwd_mma)
     got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
     torch.cuda.synchronize()
-    # bf16 at D >= 16 runs the tensor-core kernels, f32 and D = 8 the SIMT
+    # bf16 at D >= 16 runs the wgmma kernels, f32 and D = 8 the mma.sync
     # ones.
     tc = fa_mod.kernel_variant(dt, d) == "tc"
     assert tc == (dname == "bfloat16" and d >= 16)
-    assert (fn.launches_bwd, fn.launches_bwd_tc, fn.launches_bwd_simt) == (
+    assert (fn.launches_bwd, fn.launches_bwd_tc, fn.launches_bwd_mma) == (
         before[0] + 1, before[1] + tc, before[2] + (not tc))
     want = fa_mod.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                             window)
@@ -281,10 +281,10 @@ def test_misaligned_bf16_views_run_bwd_on_tensor_cores(d):
     assert not any(fa_mod.tma_addressable(t) for t in (q, k, v, do))
     out, lse = fa_mod.flash_attention_fwd(q, k, v, with_lse=True)
     fn = fa_mod.flash_attention
-    before = (fn.launches_bwd_tc, fn.launches_bwd_simt)
+    before = (fn.launches_bwd_tc, fn.launches_bwd_mma)
     got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do)
     torch.cuda.synchronize()
-    assert (fn.launches_bwd_tc, fn.launches_bwd_simt) == (before[0] + 1,
+    assert (fn.launches_bwd_tc, fn.launches_bwd_mma) == (before[0] + 1,
                                                           before[1])
     want = fa_mod.flash_attention_bwd_plain(q, k, v, out, lse, do)
     for g, w in zip(got, want):

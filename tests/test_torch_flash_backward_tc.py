@@ -208,14 +208,14 @@ def test_tc_bwd_emulation_matches_jax_grad(case):
 def test_kernel_variant_for_backward(dname, d):
     """The backward's C launcher chooses its variant by the forward's
     rule, which kernel_variant mirrors: bf16 with D a multiple of k16 (16,
-    32, 64, 96, 128) on the tensor cores, f32 and D in {8, 24} on the SIMT
-    kernels. The wrapper counts each, and the split pairs apart."""
+    32, 64, 96, 128) on the wgmma kernels, f32 and D in {8, 24} on the
+    mma.sync kernels. The wrapper counts each, and the split pairs apart."""
     dtype = getattr(torch, dname)
-    want = "tc" if dname == "bfloat16" and d % 16 == 0 else "simt"
+    want = "tc" if dname == "bfloat16" and d % 16 == 0 else "mma"
     assert fa_mod.kernel_variant(dtype, d) == want
     fn = fa_mod.flash_attention
     assert all(isinstance(getattr(fn, f"launches_bwd{x}"), int)
-               for x in ("", "_tc", "_simt", "_split"))
+               for x in ("", "_tc", "_mma", "_split"))
 
 
 @pytest.mark.parametrize("b,h,sq", [(1, 1, 1), (2, 16, 1024), (4, 16, 4096),
@@ -223,7 +223,7 @@ def test_kernel_variant_for_backward(dname, d):
 def test_bwd_scratch_covers_both_variants(b, h, sq):
     """The scratch holds the tc kernels' lse·log2e and Δ rows, padded to
     whole 128-row dQ blocks (and so to the dK/dV kernel's 64-row tiles),
-    and the SIMT kernels' (B, H, Sq) Δ."""
+    and the mma kernels' (B, H, Sq) Δ."""
     n = fa_mod.bwd_scratch_floats(b, h, sq)
     pad = -(-sq // fa_mod.BWD_ROW_PAD) * fa_mod.BWD_ROW_PAD
     assert pad % DQ_ROWS == 0 and pad % DKDV_ROWS == 0 and pad >= sq

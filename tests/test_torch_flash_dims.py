@@ -9,7 +9,7 @@ held here to a dense f64 reference. Under grad both split pairs build
 the kernels' autograd node (``tests/test_torch_flash_split_bwd.py``
 holds their gradients).
 The ``cuda``-marked tests hold the kernels to the plain version on the
-card (bf16 on the tensor cores, f32 on the SIMT kernel), with causal,
+card (bf16 on the wgmma kernel, f32 on the mma.sync one), with causal,
 windowed and bidirectional masks, ragged lengths and Sq != Sk
 (whisper's cross-attention, 4096 queries against 1500 frames), at
 chip_smoke.py's tolerances: in bf16 the prefill's, which the tensor-core
@@ -182,11 +182,11 @@ def test_split_kernel_matches_plain_on_card(b, h, hkv, sq, sk, causal,
     dtype = getattr(torch, dname)
     q, k, v = _views(b, h, hkv, sq, sk, 96, 64, dtype, "cuda", seed=11)
     fn = fa_mod.flash_attention
-    before = (fn.launches_tc, fn.launches_simt, fn.launches_split)
+    before = (fn.launches_tc, fn.launches_mma, fn.launches_split)
     got = fn(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     tc = dname == "bfloat16"
-    assert (fn.launches_tc, fn.launches_simt, fn.launches_split) == (
+    assert (fn.launches_tc, fn.launches_mma, fn.launches_split) == (
         before[0] + tc, before[1] + (not tc), before[2] + 1)
     assert got.shape == (b, h, sq, 64) and got.transpose(1, 2).is_contiguous()
     want = fa_mod.flash_attention_plain(q, k, v, causal, window)
@@ -204,16 +204,17 @@ REDUCED_CASES = chip_smoke().FLASH_REDUCED_MLA_SWEEP
 def test_reduced_mla_pair_matches_plain_on_card(b, h, hkv, sq, sk, causal,
                                                 window, dname):
     """The reduced MLA's (24, 16): D = 24 is not a multiple of wgmma's
-    k16, so both dtypes run the SIMT kernel, counted as a split launch."""
+    k16, so both dtypes run the mma.sync kernel, counted as a split
+    launch."""
     _on_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     dtype = getattr(torch, dname)
     q, k, v = _views(b, h, hkv, sq, sk, 24, 16, dtype, "cuda", seed=14)
     fn = fa_mod.flash_attention
-    before = (fn.launches_tc, fn.launches_simt, fn.launches_split)
+    before = (fn.launches_tc, fn.launches_mma, fn.launches_split)
     got = fn(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert (fn.launches_tc, fn.launches_simt, fn.launches_split) == (
+    assert (fn.launches_tc, fn.launches_mma, fn.launches_split) == (
         before[0], before[1] + 1, before[2] + 1)
     assert got.shape == (b, h, sq, 16) and got.transpose(1, 2).is_contiguous()
     want = fa_mod.flash_attention_plain(q, k, v, causal, window)
@@ -253,3 +254,79 @@ def test_pair_outside_the_table_refused_on_card(d, dv, dname):
         with pytest.raises(ValueError, match="kernels'"):
             call(q, k, v)
     assert fn.launches == before
+
+
+# Every (dtype, D, Dv) that runs the mma kernels, and shapes that take
+# both of each kernel's block plans: the small ones split each block's
+# walk four ways across its warps (fewer blocks of 64 than SMs), the last
+# three run blocks of 64 rows and keys (B·H·ceil(S/64) and B·Hkv·ceil(S/64)
+# at least the card's 132 SMs); the last is qwen3-0.6b's training shape,
+# whose walks of 1024 rows and keys are the longest sums.
+MMA_PAIRS = [("float32", d, d) for d in (8, 16, 32, 64, 128)] + [
+    ("float32", 96, 64), ("float32", 24, 16), ("bfloat16", 8, 8),
+    ("bfloat16", 24, 16)]
+MMA_SHAPES = [(2, 4, 2, 77, 77, True, None), (1, 8, 2, 100, 100, True, 24),
+              (1, 2, 2, 40, 70, False, None),
+              (2, 16, 16, 300, 300, True, None),
+              (2, 32, 16, 257, 257, False, None),
+              (2, 16, 8, 1024, 1024, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal,window", MMA_SHAPES)
+@pytest.mark.parametrize("dname,d,dv", MMA_PAIRS)
+def test_mma_kernels_match_plain_on_card(dname, d, dv, b, h, hkv, sq, sk,
+                                         causal, window):
+    """The mma forward (output and lse) and backward against the plain
+    versions on the card, at chip_smoke.py's tolerances (f32 ``TOL``,
+    bf16 the prefill's and ``BWD_BF16_TOL``), each call counted as an mma
+    launch, two backward calls bit-equal."""
+    _on_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, dname)
+    cs = chip_smoke()
+    q, k, v = _views(b, h, hkv, sq, sk, d, dv, dtype, "cuda", seed=15)
+    do = torch.randn((b, sq, h, dv), generator=torch.Generator()
+                     .manual_seed(16)).to(dtype).cuda().transpose(1, 2)
+    fn = fa_mod.flash_attention
+    names = ("launches_mma", "launches_bwd_mma", "launches_tc",
+             "launches_bwd_tc")
+    before = [getattr(fn, x) for x in names]
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, causal, window,
+                                          with_lse=True)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    again = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert [getattr(fn, x) for x in names] == [before[0] + 1, before[1] + 2,
+                                               before[2], before[3]]
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(),
+        fa_mod.flash_attention_plain(q, k, v, causal, window).float().cpu()
+        .numpy(), **TOL[dname])
+    np.testing.assert_allclose(
+        lse.cpu().numpy(),
+        fa_mod.flash_attention_lse_plain(q, k, causal, window).cpu().numpy(),
+        **cs.LSE_TOL)
+    want = fa_mod.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                            window)
+    tol = cs.TOL["float32"] if dname == "float32" else cs.BWD_BF16_TOL
+    for name, g, w, x, r in zip(("dq", "dk", "dv"), got, want, (q, k, v),
+                                again):
+        assert g.dtype == x.dtype and g.stride() == x.stride(), name
+        assert torch.equal(g, r), name
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **tol,
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [(128, 128), (96, 64)])
+def test_mma_long_f32_walks_match_plain_on_card(d, dv):
+    """The f32 backward's longest sums, four times qwen3-0.6b's training
+    length (dK and dV over 2 x 4096 query rows of a KV head, dQ over 4096
+    keys), within ``TOL`` of the plain version: ``mma::accumulate``'s
+    per-tile chunks, joined by f32 adds, keep the tensor core's biased
+    adds from drifting (``tests/test_torch_flash_mma.py`` emulates both
+    forms at S = 1024)."""
+    test_mma_kernels_match_plain_on_card("float32", d, dv, 1, 16, 8, 4096,
+                                         4096, True, None)

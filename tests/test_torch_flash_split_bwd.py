@@ -14,8 +14,8 @@ causal and not, a window and Sq != Sk, f32 ``atol=2e-5, rtol=1e-4``
 last column group dropped, Δ summed over D columns of o and dO instead
 of Dv) are shown to break the tolerances the card's tests hold the
 kernels to. The ``cuda``-marked tests hold the kernels to the plain
-version on the card: f32 on the SIMT kernels, bf16 at (96, 64) on the
-tensor cores and at (24, 16) on SIMT, each call's variant and split
+version on the card: f32 on the mma.sync kernels, bf16 at (96, 64) on
+the wgmma ones and at (24, 16) on mma.sync, each call's variant and split
 count checked, two calls bit-equal.
 """
 import numpy as np
@@ -197,7 +197,7 @@ def _card_inputs(b, h, hkv, sq, sk, d, dv, dt, causal, window, seed=4):
 def test_split_bwd_kernel_matches_plain_on_card(case, dname):
     """Both pairs in f32 and bf16 against the plain backward, the model's
     transposed views, ragged Sq and Sk, windows, Sq != Sk; the variant
-    (bf16 (96, 64) on the tensor cores, the rest SIMT) and the split
+    (bf16 (96, 64) on the wgmma kernels, the rest mma) and the split
     count checked; gradients laid out like their inputs; then the planted
     faults break the same tolerance on the same inputs."""
     _on_card()
@@ -207,13 +207,13 @@ def test_split_bwd_kernel_matches_plain_on_card(case, dname):
     q, k, v, out, lse, do = _card_inputs(b, h, hkv, sq, sk, d, dv, dt,
                                          causal, window)
     fn = fa_mod.flash_attention
-    names = ("launches_bwd", "launches_bwd_tc", "launches_bwd_simt",
+    names = ("launches_bwd", "launches_bwd_tc", "launches_bwd_mma",
              "launches_bwd_split")
     before = [getattr(fn, x) for x in names]
     got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, causal, window)
     torch.cuda.synchronize()
     tc = dname == "bfloat16" and d == 96
-    assert fa_mod.kernel_variant(dt, d) == ("tc" if tc else "simt")
+    assert fa_mod.kernel_variant(dt, d) == ("tc" if tc else "mma")
     assert [getattr(fn, x) for x in names] == [
         before[0] + 1, before[1] + tc, before[2] + (not tc), before[3] + 1]
     want = fa_mod.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
@@ -268,10 +268,10 @@ def test_split_misaligned_bf16_views_run_bwd_on_tensor_cores():
     assert not any(fa_mod.tma_addressable(t) for t in (q, k, v, do))
     out, lse = fa_mod.flash_attention_fwd(q, k, v, with_lse=True)
     fn = fa_mod.flash_attention
-    before = (fn.launches_bwd_tc, fn.launches_bwd_simt)
+    before = (fn.launches_bwd_tc, fn.launches_bwd_mma)
     got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do)
     torch.cuda.synchronize()
-    assert (fn.launches_bwd_tc, fn.launches_bwd_simt) == (before[0] + 1,
+    assert (fn.launches_bwd_tc, fn.launches_bwd_mma) == (before[0] + 1,
                                                           before[1])
     want = fa_mod.flash_attention_bwd_plain(q, k, v, out, lse, do)
     for g, w in zip(got, want):

@@ -154,6 +154,26 @@ def test_meta_backward_reports_the_backward_kernel(kernel):
     assert (bwd["calls"], bwd["flops"], bwd["bytes"]) == (1, *cost)
 
 
+@pytest.mark.parametrize("dtype,tf32x3", [(F32, True), (BF16, False)])
+def test_flash_meters_f32_as_3xtf32(dtype, tf32x3):
+    """Flash attention runs on the tensor cores in both dtypes: f32 as
+    3xTF32 (the ``mma`` kernels), so its forward and backward FLOP count
+    as ``flops_tf32x3``, never as work outside the tensor cores, and the
+    roofline's compute term takes them at a third of TF32's rate."""
+    with meter.metering() as m:
+        q = _meta(1, 2, 8, 16, dtype=dtype, grad=True)
+        ops.flash_attention_op(q, q, q).sum().backward()
+    for name in ("flash_attention", "flash_attention_bwd"):
+        row = m.kernels[name]
+        assert row["flops_f32"] == 0
+        assert row["flops_tf32x3"] == (row["flops"] if tf32x3 else 0)
+    flops, _, f32, t3 = m.kernel_totals()
+    assert f32 == 0 and t3 == (flops if tf32x3 else 0)
+    rate = roofline.TF32X3_FLOP_PER_S if tf32x3 else 989e12
+    assert roofline.compute_s(flops, f32, t3) == pytest.approx(flops / rate,
+                                                             rel=1e-12)
+
+
 def test_kernel_wrappers_refuse_meta_tensors():
     """The meta branch is ops' choice: the kernel wrappers take CUDA
     tensors only, good meta calls included."""
@@ -313,4 +333,8 @@ def test_bound_ms_reads_the_card_peaks():
     ms, by = roofline.bound_ms(0.0, 3.35e9, tensor_cores=False)
     assert ms == pytest.approx(1.0) and by == "bytes"
     assert roofline.bound_ms(67e9, 0, False)[0] == pytest.approx(1.0)
+    assert roofline.bound_ms(165e9, 0, True, f32=True)[0] == pytest.approx(
+        1.0)
+    assert roofline.bound_ms(67e9, 0, False, f32=True)[0] == pytest.approx(
+        1.0)
     assert np.isclose(roofline.compute_s(989e12 + 67e12, 67e12), 2.0)
