@@ -161,10 +161,14 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
     16), f32 on mma, bf16 (96, 64) on the tensor cores and (24, 16) on
     mma, each call's variant and ``launches_bwd_split`` counted, two
     calls and autograd bit-equal, the planted faults of
-    ``dense_bwd`` caught), and (96, 64) at MLA's training shape
-    (B=2, H=40, S=1024) and prefill shape (B=4, S=4096) in bf16, timed
-    beside the plain version, the function's bound (6D + 4Dv FLOP a
-    pair), the design's (12D + 8Dv) and SDPA's backward;
+    ``dense_bwd`` caught), a (96, 64) case whose q and k carry their
+    largest values in columns 64-95 (``FLASH_TAIL_CASE``: forward and
+    backward against plain, q's and k's tail dropped caught), and (96,
+    64) at MLA's training shape (B=2, H=40, S=1024) and prefill shape
+    (B=4, S=4096) in bf16, timed beside the plain version, the
+    function's bound (6D + 4Dv FLOP a pair), the design's (12D + 8Dv,
+    also what the kernels issue) and SDPA's backward; the tensor-core
+    kernels' shared memory at (96, 64) beside ptxas' report;
 24. train card vs CPU — qwen3-0.6b at full width cut to 4 layers, f32,
     from one CPU-drawn init: each leaf's gradient of one satellite's
     loss (batch 1 x seq 256) on the card and on the CPU, within a
@@ -3145,7 +3149,31 @@ FLASH_BWD_SPLIT_SWEEP = (
 # MLA's training shape (phase 34: batch 2 per satellite, seq 1024,
 # minicpm3-4b's 40 heads) and its prefill shape.
 MLA_TRAIN_ATTN = dict(b=2, h=40, hkv=40, s=1024, d=96, dv=64)
-SPLIT_BWD_FAULTS = ("last column group dropped", "delta over D")
+SPLIT_BWD_FAULTS = ("last column group dropped", "delta over D",
+                    "q tail columns dropped", "k tail columns dropped")
+# Phase 23's tail case: MLA's pair in bf16 with q's and k's columns 64-95
+# (the tensor-core kernels' third 32-column chunk) scaled by 1.25 and
+# the rest by 0.75, so that the tail holds the largest values and ~80% of
+# q·k's variance (32 x 1.25^4 against 64 x 0.75^4) while the scores keep
+# the spread of the sweep's (~96 in all, as unscaled).
+FLASH_TAIL_CASE = dict(b=1, h=4, hkv=4, sq=300, sk=300, d=96, dv=64)
+TAIL_COLUMNS, TAIL_SCALE = 64, (0.75, 1.25)
+
+
+def tail_heavy(x, start: int = TAIL_COLUMNS, scale=TAIL_SCALE):
+    """x (..., D) in place: columns before ``start`` times scale[0], from
+    it on times scale[1]."""
+    x[..., :start] *= scale[0]
+    x[..., start:] *= scale[1]
+    return x
+
+
+def tail_start(d: int) -> int:
+    """The first of q·k's tail columns that the planted tail faults drop:
+    64 at D = 96 (the tensor-core kernels' 32-column third chunk), the
+    last k16 step's at D <= 64 (16 at D = 24, whose mma kernels zero-pad
+    it)."""
+    return 64 if d > 64 else 16 * ((d - 1) // 16)
 
 
 def _read_past(torch, x, width: int):
@@ -3169,11 +3197,18 @@ def dense_bwd(torch, q, k, v, o, lse, do, fault: str | None = None,
     subtracted), ``"causal"`` one future key (k = q + 1) let through the
     mask; and the split pairs' ``"last column group dropped"`` (dQ's and
     dK's last group of 16 columns left at 0: columns 16-23 at D = 24, a
-    partial group; 80-95 at D = 96) and ``"delta
+    partial group; 80-95 at D = 96), ``"delta
     over D"`` (Δ summed over D columns of o's and dO's rows instead of
-    their Dv, the extra D - Dv read from the memory after each row). With
-    no fault it is the plain backward."""
+    their Dv, the extra D - Dv read from the memory after each row) and
+    ``"q tail columns dropped"`` / ``"k tail columns dropped"`` (q's or
+    k's columns from ``tail_start(D)`` on read as zeros, in S and in the
+    products that take q or k: 64-95 at D = 96, a tile's third chunk not
+    loaded). With no fault it is the plain backward."""
     b, h, sq, d = q.shape
+    if fault in ("q tail columns dropped", "k tail columns dropped"):
+        cut = (q if fault[0] == "q" else k).clone()
+        cut[..., tail_start(d):] = 0
+        q, k = (cut, k) if fault[0] == "q" else (q, cut)
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
     scale = 1.0 / math.sqrt(d)
@@ -3457,6 +3492,50 @@ def _split_bwd_faults(torch, fa_mod, args, want, what: str, tol: dict,
         del bad
 
 
+def _tail_case(torch, fa_mod, gen) -> float:
+    """``FLASH_TAIL_CASE``: the (96, 64) forward and backward on the
+    tensor cores against their plain versions (``PREFILL_BF16_TOL``,
+    ``BWD_BF16_TOL``) with q's and k's largest values in columns 64-95
+    (``tail_heavy``), and the tail faults caught there. Returns the
+    largest error."""
+    sh = FLASH_TAIL_CASE
+    what = (f"tail case B={sh['b']} H={sh['h']} S={sh['sq']} (96, 64) bf16, "
+            f"q and k columns {TAIL_COLUMNS}-95 x{TAIL_SCALE[1]:g}, the rest "
+            f"x{TAIL_SCALE[0]:g}")
+    q, k, v = _split_views(torch, gen, sh["b"], sh["h"], sh["hkv"], sh["sq"],
+                           sh["sk"], sh["d"], sh["dv"], torch.float32)
+    q, k = (tail_heavy(x).to(torch.bfloat16) for x in (q, k))
+    v = v.to(torch.bfloat16)
+    do = torch.randn((sh["b"], sh["sq"], sh["h"], sh["dv"]), generator=gen,
+                     device="cuda").to(torch.bfloat16).transpose(1, 2)
+    before = fa_mod.flash_attention.launches_bwd_tc
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, with_lse=True)
+    errs = [check_close(torch, out, fa_mod.flash_attention_plain(q, k, v),
+                        "bfloat16", f"forward, {what}", PREFILL_BF16_TOL)]
+    args = (q, k, v, out, lse, do)
+    got = fa_mod.flash_attention_bwd(*args)
+    if fa_mod.flash_attention.launches_bwd_tc != before + 1:
+        raise AssertionError(f"{what}: the backward did not run on the "
+                             f"tensor cores")
+    want = fa_mod.flash_attention_bwd_plain(*args)
+    errs += [check_close(torch, g, w, "bfloat16", f"backward {n}, {what}",
+                         BWD_BF16_TOL)
+             for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+    log("flash-bwd", f"{what}: forward max |err| {errs[0]:.3e}, dq, dk, dv "
+        f"{errs[1]:.3e}, {errs[2]:.3e}, {errs[3]:.3e}")
+    for fault in ("q tail columns dropped", "k tail columns dropped"):
+        bad = dense_bwd(torch, *args, fault)
+        if all(torch.allclose(x.float(), w.float(), **BWD_BF16_TOL)
+               for x, w in zip(bad, want)):
+            raise AssertionError(f"planted fault {fault!r} passes "
+                                 f"{BWD_BF16_TOL} at the {what}")
+        log("flash-bwd", f"{what}: planted fault {fault!r}: dq, dk, dv max "
+            f"|err| " + ", ".join(f"{max_err(torch, x, w):.3e}"
+                                  for x, w in zip(bad, want))
+            + f", caught by {BWD_BF16_TOL}")
+    return max(errs)
+
+
 # The reduced MLA's attention at `launch.train`'s default shape (batch
 # 2, seq 256, 4 heads; q·k 24, v 16).
 MLA_REDUCED_ATTN = dict(b=2, h=4, hkv=4, sq=256, sk=256, d=24, dv=16)
@@ -3587,6 +3666,7 @@ def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
                                   causal, window)
                 faulted.add(key)
             del args, got, want, auto, again, grads
+    tail_err = _tail_case(torch, fa_mod, gen)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes = {"train": dict(MLA_TRAIN_ATTN),
@@ -3668,11 +3748,12 @@ def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
         flop, nbytes = fa_mod.flash_attention_bwd_cost(
             tuple(q.shape), tuple(k.shape), tuple(v.shape), q.dtype)
         pairs = b * h * fa_mod.visible_pairs(s, s)    # causal (q, k) pairs
-        flop_design = pairs * (12 * d + 8 * dv)
-        flop_issued = flop_design + pairs * 8 * (128 - d)
+        # What the kernels issue: the design's 12D + 8Dv a pair (1664),
+        # q and k at their 96 columns, dK and dQ n96: no product over
+        # zeros.
+        flop_design = flop_issued = pairs * (12 * d + 8 * dv)
         bound_ms, bound_by = bound(flop, nbytes, True)
-        bound_design = bound(flop_design, nbytes, True)[0]
-        bound_issued = bound(flop_issued, nbytes, True)[0]
+        bound_design = bound_issued = bound(flop_design, nbytes, True)[0]
         lib_text = (f"sdpa backward {lib_ms:.4f} ms back to back, "
                     f"{lib_dev:.4f} ms device ({dev_ms / lib_dev:.2f}x)"
                     if lib_err is None else f"sdpa backward refused: "
@@ -3684,8 +3765,9 @@ def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
             f"{fwd_lse_ms:.4f} ms; {nbytes} bytes, {flop:.4e} FLOP, bound "
             f"{bound_ms:.4f} ms ({bound_by}); the design's {flop_design:.4e} "
             f"FLOP (hi + lo, dQ recomputing S and dP) {bound_design:.4f} "
-            f"ms, issued with n128 over the zero half {flop_issued:.4e} "
-            f"FLOP {bound_issued:.4f} ms; kernels at "
+            f"ms, also the FLOP issued ({flop_issued:.4e}: "
+            f"{flop_issued // pairs} a pair, no product over zeros); "
+            f"kernels at "
             f"{bound_ms / dev_ms:.4f} of the bound and "
             f"{bound_design / dev_ms:.4f} of the design's in device time")
         out_entry[label] = dict(
@@ -3700,11 +3782,15 @@ def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
         log("flash-bwd", f"split sweep ({d}, {dv}) {dname}: max |err| "
             f"{err:.3e}")
     reduced = _reduced_mla_times(torch, fa_mod, gen)
-    report = {k: v for k, v in ptxas.items() if k.startswith("flash_bwd")
+    report = {k: v for k, v in ptxas.items()
+              if k.startswith(("flash_bwd", "flash_fwd_tc"))
               and ("Dv=" in k or "D=64>" in k and "prep" in k)}
     for label, (regs, stores, loads) in report.items():
         log("flash-bwd", f"ptxas {label}: {regs} registers, {stores} bytes "
             f"spill stores, {loads} bytes spill loads")
+    smem = fa_mod.tc_smem_bytes(96, 64)
+    log("flash-bwd", "shared memory a block at (96, 64): " + ", ".join(
+        f"{k} {v} B" for k, v in smem.items()))
     train = out_entry["train"]
     return dict(name="flash_attention_bwd<D=96, Dv=64>", route="cuda",
                 variant="tc",
@@ -3725,7 +3811,8 @@ def phase_flash_bwd_split(torch, fa_mod, ptxas: dict) -> dict:
                 sweep_max_abs_err={f"({d}, {dv}) {n}": e
                                    for (d, dv, n), e in worst.items()},
                 ptxas={k: dict(registers=r, spill_stores=st, spill_loads=ld)
-                       for k, (r, st, ld) in report.items()})
+                       for k, (r, st, ld) in report.items()},
+                smem_bytes=smem, tail_case_max_abs_err=tail_err)
 
 
 # Phase 24: card (kernels) vs CPU (plain), f32, TF32 off. The round's

@@ -18,7 +18,7 @@
 // Two hand-written kernels, both on the tensor cores, chosen in one place
 // (variant_for, by dtype and Dqk):
 // - flash_fwd_tc ("tc"): bf16 with Dqk in {16, 32, 64, 96, 128}, wgmma and
-//   TMA. The serving path (bf16, D = 128) runs it.
+//   TMA. The serving path (bf16, D = 128; minicpm3-4b's (96, 64)) runs it.
 // - flash_fwd_mma ("mma"): f32 at every pair (3xTF32) and bf16 at Dqk in
 //   {8, 24} (no multiple of wgmma's k16 depth), warp-level mma.sync.
 // Both are templated on the pair (Dqk, Dv); the wrapper counts the
@@ -37,31 +37,34 @@
 //   setmaxnreg moves registers from the producer (24) to the consumers
 //   (240). Query head h reads KV head h / G. Tiles are launched last-first
 //   so the long causal rows start early.
-// - TMA loads the Q tile once and 128-key K and V tiles into a ring of two
-//   stages, through 4-D tensor maps over (D, heads, S, B) with the views'
-//   strides, in the 128-byte swizzle the wgmma descriptors read. Q and K
-//   sit in DPqk = Dqk rounded up to 64 columns, V in DPv; rows past S and
-//   columns past D arrive as zeros (Dqk = 96 loads as two 64-column
-//   chunks, the second half zero; Q·Kᵀ reads only the first 96).
+// - TMA loads the Q tile once and 128-key K and V tiles into a ring,
+//   through 4-D tensor maps over (D, heads, S, B) with the views' strides,
+//   in the swizzle the wgmma descriptors read (tc_common.cuh, Tile). A
+//   tile is column chunks: 64 columns in the 128-byte swizzle (D = 16 and
+//   32 zero-padded to one chunk; rows past S arrive as zeros), but Q and K
+//   at Dqk = 96 are three 32-column chunks in the 64-byte swizzle, so no
+//   column of zeros is loaded or multiplied.
 //   mbarriers per stage: K loaded, V loaded, K free (after both groups'
 //   Q·Kᵀ), V free (after their P·V), so the next K tile streams in while
 //   the last P·V still reads V. Shared memory at D = 128: Q 32 KB + 2 x
-//   (K 32 KB + V 32 KB) = 160 KB, at (96, 64) 32 + 2 x (32 + 16) = 128 KB;
-//   one block per SM.
+//   (K 32 KB + V 32 KB) = 160 KB; at (96, 64) Q 24 KB + 2 x (K 24 KB +
+//   V 16 KB) = 104 KB. A third stage would fit and ran no faster on the
+//   card (MLA's prefill shape, device time): the ring stays at two. One
+//   block per SM.
 // - S = Q·Kᵀ: wgmma m64n128k16, A = Q and B = K from shared memory (K-major),
-//   Dqk/16 steps, f32 sums of exact bf16 products.
+//   Dqk/16 steps across the chunks, f32 sums of exact bf16 products.
 // - Online softmax on the accumulator fragment: a row lives in the 4 lanes
 //   of a quad (two xor shuffles for its max); masks at -1e30 and m from
 //   -1e30, as in the TPU kernel, applied only on tiles that cross the
 //   causal or window edge or Sk. Loop bounds skip unreachable K tiles.
 //   l sums the f32 probabilities (each lane its share, one quad sum at the
 //   end) and is clamped at 1e-30.
-// - O += P·V: wgmma m64n{64,128}k16 (n = DPv) with P in registers as bf16
-//   A fragments (the S accumulator's layout is the A fragment's) and B = V
-//   from shared memory, MN-major (transpose bit). P's bf16 rounding is the
-//   one rounding the f32 plain version does not make. On a long row it
-//   averages out; a row that holds few keys would carry it whole into its
-//   output, and such rows only arise on tiles that cross a mask edge:
+// - O += P·V: wgmma m64n{64,128}k16 (n = Dv padded) with P in registers as
+//   bf16 A fragments (the S accumulator's layout is the A fragment's) and
+//   B = V from shared memory, MN-major (transpose bit). P's bf16 rounding
+//   is the one rounding the f32 plain version does not make. On a long row
+//   it averages out; a row that holds few keys would carry it whole into
+//   its output, and such rows only arise on tiles that cross a mask edge:
 //   there the remainder P - bf16(P) goes through a second bf16 product, so
 //   those rows see P to ~2^-17.
 // - Pipelining in a consumer group: its tiles are a masked prefix (a
@@ -72,6 +75,18 @@
 //   done whole. No wgmma is in flight across a branch, and the Q·Kᵀ loop
 //   is unrolled for each D (one instantiation per head dim): either would
 //   make ptxas serialise the wgmmas.
+// - (96, 64) only: (a) the two consumer groups ping-pong: each takes a
+//   turn (named barriers) to issue a tile's products and passes it on, so
+//   that one group's softmax runs while the other's products hold the
+//   tensor cores (without turns the two fall into step, both on the
+//   tensor cores, then both on their softmax); (b) on unmasked tiles the
+//   scale and log2(e) fold into one FFMA a score, exp2(S·scale·log2e −
+//   m·log2e). The (D, D) instantiations keep the schedule above. Measured
+//   at minicpm3-4b's prefill shape (B=4, H=40, S=4096, causal; NVIDIA H100
+//   80GB HBM3 at 700 W, device time): 1.03-1.04 ms (without turns 1.15,
+//   without the fold 1.09), SDPA 0.96, 0.42 of the 0.4344 ms bound
+//   (4.2960e11 FLOP); ex2 replaced by a multiply ran no faster, so the
+//   exponentials do not bound it.
 // - Epilogue: divide by max(l, 1e-30), round to bf16 once, store bf16
 //   pairs into the strided output, Dv columns.
 // TMA wants 16-byte aligned bases and strides: the wrapper copies a view
@@ -502,33 +517,38 @@ namespace tc {
 
 constexpr int kBM = 128;                 // Q rows per block: 2 x 64
 constexpr int kBN = 128;                 // keys per K/V tile
-constexpr int kStages = 2;               // K/V ring depth
 constexpr int kThreads = 384;            // producer + 2 consumer warpgroups
 constexpr int kConsumers = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The head dims padded to whole 64-column chunks (at least one).
-__host__ __device__ constexpr int padded(int d) {
-  return d < 64 ? 64 : (d + 63) / 64 * 64;
+// MLA's (96, 64), whose Q and K are three 32-column chunks (chunk_cols):
+// the two consumer groups in ping-pong and the exp2 fold. The (D, D)
+// pairs keep one schedule of their own: each group's run pipelined within
+// itself, no turns.
+__host__ __device__ constexpr bool own_widths(int dqk) {
+  return chunk_cols(dqk) == 32;
 }
 
-constexpr int kQChunk = kBM * 128;       // bytes of a Q chunk
-constexpr int kKVChunk = kBN * 128;      // bytes of a K or V chunk
-
 // Shared memory of one block, in bytes from a 1024-aligned base. A tile
-// of R rows is DP/64 chunks of [R rows][64 bf16] at 128 bytes a row, each
-// chunk in TMA's 128-byte swizzle (the layout the wgmma descriptors read);
-// Q and K have DPQK columns, V DPV.
-template <int DPQK, int DPV>
+// of R rows is Tile<D>::kChunks chunks of [R rows][kCols bf16], each in
+// TMA's swizzle of its row width (the layout the wgmma descriptors read);
+// Q and K are DQK wide (96 at MLA's pair: no column of zeros), V DV
+// (zero-padded to 64 below it).
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int kQKChunks = DPQK / 64;
-  static constexpr int kVChunks = DPV / 64;
-  static constexpr int kKTile = kQKChunks * kKVChunk;  // one K tile
-  static constexpr int kVTile = kVChunks * kKVChunk;   // one V tile
+  using TQK = Tile<DQK>;
+  using TV = Tile<DV>;
+  static constexpr int kStages = 2;                       // K/V ring
+  static constexpr int kQChunk = kBM * TQK::kRowBytes;
+  static constexpr int kKChunk = kBN * TQK::kRowBytes;
+  static constexpr int kVChunk = kBN * TV::kRowBytes;
+  static constexpr int kQTile = TQK::kChunks * kQChunk;
+  static constexpr int kKTile = TQK::kChunks * kKChunk;   // one K tile
+  static constexpr int kVTile = TV::kChunks * kVChunk;    // one V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kQKChunks * kQChunk;  // kStages K tiles
-  static constexpr int kV = kK + kStages * kKTile;     // kStages V tiles
-  static constexpr int kBar = kV + kStages * kVTile;   // mbarriers
+  static constexpr int kK = kQ + kQTile;                  // kStages K tiles
+  static constexpr int kV = kK + kStages * kKTile;        // kStages V tiles
+  static constexpr int kBar = kV + kStages * kVTile;      // mbarriers
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
 };
 
@@ -543,18 +563,19 @@ struct Args {
 };
 
 // O += P·V over one 128-key tile, issued (not waited for): P as bf16 A
-// fragments (4 registers per 16 keys), V MN-major at `v` (DP/64 chunks of
-// 128 keys).
-template <int DP>
-__device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
+// fragments (4 registers per 16 keys), V MN-major at `v` (chunks of 128
+// keys).
+template <int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[Tile<DV>::kWidth / 2],
                                          const uint32_t (&pa)[32],
                                          uint32_t v) {
+  using TV = Tile<DV>;
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint64_t db = desc(v + kk * 16 * 128, kBN * 128, 1024);
-    if constexpr (DP == 128)
+    const uint64_t db = TV::mn_major(v, kBN * TV::kRowBytes, kk);
+    if constexpr (TV::kWidth == 128)
       wgmma_rs_n128(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                     pa[4 * kk + 3], db);
     else
@@ -563,29 +584,29 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
   }
 }
 
-template <int DP>
-__device__ __forceinline__ void pv_sync(float (&o)[DP / 2],
+template <int DV>
+__device__ __forceinline__ void pv_sync(float (&o)[Tile<DV>::kWidth / 2],
                                         const uint32_t (&pa)[32],
                                         uint32_t v) {
-  issue_pv<DP>(o, pa, v);
+  issue_pv<DV>(o, pa, v);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
 }
 
 // S = Q·Kᵀ over one 128-key tile, issued and committed (not waited for):
-// f32 sums of exact bf16 products, DQK/16 steps of k16, A = this group's
-// 64 Q rows and B = the K tile, both K-major in shared memory.
+// f32 sums of exact bf16 products, DQK/16 steps of k16 across Q's and K's
+// chunks, A = this group's 64 Q rows and B = the K tile, both K-major in
+// shared memory.
 template <int DQK>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q,
                                          uint32_t k) {
+  using T = Tile<DQK>;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < DQK / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;         // k16 step in a chunk
-    wgmma_ss_n128(sc, desc(q + (kk / 4) * kQChunk + off, 16, 1024),
-                  desc(k + (kk / 4) * kKVChunk + off, 16, 1024), kk > 0);
-  }
+  for (int kk = 0; kk < DQK / 16; ++kk)
+    wgmma_ss_n128(sc, T::k_major(q, kBM * T::kRowBytes, kk),
+                  T::k_major(k, kBN * T::kRowBytes, kk), kk > 0);
   wgmma_commit();
 }
 
@@ -593,12 +614,46 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q,
 // 2), key k0 + 8j + col0 + e % 2; a row lives in the 4 lanes of a quad.
 // Scales, masks (where `masked`), updates m and this lane's share of l,
 // leaves the f32 probabilities in sc and the rescale factors in alpha.
+// kFold, on a tile that crosses no mask edge: the scale and log2(e) fold
+// into one FFMA a score, exp2(S·(scale·log2e) − m·log2e), m from the
+// largest raw score (scale > 0: max and rounding commute, so m is the
+// same); m is then a real score's, never -1e30, and the fold cannot
+// cancel two huge terms.
+template <bool kFold>
 __device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], bool masked,
                                              int k0, int row0, int col0,
                                              const Args& a) {
   float mx[2] = {kNegInf, kNegInf};
+  if (kFold && !masked) {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+    float neg[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * a.scale);
+      alpha[r] = exp2_approx((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+      neg[r] = -m_new * kLog2e;
+    }
+    const float sl2 = a.scale * kLog2e;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(fmaf(sc[4 * j + e], sl2, neg[e / 2]));
+        sc[4 * j + e] = p;
+        l[e / 2] += p;
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
@@ -657,14 +712,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, Args a) {
-  constexpr int DP = padded(DV);        // O's columns: DV zero-padded
-  using L = Smem<padded(DQK), DP>;
+  using L = Smem<DQK, DV>;
+  using TQK = typename L::TQK;
+  using TV = typename L::TV;
+  constexpr int NS = L::kStages;
+  constexpr int DP = TV::kWidth;        // O's columns: DV zero-padded
+  constexpr bool kOwn = own_widths(DQK);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // mbarriers: Q loaded; per stage K loaded, V loaded, K free, V free.
   const uint32_t bar_q = base + L::kBar;
-  const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * kStages;
-  const uint32_t free_k = full_v + 8 * kStages, free_v = free_k + 8 * kStages;
+  const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * NS;
+  const uint32_t free_k = full_v + 8 * NS, free_v = free_k + 8 * NS;
 
   const int nq = (a.Sq + kBM - 1) / kBM;
   const int q0 = (nq - 1 - int(blockIdx.x)) * kBM;    // last tile first
@@ -683,7 +742,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full_k + 8 * s, 1);
       mbar_init(full_v + 8 * s, 1);
       mbar_init(free_k + 8 * s, kConsumers);
@@ -699,23 +758,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     // their P·V has.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, L::kQKChunks * kQChunk);
-      for (int c = 0; c < L::kQKChunks; ++c)
-        tma_load(base + L::kQ + c * kQChunk, &tq, bar_q, 64 * c, h, q0, b);
+      mbar_expect_tx(bar_q, L::kQTile);
+      for (int c = 0; c < TQK::kChunks; ++c)
+        tma_load(base + L::kQ + c * L::kQChunk, &tq, bar_q, TQK::kCols * c,
+                 h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages;
-        const uint32_t reuse = ((i / kStages) & 1) ^ 1;
+        const int s = i % NS;
+        const uint32_t reuse = ((i / NS) & 1) ^ 1;
         const int k0 = (kt_begin + i) * kBN;
-        if (i >= kStages) mbar_wait(free_k + 8 * s, reuse);
+        if (i >= NS) mbar_wait(free_k + 8 * s, reuse);
         mbar_expect_tx(full_k + 8 * s, L::kKTile);
-        for (int c = 0; c < L::kQKChunks; ++c)
-          tma_load(base + L::kK + s * L::kKTile + c * kKVChunk, &tk,
-                   full_k + 8 * s, 64 * c, hk, k0, b);
-        if (i >= kStages) mbar_wait(free_v + 8 * s, reuse);
+        for (int c = 0; c < TQK::kChunks; ++c)
+          tma_load(base + L::kK + s * L::kKTile + c * L::kKChunk, &tk,
+                   full_k + 8 * s, TQK::kCols * c, hk, k0, b);
+        if (i >= NS) mbar_wait(free_v + 8 * s, reuse);
         mbar_expect_tx(full_v + 8 * s, L::kVTile);
-        for (int c = 0; c < L::kVChunks; ++c)
-          tma_load(base + L::kV + s * L::kVTile + c * kKVChunk, &tv,
-                   full_v + 8 * s, 64 * c, hk, k0, b);
+        for (int c = 0; c < TV::kChunks; ++c)
+          tma_load(base + L::kV + s * L::kVTile + c * L::kVChunk, &tv,
+                   full_v + 8 * s, TV::kCols * c, hk, k0, b);
       }
     }
     return;
@@ -735,7 +795,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rq0 = q0 + 64 * wg;                      // this group's rows
   const int row0 = rq0 + 16 * warp + lane / 4;       // and row0 + 8
   const int col0 = 2 * (lane % 4);                   // + 8j (+ 1)
-  const uint32_t q_smem = base + L::kQ + wg * 64 * 128;
+  const uint32_t q_smem = base + L::kQ + wg * 64 * TQK::kRowBytes;
+
+  // Ping-pong (kOwn): named barrier 1 + w is group w's turn to issue. A
+  // group takes its turn before it issues a tile's first products and
+  // passes it right after, so that one group's exponentials run while the
+  // other's products hold the tensor cores. Both groups walk the same K
+  // tiles and take one turn each, so the turns pair up; group 0 goes
+  // first (group 1 passes once up front), and group 1's last pass is
+  // never taken.
+  auto take_turn = [&]() {
+    if constexpr (kOwn)
+      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + wg), "n"(kConsumers)
+                   : "memory");
+  };
+  auto pass_turn = [&]() {
+    if constexpr (kOwn)
+      asm volatile("bar.arrive %0, %1;\n" :: "r"(2 - wg), "n"(kConsumers)
+                   : "memory");
+  };
+  if constexpr (kOwn)
+    if (wg == 1)
+      asm volatile("bar.arrive 1, %0;\n" :: "n"(kConsumers) : "memory");
 
   // Whether some (row, key) pair of this group and K tile t is masked:
   // false on a run of tiles between a masked prefix (window) and a masked
@@ -767,9 +848,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   };
   // K tile t's slot, and the parity of the phase that fills it.
-  auto slot = [&](int t) { return (t - kt_begin) % kStages; };
+  auto slot = [&](int t) { return (t - kt_begin) % NS; };
   auto parity = [&](int t) {
-    return uint32_t(((t - kt_begin) / kStages) & 1);
+    return uint32_t(((t - kt_begin) / NS) & 1);
   };
   // A masked tile, whole: S, softmax, P·V, then the remainder of P's
   // bf16 rounding, P - bf16(P), as a second bf16 product. On such a tile a
@@ -778,18 +859,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto masked_tile = [&](int t) {
     const int s = slot(t);
     mbar_wait(full_k + 8 * s, parity(t));
+    take_turn();
     issue_qk<DQK>(sc, q_smem, base + L::kK + s * L::kKTile);
+    pass_turn();
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(free_k + 8 * s);
-    softmax_tile(sc, m, l, alpha, true, t * kBN, row0, col0, a);
+    softmax_tile<kOwn>(sc, m, l, alpha, true, t * kBN, row0, col0, a);
     rescale();
     pack_p(pa, sc);
     const uint32_t v = base + L::kV + s * L::kVTile;
     mbar_wait(full_v + 8 * s, parity(t));
-    pv_sync<DP>(o, pa, v);
+    pv_sync<DV>(o, pa, v);
     pack_remainder(pa, sc);
-    pv_sync<DP>(o, pa, v);
+    pv_sync<DV>(o, pa, v);
     mbar_arrive(free_v + 8 * s);
   };
 
@@ -798,24 +881,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (run_begin < run_end) {
     int t = run_begin;
     mbar_wait(full_k + 8 * slot(t), parity(t));
+    take_turn();
     issue_qk<DQK>(sc, q_smem, base + L::kK + slot(t) * L::kKTile);
+    pass_turn();
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(free_k + 8 * slot(t));
-    softmax_tile(sc, m, l, alpha, false, t * kBN, row0, col0, a);
+    softmax_tile<kOwn>(sc, m, l, alpha, false, t * kBN, row0, col0, a);
     rescale();
     pack_p(pa, sc);
     for (++t; t < run_end; ++t) {
       const int s = slot(t), sp = slot(t - 1);
       mbar_wait(full_v + 8 * sp, parity(t - 1));    // (loaded before K_t)
       mbar_wait(full_k + 8 * s, parity(t));
+      take_turn();
       issue_qk<DQK>(sc, q_smem, base + L::kK + s * L::kKTile);
-      issue_pv<DP>(o, pa, base + L::kV + sp * L::kVTile);
+      issue_pv<DV>(o, pa, base + L::kV + sp * L::kVTile);
       wgmma_commit();
+      pass_turn();
       wgmma_wait<1>();                  // Q·Kᵀ done, P·V may run on
       fence_regs(sc);
       mbar_arrive(free_k + 8 * s);
-      softmax_tile(sc, m, l, alpha, false, t * kBN, row0, col0, a);
+      softmax_tile<kOwn>(sc, m, l, alpha, false, t * kBN, row0, col0, a);
       wgmma_wait<0>();
       fence_regs(o);
       mbar_arrive(free_v + 8 * sp);
@@ -824,7 +911,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const int sp = slot(run_end - 1);
     mbar_wait(full_v + 8 * sp, parity(run_end - 1));
-    pv_sync<DP>(o, pa, base + L::kV + sp * L::kVTile);
+    pv_sync<DV>(o, pa, base + L::kV + sp * L::kVTile);
     mbar_arrive(free_v + 8 * sp);
   }
   for (int t = run_end; t < kt_end; ++t) masked_tile(t);
@@ -874,7 +961,7 @@ template <int DQK, int DV>
 int launch_d(const CUtensorMap& mq, const CUtensorMap& mk,
              const CUtensorMap& mv, const Args& a, int B,
              cudaStream_t stream) {
-  const int smem = Smem<padded(DQK), padded(DV)>::kBytes;
+  const int smem = Smem<DQK, DV>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -969,6 +1056,21 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                          int causal, int window, int* variant, void* stream) {
   return dispatch(1, q, k, v, o, lse, strides, B, H, Hkv, Sq, Sk, D, Dv,
                   causal, window, variant, stream);
+}
+
+// Bytes of dynamic shared memory a flash_fwd_tc block of the pair (D, Dv)
+// takes (the launch's request, 1024 of it for alignment); -1 for a pair
+// outside the tc table. No launch: it reads the layout.
+int flash_attention_tc_smem(int D, int Dv) {
+  if (D == 96 && Dv == 64) return tc::Smem<96, 64>::kBytes;
+  if (D != Dv) return -1;
+  switch (D) {
+    case 16: return tc::Smem<16, 16>::kBytes;
+    case 32: return tc::Smem<32, 32>::kBytes;
+    case 64: return tc::Smem<64, 64>::kBytes;
+    case 128: return tc::Smem<128, 128>::kBytes;
+    default: return -1;
+  }
 }
 
 }  // extern "C"

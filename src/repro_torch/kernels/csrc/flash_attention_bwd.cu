@@ -38,7 +38,9 @@
 // and launch/flash_bwd_time.py, NVIDIA H100 80GB HBM3, power limit
 // 700 W, device time): the tc variant 0.106 ms at the training shape and
 // 2.12-2.14 ms at serve, SDPA's backward 0.12 and 1.51 ms; the first
-// port's SIMT kernels took 1.98-1.99 and 41.1-41.4 ms there.
+// port's SIMT kernels took 1.98-1.99 and 41.1-41.4 ms there. (96, 64):
+// 0.218-0.221 ms at MLA's training shape and 3.89-3.90 ms at its prefill
+// shape, SDPA's backward 0.193-0.194 and 3.30-3.33.
 //
 // Two variants, both on the tensor cores, chosen in one place
 // (variant_for, by dtype and D, the forward's rule; kernel_variant() in
@@ -48,19 +50,21 @@
 // tc: bf16 with D in {16, 32, 64, 96, 128} (D a multiple of wgmma's k16),
 // on the tensor cores (wgmma, TMA). The training path (bf16, D = 128;
 // MLA's (96, 64)) runs it. Each kernel is templated on (D, Dv): Q and K
-// tiles are D wide and V, O and dO tiles Dv wide, each rounded up to
-// whole 64-column TMA chunks whose columns past the width arrive as
-// zeros. At (96, 64) Q and K take two chunks (the second half zero, never
-// read by Sᵀ = K·Qᵀ's 6 k16 steps), V and dO one (dPᵀ = V·dOᵀ, 4 steps);
-// dV += Pᵀ·dO is n64. dK += dSᵀ·Q and dQ += dS·K run n128 over Q's and
-// K's zero half: wgmma's MN-major B in the 128-byte swizzle comes in
-// whole 64-column atoms, so n96 does not lay out. That multiplies 32
-// zero columns (12D + 8Dv + 256 = 1920 FLOP a pair issued against the
-// design's 1664), and the epilogues store columns below D only.
+// tiles are D wide and V, O and dO tiles Dv wide, in column chunks
+// (tc_common.cuh, Tile): 64 columns in the 128-byte swizzle, D < 64
+// zero-padded to one chunk; at MLA's D = 96 three 32-column chunks in the
+// 64-byte swizzle, so that no product runs over a column of zeros: Sᵀ =
+// K·Qᵀ walks the three chunks in 6 k16 steps, dPᵀ = V·dOᵀ takes 4, dV +=
+// Pᵀ·dO is n64, and dK += dSᵀ·Q and dQ += dS·K are n96 (MN-major B in
+// the 64-byte swizzle, chunk after chunk along n). Issued: 12D + 8Dv =
+// 1664 FLOP a pair, the design's.
 // - flash_bwd_prep: one warp per row writes lse·log2(e) and
 //   Δ = rowsum(dO ⊙ O) over Dv into an f32 scratch of (B, H, Sq) rows
 //   padded to 128 (zeros past Sq), so that a tile's 64 rows are one
-//   256-byte bulk copy from an aligned address.
+//   256-byte bulk copy from an aligned address. At (96, 64)
+//   flash_bwd_prep_rows writes the same with a row in Dv/8 lanes, 16-byte
+//   loads (one warp a row, half its lanes idle, took three times its
+//   bytes' time at MLA's training shape).
 // - flash_bwd_dkdv_tc: one block of 384 threads per (64-key tile, KV
 //   head g, batch): a producer warpgroup (24 registers, setmaxnreg) whose
 //   one thread issues the TMA loads, and two consumer warpgroups (240).
@@ -76,28 +80,46 @@
 //                                in shared memory (SS), D/16 steps;
 //     Pᵀ = exp2(Sᵀ·scale·log2e − lse·log2e), 0 where masked;
 //     dSᵀ = Pᵀ ⊙ (dPᵀ − Δ);
-//     dV += Pᵀ·dO, dK += dSᵀ·Q    wgmma m64n{64,128}k16, A from registers
-//                                (the accumulator's layout is the A
-//                                fragment's), B = dO or Q MN-major
+//     dV += Pᵀ·dO, dK += dSᵀ·Q    wgmma m64n{64,96,128}k16, A from
+//                                registers (the accumulator's layout is
+//                                the A fragment's), B = dO or Q MN-major
 //                                (transpose bit), 4 steps.
 //   dK and dV stay in registers (each element has one writer: no
 //   atomics); dK is scaled at the store, bf16 pairs into the strided
 //   outputs. Shared memory: 163 KB at D = 128 (D <= 64 pads to 64: 83
-//   KB; (96, 64): 123 KB), one block per SM. Key tiles vary slowest in the launch order, so
+//   KB), one block per SM. Key tiles vary slowest in the launch order, so
 //   the longest causal blocks (the first keys) start first: at the
 //   training shape (B=2, Hkv=8, S=1024) the 256 blocks are two waves, and
 //   with 128-key blocks (both groups on one tile) the first key tile's
 //   block alone set the kernel's time (its 32 tiles against a mean of
 //   18).
+//   At (96, 64) the block is 128 keys and group w takes keys 64w.. of
+//   them on every query tile (K 24 KB + V 16 KB + 4 stages of 20.5 KB:
+//   123 KB): half the blocks, each Q and dO tile read once for 128 keys,
+//   no reduction at the end (each group stores its own keys). Key blocks
+//   vary fastest in the launch order, first keys first, so that the
+//   blocks of one (b, g) run together and read its Q and dO from L2:
+//   with them slowest the blocks in flight belonged to as many heads as
+//   SMs, and each re-read its head's Q and dO from device memory (6.7 GB
+//   a call at MLA's prefill shape, where that bound the kernel). A
+//   group's dV and dK products of tile i and its Sᵀ and dPᵀ of tile i + 1
+//   go to the tensor cores as one run, the k16 steps of each pair
+//   alternating between their two accumulators, and the two groups take
+//   turns to issue (ping-pong, named barriers): without turns they fall
+//   into step, both on the tensor cores and then both on their
+//   exponentials.
 // - flash_bwd_dq_tc: one block per (128-row query tile, query head,
 //   batch), query tiles slowest in the launch order and last first, so
 //   the long causal rows start early: the same three warpgroups, Q and dO
 //   resident, 128-key K and V
 //   tiles through a ring of two stages, lse and Δ of the thread's two
-//   rows in registers (193 KB of shared memory at D = 128, 145 KB at
+//   rows in registers (193 KB of shared memory at D = 128; 121 KB at
 //   (96, 64)). Per key tile:
 //   S = Q·Kᵀ and dP = dO·Vᵀ (SS, n128), P and dS in registers,
-//   dQ += dS·K (RS, K MN-major). It recomputes S and dP rather than
+//   dQ += dS·K (RS, K MN-major, n = D). At (96, 64) query tiles vary
+//   fastest (last first: the blocks of one (b, h) share its K and V in
+//   L2), and the groups take turns to issue S and dP, then dQ. It
+//   recomputes S and dP rather than
 //   accumulate dQ by atomics in the dK/dV kernel: 3.5x the forward's FLOP
 //   instead of 2.5x, but each dQ element has one writer and the result is
 //   bit-reproducible (chip_smoke.py phase 23 requires autograd through
@@ -121,7 +143,7 @@
 // flight across a branch, and each D has its own instantiation (ptxas
 // would serialise the wgmmas otherwise).
 // Registers: a dK/dV consumer thread holds dK and dV (128 f32 at
-// D = 128, 96 at (96, 64)) and Pᵀ and dSᵀ (64), at the 240 that
+// D = 128, 80 at (96, 64)) and Pᵀ and dSᵀ (64), at the 240 that
 // setmaxnreg gives it, so
 // its loop carries one counter, and dK's products are issued with dV's
 // (issued while dV's ran, ptxas serialised them). ptxas reports 0 spills
@@ -776,29 +798,30 @@ constexpr int kRows = 64;                // dK/dV block: query rows a tile
 constexpr int kRowStages = 4;            // dK/dV block: Q/dO ring, 2 a group
 constexpr int kQRows = 128;              // dQ block: query rows, 2 x 64
 constexpr int kQKeys = 128;              // dQ block: keys a tile
-constexpr int kKeyStages = 2;            // dQ block: K/V ring depth
 constexpr int kRowPad = 128;             // scratch rows: Sq rounded up
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A head dim padded to whole 64-column chunks (at least one).
-__host__ __device__ constexpr int padded(int d) {
-  return d < 64 ? 64 : (d + 63) / 64 * 64;
-}
-
 // Shared memory of the dK/dV block, in bytes from a 1024-aligned base. A
-// tile of R rows is DP/64 chunks of [R rows][64 bf16] at 128 bytes a row,
-// each chunk in TMA's 128-byte swizzle (the layout the wgmma descriptors
-// read). K and Q have DPQK columns, V and dO DPV (MLA: 128 and 64).
-template <int DPQK, int DPV>
+// tile of R rows is Tile<D>::kChunks chunks of [R rows][kCols bf16], each
+// in TMA's swizzle of its row width (the layout the wgmma descriptors
+// read). K and Q are D wide (MLA's 96: three 32-column chunks, no column
+// of zeros), V and dO DV (zero-padded to 64 below it).
+template <int D, int DV>
 struct SmemKV {
-  static constexpr int kQKChunks = DPQK / 64;
-  static constexpr int kVChunks = DPV / 64;
-  static constexpr int kKVChunk = kKeys * 128;
-  static constexpr int kRowChunk = kRows * 128;
-  static constexpr int kKT = kQKChunks * kKVChunk;      // the K tile
-  static constexpr int kVT = kVChunks * kKVChunk;       // the V tile
-  static constexpr int kQT = kQKChunks * kRowChunk;     // one Q tile
-  static constexpr int kDOT = kVChunks * kRowChunk;     // one dO tile
+  using TQK = Tile<D>;
+  using TV = Tile<DV>;
+  // Keys a block: 64 (both groups on them, every other query tile each),
+  // 128 at (96, 64) (64 a group, every query tile: half the blocks, and
+  // each Q and dO tile read once for 128 keys).
+  static constexpr int kBlockKeys = TQK::kCols == 32 ? 2 * kKeys : kKeys;
+  static constexpr int kKChunk = kBlockKeys * TQK::kRowBytes;
+  static constexpr int kVChunk = kBlockKeys * TV::kRowBytes;
+  static constexpr int kQChunk = kRows * TQK::kRowBytes;
+  static constexpr int kDOChunk = kRows * TV::kRowBytes;
+  static constexpr int kKT = TQK::kChunks * kKChunk;    // the K tile
+  static constexpr int kVT = TV::kChunks * kVChunk;     // the V tile
+  static constexpr int kQT = TQK::kChunks * kQChunk;    // one Q tile
+  static constexpr int kDOT = TV::kChunks * kDOChunk;   // one dO tile
   static constexpr int kStat = 2 * kRows * 4;           // lse·log2e, Δ
   static constexpr int kK = 0;
   static constexpr int kV = kK + kKT;
@@ -808,27 +831,32 @@ struct SmemKV {
   static constexpr int kBar = kStats + kRowStages * kStat;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kRowStages) + 1024;
   // Group 1's dK and dV pass to group 0 through the Q stages.
-  static_assert((DPQK + DPV) / 2 * 4 * kGroup <= kRowStages * kQT,
+  static_assert((TQK::kWidth + TV::kWidth) / 2 * 4 * kGroup <=
+                    kRowStages * kQT,
                 "the dK/dV reduction does not fit the Q stages");
 };
 
-// Shared memory of the dQ block.
-template <int DPQK, int DPV>
+// Shared memory of the dQ block: Q and dO resident, a ring of two K/V
+// tiles (193 KB at D = 128).
+template <int D, int DV>
 struct SmemQ {
-  static constexpr int kQKChunks = DPQK / 64;
-  static constexpr int kVChunks = DPV / 64;
-  static constexpr int kRowChunk = kQRows * 128;
-  static constexpr int kKeyChunk = kQKeys * 128;
-  static constexpr int kQT = kQKChunks * kRowChunk;     // the Q tile
-  static constexpr int kDOT = kVChunks * kRowChunk;     // the dO tile
-  static constexpr int kKT = kQKChunks * kKeyChunk;     // one K tile
-  static constexpr int kVT = kVChunks * kKeyChunk;      // one V tile
+  using TQK = Tile<D>;
+  using TV = Tile<DV>;
+  static constexpr int kStages = 2;
+  static constexpr int kQChunk = kQRows * TQK::kRowBytes;
+  static constexpr int kDOChunk = kQRows * TV::kRowBytes;
+  static constexpr int kKChunk = kQKeys * TQK::kRowBytes;
+  static constexpr int kVChunk = kQKeys * TV::kRowBytes;
+  static constexpr int kQT = TQK::kChunks * kQChunk;    // the Q tile
+  static constexpr int kDOT = TV::kChunks * kDOChunk;   // the dO tile
+  static constexpr int kKT = TQK::kChunks * kKChunk;    // one K tile
+  static constexpr int kVT = TV::kChunks * kVChunk;     // one V tile
   static constexpr int kQ = 0;
   static constexpr int kDO = kQ + kQT;
-  static constexpr int kK = kDO + kDOT;                 // kKeyStages each
-  static constexpr int kV = kK + kKeyStages * kKT;
-  static constexpr int kBar = kV + kKeyStages * kVT;
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * kKeyStages) + 1024;
+  static constexpr int kK = kDO + kDOT;                 // kStages each
+  static constexpr int kV = kK + kStages * kKT;
+  static constexpr int kBar = kV + kStages * kVT;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
 struct Args {
@@ -881,6 +909,24 @@ __device__ __forceinline__ void st_shared(uint32_t addr, float x) {
                : "memory");
 }
 
+// Ping-pong of the two consumer groups (group w = 0, 1): named barrier 2
+// + w is group w's turn to issue its products. A group takes its turn
+// before it issues and passes it to the other right after, so that one
+// group's exponentials run while the other's products hold the tensor
+// cores (without turns the groups fall into step: both issue, both wait,
+// both compute). The groups' turns must pair up: group 1 passes once up
+// front so that group 0 goes first, and a last pass may go untaken.
+// (Barrier 1 is the dK/dV reduction's.)
+__device__ __forceinline__ void take_turn(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(2 + wg) : "memory");
+}
+__device__ __forceinline__ void pass_turn(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(3 - wg) : "memory");
+}
+__device__ __forceinline__ void first_turn(int wg) {
+  if (wg == 1) asm volatile("bar.arrive 2, 256;\n" ::: "memory");
+}
+
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared
 // memory (descriptors), accumulate iff `accumulate`.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -903,35 +949,78 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// acc = A·Bᵀ over D (D/16 k16 steps): A this group's 64 rows, B a tile of
-// N = 2·|acc| rows, both K-major in shared memory in 64-column chunks
-// `a_chunk` / `b_chunk` bytes apart. Fenced, issued and committed; not
-// waited for.
+// One k16 step kk of acc (+)= A·Bᵀ over D: A this group's 64 rows, B a
+// tile of N = 2·|acc| rows, both K-major in shared memory in Tile<D>'s
+// chunks, `a_chunk` / `b_chunk` bytes apart; accumulate from kk = 1 on.
+template <int D, int N>
+__device__ __forceinline__ void ss_step(float (&acc)[N / 2], uint32_t a,
+                                        int a_chunk, uint32_t b, int b_chunk,
+                                        int kk) {
+  using T = Tile<D>;
+  const uint64_t da = T::k_major(a, a_chunk, kk);
+  const uint64_t db = T::k_major(b, b_chunk, kk);
+  if constexpr (N == 128)
+    wgmma_ss_n128(acc, da, db, kk > 0);
+  else
+    wgmma_ss_n64(acc, da, db, kk > 0);
+}
+
+// acc = A·Bᵀ over D (D/16 k16 steps, ss_step). Fenced, issued and
+// committed; not waited for.
 template <int D, int N>
 __device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a,
                                          int a_chunk, uint32_t b,
                                          int b_chunk) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;         // k16 step in a chunk
-    const uint64_t da = desc(a + (kk / 4) * a_chunk + off, 16, 1024);
-    const uint64_t db = desc(b + (kk / 4) * b_chunk + off, 16, 1024);
-    if constexpr (N == 128)
-      wgmma_ss_n128(acc, da, db, kk > 0);
-    else
-      wgmma_ss_n64(acc, da, db, kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk)
+    ss_step<D, N>(acc, a, a_chunk, b, b_chunk, kk);
+  wgmma_commit();
+}
+
+// Two such products as one group, their k16 steps alternating (two
+// accumulators, so that neither's chain of dependent wgmmas waits on
+// itself alone); each sum in issue_ss's order.
+template <int D0, int D1, int N>
+__device__ __forceinline__ void issue_ss2(float (&acc0)[N / 2], uint32_t a0,
+                                          int a0_chunk, uint32_t b0,
+                                          int b0_chunk, float (&acc1)[N / 2],
+                                          uint32_t a1, int a1_chunk,
+                                          uint32_t b1, int b1_chunk) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < (D0 > D1 ? D0 : D1) / 16; ++kk) {
+    if (kk < D0 / 16) ss_step<D0, N>(acc0, a0, a0_chunk, b0, b0_chunk, kk);
+    if (kk < D1 / 16) ss_step<D1, N>(acc1, a1, a1_chunk, b1, b1_chunk, kk);
   }
   wgmma_commit();
 }
 
-// acc += (hi + lo)·B over 16·KS rows of B: A as the bf16 fragments hi,
-// then lo (4 registers per k16 step), B MN-major in shared memory (KS
-// blocks of 16 rows of 128 bytes in each 64-column chunk, chunks `b_chunk`
-// bytes apart; transpose bit). Fenced, issued and committed as one group;
-// not waited for.
-template <int DP, int KS>
-__device__ __forceinline__ void issue_rs(float (&acc)[DP / 2],
+// One k16 step kk of acc += A·B: A the bf16 fragments f[4kk .. 4kk + 3],
+// B rows 16kk.. of a tile MN-major in shared memory over Tile<W>'s kWidth
+// columns (its chunks `b_chunk` bytes apart; transpose bit): n64, n96
+// (MLA's q and k, three 32-column chunks) or n128.
+template <int W, int R>
+__device__ __forceinline__ void rs_step(float (&acc)[Tile<W>::kWidth / 2],
+                                        const uint32_t (&f)[R], uint32_t b,
+                                        int b_chunk, int kk) {
+  using T = Tile<W>;
+  const uint64_t db = T::mn_major(b, b_chunk, kk);
+  if constexpr (T::kWidth == 128)
+    wgmma_rs_n128(acc, f[4 * kk], f[4 * kk + 1], f[4 * kk + 2],
+                  f[4 * kk + 3], db);
+  else if constexpr (T::kWidth == 96)
+    wgmma_rs_n96(acc, f[4 * kk], f[4 * kk + 1], f[4 * kk + 2],
+                 f[4 * kk + 3], db);
+  else
+    wgmma_rs_n64(acc, f[4 * kk], f[4 * kk + 1], f[4 * kk + 2],
+                 f[4 * kk + 3], db);
+}
+
+// acc += (hi + lo)·B over 16·KS rows of B (rs_step): hi's steps, then
+// lo's. Fenced, issued and committed as one group; not waited for.
+template <int W, int KS>
+__device__ __forceinline__ void issue_rs(float (&acc)[Tile<W>::kWidth / 2],
                                          uint32_t (&hi)[4 * KS],
                                          uint32_t (&lo)[4 * KS],
                                          uint32_t b, int b_chunk) {
@@ -939,20 +1028,38 @@ __device__ __forceinline__ void issue_rs(float (&acc)[DP / 2],
   fence_regs(hi);
   fence_regs(lo);
   wgmma_fence();
-  auto part = [&](uint32_t (&f)[4 * KS]) {
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint64_t db = desc(b + kk * 16 * 128, b_chunk, 1024);
-      if constexpr (DP == 128)
-        wgmma_rs_n128(acc, f[4 * kk], f[4 * kk + 1], f[4 * kk + 2],
-                      f[4 * kk + 3], db);
-      else
-        wgmma_rs_n64(acc, f[4 * kk], f[4 * kk + 1], f[4 * kk + 2],
-                     f[4 * kk + 3], db);
-    }
-  };
-  part(hi);
-  part(lo);
+  for (int kk = 0; kk < KS; ++kk) rs_step<W>(acc, hi, b, b_chunk, kk);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) rs_step<W>(acc, lo, b, b_chunk, kk);
+  wgmma_commit();
+}
+
+// Two such products as one group, their k16 steps alternating (as
+// issue_ss2); each sum in issue_rs's order.
+template <int W0, int W1, int KS>
+__device__ __forceinline__ void issue_rs2(
+    float (&acc0)[Tile<W0>::kWidth / 2], uint32_t (&hi0)[4 * KS],
+    uint32_t (&lo0)[4 * KS], uint32_t b0, int b0_chunk,
+    float (&acc1)[Tile<W1>::kWidth / 2], uint32_t (&hi1)[4 * KS],
+    uint32_t (&lo1)[4 * KS], uint32_t b1, int b1_chunk) {
+  fence_regs(acc0);
+  fence_regs(hi0);
+  fence_regs(lo0);
+  fence_regs(acc1);
+  fence_regs(hi1);
+  fence_regs(lo1);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    rs_step<W0>(acc0, hi0, b0, b0_chunk, kk);
+    rs_step<W1>(acc1, hi1, b1, b1_chunk, kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    rs_step<W0>(acc0, lo0, b0, b0_chunk, kk);
+    rs_step<W1>(acc1, lo1, b1, b1_chunk, kk);
+  }
   wgmma_commit();
 }
 
@@ -1009,17 +1116,61 @@ __global__ void flash_bwd_prep(PrepArgs p) {
   }
 }
 
+// flash_bwd_prep's outputs for MLA's (96, 64): a row in DV/8 lanes, each
+// one 16-byte load of o and of dO, the row's sum over its lanes by xor
+// shuffles (a fixed order). One warp a row, 16 of its lanes loading 8
+// bytes at DV = 64, took three times its bytes' time at MLA's training
+// shape; flash_bwd_prep stays as it is for the (D, D) pairs.
+template <int DV>
+__global__ void flash_bwd_prep_rows(PrepArgs p) {
+  constexpr int kLanes = DV / 8;                 // lanes a row
+  static_assert(DV % 8 == 0 && 32 % kLanes == 0, "a row in whole lanes");
+  const int64_t row =
+      (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / kLanes;
+  const int c = threadIdx.x % kLanes;            // the lane's 8 columns
+  float acc = 0.f, l2 = 0.f;
+  if (row < p.rows) {
+    const int s = int(row % p.SqPad);
+    const int64_t bh = row / p.SqPad;
+    const int h = int(bh % p.H), b = int(bh / p.H);
+    if (s < p.Sq) {
+      const uint4 x = reinterpret_cast<const uint4*>(
+          p.o + b * p.o_sb + h * p.o_sh + s * p.o_ss)[c];
+      const uint4 y = reinterpret_cast<const uint4*>(
+          p.dout + b * p.do_sb + h * p.do_sh + s * p.do_ss)[c];
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 xo = unpack_bf16(xs[i]), yo = unpack_bf16(ys[i]);
+        acc = fmaf(yo.x, xo.x, acc);
+        acc = fmaf(yo.y, xo.y, acc);
+      }
+      l2 = p.lse[bh * p.Sq + s] * kLog2e;
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < p.rows && c == 0) {
+    p.delta[row] = acc;
+    p.lse2[row] = l2;
+  }
+}
+
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, Args a) {
-  // Widths zero-padded to 64-column chunks: dK's (the n of dSᵀ·Q) is
-  // DPQK, 128 for D = 96 (n96 has no 128-byte-swizzled MN-major layout:
-  // the zero half is multiplied, never stored), dV's DPV.
-  constexpr int DPQK = padded(D), DPV = padded(DV);
-  using L = SmemKV<DPQK, DPV>;
+  // dK's columns (the n of dSᵀ·Q) DPQK: D, 96 at MLA's pair (three
+  // 32-column chunks, an n96 product: no column of zeros); below 64 the
+  // zero-padded chunk's 64, never stored. dV's DPV likewise.
+  using L = SmemKV<D, DV>;
+  using TQK = typename L::TQK;
+  using TV = typename L::TV;
+  constexpr int DPQK = TQK::kWidth, DPV = TV::kWidth;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // mbarriers: K and V loaded; per stage Q, dO, lse, Δ loaded and free.
@@ -1027,23 +1178,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t full = bar_kv + 8, empty = full + 8 * kRowStages;
 
   // Key blocks vary slowest in the launch order, so the blocks whose keys
-  // most query rows see (causal: the first) start first.
-  const int k0 = blockIdx.z * kKeys;
-  const int g = blockIdx.x, b = blockIdx.y;
+  // most query rows see (causal: the first) start first. At (96, 64)
+  // (kOwn) they vary fastest, first keys first: the blocks of one (b, g)
+  // run together and read its Q and dO tiles from L2. With them slowest
+  // the blocks in flight belong to ~132 heads, and each 64-key block
+  // read its head's Q and dO from device memory (6.7 GB a call at MLA's
+  // prefill shape: the kernel was bound by those bytes).
+  constexpr bool kOwn = TQK::kCols == 32;
+  constexpr int KB = L::kBlockKeys;
+  const int k0 = (kOwn ? blockIdx.x : blockIdx.z) * KB;
+  const int g = kOwn ? blockIdx.y : blockIdx.x;
+  const int b = kOwn ? blockIdx.z : blockIdx.y;
   const int G = a.H / a.Hkv;
   // Query tiles that can see a key of this block: causal, rows >= k0;
-  // window, rows <= k0 + kKeys - 2 + W.
+  // window, rows <= k0 + KB - 2 + W.
   const int nq = (a.Sq + kRows - 1) / kRows;
   const int qt_begin = a.causal ? min(k0 / kRows, nq) : 0;
   int qt_end = nq;
   if (a.window > 0)
-    qt_end = min(nq, (k0 + kKeys - 2 + a.window) / kRows + 1);
+    qt_end = min(nq, (k0 + KB - 2 + a.window) / kRows + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
     for (int s = 0; s < kRowStages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kGroup);
+      mbar_init(empty + 8 * s, kOwn ? kConsumers : kGroup);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1051,16 +1210,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x < 128) {
     // Producer warpgroup: one thread keeps the TMA loads in flight; a
-    // stage is refilled once the group that took its tile is done.
+    // stage is refilled once the group that took its tile is done (at
+    // (96, 64) both groups take every tile).
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_kv, L::kKT + L::kVT);
-      for (int c = 0; c < L::kQKChunks; ++c)
-        tma_load(base + L::kK + c * L::kKVChunk, &tk, bar_kv, 64 * c, g, k0,
-                 b);
-      for (int c = 0; c < L::kVChunks; ++c)
-        tma_load(base + L::kV + c * L::kKVChunk, &tv, bar_kv, 64 * c, g, k0,
-                 b);
+      for (int c = 0; c < TQK::kChunks; ++c)
+        tma_load(base + L::kK + c * L::kKChunk, &tk, bar_kv, TQK::kCols * c,
+                 g, k0, b);
+      for (int c = 0; c < TV::kChunks; ++c)
+        tma_load(base + L::kV + c * L::kVChunk, &tv, bar_kv, TV::kCols * c,
+                 g, k0, b);
       // Tile i = (head g·G + r, query tile qt) goes to stage s; its
       // refill waits for the phase `parity` of the stage's free barrier.
       int s = 0;
@@ -1074,12 +1234,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (i >= kRowStages) mbar_wait(empty + 8 * s, parity);
           const uint32_t bar = full + 8 * s;
           mbar_expect_tx(bar, L::kQT + L::kDOT + L::kStat);
-          for (int c = 0; c < L::kQKChunks; ++c)
-            tma_load(base + L::kQ + s * L::kQT + c * L::kRowChunk, &tq,
-                     bar, 64 * c, h, q0, b);
-          for (int c = 0; c < L::kVChunks; ++c)
-            tma_load(base + L::kDO + s * L::kDOT + c * L::kRowChunk, &tdo,
-                     bar, 64 * c, h, q0, b);
+          for (int c = 0; c < TQK::kChunks; ++c)
+            tma_load(base + L::kQ + s * L::kQT + c * L::kQChunk, &tq, bar,
+                     TQK::kCols * c, h, q0, b);
+          for (int c = 0; c < TV::kChunks; ++c)
+            tma_load(base + L::kDO + s * L::kDOT + c * L::kDOChunk, &tdo,
+                     bar, TV::kCols * c, h, q0, b);
           const uint32_t stats = base + L::kStats + s * L::kStat;
           bulk_load(stats, lse2 + q0, kRows * 4, bar);
           bulk_load(stats + kRows * 4, dlt + q0, kRows * 4, bar);
@@ -1094,14 +1254,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // Consumer warpgroups: both take the block's 64 keys, group w the
-  // tiles i = w, w + 2, ... (stages w and w + 2 of the ring).
+  // tiles i = w, w + 2, ... (stages w and w + 2 of the ring); at (96, 64)
+  // group w takes keys kg0 = k0 + 64w of the block's 128, every tile.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int wg = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  const int key0 = k0 + 16 * warp + lane / 4;        // and key0 + 8
+  const int kg0 = kOwn ? k0 + kKeys * wg : k0;        // this group's keys
+  const int key0 = kg0 + 16 * warp + lane / 4;       // and key0 + 8
   const int col0 = 2 * (lane % 4);                   // rows q0 + 8j + col0
-  const uint32_t k_smem = base + L::kK;
-  const uint32_t v_smem = base + L::kV;
+  const uint32_t k_smem =
+      base + L::kK + (kOwn ? wg * kKeys * TQK::kRowBytes : 0);
+  const uint32_t v_smem =
+      base + L::kV + (kOwn ? wg * kKeys * TV::kRowBytes : 0);
   const float sl2 = a.scale * kLog2e;
 
   float dk[DPQK / 2], dv[DPV / 2];
@@ -1112,19 +1276,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   float st[kRows / 2], dpt[kRows / 2];   // Sᵀ, dPᵀ: 64 keys x 64 rows
   uint32_t ph[kRows / 4], pl[kRows / 4], sh[kRows / 4], sl[kRows / 4];
 
-  // One query tile; `masked` (a std::bool_constant) says whether some
-  // (row, key) pair of it is masked for this group.
-  auto tile = [&](auto masked, int q0, uint32_t q_s, uint32_t do_s,
-                  uint32_t lse2, uint32_t dlt) {
+  // Pᵀ from Sᵀ in place: st[4j + e] is key key0 + 8 (e / 2), row q0 + 8j
+  // + col0 + e % 2; `masked` (a std::bool_constant) says whether some
+  // (row, key) pair of the tile is masked for this group.
+  auto probs = [&](auto masked, int q0, uint32_t lse2) {
     constexpr bool kMasked = decltype(masked)::value;
-    issue_ss<D, kRows>(st, k_smem, L::kKVChunk, q_s, L::kRowChunk);
-    issue_ss<DV, kRows>(dpt, v_smem, L::kKVChunk, do_s, L::kRowChunk);
-    if constexpr (kMasked)
-      wgmma_wait<0>();
-    else
-      wgmma_wait<1>();                   // Sᵀ done, dPᵀ may run on
-    fence_regs(st);
-    // Pᵀ: st[4j + e] is key key0 + 8 (e / 2), row q0 + 8j + col0 + e % 2.
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j) {
 #pragma unroll
@@ -1142,8 +1298,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         st[4 * j + e] = p;
       }
     }
-    if constexpr (!kMasked) wgmma_wait<0>();
-    fence_regs(dpt);
+  };
+  // dSᵀ = Pᵀ ⊙ (dPᵀ − Δ) in place, then both as hi + lo fragments.
+  auto grads = [&](uint32_t dlt) {
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j)
 #pragma unroll
@@ -1153,8 +1310,24 @@ __global__ void __launch_bounds__(kThreads, 1)
             (dpt[4 * j + e] - ld_shared(dlt + 4 * (8 * j + col0 + (e & 1))));
     split_bf16(ph, pl, st);
     split_bf16(sh, sl, dpt);
-    issue_rs<DPV, kRows / 16>(dv, ph, pl, do_s, L::kRowChunk);
-    issue_rs<DPQK, kRows / 16>(dk, sh, sl, q_s, L::kRowChunk);
+  };
+  // One query tile, whole.
+  auto tile = [&](auto masked, int q0, uint32_t q_s, uint32_t do_s,
+                  uint32_t lse2, uint32_t dlt) {
+    constexpr bool kMasked = decltype(masked)::value;
+    issue_ss<D, kRows>(st, k_smem, L::kKChunk, q_s, L::kQChunk);
+    issue_ss<DV, kRows>(dpt, v_smem, L::kVChunk, do_s, L::kDOChunk);
+    if constexpr (kMasked)
+      wgmma_wait<0>();
+    else
+      wgmma_wait<1>();                   // Sᵀ done, dPᵀ may run on
+    fence_regs(st);
+    probs(masked, q0, lse2);
+    if constexpr (!kMasked) wgmma_wait<0>();
+    fence_regs(dpt);
+    grads(dlt);
+    issue_rs<DV, kRows / 16>(dv, ph, pl, do_s, L::kDOChunk);
+    issue_rs<D, kRows / 16>(dk, sh, sl, q_s, L::kQChunk);
     wgmma_wait<0>();
     fence_regs(dv);
     fence_regs(dk);
@@ -1166,26 +1339,79 @@ __global__ void __launch_bounds__(kThreads, 1)
   // group's registers are at their limit).
   const int per_head = max(qt_end - qt_begin, 0);
   const int n_tiles = G * per_head;
+  auto edge_tile = [&](int q0) {
+    return kg0 + kKeys > a.Sk || q0 + kRows > a.Sq ||
+           (a.causal && q0 < kg0 + kKeys - 1) ||
+           (a.window > 0 && q0 + kRows - 1 - kg0 >= a.window);
+  };
+  if constexpr (kOwn) {
+    // (96, 64), whose dK and dV leave registers to spare: both groups walk
+    // every tile, each on its 64 keys. Tile i's dV and dK products and
+    // tile i + 1's Sᵀ and dPᵀ go to the tensor cores as one run, their
+    // k16 steps alternating between the two accumulators of each pair
+    // (past the last tile, Sᵀ and dPᵀ of its own stage again, never
+    // read), in the group's turn (ping-pong: the other group's
+    // exponentials meanwhile). A group whose keys a tile cannot see (the
+    // causal diagonal's first tile for group 1) computes P = 0 there. No
+    // wgmma is in flight across a branch.
+    auto issue_s = [&](int s) {
+      issue_ss2<D, DV, kRows>(st, k_smem, L::kKChunk,
+                              base + L::kQ + s * L::kQT, L::kQChunk, dpt,
+                              v_smem, L::kVChunk,
+                              base + L::kDO + s * L::kDOT, L::kDOChunk);
+    };
+    first_turn(wg);
+    if (n_tiles > 0) {
+      mbar_wait(full, 0);
+      issue_s(0);
+      wgmma_wait<0>();
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      fence_regs(st);
+      fence_regs(dpt);
+      const int s = i % kRowStages;
+      const int q0 = (qt_begin + i % per_head) * kRows;
+      const uint32_t lse2 = base + L::kStats + s * L::kStat;
+      if (edge_tile(q0))
+        probs(std::true_type{}, q0, lse2);
+      else
+        probs(std::false_type{}, q0, lse2);
+      grads(lse2 + 4 * kRows);
+      const bool more = i + 1 < n_tiles;
+      const int s2 = more ? (i + 1) % kRowStages : s;
+      if (more) mbar_wait(full + 8 * s2, ((i + 1) / kRowStages) & 1);
+      take_turn(wg);
+      issue_rs2<DV, D, kRows / 16>(dv, ph, pl, base + L::kDO + s * L::kDOT,
+                                   L::kDOChunk, dk, sh, sl,
+                                   base + L::kQ + s * L::kQT, L::kQChunk);
+      issue_s(s2);
+      pass_turn(wg);
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(empty + 8 * s);
+    }
+  } else {
   for (int i = wg; i < n_tiles; i += 2) {
     const int s = i % kRowStages;
     const int q0 = (qt_begin + i % per_head) * kRows;
     const uint32_t q_s = base + L::kQ + s * L::kQT;
     const uint32_t do_s = base + L::kDO + s * L::kDOT;
     const uint32_t lse2 = base + L::kStats + s * L::kStat;
-    const bool edge = k0 + kKeys > a.Sk || q0 + kRows > a.Sq ||
-                      (a.causal && q0 < k0 + kKeys - 1) ||
-                      (a.window > 0 && q0 + kRows - 1 - k0 >= a.window);
     mbar_wait(full + 8 * s, (i / kRowStages) & 1);
-    if (edge)
+    if (edge_tile(q0))
       tile(std::true_type{}, q0, q_s, do_s, lse2, lse2 + 4 * kRows);
     else
       tile(std::false_type{}, q0, q_s, do_s, lse2, lse2 + 4 * kRows);
     mbar_arrive(empty + 8 * s);
   }
+  }
 
   // Group 1's partial dK and dV into group 0's, through shared memory
   // (the Q stages, free once both groups are done), element r of thread t
-  // at [r][t]; a fixed order, so the sum is reproducible.
+  // at [r][t]; a fixed order, so the sum is reproducible. At (96, 64)
+  // each group stores its own keys.
+  if constexpr (!kOwn) {
   const uint32_t red = base + L::kQ + 4 * tid;
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
   if (wg == 1) {
@@ -1203,6 +1429,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int r = 0; r < DPV / 2; ++r)
     dv[r] += ld_shared(red + (DPQK / 2 + r) * 4 * kGroup);
+  }
 
   // This thread's two keys, bf16 pairs: dK's columns < D, dV's < DV.
   __nv_bfloat16* dK =
@@ -1235,20 +1462,26 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Args a) {
-  // dQ's n (of dS·K) is DPQK: 128 for D = 96, as dK's.
-  constexpr int DPQK = padded(D), DPV = padded(DV);
-  using L = SmemQ<DPQK, DPV>;
+  // dQ's n (of dS·K) is DPQK: 96 for D = 96, as dK's.
+  using L = SmemQ<D, DV>;
+  using TQK = typename L::TQK;
+  using TV = typename L::TV;
+  constexpr int DPQK = TQK::kWidth, NS = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // mbarriers: Q and dO loaded; per stage K and V loaded and free.
   const uint32_t bar_q = base + L::kBar;
-  const uint32_t full = bar_q + 8, empty = full + 8 * kKeyStages;
+  const uint32_t full = bar_q + 8, empty = full + 8 * NS;
 
   // Query tiles vary slowest in the launch order, last first, so the long
-  // causal rows start first.
+  // causal rows start first; at (96, 64) fastest, last first, so that the
+  // blocks of one (b, h) run together and read its K and V from L2 (as
+  // the dK/dV kernel's key blocks, above).
+  constexpr bool kOwn = TQK::kCols == 32;
   const int nq = (a.Sq + kQRows - 1) / kQRows;
-  const int q0 = (nq - 1 - int(blockIdx.z)) * kQRows;
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (nq - 1 - int(kOwn ? blockIdx.x : blockIdx.z)) * kQRows;
+  const int h = kOwn ? blockIdx.y : blockIdx.x;
+  const int b = kOwn ? blockIdx.z : blockIdx.y;
   const int hk = h / (a.H / a.Hkv);
   // Reachable key tiles, as the forward bounds them.
   const int nk = (a.Sk + kQKeys - 1) / kQKeys;
@@ -1261,7 +1494,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kKeyStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, kConsumers);
     }
@@ -1273,25 +1506,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, L::kQT + L::kDOT);
-      for (int c = 0; c < L::kQKChunks; ++c)
-        tma_load(base + L::kQ + c * L::kRowChunk, &tq, bar_q, 64 * c, h, q0,
-                 b);
-      for (int c = 0; c < L::kVChunks; ++c)
-        tma_load(base + L::kDO + c * L::kRowChunk, &tdo, bar_q, 64 * c, h,
-                 q0, b);
+      for (int c = 0; c < TQK::kChunks; ++c)
+        tma_load(base + L::kQ + c * L::kQChunk, &tq, bar_q, TQK::kCols * c,
+                 h, q0, b);
+      for (int c = 0; c < TV::kChunks; ++c)
+        tma_load(base + L::kDO + c * L::kDOChunk, &tdo, bar_q,
+                 TV::kCols * c, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kKeyStages;
+        const int s = i % NS;
         const int k0 = (kt_begin + i) * kQKeys;
-        if (i >= kKeyStages)
-          mbar_wait(empty + 8 * s, ((i / kKeyStages) & 1) ^ 1);
+        if (i >= NS) mbar_wait(empty + 8 * s, ((i / NS) & 1) ^ 1);
         const uint32_t bar = full + 8 * s;
         mbar_expect_tx(bar, L::kKT + L::kVT);
-        for (int c = 0; c < L::kQKChunks; ++c)
-          tma_load(base + L::kK + s * L::kKT + c * L::kKeyChunk, &tk, bar,
-                   64 * c, hk, k0, b);
-        for (int c = 0; c < L::kVChunks; ++c)
-          tma_load(base + L::kV + s * L::kVT + c * L::kKeyChunk, &tv, bar,
-                   64 * c, hk, k0, b);
+        for (int c = 0; c < TQK::kChunks; ++c)
+          tma_load(base + L::kK + s * L::kKT + c * L::kKChunk, &tk, bar,
+                   TQK::kCols * c, hk, k0, b);
+        for (int c = 0; c < TV::kChunks; ++c)
+          tma_load(base + L::kV + s * L::kVT + c * L::kVChunk, &tv, bar,
+                   TV::kCols * c, hk, k0, b);
       }
     }
     return;
@@ -1304,8 +1536,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rq0 = q0 + 64 * wg;                      // this group's rows
   const int row0 = rq0 + 16 * warp + lane / 4;       // and row0 + 8
   const int col0 = 2 * (lane % 4);                   // keys k0 + 8j + col0
-  const uint32_t q_smem = base + L::kQ + wg * 64 * 128;
-  const uint32_t do_smem = base + L::kDO + wg * 64 * 128;
+  const uint32_t q_smem = base + L::kQ + wg * 64 * TQK::kRowBytes;
+  const uint32_t do_smem = base + L::kDO + wg * 64 * TV::kRowBytes;
   const float sl2 = a.scale * kLog2e;
   // lse·log2e and Δ of the thread's two rows (the scratch is padded to a
   // whole number of blocks).
@@ -1331,12 +1563,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   auto tile = [&](auto masked_c, int t) {
     constexpr bool kMasked = decltype(masked_c)::value;
-    const int i = t - kt_begin, s = i % kKeyStages, k0 = t * kQKeys;
+    const int i = t - kt_begin, s = i % NS, k0 = t * kQKeys;
     const uint32_t k_s = base + L::kK + s * L::kKT;
     const uint32_t v_s = base + L::kV + s * L::kVT;
-    mbar_wait(full + 8 * s, (i / kKeyStages) & 1);
-    issue_ss<D, kQKeys>(sc, q_smem, L::kRowChunk, k_s, L::kKeyChunk);
-    issue_ss<DV, kQKeys>(dp, do_smem, L::kRowChunk, v_s, L::kKeyChunk);
+    mbar_wait(full + 8 * s, (i / NS) & 1);
+    if constexpr (kOwn) take_turn(wg);
+    issue_ss<D, kQKeys>(sc, q_smem, L::kQChunk, k_s, L::kKChunk);
+    issue_ss<DV, kQKeys>(dp, do_smem, L::kDOChunk, v_s, L::kVChunk);
+    if constexpr (kOwn) pass_turn(wg);
     if constexpr (kMasked)
       wgmma_wait<0>();
     else
@@ -1366,13 +1600,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e)
         dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dlt[e >> 1]);
     split_bf16(hi, lo, dp);
-    issue_rs<DPQK, kQKeys / 16>(dq, hi, lo, k_s, L::kKeyChunk);
+    if constexpr (kOwn) take_turn(wg);
+    issue_rs<D, kQKeys / 16>(dq, hi, lo, k_s, L::kKChunk);
+    if constexpr (kOwn) pass_turn(wg);
     wgmma_wait<0>();
     fence_regs(dq);
     mbar_arrive(empty + 8 * s);
   };
 
   mbar_wait(bar_q, 0);
+  if constexpr (kOwn) first_turn(wg);
   for (int t = kt_begin; t < kt_end; ++t) {
     if (masked(t))
       tile(std::true_type{}, t);
@@ -1401,27 +1638,38 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D, int DV>
 int launch_d(const CUtensorMap (&m)[8], const PrepArgs& p, const Args& a,
              int B, cudaStream_t stream) {
-  const int64_t prep_blocks = (p.rows + 7) / 8;
+  constexpr bool kOwn = Tile<D>::kCols == 32;  // (96, 64): its own pre-pass
+  const int64_t prep_blocks =
+      kOwn ? (p.rows * (DV / 8) + 255) / 256 : (p.rows + 7) / 8;
   if (prep_blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
-  flash_bwd_prep<DV><<<unsigned(prep_blocks), 256, 0, stream>>>(p);
+  if constexpr (kOwn)
+    flash_bwd_prep_rows<DV><<<unsigned(prep_blocks), 256, 0, stream>>>(p);
+  else
+    flash_bwd_prep<DV><<<unsigned(prep_blocks), 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  int smem = SmemKV<padded(D), padded(DV)>::kBytes;
+  int smem = SmemKV<D, DV>::kBytes;
   err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid_kv(a.Hkv, B, (a.Sk + kKeys - 1) / kKeys);
+  // The kernels' launch order, and the dK/dV block's keys (its K and V
+  // maps' box rows): 128 at (96, 64), else 64.
+  constexpr int KB = SmemKV<D, DV>::kBlockKeys;
+  static_assert(KB == kKeys || KB == kQKeys, "no K/V map of KB rows");
+  const int nkb = (a.Sk + KB - 1) / KB;
+  const dim3 grid_kv = kOwn ? dim3(nkb, a.Hkv, B) : dim3(a.Hkv, B, nkb);
   flash_bwd_dkdv_tc<D, DV><<<grid_kv, kThreads, smem, stream>>>(
-      m[0], m[1], m[6], m[7], a);
+      m[0], m[1], kOwn ? m[4] : m[6], kOwn ? m[5] : m[7], a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  smem = SmemQ<padded(D), padded(DV)>::kBytes;
+  smem = SmemQ<D, DV>::kBytes;
   err = cudaFuncSetAttribute(flash_bwd_dq_tc<D, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid_q(a.H, B, (a.Sq + kQRows - 1) / kQRows);
+  const int nqb = (a.Sq + kQRows - 1) / kQRows;
+  const dim3 grid_q = kOwn ? dim3(nqb, a.H, B) : dim3(a.H, B, nqb);
   flash_bwd_dq_tc<D, DV><<<grid_q, kThreads, smem, stream>>>(
       m[2], m[3], m[4], m[5], a);
   return int(cudaGetLastError());
@@ -1446,7 +1694,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return int(cudaErrorInvalidValue);
   // Q and dO in 64-row tiles (dK/dV) and 128-row tiles (dQ); K and V in
-  // 128-key tiles (dQ) and 64-key tiles (dK/dV). q and k are D wide; v, o
+  // 128-key tiles (dQ; dK/dV at (96, 64)) and 64-key tiles (dK/dV). q and k are D wide; v, o
   // and dO Dv wide.
   CUtensorMap m[8];
   CUtensorMap mo;                        // checks o as TMA would (prep)
@@ -1563,6 +1811,26 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   return dispatch(1, q, k, v, o, dout, lse, scratch, scratch_len, dq, dk, dv,
                   strides, B, H, Hkv, Sq, Sk, D, Dv, causal, window, variant,
                   stream);
+}
+
+
+// Bytes of dynamic shared memory a block of the tc backward's kernel
+// `kernel` (0: flash_bwd_dkdv_tc, 1: flash_bwd_dq_tc) of the pair (D, Dv)
+// takes (the launch's request, 1024 of it for alignment); -1 for a pair
+// outside the tc table. No launch: it reads the layout.
+int flash_attention_bwd_tc_smem(int D, int Dv, int kernel) {
+  auto pick = [&](auto kv, auto q) { return kernel == 0 ? kv : q; };
+  if (D == 96 && Dv == 64)
+    return pick(tc::SmemKV<96, 64>::kBytes, tc::SmemQ<96, 64>::kBytes);
+  if (D != Dv) return -1;
+  switch (D) {
+    case 16: return pick(tc::SmemKV<16, 16>::kBytes, tc::SmemQ<16, 16>::kBytes);
+    case 32: return pick(tc::SmemKV<32, 32>::kBytes, tc::SmemQ<32, 32>::kBytes);
+    case 64: return pick(tc::SmemKV<64, 64>::kBytes, tc::SmemQ<64, 64>::kBytes);
+    case 128:
+      return pick(tc::SmemKV<128, 128>::kBytes, tc::SmemQ<128, 128>::kBytes);
+    default: return -1;
+  }
 }
 
 }  // extern "C"

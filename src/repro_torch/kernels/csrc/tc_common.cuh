@@ -1,7 +1,8 @@
 // tc_common.cuh: the pieces of sm_90a tensor-core code that the flash
 // attention forward (flash_attention.cu, flash_fwd_tc) and its backward
 // (flash_attention_bwd.cu, the tc kernels) share: shared-memory addresses,
-// mbarriers, TMA tile loads, wgmma descriptors and instructions (bf16 in,
+// mbarriers, TMA tile loads, the tiles' column chunks and their wgmma
+// descriptors (128- and 64-byte swizzle), wgmma instructions (bf16 in,
 // f32 sums), and the host side of the 4-D tensor maps over (D, heads, S,
 // B). Each source that includes it is built into its own library
 // (kernels/build.py hashes this header with the source).
@@ -60,17 +61,56 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units. K-major tiles (Q, K):
-// stride = 1024 between 8-row groups, leading unused (1). MN-major (V as
-// the B of P·V): stride = 1024 between 8-key groups, leading = the step
-// from one 64-column chunk to the next.
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, all in 16-byte units, and the swizzle (`mode` 1: 128-byte, 2:
+// 64-byte). K-major tiles (Q, K): stride = the bytes of 8 rows between
+// 8-row groups, leading unused (1). MN-major (V as the B of P·V): stride
+// = the bytes of 8 keys between 8-key groups, leading = the step from one
+// column chunk to the next.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead,
-                                         uint32_t stride) {
+                                         uint32_t stride, uint32_t mode = 1) {
   return uint64_t((addr & 0x3FFFF) >> 4) |
          (uint64_t((lead >> 4) & 0x3FFF) << 16) |
-         (uint64_t((stride >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+         (uint64_t((stride >> 4) & 0x3FFF) << 32) | (uint64_t(mode) << 62);
 }
+
+// Columns of one TMA chunk of a D-wide bf16 tile: 32 in the 64-byte
+// swizzle where D is an odd multiple of 32 above 64 (MLA's q and k, D =
+// 96: three chunks, no column of zeros), else 64 in the 128-byte swizzle
+// (D = 16 and 32 zero-padded to one chunk; D = 64 and 128 one and two).
+__host__ __device__ constexpr int chunk_cols(int d) {
+  return d > 64 && d % 64 == 32 ? 32 : 64;
+}
+
+// How a tile of D columns sits in shared memory: kChunks chunks of
+// [rows][kCols] bf16, kRowBytes a row, each in TMA's swizzle of that row
+// width (the layout the wgmma descriptors read), `chunk` bytes apart
+// (rows x kRowBytes). kWidth = the columns the products see: D, or 64
+// for D < 64.
+template <int D>
+struct Tile {
+  static constexpr int kCols = chunk_cols(D);
+  static constexpr int kRowBytes = 2 * kCols;            // 64 or 128
+  static constexpr int kChunks = D < kCols ? 1 : (D + kCols - 1) / kCols;
+  static constexpr int kWidth = kChunks * kCols;
+  static constexpr uint32_t kGroup = 8 * kRowBytes;      // 8 rows: 512, 1024
+  static constexpr uint32_t kMode = kCols == 32 ? 2 : 1;
+  static constexpr int kSteps = kCols / 16;              // k16 steps a chunk
+
+  // The k16 step kk of a K-major tile at `t` (A or B of a product over
+  // D): chunk kk / kSteps, 32 bytes a step within its rows.
+  __device__ static __forceinline__ uint64_t k_major(uint32_t t, int chunk,
+                                                     int kk) {
+    return desc(t + (kk / kSteps) * chunk + (kk % kSteps) * 32, 16, kGroup,
+                kMode);
+  }
+  // Rows 16kk.. of the tile as an MN-major B over its kWidth columns
+  // (transpose bit): chunk after chunk along N, `chunk` bytes apart.
+  __device__ static __forceinline__ uint64_t mn_major(uint32_t t, int chunk,
+                                                      int kk) {
+    return desc(t + kk * 16 * kRowBytes, chunk, kGroup, kMode);
+  }
+};
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -165,6 +205,33 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// D[64 x 96] += A[64 x 16] * B[16 x 96], A in registers (bf16 pairs), B
+// MN-major in shared memory (descriptor, transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (bf16 pairs), B
 // MN-major in shared memory (descriptor, transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
@@ -224,13 +291,15 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A 4-D map (D, heads, S, B) over a bf16 tensor with element strides
-// (b, h, s) and unit stride on D; boxes of 64 columns x `rows` rows in the
-// 128-byte swizzle (columns past D and rows past S read as zeros). TMA
-// wants the base and every stride at a multiple of 16 bytes; the stride of
-// an axis of extent 1 is never followed and is replaced by a dense one.
+// (b, h, s) and unit stride on D; boxes of chunk_cols(D) columns x `rows`
+// rows, 64 columns in the 128-byte swizzle or 32 in the 64-byte one
+// (columns past D and rows past S read as zeros). TMA wants the base and
+// every stride at a multiple of 16 bytes; the stride of an axis of extent
+// 1 is never followed and is replaced by a dense one.
 inline bool make_map(CUtensorMap* map, const void* ptr, int64_t sb,
                      int64_t sh, int64_t ss, int D, int heads, int S, int B,
                      int rows) {
+  const int cols = chunk_cols(D);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
     return false;
@@ -247,11 +316,13 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int64_t sb,
       return false;
     strides[i] = cuuint64_t(bytes);
   }
-  cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  cuuint32_t box[4] = {cuuint32_t(cols), 1, cuuint32_t(rows), 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -50,11 +50,16 @@ variants by the forward's rule (:func:`kernel_variant` again):
 
 - ``"tc"``, bf16 with D in {16, 32, 64, 96, 128}: TMA and ``wgmma``, a
   dK/dV kernel per key tile and a dQ kernel per query tile (the training
-  path's; at (96, 64) dK and dQ are n128 products over q's and k's zero
-  half, as no n96 layout exists). The products take P and dS as two
-  bf16 parts each (hi and the remainder lo), so its only rounding beyond
-  the plain version's is ~2^-17 of each term; the wrapper copies a q, k,
-  v, o or dO view that TMA cannot address first, as the forward does.
+  path's; at (96, 64) q and k sit in shared memory as three 32-column
+  chunks in the 64-byte swizzle, so dK and dQ are n96 products with no
+  column of zeros, as the forward's Q·Kᵀ is, and the pair has a schedule
+  of its own: 128-key dK/dV blocks, the blocks of one head launched side
+  by side, the two consumer groups taking turns on the tensor cores).
+  The products take P and dS
+  as two bf16 parts each (hi and the remainder lo), so its only rounding
+  beyond the plain version's is ~2^-17 of each term; the wrapper copies a
+  q, k, v, o or dO view that TMA cannot address first, as the forward
+  does.
 - ``"mma"``, f32 and D in {8, 24}: ``mma.sync`` in the forward's
   arithmetic, two kernels: dQ, whose prologue writes Δ = rowsum(dO ⊙ O),
   then dK/dV; each splits its walk over keys or query rows four ways
@@ -306,6 +311,19 @@ def _lib_bwd() -> ctypes.CDLL:
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def tc_smem_bytes(d: int, dv: int) -> dict:
+    """Dynamic shared memory a block of each tensor-core kernel takes at
+    the pair ``(d, dv)``, as its launcher requests it (the libraries'
+    layouts; builds them, launches nothing): ``{"flash_fwd_tc": bytes,
+    "flash_bwd_dkdv_tc": bytes, "flash_bwd_dq_tc": bytes}``."""
+    out = {"flash_fwd_tc": _lib().flash_attention_tc_smem(d, dv)}
+    for kernel, name in enumerate(("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")):
+        out[name] = _lib_bwd().flash_attention_bwd_tc_smem(d, dv, kernel)
+    if min(out.values()) < 0:
+        raise ValueError(f"({d}, {dv}) is not a pair of the tc kernels")
+    return out
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,7 +2,9 @@
 model's (B, S, H, D) views:
 
 - ``tc`` (bf16): the training slice's shape (B=2, H=16, Hkv=8, S=1024,
-  D=128) and the serve prefill's (B=4, S=4096);
+  D=128) and the serve prefill's (B=4, S=4096); MLA's (96, 64) pair
+  (minicpm3-4b) at its training shape (``mla_train``: B=2, H=Hkv=40,
+  S=1024) and its prefill shape (``mla_serve``: B=4, S=4096);
 - ``mma`` (f32 at every head dim, bf16 at D in {8, 24}): the example
   LM's (f32, B=2, H=4, Hkv=2, S=256, D=64), the reduced MLA's (24, 16)
   pair at B=2, H=4, S=256 in bf16 and f32, MLA's training shape in f32
@@ -20,7 +22,10 @@ rates (``roofline.bound_ms``: bf16 on the tensor cores, f32 on them as
 3xTF32). Prints one JSON line with the variant counts where the
 checkout has them and the card's name and power limit.
 
-    PYTHONPATH=src python -m repro_torch.launch.flash_bwd_time
+    PYTHONPATH=src python -m repro_torch.launch.flash_bwd_time [SHAPE ...]
+
+Given shape labels (``train serve mla_train mla_serve``, say), it times
+those alone, in that order; by default every shape.
 
 It uses only what earlier versions of the port also have
 (``flash_attention_fwd(..., with_lse=True)``, ``flash_attention_bwd``,
@@ -41,6 +46,10 @@ SHAPES = {
                   dv=128, bwd=True),
     "serve": dict(dtype="bfloat16", b=4, h=16, hkv=8, s=4096, d=128,
                   dv=128, bwd=True),
+    "mla_train": dict(dtype="bfloat16", b=2, h=40, hkv=40, s=1024, d=96,
+                      dv=64, bwd=True),
+    "mla_serve": dict(dtype="bfloat16", b=4, h=40, hkv=40, s=4096, d=96,
+                      dv=64, bwd=True),
     "example_f32": dict(dtype="float32", b=2, h=4, hkv=2, s=256, d=64,
                         dv=64, bwd=True),
     "reduced_mla_bf16": dict(dtype="bfloat16", b=2, h=4, hkv=4, s=256,
@@ -147,7 +156,14 @@ def time_shape(fa, c: dict, gen) -> dict:
     return row
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import sys
+
+    labels = sys.argv[1:] if argv is None else argv
+    unknown = set(labels) - set(SHAPES)
+    if unknown:
+        raise SystemExit(f"flash_bwd_time: no shape {sorted(unknown)}; "
+                         f"the shapes are {list(SHAPES)}")
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_time: needs an NVIDIA card")
 
@@ -156,8 +172,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     out: dict = {}
-    for label, c in SHAPES.items():
-        out[label] = time_shape(fa, c, gen)
+    for label in labels or SHAPES:
+        out[label] = time_shape(fa, SHAPES[label], gen)
         torch.cuda.empty_cache()
     fn = fa.flash_attention
     out["variants"] = {x: getattr(fn, x) for x in dir(fn)

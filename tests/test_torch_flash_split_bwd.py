@@ -12,8 +12,9 @@ causal and not, a window and Sq != Sk, f32 ``atol=2e-5, rtol=1e-4``
 (sums over up to 70 keys or rows in other orders on the two sides).
 ``chip_smoke.py``'s planted faults of the split kernels (dQ's and dK's
 last column group dropped, Δ summed over D columns of o and dO instead
-of Dv) are shown to break the tolerances the card's tests hold the
-kernels to. The ``cuda``-marked tests hold the kernels to the plain
+of Dv, q's or k's tail columns dropped: 64-95 at D = 96, a tile's third
+32-column chunk) are shown to break the tolerances the card's tests hold
+the kernels to. The ``cuda``-marked tests hold the kernels to the plain
 version on the card: f32 on the mma.sync kernels, bf16 at (96, 64) on
 the wgmma ones and at (24, 16) on mma.sync, each call's variant and split
 count checked, two calls bit-equal.
@@ -135,7 +136,8 @@ def _fault_case(d, dv, dtype, seed=8):
 
 
 @pytest.mark.parametrize("fault", ["last column group dropped",
-                                   "delta over D"])
+                                   "delta over D", "q tail columns dropped",
+                                   "k tail columns dropped"])
 @pytest.mark.parametrize("d,dv", [(96, 64), (24, 16)])
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 def test_split_planted_faults_break_the_tolerance(fault, d, dv, dname):
@@ -149,6 +151,26 @@ def test_split_planted_faults_break_the_tolerance(fault, d, dv, dname):
     bad = cs.dense_bwd(torch, *args, fault)
     assert any(not torch.allclose(g.float(), w.float(), **tol)
                for g, w in zip(bad, want))
+
+
+@pytest.mark.parametrize("d,start", [(96, 64), (24, 16), (128, 64)])
+def test_tail_faults_drop_q_or_k_from_tail_start(d, start):
+    """The tail faults are the plain backward on q or k with its columns
+    from ``tail_start(D)`` zeroed (at D = 96 the tensor-core kernels'
+    third 32-column chunk)."""
+    cs = chip_smoke()
+    assert cs.tail_start(d) == start
+    dv = 64 if d == 96 else 16 if d == 24 else d
+    q, k, v, o, lse, do = _fault_case(d, dv, torch.float32)
+    for name in ("q", "k"):
+        bad = cs.dense_bwd(torch, q, k, v, o, lse, do,
+                           f"{name} tail columns dropped")
+        cut = (q if name == "q" else k).clone()
+        cut[..., start:] = 0
+        args = (cut, k) if name == "q" else (q, cut)
+        want = cs.dense_bwd(torch, *args, v, o, lse, do)
+        for x, w in zip(bad, want):
+            assert torch.equal(x, w)
 
 
 def test_read_past_reads_the_following_memory():
@@ -247,6 +269,45 @@ def test_split_bwd_is_deterministic_and_autograd_bit_equal(d, dv, dname):
     args = [x.detach().requires_grad_() for x in (q, k, v)]
     auto = torch.autograd.grad(fa_mod.flash_attention(*args), args, do)
     assert all(torch.equal(a, b) for a, b in zip(auto, first))
+
+
+@pytest.mark.cuda
+def test_split_tail_heavy_columns_on_card():
+    """(96, 64) in bf16 with q's and k's largest values in columns 64-95
+    (``chip_smoke.FLASH_TAIL_CASE`` and ``tail_heavy``: the tensor-core
+    kernels' third 32-column chunk carries most of q·k): the forward and
+    the backward on the
+    tensor cores hold the plain versions to ``PREFILL_BF16_TOL`` /
+    ``BWD_BF16_TOL``, and dropping that chunk of q or of k breaks the
+    backward's."""
+    _on_card()
+    cs = chip_smoke()
+    sh = cs.FLASH_TAIL_CASE
+    q, k, v, do = _inputs(sh["b"], sh["h"], sh["hkv"], sh["sq"], sh["sk"],
+                          sh["d"], sh["dv"], seed=9)
+    q, k = (cs.tail_heavy(x) for x in (q, k))
+    q, k, v, do = (_bshd(a).to(torch.bfloat16).cuda() for a in (q, k, v, do))
+    fn = fa_mod.flash_attention
+    before = (fn.launches_tc, fn.launches_bwd_tc)
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, with_lse=True)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert (fn.launches_tc, fn.launches_bwd_tc) == (before[0] + 1,
+                                                    before[1] + 1)
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(),
+        fa_mod.flash_attention_plain(q, k, v).float().cpu().numpy(),
+        **cs.PREFILL_BF16_TOL)
+    want = fa_mod.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(),
+                                   **cs.BWD_BF16_TOL)
+    for fault in ("q tail columns dropped", "k tail columns dropped"):
+        bad = cs.dense_bwd(torch, q, k, v, out, lse, do, fault)
+        assert any(not torch.allclose(x.float(), w.float(),
+                                      **cs.BWD_BF16_TOL)
+                   for x, w in zip(bad, want)), fault
 
 
 @pytest.mark.cuda
