@@ -26,6 +26,7 @@ from typing import Any, Mapping, Optional
 import torch
 
 from repro_torch.core.mesh_round import FedRoundConfig, build_round, psum
+from repro_torch.kernels.meter import span
 from repro_torch.models.sharding import ModelAxis, sanitize_specs
 from repro_torch.models.transformer import Transformer, cross_entropy_loss
 
@@ -70,20 +71,23 @@ def local_sgd(model: Transformer, params_S: dict,
     difference), written into row s. A Python loop over satellites stands
     in for ``jax.vmap``: the attention kernels are ctypes launches with no
     batching rule. With ``axis`` the leaves are this rank's shards and
-    the forward and backward are the sharded ones. Returns the last
-    step's mean loss over the S rows, a device scalar (nothing is read
-    back)."""
+    the forward and backward are the sharded ones. Each forward is one
+    ``fed.forward`` span and each backward one ``fed.backward`` span
+    (:mod:`repro_torch.kernels.meter`), both carrying ``sat`` and
+    ``step``. Returns the last step's mean loss over the S rows, a device
+    scalar (nothing is read back)."""
     keys = list(params_S)
     n_sats = params_S[keys[0]].shape[0]
     loss = None
-    for _ in range(local_steps):
+    for step in range(local_steps):
         losses = []
         for s in range(n_sats):
             p = {k: params_S[k][s].detach().requires_grad_() for k in keys}
-            sat_loss = satellite_loss(model, p,
-                                      {k: v[s] for k, v in batch.items()},
-                                      axis)
-            grads = torch.autograd.grad(sat_loss, [p[k] for k in keys])
+            with span("fed.forward", sat=s, step=step):
+                sat_loss = satellite_loss(
+                    model, p, {k: v[s] for k, v in batch.items()}, axis)
+            with span("fed.backward", sat=s, step=step):
+                grads = torch.autograd.grad(sat_loss, [p[k] for k in keys])
             with torch.no_grad():
                 for k, g in zip(keys, grads):
                     leaf = params_S[k][s]

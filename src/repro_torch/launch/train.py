@@ -74,6 +74,7 @@ from repro_torch.core.weights import mu_weights
 from repro_torch.data.tokens import TokenTaskConfig, make_token_dataset
 from repro_torch.debug.sanitize import to_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.meter import span
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.sharding import gather_params, shard_params
 from repro_torch.models.transformer import Transformer
@@ -135,26 +136,32 @@ def single_device_round(model: Transformer, fed_cfg: FedTrainConfig
 
     Metrics as the reference returns them: ``local_loss`` (the last local
     step's mean over satellites, a device scalar: nothing is read back),
-    ``gate``, ``covered`` and ``upload_mass``."""
+    ``gate``, ``covered`` and ``upload_mass``. Each call is one
+    ``fed.round`` span (:mod:`repro_torch.kernels.meter`) carrying
+    ``round``, the call's ordinal from 0."""
     cmap = fed_cfg.round_cfg.cmap
+    rounds = 0
 
     def step(params_S: dict, batch: Mapping[str, torch.Tensor], sizes,
              visible):
-        loss = local_sgd(model, params_S, batch, fed_cfg.learning_rate,
-                         fed_cfg.local_steps)
-        mu = _mu_weights(visible, sizes, cmap,
-                         fed_cfg.round_cfg.partial_mode,
-                         fed_cfg.round_cfg.orbit_weighting)
-        with torch.no_grad():
-            glob = ops.fedagg_tree(params_S, mu)
-            for k, x in params_S.items():
-                x.copy_(glob[k].expand_as(x))
-        dev = next(iter(params_S.values())).device
-        return params_S, {
-            "local_loss": loss,
-            "gate": torch.ones((), device=dev),
-            "covered": torch.zeros((), device=dev),
-            "upload_mass": torch.zeros((), device=dev)}
+        nonlocal rounds
+        with span("fed.round", round=rounds):
+            rounds += 1
+            loss = local_sgd(model, params_S, batch, fed_cfg.learning_rate,
+                             fed_cfg.local_steps)
+            mu = _mu_weights(visible, sizes, cmap,
+                             fed_cfg.round_cfg.partial_mode,
+                             fed_cfg.round_cfg.orbit_weighting)
+            with torch.no_grad():
+                glob = ops.fedagg_tree(params_S, mu)
+                for k, x in params_S.items():
+                    x.copy_(glob[k].expand_as(x))
+            dev = next(iter(params_S.values())).device
+            return params_S, {
+                "local_loss": loss,
+                "gate": torch.ones((), device=dev),
+                "covered": torch.zeros((), device=dev),
+                "upload_mass": torch.zeros((), device=dev)}
 
     return step
 

@@ -52,6 +52,7 @@ from repro_torch.data import (
     partition_noniid_by_orbit,
 )
 from repro_torch.faults import MAX_UPLOAD_RETRIES, FaultPlane, parse_faults
+from repro_torch.kernels.meter import span
 from repro_torch.kernels.ops import fold_stacked_tree
 from repro_torch.models import CNN, MLP, params_from_numpy
 from repro_torch.orbits import (
@@ -263,6 +264,14 @@ class RoundEngine:
     """Holds the physical world + dataset and drives one strategy."""
 
     def __init__(self, cfg: SimConfig):
+        with span("sim.build"):
+            self._build_engine(cfg)
+
+    def _build_engine(self, cfg: SimConfig) -> None:
+        """The engine's build (one ``sim.build`` span, see
+        :mod:`repro_torch.kernels.meter`): the world, the dataset and its
+        partition, the trainer, the contact and delay tables, the client
+        plane."""
         self.cfg = cfg
         self.device = _resolve_device(cfg.device)
         self.mesh = cfg.mesh
@@ -412,9 +421,10 @@ class RoundEngine:
         device-resident dataset/eval set + the block program."""
         if self._executor is None:
             from repro_torch.sim.executor import FusedExecutor
-            self._executor = FusedExecutor(
-                self.trainer, self.fd, self.eval_images, self.eval_labels,
-                mesh=self.mesh)
+            with span("sim.build"):
+                self._executor = FusedExecutor(
+                    self.trainer, self.fd, self.eval_images,
+                    self.eval_labels, mesh=self.mesh)
         return self._executor
 
     def tidx(self, t_s) -> np.ndarray:

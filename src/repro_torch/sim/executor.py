@@ -76,6 +76,7 @@ import torch
 from repro_torch.core.mesh_round import sharded_fold
 from repro_torch.core.treeops import tree_broadcast, tree_row
 from repro_torch.debug.sanitize import to_device, to_host
+from repro_torch.kernels.meter import span
 from repro_torch.kernels.ops import fold_stacked_tree
 
 
@@ -201,23 +202,27 @@ class FusedExecutor:
         (NaN where not evaluated): ONE transfer per block. With a mesh,
         this rank trains and folds only its own rows of ``idx`` / ``mu``
         (:meth:`_my_rows`), and the fold is :meth:`_fold`'s all-reduce.
+        The call is one ``sim.block`` span (:mod:`repro_torch.kernels
+        .meter`), its readback included.
         """
-        if self.mesh is not None:
-            shard = self._my_rows({"idx": idx, "mu": mu}, ("idx", "mu"))
-            idx, mu = shard["idx"], shard["mu"]
-        K, S, _ = idx.shape
-        idx_d = self._h2d(idx, np.int64)
-        mu_d = self._h2d(mu, np.float32)
-        nan = torch.full((), float("nan"), dtype=torch.float32,
-                         device=self.device)
-        accs = []
-        for k in range(K):
-            if valid[k]:
-                trained = self._train(tree_broadcast(params, S), idx_d[k])
-                params = self._fold(trained, mu_d[k])
-            accs.append(self._device_acc(params)
-                        if do_eval[k] and valid[k] else nan)
-        return params, self._d2h(torch.stack(accs))
+        with span("sim.block"):
+            if self.mesh is not None:
+                shard = self._my_rows({"idx": idx, "mu": mu}, ("idx", "mu"))
+                idx, mu = shard["idx"], shard["mu"]
+            K, S, _ = idx.shape
+            idx_d = self._h2d(idx, np.int64)
+            mu_d = self._h2d(mu, np.float32)
+            nan = torch.full((), float("nan"), dtype=torch.float32,
+                             device=self.device)
+            accs = []
+            for k in range(K):
+                if valid[k]:
+                    trained = self._train(tree_broadcast(params, S),
+                                          idx_d[k])
+                    params = self._fold(trained, mu_d[k])
+                accs.append(self._device_acc(params)
+                            if do_eval[k] and valid[k] else nan)
+            return params, self._d2h(torch.stack(accs))
 
     def _fold(self, stacked: dict, weights: torch.Tensor) -> dict:
         """The fold of a block: :func:`fold_stacked_tree` alone, or with a

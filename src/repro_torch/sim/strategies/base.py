@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Type
 import numpy as np
 
 from repro_torch.core.weights import staleness_discount
+from repro_torch.kernels.meter import span
 
 _REGISTRY: Dict[str, Type["Strategy"]] = {}
 
@@ -154,38 +155,42 @@ class RoundStrategy(Strategy):
             s.params = loaded["params"]
         while (s.events < cfg.max_rounds and s.t <= eng.horizon_s
                and s.acc < cfg.target_accuracy):
-            # Plan ahead: chain K rounds (plans are param-independent).
-            plans, t_starts, t, terminal = [], [], s.t, False
-            while (len(plans) < K and s.events + len(plans) < cfg.max_rounds
-                   and t <= eng.horizon_s):
-                plan = self.plan_round(eng, t)
-                if plan is None:
-                    terminal = True
-                    break
-                plans.append(plan)
-                t_starts.append(t)
-                t = plan.t_next
-            if not plans:
-                s.t = eng.horizon_s + 1.0
-                return
-            # Schedule tensors (padded to the fixed block size K) + the
-            # host-resolved batch indices (same plane stream as `step`:
-            # one resolve per planned round, at that round's start time).
-            n = len(plans)
-            idx = np.zeros((K, n_sats, need), dtype=np.int64)
-            for i in range(n):
-                idx[i] = eng.sample_indices(all_clients, t_starts[i])
-            mu = np.zeros((K, n_sats), dtype=np.float32)
-            do_eval = np.zeros(K, dtype=bool)
-            fold_ok = np.zeros(K, dtype=bool)
-            for i, plan in enumerate(plans):
-                mu[i] = plan.mu
-                fold_ok[i] = bool(np.any(plan.mu))
-                do_eval[i] = self.eval_due(cfg, s.events + i + 1)
-            # Rounds that lost every upload (all-zero mu) are invalid:
-            # the executor carries params through and skips the device
-            # eval; their due evals run host-side below.
-            valid = (np.arange(K) < n) & fold_ok
+            with span("sim.plan") as sp:
+                # Plan ahead: chain K rounds (plans are param-independent).
+                plans, t_starts, t, terminal = [], [], s.t, False
+                while (len(plans) < K
+                       and s.events + len(plans) < cfg.max_rounds
+                       and t <= eng.horizon_s):
+                    plan = self.plan_round(eng, t)
+                    if plan is None:
+                        terminal = True
+                        break
+                    plans.append(plan)
+                    t_starts.append(t)
+                    t = plan.t_next
+                n = len(plans)
+                sp.note(rounds=n)
+                if not plans:
+                    s.t = eng.horizon_s + 1.0
+                    return
+                # Schedule tensors (padded to the fixed block size K) +
+                # the host-resolved batch indices (same plane stream as
+                # `step`: one resolve per planned round, at that round's
+                # start time).
+                idx = np.zeros((K, n_sats, need), dtype=np.int64)
+                for i in range(n):
+                    idx[i] = eng.sample_indices(all_clients, t_starts[i])
+                mu = np.zeros((K, n_sats), dtype=np.float32)
+                do_eval = np.zeros(K, dtype=bool)
+                fold_ok = np.zeros(K, dtype=bool)
+                for i, plan in enumerate(plans):
+                    mu[i] = plan.mu
+                    fold_ok[i] = bool(np.any(plan.mu))
+                    do_eval[i] = self.eval_due(cfg, s.events + i + 1)
+                # Rounds that lost every upload (all-zero mu) are invalid:
+                # the executor carries params through and skips the
+                # device eval; their due evals run host-side below.
+                valid = (np.arange(K) < n) & fold_ok
             s.params, accs = ex.run_block(s.params, idx, mu,
                                           do_eval & fold_ok, valid)
             # Host side: history + termination between blocks only.
