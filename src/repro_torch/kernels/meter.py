@@ -14,7 +14,8 @@ and collects three things that no aten op shows:
   package's ``parse_collective_bytes`` reads off its HLO;
 - timed spans at the boundaries of the program's layers
   (:func:`span`): the engine's build, the plan, the block driver, an LM
-  round and each satellite step's forward and backward.
+  round and each satellite step's forward and backward; code inside a
+  span adds what it learns as it runs with :func:`note`.
 
 With no meter installed the reports are dropped: metering changes
 nothing of what the wrappers and the collectives compute. The active
@@ -178,6 +179,15 @@ def span(name: str, **attrs: Any):
             return _OFF
         meter = _PROFILED
     return _Recording(meter, name, attrs)
+
+
+def note(**attrs: Any) -> None:
+    """Add ``attrs`` to the innermost span open in this context (counts
+    known only inside the span, such as a forward's); nothing when no
+    span records."""
+    sp = _OPEN.get()
+    if sp is not None:
+        sp.attrs.update(attrs)
 
 
 def report_kernel(name: str, flops: int, nbytes: int,

@@ -8,7 +8,12 @@ Params are the port's flat ``dict[str, Tensor]``. The layers of one
 period are stacked along a leading axis under ``layers/b{j}/...`` keys,
 as the JAX package stacks them (``add_leading_axis``), so a key such as
 ``layers/b0/mixer/wq`` has shape ``(num_layers, d_model, H·D)``. The JAX
-package's ``lax.scan`` over the stack becomes a Python loop over views
+package's ``lax.scan`` over the stack becomes a Python loop over the
+layers: a forward splits each stacked leaf once (``torch.unbind``) and
+hands layer ``i`` its ``i``-th piece, so autograd stacks a leaf's
+per-layer gradients once, where a view ``params[key][i]`` per layer
+would add a zero-filled gradient the size of the whole stack into the
+leaf's for every layer; decode, which keeps no grad, takes the views
 ``params[key][i]``. ``cfg.remat`` is activation checkpointing for
 training, as the JAX package's ``jax.checkpoint`` of its period body:
 with grad enabled each period runs under ``torch.utils.checkpoint``
@@ -62,6 +67,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.meter import note
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
@@ -175,10 +181,33 @@ def _shards(axis: Optional[ModelAxis], prefix: str,
     return None if axis is None else axis.shards(prefix, layer)
 
 
+def _split(params: dict, *prefixes: str) -> dict:
+    """The stacked leaves under ``prefixes``, each split once along its
+    layer axis into a tuple of per-layer views (``torch.unbind``), which
+    :func:`_layer` indexes as it would the leaf. Taken outside remat's
+    periods, each leaf's split is one ``UnbindBackward0`` that stacks
+    the layers' gradients once."""
+    return {k: torch.unbind(leaf, 0) for k, leaf in params.items()
+            if k.startswith(prefixes)}
+
+
+def _note_split(layers: dict) -> None:
+    """Note on the open span how a forward took its layers' views from
+    ``layers``: ``stacked_split``, the stacked leaves split once, and
+    ``stacked_indexed``, the per-layer views it would take by indexing a
+    stacked leaf that requires grad (each a whole-stack zero fill and add
+    in the backward)."""
+    note(stacked_split=sum(isinstance(v, tuple) for v in layers.values()),
+         stacked_indexed=sum(v.shape[0] for v in layers.values()
+                             if isinstance(v, torch.Tensor)
+                             and v.requires_grad))
+
+
 def _layer(params: dict, prefix: str, i: Optional[int] = None) -> dict:
-    """Layer ``i`` of the stacked leaves under ``prefix`` as the nested
-    dict the block functions read: ``{"mixer": {"wq": view}, ...}``; with
-    no ``i``, the leaves themselves (``final_norm/``)."""
+    """Layer ``i`` of the stacked leaves under ``prefix`` (or of their
+    :func:`_split` pieces) as the nested dict the block functions read:
+    ``{"mixer": {"wq": view}, ...}``; with no ``i``, the leaves
+    themselves (``final_norm/``)."""
     out: dict[str, Any] = {}
     for key, leaf in params.items():
         if key.startswith(prefix):
@@ -311,23 +340,25 @@ class Transformer:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        layers = _split(params, "layers/", "encoder/layers/")
+        _note_split(layers)
         enc = None
         if cfg.is_encdec:
             if not aux_in or "frames" not in aux_in:
                 raise ValueError(f"{cfg.name}: an encoder-decoder stack "
                                  f"reads aux_in['frames']")
-            enc = self._encode(params, aux_in["frames"], axis)
+            enc = self._encode(params, aux_in["frames"], axis, layers)
 
         def period(x: torch.Tensor, aux: torch.Tensor, i: int):
             if cfg.is_encdec:
                 x, _ = _apply_block(cfg, "attn", False,
-                                    _layer(params, "layers/", i), x,
+                                    _layer(layers, "layers/", i), x,
                                     positions, enc=enc,
                                     tp=_shards(axis, "layers/", True))
                 return x, aux
             for j, kind in enumerate(self.pattern):
                 x, a = _apply_block(cfg, kind, cfg.layer_is_moe(j),
-                                    _layer(params, f"layers/b{j}/", i), x,
+                                    _layer(layers, f"layers/b{j}/", i), x,
                                     positions,
                                     tp=_shards(axis, f"layers/b{j}/", True))
                 if a is not None:
@@ -347,17 +378,21 @@ class Transformer:
                           cfg.norm_kind), aux
 
     def _encode(self, params: dict, frames: torch.Tensor,
-                axis: Optional[ModelAxis] = None) -> torch.Tensor:
+                axis: Optional[ModelAxis] = None,
+                layers: Optional[dict] = None) -> torch.Tensor:
         """The encoder over the stub frontend's frame embeddings
         (bidirectional: the flash kernel with the causal mask off),
-        final-normed."""
+        final-normed. ``layers``: the encoder's stacked leaves already
+        :func:`_split`, else split here."""
         cfg = self.cfg
+        if layers is None:
+            layers = _split(params, "encoder/layers/")
         x = frames.to(getattr(torch, cfg.act_dtype))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         for i in range(cfg.encoder_layers):
             x, _ = _apply_block(cfg, "attn", False,
-                                _layer(params, "encoder/layers/", i), x,
+                                _layer(layers, "encoder/layers/", i), x,
                                 positions, causal=False,
                                 tp=_shards(axis, "encoder/layers/", True))
         return apply_norm(_layer(params, "encoder/final_norm/"), x,

@@ -41,6 +41,12 @@
   is left is XLA's count of elementwise work (norms, RoPE, softmax, SiLU,
   the loss), which the port does not count: it must lie in [0, 3%) of
   XLA's total (measured here: 0.9% prefill, 1.3% train).
+- Stacked leaves: the full-width minicpm3-4b's local SGD step (one
+  satellite, B=2, S=1024, bf16, remat) accesses under 0.6 TB with a temp
+  peak under 12.94 GB: each stacked leaf's layers' gradients are stacked
+  once (measured here: 0.459 TB, 12.21 GB), where a view per layer fills
+  a whole-stack zero gradient and adds it into the leaf's for each of
+  the 62 layers (2.356 TB, 12.94 GB).
 """
 import json
 import os
@@ -277,3 +283,17 @@ def test_flops_match_xla(mode):
     expected = (counts.flops - flash + unembed
                 + _dense_attention(cfg, mode == "train"))
     assert 0 <= (xla - expected) / xla < ELEMENTWISE_SHARE, (xla, expected)
+
+
+# -------------------------------------------------------- stacked leaves
+def test_train_step_stacks_each_leafs_gradient_once():
+    cfg = get_config("minicpm3-4b")
+    assert cfg.remat and cfg.param_dtype == "bfloat16"
+    model = Transformer(cfg)
+    batch = {k: torch.empty((1, 2, 1024), device="meta", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    _, counts = dryrun.trace(
+        lambda p, b: local_sgd(model, p, b, 0.01, 1),
+        dryrun.meta_params(model, (1,), dtype=torch.bfloat16), batch)
+    assert counts.bytes < 0.6e12, counts.bytes
+    assert counts.temp_bytes < 12.94e9, counts.temp_bytes

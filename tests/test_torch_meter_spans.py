@@ -2,7 +2,8 @@
 ``metering()`` and while a profiler records, on the profiler's clock; and
 the spans the round and block drivers record (``fed.round``,
 ``fed.forward``, ``fed.backward``; ``sim.build``, ``sim.plan``,
-``sim.block``) with their counts, parents and attributes."""
+``sim.block``) with their counts, parents and attributes, the counts a
+forward notes on its span (``meter.note``) included."""
 import threading
 
 import numpy as np
@@ -12,10 +13,12 @@ from torch.autograd import profiler as ap
 
 from repro_torch.configs import get_config
 from repro_torch.core.dissemination import ConstellationMeshMap
-from repro_torch.core.fed_step import FedTrainConfig, stack_params
+from repro_torch.core.fed_step import (FedTrainConfig, local_sgd,
+                                       stack_params)
 from repro_torch.core.mesh_round import FedRoundConfig
 from repro_torch.kernels import meter
 from repro_torch.launch import train
+from repro_torch.models import transformer
 from repro_torch.models.transformer import Transformer
 from repro_torch.sim import RoundEngine, SimConfig
 
@@ -167,12 +170,60 @@ def test_lm_round_spans_count_nest_and_carry_attrs():
     assert len(fwd) == len(bwd) == ROUNDS * N_SATS * LOCAL_STEPS
     want = [{"sat": s, "step": i} for i in range(LOCAL_STEPS)
             for s in range(N_SATS)] * ROUNDS
-    assert [s.attrs for s in fwd] == want
+    split = sum(k.startswith("layers/") for k in params)
+    assert [s.attrs for s in fwd] == [
+        {**w, "stacked_split": split, "stacked_indexed": 0} for w in want]
     assert [s.attrs for s in bwd] == want
     for f, b in zip(fwd, bwd):
         assert f.parent is b.parent and f.parent.name == "fed.round"
         assert f.parent.start_ns <= f.start_ns <= f.end_ns <= b.start_ns \
             <= b.end_ns <= f.parent.end_ns
+
+
+def test_note_adds_to_the_innermost_recording_span(fresh_profiled):
+    meter.note(lost=1)                  # nothing records: dropped
+    with meter.span("off") as off:
+        meter.note(lost=2)
+    assert list(fresh_profiled.spans) == [] and off is meter.span("x")
+    with meter.metering() as m:
+        meter.note(lost=3)              # no span open: dropped
+        with meter.span("outer", round=1):
+            with meter.span("inner"):
+                meter.note(n=4)
+            meter.note(k=5)
+    assert [(s.name, s.attrs) for s in m.spans] == [
+        ("outer", {"round": 1, "k": 5}), ("inner", {"n": 4})]
+
+
+def test_forward_notes_its_stacked_split(fresh_profiled, monkeypatch):
+    """One ``local_sgd`` step of the reduced minicpm3-4b: each forward
+    splits the 14 stacked leaves of ``layers/`` once and takes no layer's
+    view by indexing a stacked leaf (the per-layer index path would take
+    14 a layer); with nothing recording, the forward notes nothing."""
+    cfg = get_config("minicpm3-4b").reduced()
+    model = Transformer(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    stacked = [k for k in params if k.startswith("layers/")]
+    assert len(stacked) == 14
+    params_S = stack_params(params, 2)
+    batch = train.make_batches(cfg, 2, 1, 8, 0, cfg.vocab_size)
+    with meter.metering() as m:
+        local_sgd(model, params_S, batch, 0.01, 1)
+    fwd = [s for s in m.spans if s.name == "fed.forward"]
+    assert [s.attrs for s in fwd] == [
+        {"sat": s, "step": 0, "stacked_split": 14, "stacked_indexed": 0}
+        for s in range(2)]
+    assert all(s.attrs.keys() == {"sat", "step"}
+               for s in m.spans if s.name == "fed.backward")
+    local_sgd(model, params_S, batch, 0.01, 1)
+    assert list(fresh_profiled.spans) == []
+    monkeypatch.setattr(transformer, "_split", lambda p, *pre: {
+        k: v for k, v in p.items() if k.startswith(pre)})
+    with meter.metering() as m:
+        local_sgd(model, params_S, batch, 0.01, 1)
+    assert [s.attrs for s in m.spans if s.name == "fed.forward"] == [
+        {"sat": s, "step": 0, "stacked_split": 0,
+         "stacked_indexed": 14 * cfg.num_layers} for s in range(2)]
 
 
 def test_sim_spans_count_the_planned_rounds():

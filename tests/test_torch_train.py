@@ -40,15 +40,18 @@ from repro_torch.core.fed_step import (FedTrainConfig, satellite_loss,
 from repro_torch.core.mesh_round import FedRoundConfig
 from repro_torch.launch import train
 from repro_torch.models import Transformer, params_from_numpy
+from repro_torch.models import transformer
 
 from _torch_jamba import JAMBA, jamba_pair
-from _torch_zoo import zoo_pair
+from _torch_zoo import aux_inputs, zoo_pair
 
 torch.set_num_threads(2)
 
 ARCH = "qwen3-0.6b"
 # MLA (q·k 24, v 16 at reduced size: the flash pair (24, 16)).
 MLA = "minicpm3-4b"
+# An encoder-decoder stack: the decoder's and the encoder's stacks.
+WHISPER = "whisper-small"
 N_SATS, BATCH, SEQ = 4, 2, 32
 LOSS_TOL = dict(rtol=1e-6, atol=0)
 LEAF_TOL = dict(atol=5e-6, rtol=0)
@@ -315,6 +318,85 @@ def test_remat_gives_the_same_gradients(arch, pair):
         p = {k: v.clone().requires_grad_() for k, v in params.items()}
         loss = satellite_loss(m, p, one)
         out.append((loss.detach(), torch.autograd.grad(loss, list(p.values()))))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)
+
+
+def _index_path(params: dict, *prefixes: str) -> dict:
+    """The per-layer index path in place of ``transformer._split``: the
+    stacked leaves themselves, which ``_layer`` then indexes once per
+    layer (``leaf[i]``)."""
+    return {k: v for k, v in params.items() if k.startswith(prefixes)}
+
+
+def _leaf_nodes(loss: torch.Tensor, leaves: dict) -> tuple[dict, dict]:
+    """For each key of ``leaves``: the ``UnbindBackward0`` and the
+    ``SelectBackward0`` nodes of ``loss``'s graph whose input is that
+    leaf."""
+    key_of = {id(v): k for k, v in leaves.items()}
+    unbind = {k: 0 for k in leaves}
+    select = {k: 0 for k in leaves}
+    seen, todo = set(), [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        nxt = [n for n, _ in node.next_functions]
+        kind = {"UnbindBackward0": unbind,
+                "SelectBackward0": select}.get(node.name())
+        if kind is not None:
+            var = getattr(nxt[0], "variable", None)
+            if id(var) in key_of:
+                kind[key_of[id(var)]] += 1
+        todo.extend(nxt)
+    return unbind, select
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", [ARCH, "rwkv6-3b", JAMBA, MLA, WHISPER])
+def test_stacked_leaves_split_once_per_forward(arch, remat, pair,
+                                               monkeypatch):
+    """A forward splits each stacked leaf once (``transformer._split``)
+    and hands layer i its i-th piece: the loss and every gradient bit for
+    bit those of the per-layer index path ``leaf[i]`` (each slice of whose
+    gradient is its layer's plus zeros), for each family, the encoder's
+    stack included, with remat off and on; the graph holds one
+    ``UnbindBackward0`` per stacked leaf and no ``SelectBackward0`` on
+    one, where the index path holds one ``SelectBackward0`` per layer."""
+    if arch == WHISPER:
+        model, _, _, params = zoo_pair(WHISPER)
+    else:
+        model, _, jp = pair if arch == ARCH else _reduced_pair(arch)
+        params = _port_params(jp)
+    model = Transformer(dataclasses.replace(model.cfg, remat=remat))
+    batch = train.make_batches(model.cfg, 1, BATCH, SEQ, 0,
+                               model.cfg.vocab_size)
+    one = {k: v[0] for k, v in batch.items()}
+    if model.cfg.is_encdec:
+        one["frames"] = torch.from_numpy(
+            aux_inputs(model.cfg, BATCH)["frames"])
+    stacked = ("layers/", "encoder/layers/")
+    out = []
+    for split in (True, False):
+        if not split:
+            monkeypatch.setattr(transformer, "_split", _index_path)
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        loss = satellite_loss(model, p, one)
+        unbind, select = _leaf_nodes(
+            loss, {k: v for k, v in p.items() if k.startswith(stacked)})
+        out.append((loss.detach(),
+                    torch.autograd.grad(loss, list(p.values()))))
+        n_layers = {k: p[k].shape[0] for k in unbind}
+        if split:
+            assert unbind == {k: 1 for k in unbind}
+            assert select == {k: 0 for k in select}
+        else:
+            assert unbind == {k: 0 for k in unbind}
+            assert select == n_layers
+    assert any(k.startswith("encoder/") for k in unbind) == \
+        model.cfg.is_encdec
     assert torch.equal(out[0][0], out[1][0])
     for a, b in zip(out[0][1], out[1][1]):
         assert torch.equal(a, b)
